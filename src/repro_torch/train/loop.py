@@ -1,0 +1,223 @@
+"""CTR training loop: the fused train step, epochs, eval.
+
+A port of the fused-placement path of ``repro.train.loop``. Steps run
+eagerly (there is no jit); ``engine="scan"`` and ``mode="stream"`` are not
+ported yet and raise, naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.builders import StepFn, dense_tower_tx
+from ..core.device import resolve_device
+from ..core.optim import apply_updates
+from ..core.tree import tree_leaves, tree_map
+from ..data.synthetic import CTRDataset, iterate_batches
+from ..models import ctr
+from . import metrics
+
+
+def _loss_and_grads(params, cfg, batch):
+    """Task loss and its gradient w.r.t. every param leaf, as a tree.
+
+    The params themselves never require grad (the kernel updates them in
+    place); the graph is built over detached aliases of them."""
+    view = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        logits = ctr.apply(view, cfg, batch["ids"], batch["dense"])
+        loss = metrics.logloss(logits, batch["labels"])
+    grads = iter(torch.autograd.grad(loss, tree_leaves(view)))
+    return loss.detach(), tree_map(lambda _: next(grads), view)
+
+
+def make_fused_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
+                          zeta: float = 1e-5, dense_tx=None,
+                          nonfinite_guard: bool = False):
+    """Train step that runs every embedding table through the fused
+    CowClip + coupled-L2 + Adam update (``repro_torch.kernels.cowclip``:
+    the CUDA kernel on the card, its plain version on the CPU). The dense
+    tower goes through ``dense_tx``. State: ``{"step", "m", "v", "dense"}``
+    with ``m``/``v`` trees shaped like ``params["embed"]``.
+
+    The embedding tables and their moments are updated in place; the dense
+    tower is replaced. Returns ``(step, init)``.
+
+    ``nonfinite_guard`` skips the whole update (params, moments and step
+    counter) when the batch loss is NaN/Inf, reported as
+    ``aux["skipped_steps"]``; it reads the loss on the host every step.
+    """
+    from ..kernels.cowclip import fused_cowclip_adam
+
+    if dense_tx is None:
+        dense_tx = dense_tower_tx(hp)
+
+    def init(params):
+        return {
+            "step": 0,
+            "m": tree_map(torch.zeros_like, params["embed"]),
+            "v": tree_map(torch.zeros_like, params["embed"]),
+            "dense": dense_tx.init(params["dense"]),
+        }
+
+    def step_impl(params, state, batch):
+        loss, grads = _loss_and_grads(params, cfg, batch)
+        if nonfinite_guard and not bool(torch.isfinite(loss)):
+            return params, state, {"loss": loss, "skipped_steps": 1}
+        counts = ctr.batch_counts(cfg, batch["ids"], params)
+        t = state["step"] + 1
+
+        # 1-dim LR tables are CowClip-exempt but share the kernel (the
+        # kernel itself skips clipping when dim < 2).
+        tree_map(
+            lambda w, g, c, m, v: fused_cowclip_adam(
+                w, g, c, m, v, t, r=r, zeta=zeta, lr=hp.emb_lr,
+                l2=hp.emb_l2),
+            params["embed"], grads["embed"], counts, state["m"], state["v"])
+
+        d_updates, d_state = dense_tx.update(
+            grads["dense"], state["dense"], params["dense"])
+        new_dense = apply_updates(params["dense"], d_updates)
+        new_state = dict(state, step=t, dense=d_state)
+        aux = {"loss": loss}
+        if nonfinite_guard:
+            aux["skipped_steps"] = 0
+        return {"embed": params["embed"], "dense": new_dense}, new_state, aux
+
+    return StepFn(step_impl), init
+
+
+def make_eval_fn(cfg: ctr.CTRConfig):
+    """Batched evaluation through the serving engine's fixed-shape
+    ``padded_score_loop``; returns auc, logloss and ``eval_rows_per_sec``
+    (scored rows over the wall-clock of the scoring loop)."""
+    from ..serve import engine as serve_engine
+
+    logits_fn = serve_engine.make_logits_fn(cfg)
+
+    def evaluate(params, ds: CTRDataset, batch_size: int = 8192) -> dict:
+        n = len(ds)
+        t0 = time.perf_counter()
+        scores = serve_engine.padded_score_loop(
+            logits_fn, params, ds.ids, ds.dense, batch_size)
+        seconds = time.perf_counter() - t0
+        labels = ds.labels
+        ll = float(np.mean(np.logaddexp(0.0, scores) - labels * scores))
+        return {"auc": metrics.auc_numpy(scores, labels), "logloss": ll,
+                "eval_rows_per_sec": n / max(seconds, 1e-9)}
+
+    evaluate.logits_fn = logits_fn
+    return evaluate
+
+
+@dataclasses.dataclass
+class TrainResult:
+    history: list
+    final_eval: dict
+    seconds: float
+    steps: int
+    params: object = None
+    opt_state: object = None
+    # per-step batch loss and wall-clock seconds (each step ends with the
+    # loss read on the host, so a step's time covers its device work)
+    losses: list = dataclasses.field(default_factory=list)
+    step_seconds: list = dataclasses.field(default_factory=list)
+
+
+def _to_device(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def train_ctr(
+    cfg: ctr.CTRConfig,
+    tx,
+    train_ds: CTRDataset,
+    test_ds: Optional[CTRDataset],
+    *,
+    batch_size: int,
+    epochs: int = 1,
+    seed: int = 0,
+    eval_every_epoch: bool = True,
+    log_fn: Optional[Callable[[str], None]] = None,
+    step_bundle=None,
+    max_steps: Optional[int] = None,
+    engine: str = "eager",
+    mode: str = "epochs",
+    init_state=None,
+    device="cuda",
+) -> TrainResult:
+    """Epoch driver over a ``core.builders.TrainStepBundle``.
+
+    Params come from ``ctr.init(cfg, seed=seed, device=device)`` then the
+    bundle's ``prepare``, or from ``init_state = (params, opt_state)``
+    (already prepared; batches then go to the params' device). ``flush``
+    runs before every eval. ``max_steps`` caps the total step count across
+    epochs. Batches come from ``iterate_batches`` in the reference's exact
+    shuffle order (seed ``seed + epoch``).
+
+    Not ported yet: the composable-optimizer path (``tx`` without a
+    bundle), ``engine="scan"`` and ``mode="stream"``.
+    """
+    if engine == "scan":
+        raise NotImplementedError(
+            "engine='scan' is not ported yet: the CUDA-graph engine is "
+            "ROADMAP queue 1 item 3; use engine='eager'")
+    if engine != "eager":
+        raise ValueError(f"unknown engine {engine!r}")
+    if mode == "stream":
+        raise NotImplementedError(
+            "mode='stream' is not ported yet: streaming training is ROADMAP "
+            "queue 1 item 5")
+    if mode != "epochs":
+        raise ValueError(f"unknown mode {mode!r}")
+    if step_bundle is None:
+        raise NotImplementedError(
+            f"training through a bare optimizer ({tx!r}) is the substrate "
+            "placement, not ported yet (ROADMAP queue 1 item 4); pass a "
+            "step_bundle from embed.store_for(cfg, path='fused')")
+
+    if init_state is not None:
+        params, opt_state = init_state
+    else:
+        params = step_bundle.prepare(
+            ctr.init(cfg, seed=seed, device=resolve_device(device)))
+        opt_state = step_bundle.init(params)
+    dev = tree_leaves(params)[0].device
+    step_fn, flush = step_bundle.step, step_bundle.flush
+    eval_fn = make_eval_fn(cfg)
+
+    history, losses, step_seconds = [], [], []
+    n_steps = 0
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        if max_steps is not None and n_steps >= max_steps:
+            break
+        for b in iterate_batches(train_ds, batch_size, seed=seed + epoch):
+            ts = time.perf_counter()
+            params, opt_state, aux = step_fn(params, opt_state,
+                                             _to_device(b, dev))
+            losses.append(float(aux["loss"]))
+            step_seconds.append(time.perf_counter() - ts)
+            n_steps += 1
+            if max_steps is not None and n_steps >= max_steps:
+                break
+        if eval_every_epoch and test_ds is not None:
+            params, opt_state = flush(params, opt_state)
+            ev = eval_fn(params, test_ds)
+            history.append({"epoch": epoch, **ev})
+            if log_fn:
+                log_fn(f"epoch {epoch}: auc={ev['auc']:.4f} "
+                       f"logloss={ev['logloss']:.4f}")
+    seconds = time.perf_counter() - t0
+    params, opt_state = flush(params, opt_state)
+    final = (history[-1] if history
+             else (eval_fn(params, test_ds) if test_ds is not None else {}))
+    return TrainResult(history=history, final_eval=dict(final),
+                       seconds=seconds, steps=n_steps, params=params,
+                       opt_state=opt_state, losses=losses,
+                       step_seconds=step_seconds)

@@ -7,3 +7,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips itself without one")
