@@ -42,3 +42,18 @@ def cowclip_table(
     clip_t = counts.to(torch.float32) * torch.clamp_min(r * wnorm, zeta)
     ratio = torch.clamp_max(clip_t / (gnorm + _NORM_EPS), 1.0)
     return (grad.to(torch.float32) * ratio[:, None]).to(grad.dtype)
+
+
+def cowclip_rows(
+    grad_rows: torch.Tensor,
+    weight_rows: torch.Tensor,
+    counts: torch.Tensor,
+    *,
+    r: float = 1.0,
+    zeta: float = 1e-5,
+) -> torch.Tensor:
+    """CowClip on gathered unique-id rows (the sparse ``[n_unique, dim]``
+    layout). The clip is row-local, so this is ``cowclip_table`` on the
+    subset; pad slots have count 0 and clip their gradient to zero. 1-dim
+    LR-stream rows stay exempt."""
+    return cowclip_table(grad_rows, weight_rows, counts, r=r, zeta=zeta)

@@ -146,6 +146,110 @@ def decay_factor(lr: float, l2: float) -> float:
     return float(np.float32(1.0 - float(lr) * float(l2)))
 
 
+# ---------------------------------------------------------------------------
+# Lazy coupled-L2 decay for the sparse placement
+# ---------------------------------------------------------------------------
+# A row absent from a batch takes only the decay step w <- w * (1 - lr*l2)
+# (moments held). The recursion is geometric, so the sparse path keeps a
+# per-row ``last_step`` and, when a row is next touched after k skipped
+# steps, catches up in closed form, w <- w * factor**k, with the factor
+# rounded to f32 first. When lr or l2 is a schedule the per-step factor is
+# not constant and ``decay_catchup_rows`` takes a capped replay window.
+
+
+def _factor_at(lr, l2, s: torch.Tensor) -> torch.Tensor:
+    """Per-step decay factor under (possibly scheduled) lr/l2 at step(s)
+    ``s`` (an int tensor); schedules are called with f32 steps."""
+    s_f = s.to(torch.float32)
+    lr_s = lr(s_f) if callable(lr) else lr
+    l2_s = l2(s_f) if callable(l2) else l2
+    return (f32(1.0) - torch.as_tensor(lr_s, dtype=torch.float32)
+            * torch.as_tensor(l2_s, dtype=torch.float32))
+
+
+def catchup_mode(lr, l2) -> str:
+    """``"closed_form"`` when lr and l2 are constants (O(1) in pending
+    depth), ``"replay_window"`` when either is a schedule."""
+    return "replay_window" if (callable(lr) or callable(l2)) else "closed_form"
+
+
+def _window_decay_scale(last_step, k, *, lr, l2, window):
+    """Per-row decay multiplier under a scheduled lr/l2: the newest
+    ``window`` pending steps replayed exactly (a product over a
+    ``[n, window]`` matrix), older ones approximated geometrically at the
+    first pending step's factor. Exact whenever k <= window."""
+    last32 = last_step.to(torch.int32)
+    i = torch.arange(window, dtype=torch.int32, device=last32.device)
+    s = (last32 + k)[:, None] - i[None, :]
+    f = _factor_at(lr, l2, s)
+    live = i[None, :] < torch.clamp_max(k, window)[:, None]
+    one = f32(1.0).to(f.device)
+    scale = torch.prod(torch.where(live, f, one), dim=1)
+    k_exc = torch.clamp_min(k - window, 0)
+    tail = torch.where(
+        k_exc > 0,
+        _factor_at(lr, l2, last32 + 1) ** k_exc.to(torch.float32), one)
+    return torch.where(k > 0, scale * tail, one)
+
+
+def decay_catchup_rows(w_rows, m_rows, v_rows, last_step, step, *, lr, l2,
+                       b1=0.9, b2=0.999, eps=1e-8, replay_window=64):
+    """Apply each row's pending decay-only steps ``last_step+1 .. step``.
+
+    ``w_rows``/``m_rows``/``v_rows`` are ``[n, dim]``, ``last_step`` the
+    ``[n]`` int32 step each row was last updated at, ``step`` an int (or
+    0-dim int tensor). Closed form ``w * factor**k``, k = step - last_step,
+    when lr and l2 are constants; the capped replay window when either is a
+    schedule. m and v pass through. Returns f32 (w, m, v). Rows with k == 0
+    multiply by exactly 1.0, so a second flush is a bitwise no-op.
+    """
+    del b1, b2, eps
+    w = w_rows.to(torch.float32)
+    m = m_rows.to(torch.float32)
+    v = v_rows.to(torch.float32)
+    k = torch.clamp_min(step - last_step.to(torch.int32), 0)
+    if callable(lr) or callable(l2):
+        scale = _window_decay_scale(last_step, k, lr=lr, l2=l2,
+                                    window=replay_window)
+    else:
+        factor = f32(decay_factor(lr, l2)).to(w.device)
+        scale = torch.where(k > 0, factor ** k.to(torch.float32),
+                            f32(1.0).to(w.device))
+    return w * scale[:, None], m, v
+
+
+def decay_replay_reference(w_rows, last_step, step, *, lr, l2):
+    """One multiply per pending step (the recursion the closed form
+    collapses), O(max pending depth). The exactness oracle of the tests;
+    on no hot path."""
+    w = w_rows.to(torch.float32)
+    last32 = last_step.to(torch.int32)
+    k = torch.clamp_min(step - last32, 0)
+    const = not (callable(lr) or callable(l2))
+    factor = f32(decay_factor(lr, l2)) if const else None
+    for i in range(int(k.max()) if k.numel() else 0):
+        f = factor if const else _factor_at(lr, l2, last32 + 1 + i)[:, None]
+        w = torch.where((i < k)[:, None], w * f, w)
+    return w
+
+
+def sparse_adam_rows(g_rows, w_rows, m_rows, v_rows, step, *, lr, l2,
+                     b1=0.9, b2=0.999, eps=1e-8):
+    """The step-``t`` update of gathered rows (already caught up through
+    t-1): coupled L2, Adam with bias correction, apply; the math of
+    ``add_decayed_weights -> scale_by_adam -> scale_by_neg_lr`` restricted
+    to the touched rows. Returns f32 (w, m, v)."""
+    w = w_rows.to(torch.float32)
+    g = g_rows.to(torch.float32) + l2 * w
+    m = b1 * m_rows.to(torch.float32) + (1.0 - b1) * g
+    v = b2 * v_rows.to(torch.float32) + (1.0 - b2) * torch.square(g)
+    t = f32(int(step))
+    mu_hat_scale = 1.0 / (1.0 - b1 ** t)
+    nu_hat_scale = 1.0 / (1.0 - b2 ** t)
+    w = w - lr * (m * mu_hat_scale) / (torch.sqrt(v * nu_hat_scale) + eps)
+    return w, m, v
+
+
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
     def init_fn(params):
         return tuple(t.init(params) for t in transforms)

@@ -1,12 +1,16 @@
-"""Build and launch the CUDA CowClip + coupled-L2 + Adam kernel.
+"""Build the CUDA CowClip kernels; launch the fused CowClip + coupled-L2 +
+Adam kernel.
 
-The kernel (``csrc/cowclip_adam.cu``) replaces the TPU kernel
-``repro/kernels/cowclip/cowclip.py:cowclip_adam_update``; the source says
-what bounds it and how. It is compiled for ``sm_90a`` by
-``torch.utils.cpp_extension.load`` at first use, from the sources in this
-package, into ``build/repro_torch_kernels/`` at the root of the checkout
-(listed in ``.gitignore``). ``csrc/binding.cpp`` is the only file that
-includes ``torch/extension.h``; nvcc compiles only the kernel.
+The fused kernel (``csrc/cowclip_adam.cu``) replaces the TPU kernel
+``repro/kernels/cowclip/cowclip.py:cowclip_adam_update``; the sparse pair
+(``csrc/sparse_catchup.cu``, ``csrc/sparse_update.cu``, launched from
+``sparse.py``) replace ``repro/kernels/cowclip/sparse.py``'s two kernels.
+Each source says what bounds it and how. All three are compiled for
+``sm_90a`` into one extension by ``torch.utils.cpp_extension.load`` at
+first use, from the sources in this package, into
+``build/repro_torch_kernels/`` at the root of the checkout (listed in
+``.gitignore``). ``csrc/binding.cpp`` is the only file that includes
+``torch/extension.h``; nvcc compiles only the kernels.
 
 The host computes every scalar the way the JAX kernel rounds it: Python
 floats rounded to f32, ``1 - b1`` and ``1 - b2`` in double and then
@@ -37,7 +41,9 @@ def build():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)   # load() does not
     return load(
         name="repro_torch_cowclip",
-        sources=[str(CSRC / "binding.cpp"), str(CSRC / "cowclip_adam.cu")],
+        sources=[str(CSRC / name) for name in (
+            "binding.cpp", "cowclip_adam.cu", "sparse_catchup.cu",
+            "sparse_update.cu")],
         build_directory=str(BUILD_DIR),
         extra_include_paths=[str(CSRC)],
         extra_cuda_cflags=CUDA_FLAGS,

@@ -1,42 +1,56 @@
-"""Public wrapper for the fused CowClip + coupled-L2 + Adam update.
+"""Public wrappers for the CowClip + coupled-L2 + Adam updates.
 
-``fused_cowclip_adam`` updates ``(w, m, v)`` in place and returns them. A
-CUDA tensor goes through the hand-written kernel (``cowclip.py``) or the
-call raises; a CPU tensor takes the plain PyTorch version (``ref.py``) and
-copies its result back, so both devices share one in-place contract.
-``fused_cowclip_adam.launches`` counts kernel launches (only those), so a
-run can show that its main path went through the kernel.
+``fused_cowclip_adam`` updates a whole ``[V, D]`` table's ``(w, m, v)`` in
+place; ``sparse_gather_catchup`` gathers a batch's unique-id slot rows with
+their pending decay applied, and ``sparse_update_scatter`` updates those
+rows into the tables in place. A CUDA tensor goes through the hand-written
+kernel (``cowclip.py``, ``sparse.py``) or the call raises; a CPU tensor
+takes the plain PyTorch version (``ref.py``) and copies its result back, so
+both devices share one in-place contract. Each wrapper's ``.launches``
+counts its kernel's launches (only those), so a run can show that its main
+path went through the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import ref, sparse
 from .cowclip import cowclip_adam_update
 from .ref import cowclip_adam_reference as reference
 
 
-def _validate(w, g, cnt, m, v, step):
-    tensors = {"w": w, "g": g, "cnt": cnt, "m": m, "v": v}
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != w.device:
-            raise ValueError(f"{name} is on {t.device}, w on {w.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if w.dim() != 2:
-        raise ValueError(f"w must be [V, D], got shape {tuple(w.shape)}")
-    for name in ("g", "m", "v"):
-        if tensors[name].shape != w.shape:
-            raise ValueError(f"{name} shape {tuple(tensors[name].shape)} != "
-                             f"w shape {tuple(w.shape)}")
-    if cnt.shape != (w.shape[0],):
-        raise ValueError(f"cnt must be [{w.shape[0]}], got {tuple(cnt.shape)}")
+def _check(name, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, w on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {list(shape)}, got "
+                         f"{list(t.shape)}")
+
+
+def _check_table(w):
+    if not isinstance(w, torch.Tensor) or w.dim() != 2:
+        raise ValueError("w must be a [V, D] torch.Tensor")
+    return w.shape
+
+
+def _check_step(step):
     if int(step) < 1:
         raise ValueError(f"step is 1-based, got {step}")
+
+
+def _validate(w, g, cnt, m, v, step):
+    vocab, dim = _check_table(w)
+    for name, t in (("w", w), ("g", g), ("m", m), ("v", v)):
+        _check(name, t, torch.float32, (vocab, dim), w.device)
+    _check("cnt", cnt, torch.float32, (vocab,), w.device)
+    _check_step(step)
 
 
 def fused_cowclip_adam(
@@ -65,3 +79,88 @@ def fused_cowclip_adam(
 
 
 fused_cowclip_adam.launches = 0
+
+
+def _validate_sparse(w, m, v, last_step, uids, counts, step, rows=()):
+    vocab, dim = _check_table(w)
+    for name, t in (("w", w), ("m", m), ("v", v)):
+        _check(name, t, torch.float32, (vocab, dim), w.device)
+    _check("last_step", last_step, torch.int32, (vocab,), w.device)
+    if not isinstance(uids, torch.Tensor) or uids.dim() != 1:
+        raise ValueError("uids must be a [cap] torch.Tensor")
+    cap = uids.shape[0]
+    _check("uids", uids, torch.int32, (cap,), w.device)
+    _check("counts", counts, torch.float32, (cap,), w.device)
+    for name, t in rows:
+        _check(name, t, torch.float32, (cap, dim), w.device)
+    _check_step(step)
+
+
+def _kernel_device(w, lr, l2):
+    if w.device.type != "cuda":
+        raise ValueError(f"no sparse CowClip kernel for device {w.device}")
+    if callable(lr) or callable(l2):
+        raise ValueError(
+            "the sparse CUDA kernels take a constant lr and l2 (the closed "
+            "form); a scheduled lr/l2 has only the plain version's replay "
+            "window, on the CPU")
+
+
+def sparse_gather_catchup(
+    w, m, v, last_step, uids, counts, step, *,
+    lr=1e-4, l2=1e-5, b1=0.9, b2=0.999, eps=1e-8, row_offset=0,
+):
+    """The ``[cap, D]`` slot rows of ``uids - row_offset``, with each row's
+    pending decay applied through ``step - 1`` in closed form, ``w *
+    (1 - lr*l2)**k``; m and v rows unchanged. ``uids`` are the raw slot uids
+    (pads hold ``vocab``, count 0); a pad slot's rows are a don't-care
+    (finite). Returns new f32 ``(w_rows, m_rows, v_rows)``.
+    """
+    _validate_sparse(w, m, v, last_step, uids, counts, step)
+    with torch.no_grad():
+        if w.device.type == "cpu":
+            return ref.sparse_gather_catchup_reference(
+                w, m, v, last_step, uids, int(step), lr=lr, l2=l2, b1=b1,
+                b2=b2, eps=eps, row_offset=row_offset)
+        _kernel_device(w, lr, l2)
+        out = sparse.sparse_gather_catchup(
+            w, m, v, last_step, uids, counts, int(step), lr=lr, l2=l2,
+            row_offset=row_offset)
+        sparse_gather_catchup.launches += 1
+    return out
+
+
+def sparse_update_scatter(
+    w, m, v, last_step, uids, counts, w_rows, g_rows, m_rows, v_rows, step,
+    *, r=1.0, zeta=1e-5, lr=1e-4, l2=1e-5, b1=0.9, b2=0.999, eps=1e-8,
+    clip=True, row_offset=0,
+):
+    """CowClip (when ``clip`` and D >= 2) + coupled L2 + Adam on the
+    caught-up slot rows, written in place into ``w, m, v`` at ``uids -
+    row_offset`` with ``last_step = step``; pad slots and rows of absent ids
+    are not touched (their decay stays pending). Returns ``(w, m, v,
+    last_step)``.
+    """
+    _validate_sparse(w, m, v, last_step, uids, counts, step, rows=(
+        ("w_rows", w_rows), ("g_rows", g_rows), ("m_rows", m_rows),
+        ("v_rows", v_rows)))
+    kw = dict(r=r, zeta=zeta, lr=lr, l2=l2, b1=b1, b2=b2, eps=eps,
+              clip=clip, row_offset=row_offset)
+    with torch.no_grad():
+        if w.device.type == "cpu":
+            new = ref.sparse_update_scatter_reference(
+                w, m, v, last_step, uids, counts, w_rows, g_rows, m_rows,
+                v_rows, int(step), **kw)
+            for table, value in zip((w, m, v, last_step), new):
+                table.copy_(value)
+            return w, m, v, last_step
+        _kernel_device(w, lr, l2)
+        sparse.sparse_update_scatter(
+            w, m, v, last_step, uids, counts, w_rows, g_rows, m_rows, v_rows,
+            int(step), **kw)
+        sparse_update_scatter.launches += 1
+    return w, m, v, last_step
+
+
+sparse_gather_catchup.launches = 0
+sparse_update_scatter.launches = 0

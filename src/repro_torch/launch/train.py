@@ -2,15 +2,17 @@
 
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``; without a CUDA device the run stops rather than train on the
-CPU). This slice trains ``--placement fused`` (the default here) with the
-eager engine; the flags of paths not ported yet exit with a message that
-names their ROADMAP item.
+CPU). The port trains ``--placement fused`` (the default here) and
+``--placement sparse`` with the eager engine; the flags of paths not ported
+yet exit with a message that names their ROADMAP item.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
       --placement fused --batch 8192 --epochs 2 --rule cowclip
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
-      --placement fused --device cpu --samples 4096 --batch 512 --steps 2
+      --placement sparse --batch 8192 --epochs 2 --rule cowclip
+  PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
+      --placement sparse --device cpu --samples 4096 --batch 512 --steps 2
 """
 
 from __future__ import annotations
@@ -34,12 +36,28 @@ PLACEMENT_CHOICES = ("substrate", "fused", "sparse", "sharded",
                      "sharded_sparse", "hotcold")
 
 
-def _unported_flags(args) -> list:
+def resolve_placement(placement, sparse_flag, *, warn=print) -> str:
+    """Combine ``--placement`` with the deprecated ``--sparse`` alias.
+
+    ``--sparse`` is exactly ``--placement sparse``; passing it with another
+    placement is an error. With neither, the port's default, ``fused``.
+    """
+    if sparse_flag:
+        if placement is not None and placement != "sparse":
+            raise SystemExit(
+                f"--sparse conflicts with --placement {placement}: --sparse "
+                "is a deprecated alias for --placement sparse; drop one of "
+                "the two flags")
+        warn("[train] --sparse is deprecated; use --placement sparse")
+        return "sparse"
+    return placement or "fused"
+
+
+def _unported_flags(args, placement) -> list:
     """(flag, ROADMAP item) for every flag that asks for a path the port
     does not have yet."""
     out = []
-    placement = "sparse" if args.sparse else args.placement
-    if placement != "fused":
+    if placement in NOT_PORTED:
         out.append((f"--placement {placement}", NOT_PORTED[placement]))
     if args.engine == "scan":
         out.append(("--engine scan",
@@ -57,7 +75,8 @@ def _unported_flags(args) -> list:
 
 
 def run_ctr(args) -> None:
-    missing = _unported_flags(args)
+    placement = resolve_placement(args.placement, args.sparse)
+    missing = _unported_flags(args, placement)
     if missing:
         raise SystemExit("[train] not ported to repro_torch yet: " + "; ".join(
             f"{flag} -> {item}" for flag, item in missing))
@@ -75,7 +94,8 @@ def run_ctr(args) -> None:
         name=args.model, vocab_sizes=ds.vocab_sizes,
         n_dense=ds.dense.shape[1], emb_dim=args.emb_dim,
         mlp_dims=(args.mlp_dim,) * 3, emb_sigma=1e-2,
-        placement="fused", compute_dtype=args.compute_dtype,
+        sparse=placement == "sparse", unique_capacity=args.unique_capacity,
+        placement=placement, compute_dtype=args.compute_dtype,
     )
     store = store_for(cfg)
     params0 = ctr_lib.init(cfg, seed=args.seed, device=device)
@@ -151,9 +171,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--base-lr", type=float, default=2e-2)
     ap.add_argument("--base-l2", type=float, default=1e-5)
     ap.add_argument("--zeta", type=float, default=1e-5)
-    ap.add_argument("--placement", default="fused", choices=PLACEMENT_CHOICES,
+    ap.add_argument("--placement", default=None, choices=PLACEMENT_CHOICES,
                     help="embedding store placement; 'fused' (the default "
-                         "here) is the one ported so far")
+                         "here) and 'sparse' are ported so far")
     ap.add_argument("--mode", default="epochs", choices=("epochs", "stream"),
                     help="'stream' is not ported yet")
     ap.add_argument("--hot-capacity", type=int, default=4096,
@@ -169,10 +189,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--half-life", type=int, default=0,
                     help="hotcold placement only (not ported yet)")
     ap.add_argument("--sparse", action="store_true",
-                    help="DEPRECATED alias for --placement sparse (not "
-                         "ported yet)")
+                    help="DEPRECATED alias for --placement sparse; errors "
+                         "combined with another --placement")
     ap.add_argument("--unique-capacity", type=int, default=0,
-                    help="sparse placements only (not ported yet)")
+                    help="sparse placement: padded per-field unique-id "
+                         "capacity; <= 0 means the exact min(batch, vocab)")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="sharded placements only (not ported yet)")
     ap.add_argument("--partition", default="div", choices=("div", "mod"),

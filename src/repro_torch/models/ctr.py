@@ -1,6 +1,7 @@
 """The paper's four CTR prediction models: W&D, DeepFM, DCN, DCN-v2.
 
-A port of ``repro.models.ctr`` for the dense placement. Functional, like
+A port of ``repro.models.ctr``, with the sparse placement's row-based
+forward (``unique_batch``, ``gather_embed_rows``, ``apply_rows``). Functional, like
 the reference: ``init(cfg, generator=...) -> params`` and ``apply(params,
 cfg, ids, dense) -> logits``, over params split ``{"embed": ..., "dense":
 ...}`` for the two-group optimizer. The layout is the JAX package's: dense
@@ -31,8 +32,17 @@ class CTRConfig:
     mlp_dims: tuple = (400, 400, 400)
     n_cross: int = 3
     emb_sigma: float = 1e-4        # 1e-2 for CowClip's large-init variant
+    # Legacy knob for the sparse unique-id placement (forward, backward and
+    # update on [n_unique, dim] gathered rows); ``placement`` wins when set.
+    sparse: bool = False
+    # Padded capacity of each field's unique-id set; <= 0 means the exact
+    # default min(batch, vocab_f). Smaller values bound memory but overflow:
+    # the sparse placement then drops the gradient of the ids past the
+    # capacity (see models/embedding.py).
+    unique_capacity: int = 0
     # Embedding placement (repro_torch.embed.EmbeddingStore): one of
-    # core.builders.TRAIN_PATHS; None means "substrate", as in the reference.
+    # core.builders.TRAIN_PATHS; None defers to ``sparse`` ("sparse" when
+    # set, else "substrate"), as in the reference.
     placement: str | None = None
     # Forward/backward compute dtype ("float32" | "bfloat16"): activations,
     # looked-up embeddings and dense weights are cast at use; masters,
@@ -192,6 +202,38 @@ def apply(
         if "lin" in params["embed"] else None
     )
     return _forward_from_emb(params["dense"], cfg, emb, lin_emb, dense_feats)
+
+
+def unique_batch(cfg: CTRConfig, ids: torch.Tensor) -> dict:
+    """Per-field unique-id dedup for the sparse path: ``{"field_i":
+    UniqueField}``. One dedup serves every embedding group (the fm and lin
+    tables of a field see the same ids)."""
+    return embedding.batch_unique(ids, cfg.vocab_sizes,
+                                  capacity=cfg.unique_capacity)
+
+
+def gather_embed_rows(params: dict, uniq: dict) -> dict:
+    """Each embedding group's unique rows, shaped like ``params["embed"]``
+    with ``[capacity_f, dim]`` leaves."""
+    return {g: embedding.gather_rows(tables, uniq)
+            for g, tables in params["embed"].items()}
+
+
+def apply_rows(
+    rows: dict,
+    dense_params: dict,
+    cfg: CTRConfig,
+    uniq: dict,
+    dense_feats: torch.Tensor,
+) -> torch.Tensor:
+    """Sparse forward: logits from gathered unique rows (the math of
+    ``apply``; the gradient w.r.t. ``rows`` comes out ``[n_unique, dim]``
+    per field instead of a full-table one)."""
+    dt = getattr(torch, cfg.compute_dtype)
+    emb = embedding.lookup_rows(rows["fm"], uniq, dtype=dt)    # [B, F, D]
+    lin_emb = (embedding.lookup_rows(rows["lin"], uniq, dtype=dt)
+               if "lin" in rows else None)
+    return _forward_from_emb(dense_params, cfg, emb, lin_emb, dense_feats)
 
 
 def batch_counts(cfg: CTRConfig, ids: torch.Tensor, params: dict) -> dict:

@@ -1,8 +1,8 @@
 """Fixed-shape CTR scoring, the half of the serving engine that evaluation
 scores through.
 
-A port of ``make_logits_fn`` and ``padded_score_loop`` from
-``repro.serve.engine``. Every dispatch scores exactly ``[batch_size]``
+A port of ``make_logits_fn``, ``padded_score_loop`` and
+``collapse_pending_decay`` from ``repro.serve.engine``. Every dispatch scores exactly ``[batch_size]``
 rows: smaller inputs and the tail are zero-padded and the pad scores
 discarded on the host. Under PyTorch's eager execution nothing is
 recompiled per shape, but the fixed shape keeps device memory bounded at
@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.optim import decay_factor, f32
 from ..data import prefetch as prefetch_lib
 from ..models import ctr
 
@@ -78,3 +79,27 @@ def padded_score_loop(
         scores[start:end] = s.cpu().numpy()[: end - start]
         start = end
     return scores
+
+
+def collapse_pending_decay(embed: dict, last_step: dict, step, *,
+                           lr: float, l2: float) -> dict:
+    """Apply pending lazy coupled-L2 decay to raw sparse-placement tables.
+
+    The closed form ``w * (1 - lr*l2)**k``, ``k = step - last_step[row]``
+    (``decay_factor`` rounding, O(1) in depth): what a bundle's ``flush``
+    does, for a checkpoint that has no live bundle to flush through.
+    ``embed`` and ``last_step`` are ``{group: {field: leaf}}`` trees; rows
+    already caught up (k == 0) multiply by exactly 1.0. Returns new tables.
+    """
+    f = f32(decay_factor(lr, l2))
+
+    def catch_up(w, ls):
+        k = torch.clamp_min(int(step) - ls.to(torch.int32), 0)
+        k = k.to(torch.float32)
+        scale = torch.where(k > 0, f.to(w.device) ** k,
+                            f32(1.0).to(w.device))
+        return (w.to(torch.float32) * scale[:, None]).to(w.dtype)
+
+    return {g: {name: catch_up(w, last_step[g][name])
+                for name, w in tables.items()}
+            for g, tables in embed.items()}

@@ -62,8 +62,10 @@ def save(path: str, tree: PyTree) -> None:
 
 
 def restore(path: str, template: PyTree) -> PyTree:
-    """Restore into the structure, dtypes and devices of ``template`` (a
-    tree of tensors)."""
+    """Restore into the structure, dtypes and devices of ``template``: a
+    tree of tensors and Python ints (step counters), as the port's
+    optimizer states hold them. A JAX state's 0-dim int arrays load into
+    the int leaves."""
     with np.load(path) as data:
         flat = dict(data)
     keys = iter(flatten_with_paths(template))
@@ -73,6 +75,11 @@ def restore(path: str, template: PyTree) -> PyTree:
         if key not in flat:
             raise KeyError(f"checkpoint {path} missing leaf {key!r}")
         arr = flat[key]
+        if isinstance(t, int):
+            if arr.shape != ():
+                raise ValueError(f"leaf {key!r}: checkpoint shape "
+                                 f"{arr.shape} for an int counter")
+            return int(arr)
         if arr.shape != tuple(t.shape):
             raise ValueError(f"leaf {key!r}: checkpoint shape {arr.shape} "
                              f"!= template {tuple(t.shape)}")

@@ -1,8 +1,8 @@
-"""CTR training loop: the fused train step, epochs, eval.
+"""CTR training loop: the fused and sparse train steps, epochs, eval.
 
-A port of the fused-placement path of ``repro.train.loop``. Steps run
-eagerly (there is no jit); ``engine="scan"`` and ``mode="stream"`` are not
-ported yet and raise, naming their ROADMAP item.
+A port of the fused and sparse placements of ``repro.train.loop``. Steps
+run eagerly (there is no jit); ``engine="scan"`` and ``mode="stream"`` are
+not ported yet and raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from ..core.builders import StepFn, dense_tower_tx
 from ..core.device import resolve_device
-from ..core.optim import apply_updates
+from ..core.optim import apply_updates, decay_catchup_rows
 from ..core.tree import tree_leaves, tree_map
 from ..data.synthetic import CTRDataset, iterate_batches
 from ..models import ctr
@@ -90,6 +90,146 @@ def make_fused_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
         return {"embed": params["embed"], "dense": new_dense}, new_state, aux
 
     return StepFn(step_impl), init
+
+
+def _uniq_tree(embed_params: dict, uniq: dict) -> dict:
+    """The per-field dedup broadcast over every embedding group (the fm and
+    lin tables of a field share ids, hence slots and counts)."""
+    return {g: {f: uniq[f] for f in tables}
+            for g, tables in embed_params.items()}
+
+
+def _tables(params, state, utree):
+    """``(group, field, u, w, m, v, last_step)`` for every embedding
+    table, in the order of ``params["embed"]``."""
+    for g, tables in params["embed"].items():
+        for f, w in tables.items():
+            yield (g, f, utree[g][f], w, state["m"][g][f], state["v"][g][f],
+                   state["last_step"][g][f])
+
+
+def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
+                           zeta: float = 1e-5, dense_tx=None,
+                           clip: bool = True, b1: float = 0.9,
+                           b2: float = 0.999, eps: float = 1e-8,
+                           nonfinite_guard: bool = False):
+    """The sparse unique-id train step. Each field's batch ids are
+    deduplicated once, and the embedding update runs on the ``[n_unique,
+    dim]`` slot rows: gather + lazy-decay catch-up (the
+    ``sparse_gather_catchup`` kernel) -> forward/backward on the rows ->
+    CowClip -> coupled L2 -> Adam -> scatter (``sparse_update_scatter``).
+    Update traffic is O(batch), not O(vocab).
+
+    Ids absent from a batch are not touched: their coupled-L2 decay accrues
+    in a per-row ``last_step`` and is applied on their next touch or by
+    ``flush``, which keeps the path equivalent to the dense one. The tables,
+    moments and ``last_step`` are updated in place.
+
+    ``aux["catchup_depth_max"]`` is the deepest pending decay among this
+    step's touched rows (0 when every one of them was in the last batch),
+    a 0-dim int32 tensor on the params' device. ``nonfinite_guard`` skips
+    the whole update when the batch loss is NaN/Inf, as the fused step's
+    does.
+
+    Returns ``(step, init, flush)``; ``flush(params, state)`` applies all
+    pending decay (needed before eval, checkpoint or comparing against the
+    dense path).
+    """
+    from ..kernels.cowclip import sparse_gather_catchup, sparse_update_scatter
+
+    if dense_tx is None:
+        dense_tx = dense_tower_tx(hp)
+    adam_kw = dict(lr=hp.emb_lr, l2=hp.emb_l2, b1=b1, b2=b2, eps=eps)
+
+    def init(params):
+        return {
+            "step": 0,
+            "m": tree_map(torch.zeros_like, params["embed"]),
+            "v": tree_map(torch.zeros_like, params["embed"]),
+            "last_step": tree_map(
+                lambda t: torch.zeros((t.shape[0],), dtype=torch.int32,
+                                      device=t.device), params["embed"]),
+            "dense": dense_tx.init(params["dense"]),
+        }
+
+    def step_impl(params, state, batch):
+        t = state["step"] + 1
+        uniq = ctr.unique_batch(cfg, batch["ids"])
+        utree = _uniq_tree(params["embed"], uniq)
+        tables = list(_tables(params, state, utree))
+
+        # diagnostic: deepest pending catch-up among this step's real slots
+        depth = torch.stack([
+            torch.max(torch.where(
+                u.counts > 0,
+                (t - 1) - ls[torch.clamp_max(u.uids.to(torch.int64),
+                                             ls.shape[0] - 1)],
+                0))
+            for _, _, u, _, _, _, ls in tables]).max().to(torch.int32)
+
+        # gather + pending decay, so the forward sees the rows exactly as
+        # the dense path would at step t
+        rows = {g: {} for g in params["embed"]}
+        moments = {}
+        for g, f, u, w, m, v, ls in tables:
+            wr, mr, vr = sparse_gather_catchup(
+                w, m, v, ls, u.uids, u.counts, t, **adam_kw)
+            rows[g][f] = wr.requires_grad_()
+            moments[g, f] = (mr, vr)
+
+        dense_view = tree_map(lambda p: p.detach().requires_grad_(),
+                              params["dense"])
+        with torch.enable_grad():
+            logits = ctr.apply_rows(rows, dense_view, cfg, uniq,
+                                    batch["dense"])
+            loss = metrics.logloss(logits, batch["labels"])
+        aux = {"loss": loss.detach(), "catchup_depth_max": depth}
+        if nonfinite_guard:
+            if not bool(torch.isfinite(loss)):
+                return params, state, dict(aux, skipped_steps=1)
+            aux["skipped_steps"] = 0
+        leaves = tree_leaves(rows) + tree_leaves(dense_view)
+        grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+
+        # CowClip -> coupled L2 -> Adam on the touched rows, scattered back;
+        # untouched rows keep accruing lazy decay through last_step
+        for g, f, u, w, m, v, ls in tables:
+            wr = rows[g][f]
+            mr, vr = moments[g, f]
+            sparse_update_scatter(
+                w, m, v, ls, u.uids, u.counts, wr.detach(), grads[id(wr)],
+                mr, vr, t, r=r, zeta=zeta, clip=clip, **adam_kw)
+
+        g_dense = tree_map(lambda p: grads[id(p)], dense_view)
+        d_updates, d_state = dense_tx.update(
+            g_dense, state["dense"], params["dense"])
+        new_dense = apply_updates(params["dense"], d_updates)
+        new_state = dict(state, step=t, dense=d_state)
+        return {"embed": params["embed"], "dense": new_dense}, new_state, aux
+
+    return StepFn(step_impl), init, _make_lazy_flush(adam_kw)
+
+
+def _make_lazy_flush(adam_kw: dict):
+    """The flush of a lazy-decay placement: apply each row's pending
+    decay-only steps through the current step, in place, then stamp
+    ``last_step = step`` everywhere. Idempotent: a second call multiplies
+    every row by exactly 1.0."""
+
+    def flush(params, state):
+        step = state["step"]
+        with torch.no_grad():
+            for g, tables in params["embed"].items():
+                for f, w in tables.items():
+                    ls = state["last_step"][g][f]
+                    caught, _, _ = decay_catchup_rows(
+                        w, state["m"][g][f], state["v"][g][f], ls, step,
+                        **adam_kw)
+                    w.copy_(caught)
+                    ls.fill_(step)
+        return params, state
+
+    return flush
 
 
 def make_eval_fn(cfg: ctr.CTRConfig):

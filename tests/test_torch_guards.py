@@ -4,8 +4,8 @@
   the JAX package (checked on the AST, so strings and comments don't count).
 * The port's CLI imports with JAX made unimportable.
 * Without CUDA the default device raises instead of training on the CPU.
-* The CLI trains on the CPU when asked to, and names the ROADMAP item of a
-  path that is not ported yet.
+* The CLI trains on the CPU when asked to (fused and sparse), and names the
+  ROADMAP item of a path that is not ported yet.
 """
 
 import ast
@@ -83,8 +83,33 @@ def test_torch_cli_trains_on_cpu():
     assert "[train] done: 2 steps" in out.stdout
 
 
+def test_torch_cli_trains_sparse_on_cpu():
+    """--placement sparse, and the deprecated --sparse alias, train on the
+    CPU through the plain versions of the sparse kernels."""
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--task",
+            "ctr", "--device", "cpu", "--samples", "4096", "--batch", "512",
+            "--steps", "2"]
+    for flags in (["--placement", "sparse", "--unique-capacity", "64"],
+                  ["--sparse"]):
+        out = subprocess.run(base + flags, env=_env(), capture_output=True,
+                             text=True, timeout=300, cwd=REPO)
+        assert out.returncode == 0, out.stderr
+        assert "embedding store sparse" in out.stdout
+        assert "[train] done: 2 steps" in out.stdout
+
+
+def test_torch_cli_sparse_alias_conflicts_with_other_placement():
+    from repro_torch.launch import train as launch
+
+    with pytest.raises(SystemExit, match="--sparse conflicts"):
+        launch.main(["--device", "cpu", "--sparse", "--placement", "fused"])
+    assert launch.resolve_placement(None, False) == "fused"
+    assert launch.resolve_placement("sparse", True, warn=lambda _: None) \
+        == "sparse"
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--placement", "sparse"], "queue 1 item 1"),
+    (["--placement", "sharded_sparse"], "queue 1 item 7"),
     (["--placement", "substrate"], "queue 1 item 4"),
     (["--placement", "sharded"], "queue 1 item 7"),
     (["--engine", "scan"], "queue 1 item 3"),
