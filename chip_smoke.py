@@ -4,9 +4,9 @@
 
 Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi); TF32 off for matmul and cuDNN
-  2. build: compile the three CowClip kernels (the fused CowClip +
-     coupled-L2 + Adam update and the sparse pair) for sm_90a into one
-     extension from src/repro_torch/kernels/cowclip/csrc
+  2. build: the four kernels (the fused CowClip + coupled-L2 + Adam
+     update, the sparse pair and the chunked WKV6 scan) for sm_90a into
+     one extension, from the sources under src/repro_torch/kernels
   3. fused kernel vs its plain PyTorch version at [10131227, 10],
      [10131227, 1] and [4, 10], steps 1 and 1000, rtol 1e-5 / atol 1e-7
   4. train: DeepFM at deepfm-criteo width (26 fields, 33.76M ids, emb 10,
@@ -33,6 +33,20 @@ Phases, each fatal on failure:
  12. sparse kernel times at [10131227, 10] and [10131227, 1] with CUDA
      events (L2 flushed before each launch), beside their byte bounds and
      the plain versions' times
+ 13. wkv6 kernel vs its plain versions (the chunked one and the exact
+     recurrence) at the JAX sweep, chunks 4 / 8 / 16, exact zeros in w,
+     [256, 4096, 64] and [64, 32768, 64]; a ragged S raises ValueError
+ 14. serve: rwkv6-7b at full width (7,534,546,944 params, bf16 compute,
+     chunked backend), score-only prefill of 4 x 4096, 1 x 32768 and a
+     ragged 1 x 4001 tokens; 32 wkv6 launches per forward, logits finite
+ 15. greedy generation: 4 x 64-token prompts, 32 new tokens (32 wkv6
+     launches per cached prefill, none in decode); the kernel on layer 0's
+     real streams against the exact recurrence
+ 16. trace: a full-width prefill and a decode step under torch.profiler
+ 17. agreement at the reduced f32 size, card vs CPU, at 64 and at a
+     ragged 61 tokens: forward logits, cached prefill, 4 decode steps
+ 18. wkv6 kernel times with CUDA events (L2 flushed before each launch),
+     beside its bound and the plain version's time
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's src/ beside this file.
@@ -41,6 +55,7 @@ repository's src/ beside this file.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -59,7 +74,18 @@ BATCH = 131072
 BASE_BATCH = 1024
 L2_FLUSH_BYTES = 256 * 2**20   # > the H100's 50 MB L2
 PORT_KERNELS = ("cowclip_adam_kernel", "sparse_catchup_kernel",
-                "sparse_update_kernel")
+                "sparse_update_kernel", "wkv6_chunked_kernel")
+WKV_Y_REL = 1e-4               # the JAX wkv6 test's bar: max |dy| / max |y|
+WKV_S_RTOL, WKV_S_ATOL = 1e-3, 1e-4   # ... and its bar on the final state
+WKV_FULL = (256, 4096, 64)     # batch 4 x 64 heads, 4096 tokens, head 64
+WKV_LONG = (64, 32768, 64)     # batch 1 x 64 heads, 32768 tokens
+RWKV6_7B_PARAMS = 7_534_546_944   # repro.models.lm.param_counts(rwkv6-7b)
+LM_PREFILL = (4, 4096)         # requests x tokens, score-only prefill
+LM_LONG = (1, 32768)           # prefill_32k's length, at batch 1 (not 32)
+LM_RAGGED = (1, 4001)          # a prompt length that is no multiple of 16
+LM_REPEATS = 2
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
+LM_AGREE = 1e-4                # max abs logits, card vs CPU (f32, reduced)
 
 
 def check(cond, msg):
@@ -187,39 +213,56 @@ def update_bound(cnt, dim):
                                  "operations"), touched, nbytes
 
 
+def device_time_by_kernel(fn):
+    """Run ``fn`` once under torch.profiler: (wall ms, [(device ms, count,
+    name)] sorted by device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0), reverse=True)
+
+
+def print_trace(prefix, tag, wall_ms, by_kernel):
+    """Device busy time against wall time, then device time by kernel with
+    its share: the top 12, and the port's own kernels wherever they
+    rank."""
+    busy_ms = sum(t for t, _, _ in by_kernel)
+    if not busy_ms:
+        print(f"[{prefix}] {tag}: the profiler saw no device time: not "
+              f"measured")
+        return
+    print(f"[{prefix}] {tag}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} "
+          f"ms wall ({100 * (1 - busy_ms / wall_ms):.1f}% idle); by kernel:")
+    for rank, (ms_k, n, name) in enumerate(by_kernel):
+        if rank < 12 or any(k in name for k in PORT_KERNELS):
+            print(f"[{prefix}] #{rank + 1:<3d} {ms_k:9.3f} ms "
+                  f"{100 * ms_k / busy_ms:5.1f}% x{n:<5d} {name[:100]}")
+
+
 def trace_steps(bundle, params, state, tr, tag):
     """2 steps under torch.profiler: device busy time against wall time,
     and device time by kernel."""
     from repro_torch.data import iterate_batches
 
     batches = iterate_batches(tr, BATCH, seed=1)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+
+    def two_steps():
+        nonlocal params, state
         for _ in range(2):
             batch = {k: torch.as_tensor(x, device="cuda")
                      for k, x in next(batches).items()}
             params, state, aux = bundle.step(params, state, batch)
             float(aux["loss"])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(k[0] for k in kernels)
-    if busy_ms:
-        print(f"[trace] {tag}, 2 steps: device busy {busy_ms:.1f} ms of "
-              f"{wall_ms:.1f} ms wall ({100 * (1 - busy_ms / wall_ms):.1f}% "
-              f"idle); by kernel:")
-        # the top 12, and the port's own kernels wherever they rank
-        for rank, (ms_k, n, name) in enumerate(kernels):
-            if rank < 12 or any(k in name for k in PORT_KERNELS):
-                print(f"[trace] #{rank + 1:<3d} {ms_k:9.3f} ms x{n:<4d} "
-                      f"{name[:100]}")
-    else:
-        print(f"[trace] {tag}: the profiler saw no device time: not measured")
+
+    print_trace("trace", f"{tag}, 2 steps", *device_time_by_kernel(two_steps))
 
 
 def run_small(cfg, hp, path, dev, params0, ds, steps=3):
@@ -242,46 +285,21 @@ def run_small(cfg, hp, path, dev, params0, ds, steps=3):
     return [t.cpu() for t in tree_leaves(p)]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs a CUDA device", file=sys.stderr)
-        return 1
-    src = Path(__file__).resolve().parent / "src"
-    sys.path.insert(0, str(src))
+def ctr_phases(smi, kind):
+    """Phases 3-12, the CowClip kernels and the CTR training placements.
+    Returns the three kernels' JSON lines; every tensor is freed on
+    return."""
     from repro_torch.configs.deepfm_criteo import CONFIG, CRITEO_VOCABS
     from repro_torch.core.scaling import scale_hyperparams
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data import make_ctr_dataset
     from repro_torch.embed import store_for
-    from repro_torch.kernels.cowclip import cowclip as cowclip_build
     from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
                                              sparse_gather_catchup,
                                              sparse_update_scatter)
     from repro_torch.kernels.cowclip import ref as cc_ref
     from repro_torch.models import ctr
     from repro_torch.train import train_ctr
-
-    # -- 1. card ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    print(smi.strip().splitlines()[0])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    print(f"[card] {kind}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; matmul.allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
-          f"{torch.backends.cudnn.allow_tf32}", flush=True)
-
-    # -- 2. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    cowclip_build.build()
-    print(f"[build] cowclip_adam.cu + sparse_catchup.cu + sparse_update.cu "
-          f"+ binding.cpp for sm_90a in {time.perf_counter() - t0:.1f} s",
-          flush=True)
 
     # -- 3. kernel vs plain version -------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -609,6 +627,358 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": None,
         })
+    return lines
+
+
+def wkv_inputs(gen, bh, seq, n, zero_frac=0.0):
+    """The JAX kernel tests' distribution (``tests/test_kernels.py:
+    _wkv_inputs``), drawn on the card: r, k, v ~ N(0, 1), w =
+    exp(-exp(wlog)) with wlog ~ N(-0.6, 1), u ~ N(0, 0.01); ``zero_frac``
+    of the decays set to exactly 0."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = randn(bh, seq, n), randn(bh, seq, n), randn(bh, seq, n)
+    w = torch.exp(-torch.exp(-0.6 + randn(bh, seq, n)))
+    if zero_frac:
+        drop = torch.rand((bh, seq, n), generator=gen, device="cuda")
+        w = torch.where(drop < zero_frac, 0.0, w)
+    return r, k, v, w, 0.1 * randn(bh, n)
+
+
+def wkv_compare(tag, got, want, worst=None, hold_y=True):
+    """Hold the kernel's ``(y, state)`` to a plain version's at the JAX
+    kernel test's bar (max |dy| / max |y| < WKV_Y_REL; the state within
+    WKV_S_RTOL / WKV_S_ATOL) and print both errors; with ``worst``, fold
+    the max abs error into ``worst[0]``. With ``hold_y`` False, y's error
+    is reported and only the state is held."""
+    (y, s), (y_ref, s_ref) = got, want
+    y_err = (y - y_ref).abs().max().item()
+    y_rel = y_err / (y_ref.abs().max().item() + 1e-6)
+    s_err = (s - s_ref).abs().max().item()
+    s_ok = torch.allclose(s, s_ref, rtol=WKV_S_RTOL, atol=WKV_S_ATOL)
+    y_ok = y_rel < WKV_Y_REL
+    if worst is not None:
+        worst[0] = max(worst[0], y_err, s_err)
+    print(f"[wkv6] {tag}: y max_abs {y_err:.3e}, / max|y| {y_rel:.3e} "
+          f"({'ok' if y_ok else 'FAIL'} at {WKV_Y_REL}"
+          f"{'' if hold_y else ', reported, not held'}); state max_abs "
+          f"{s_err:.3e} ({'ok' if s_ok else 'FAIL'} at rtol {WKV_S_RTOL} / "
+          f"atol {WKV_S_ATOL})", flush=True)
+    check(s_ok and (y_ok or not hold_y),
+          f"wkv6 kernel disagrees with a plain version: {tag}")
+
+
+def wkv_bound(bh, seq, n, chunk=16):
+    """Least time for one call: r, k, v, w read and y written once, u read,
+    the final state written (f32); 4*L*L*N + 4*L*N*N operations per
+    (bh, chunk): A, A v, r S and the state update."""
+    nbytes = 4 * (5 * bh * seq * n + bh * n + bh * n * n)
+    flops = bh * (seq // chunk) * (4 * chunk * chunk * n + 4 * chunk * n * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes, flops
+
+
+def lm_phases(smi, kind):
+    """Phases 13-18, RWKV-6 serving at rwkv6-7b width and the wkv6 kernel.
+    Returns the kernel's JSON line."""
+    from repro_torch.configs import reduce_config
+    from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6_7B
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels.cowclip import (fused_cowclip_adam,
+                                             sparse_gather_catchup,
+                                             sparse_update_scatter)
+    from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
+                                          clipped_chunks, wkv6,
+                                          wkv6_reference)
+    from repro_torch.models import layers, lm, rwkv
+    from repro_torch.serve.decode import greedy_generate
+
+    power = smi.strip().split(", ")[-1]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    err = [0.0]
+
+    # -- 13. wkv6 kernel vs its plain versions ---------------------------
+    cases = [(f"[{bh}, {seq}, {n}] chunk {chunk}{' zeros' if z else ''}",
+              bh, seq, n, chunk, z)
+             for bh, seq, n, chunk, z in (
+                 (2, 32, 16, 16, 0.0), (4, 64, 32, 16, 0.0),
+                 (1, 128, 64, 16, 0.0), (8, 48, 8, 16, 0.0),
+                 (2, 64, 16, 4, 0.0), (2, 64, 16, 8, 0.0),
+                 (4, 64, 32, 16, 0.05), WKV_FULL + (16, 0.0))]
+    for tag, bh, seq, n, chunk, zeros in cases:
+        inp = wkv_inputs(gen, bh, seq, n, zeros)
+        with torch.inference_mode():
+            got = wkv6(*inp, chunk=chunk)
+            chunked = chunked_wkv6_reference(*inp, chunk=chunk)
+            exact = wkv6_reference(*inp)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"non-finite wkv6 output at {tag}")
+        clipped = clipped_chunks(inp[3], chunk=chunk)
+        wkv_compare(f"{tag} vs chunked plain", got, chunked, err)
+        # the factorisation equals the recurrence only where no chunk's
+        # decay passes its +-25 clip; the state, carried unclipped, always
+        wkv_compare(f"{tag} vs exact recurrence ({clipped} clipped "
+                    f"chunk-channels)", got, exact, hold_y=clipped == 0)
+        del inp, got, chunked, exact
+    inp = wkv_inputs(gen, *WKV_LONG)
+    with torch.inference_mode():
+        got = wkv6(*inp)
+        want = chunked_wkv6_reference(*inp)
+    wkv_compare(f"{list(WKV_LONG)} chunk 16 vs chunked plain", got, want,
+                err)
+    del inp, got, want
+    ragged = wkv_inputs(gen, 1, 40, 8)
+    try:
+        wkv6(*ragged)
+    except ValueError as exc:
+        print(f"[wkv6] [1, 40, 8] chunk 16 raises ValueError: {exc}")
+    else:
+        check(False, "a ragged sequence did not raise")
+    torch.cuda.empty_cache()
+
+    # -- 14. rwkv6-7b at full width: score-only prefill (the main path) --
+    cfg = dataclasses.replace(RWKV6_7B, wkv_backend="chunked")
+    n_params = lm.param_counts(cfg)["total"]
+    check(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 64
+          and cfg.d_ff == 14336 and cfg.vocab_size == 65536
+          and cfg.compute_dtype == "bfloat16", "not the rwkv6-7b width")
+    check(n_params == RWKV6_7B_PARAMS, f"{n_params} parameters")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[lm] rwkv6-7b: {n_params} parameters (f32, "
+          f"{4 * n_params / 1e9:.1f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; bf16 compute, wkv_backend "
+          f"chunked", flush=True)
+    prompts = {
+        (b, s): torch.as_tensor(
+            make_lm_tokens(b * s, cfg.vocab_size, seed=s).reshape(b, s),
+            device="cuda")
+        for b, s in (LM_PREFILL, LM_LONG, LM_RAGGED)}
+
+    def prefill(shape):
+        with torch.inference_mode():
+            out = lm.prefill(params, cfg, prompts[shape])
+        torch.cuda.synchronize()
+        return out
+
+    counters = (wkv6, fused_cowclip_adam, sparse_gather_catchup,
+                sparse_update_scatter)
+    for fn in counters:
+        fn.launches = 0
+    first_s, per_forward = {}, []
+    for shape in (LM_PREFILL, LM_LONG, LM_RAGGED):
+        t0 = time.perf_counter()
+        last = prefill(shape)
+        first_s[shape] = time.perf_counter() - t0
+        per_forward.append(wkv6.launches - sum(per_forward))
+        check(tuple(last.shape) == (shape[0], cfg.padded_vocab)
+              and bool(torch.isfinite(last).all()),
+              f"prefill {shape}: logits {tuple(last.shape)} not finite")
+    launches = wkv6.launches
+    others = [fn.launches for fn in counters[1:]]
+    print(f"[lm] main path: prefill {list(LM_PREFILL)}, {list(LM_LONG)} "
+          f"and {list(LM_RAGGED)}: wkv6 launches {per_forward} (expected "
+          f"{cfg.n_layers} per forward), CowClip kernels {others} "
+          f"(expected 0); logits finite", flush=True)
+    check(per_forward == [cfg.n_layers] * 3,
+          f"wkv6 launched {per_forward} times, expected {cfg.n_layers} per "
+          f"forward")
+    check(not any(others), f"CowClip kernels launched {others} times")
+    for shape in (LM_PREFILL, LM_LONG, LM_RAGGED):
+        t0 = time.perf_counter()
+        for _ in range(LM_REPEATS):
+            prefill(shape)
+        ms = (time.perf_counter() - t0) * 1e3 / LM_REPEATS
+        tokens = shape[0] * shape[1]
+        print(f"[lm] prefill {list(shape)}: {ms:.1f} ms ({tokens / ms * 1e3:.0f} "
+              f"tokens/s; first call {first_s[shape] * 1e3:.1f} ms), mean of "
+              f"{LM_REPEATS}, {kind} at {power}", flush=True)
+    print(f"[lm] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB (params {4 * n_params / 2**30:.2f} GiB)", flush=True)
+
+    # -- 15. greedy generation, and layer 0's real streams ---------------
+    gen_prompt = torch.as_tensor(make_lm_tokens(
+        GEN_BATCH * GEN_PROMPT, cfg.vocab_size, seed=2).reshape(
+            GEN_BATCH, GEN_PROMPT), device="cuda")
+    timing, gen_launches = {}, []
+    for new in (0, GEN_NEW):
+        wkv6.launches = 0
+        t0 = time.perf_counter()
+        res = greedy_generate(params, cfg, gen_prompt, new)
+        torch.cuda.synchronize()
+        timing[new] = time.perf_counter() - t0
+        gen_launches.append(wkv6.launches)
+    check(gen_launches == [cfg.n_layers] * 2,
+          f"greedy generation launched wkv6 {gen_launches} times, expected "
+          f"{cfg.n_layers} per cached prefill and none in decode")
+    check(tuple(res.tokens.shape) == (GEN_BATCH, GEN_NEW)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
+          and bool(torch.isfinite(res.logits).all()),
+          "greedy generation: bad tokens or non-finite logits")
+    decode_ms = (timing[GEN_NEW] - timing[0]) * 1e3 / GEN_NEW
+    print(f"[gen] {GEN_BATCH} requests x {GEN_PROMPT}-token prompts, "
+          f"{GEN_NEW} greedy tokens: cached prefill {timing[0] * 1e3:.1f} ms, "
+          f"{decode_ms:.2f} ms per decoded token ({GEN_BATCH * 1e3 / decode_ms:.0f} "
+          f"tokens/s), {kind} at {power}; wkv6 launches {gen_launches}; "
+          f"first tokens {res.tokens[0, :8].tolist()}", flush=True)
+    with torch.inference_mode():
+        p0 = tree_map(lambda t: t[0], params["dense"]["blocks"]["pos_0"])
+        x = params["embed"]["tokens"][prompts[LM_PREFILL][:1]].to(cfg.dtype)
+        h = layers.rmsnorm(p0["norm1"], x, cfg.norm_eps)
+        b, s, d = h.shape
+        streams = rwkv._streams(p0["att"], h.reshape(s, d),
+                                torch.cat([torch.zeros_like(h[:, :1]),
+                                           h[:, :-1]], 1).reshape(s, d),
+                                cfg.dtype)
+        n = d // cfg.n_heads
+
+        def heads(t):
+            return (t.to(torch.float32).reshape(s, cfg.n_heads, n)
+                    .transpose(0, 1).contiguous())
+
+        r, k, v, w = (heads(streams[i]) for i in (0, 1, 2, 4))
+        u = p0["att"]["u"].reshape(cfg.n_heads, n).contiguous()
+        got = wkv6(r, k, v, w, u)
+        want = wkv6_reference(r, k, v, w, u)
+    clipped = clipped_chunks(w)
+    wkv_compare(f"layer 0's streams, one {s}-token prompt [{cfg.n_heads}, "
+                f"{s}, {n}] vs exact recurrence ({clipped} clipped "
+                f"chunk-channels)", got, want)
+    del p0, x, h, streams, r, k, v, w, u, got, want, res
+
+    # -- 16. where a full-width prefill's and a decode step's time goes --
+    print_trace("lm-trace", f"prefill {list(LM_PREFILL)}",
+                *device_time_by_kernel(lambda: prefill(LM_PREFILL)))
+    with torch.inference_mode():
+        first, cache, cur = lm.prefill_with_cache(params, cfg, gen_prompt,
+                                                  GEN_PROMPT + 1)
+
+    def decode_one():
+        with torch.inference_mode():
+            lm.decode_step(params, cfg, first.argmax(-1), cache, cur)
+
+    print_trace("lm-trace", f"decode step, batch {GEN_BATCH}",
+                *device_time_by_kernel(decode_one))
+    del first, cache
+    del params, prompts, gen_prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 17. agreement with the CPU path at the reduced f32 size ---------
+    small = dataclasses.replace(reduce_config(RWKV6_7B), wkv_backend="chunked")
+    params0 = lm.init(small, seed=0, device="cpu")
+    feed = torch.as_tensor(make_lm_tokens(4 * 2, small.vocab_size,
+                                          seed=4).reshape(4, 2))
+    for seq in (64, 61):        # a whole number of chunks, and a ragged one
+        tokens = torch.as_tensor(make_lm_tokens(2 * seq, small.vocab_size,
+                                                seed=3).reshape(2, seq))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params0)
+            wkv6.launches = 0
+            with torch.inference_mode():
+                logits, _ = lm.forward(p, small, tokens.to(dev))
+                last, cache, cur = lm.prefill_with_cache(
+                    p, small, tokens.to(dev), seq + 4)
+                outs = [logits, last]
+                for i in range(4):
+                    last, cache = lm.decode_step(p, small, feed[i].to(dev),
+                                                 cache, cur + i)
+                    outs.append(last)
+            want = 2 * small.n_layers if dev == "cuda" else 0
+            check(wkv6.launches == want,
+                  f"{dev}: wkv6 launched {wkv6.launches} times in a forward "
+                  f"and a cached prefill, expected {want}")
+            runs[dev] = [t.cpu() for t in outs]
+        for what, i in (("chunked forward logits", 0),
+                        ("cached prefill last logits", 1)):
+            gap = (runs["cuda"][i] - runs["cpu"][i]).abs().max().item()
+            print(f"[lm-agree] reduced rwkv6-7b (f32), {seq} tokens, {what}, "
+                  f"card vs CPU: max_abs {gap:.3e} (bar {LM_AGREE})")
+            check(gap <= LM_AGREE, f"card and CPU disagree on the {what}")
+        gap = max((a - c).abs().max().item()
+                  for a, c in zip(runs["cuda"][2:], runs["cpu"][2:]))
+        print(f"[lm-agree] {seq} tokens, then 4 decode steps fed the same "
+              f"tokens, card vs CPU: max_abs {gap:.3e} (bar {LM_AGREE})")
+        check(gap <= LM_AGREE, "card and CPU disagree on decode logits")
+
+    # -- 18. kernel times: L2 flushed before each launch -----------------
+    scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    times = {}
+    for shape in (WKV_FULL, WKV_LONG):
+        inp = wkv_inputs(gen, *shape)
+        with torch.inference_mode():
+            k_ms = cuda_time_cold_ms(lambda: wkv6(*inp), 20, scratch)
+            p_ms = cuda_time_cold_ms(lambda: chunked_wkv6_reference(*inp), 3,
+                                     scratch)
+        b_ms, b_by, nbytes, flops = wkv_bound(*shape)
+        other = (flops / FP32_FLOPS_PER_S if b_by == "bytes"
+                 else nbytes / HBM_BYTES_PER_S) * 1e3
+        times[shape] = (k_ms, p_ms, b_ms, b_by)
+        print(f"[time] chunked_wkv6 {list(shape)} (L2 flushed): kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by} ({nbytes} B at {HBM_BYTES_PER_S / 1e12} TB/s; {flops} "
+              f"FLOP at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s f32 is "
+              f"{other:.4f} ms), {kind} at {power}", flush=True)
+        del inp
+    del scratch
+    k_ms, p_ms, b_ms, b_by = times[WKV_FULL]
+    return {
+        "name": "chunked_wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/wkv6.py:93",
+        "launches": launches,
+        "max_abs_err": err[0],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA device", file=sys.stderr)
+        return 1
+    src = Path(__file__).resolve().parent / "src"
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels.extension import build
+
+    # -- 1. card ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(smi.strip().splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    print(f"[card] {kind}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+
+    # -- 2. build: the four kernels, one extension -----------------------
+    t0 = time.perf_counter()
+    build()
+    print(f"[build] cowclip_adam.cu + sparse_catchup.cu + sparse_update.cu "
+          f"+ wkv6.cu + binding.cpp for sm_90a, one extension, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    lines = ctr_phases(smi, kind)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines.append(lm_phases(smi, kind))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

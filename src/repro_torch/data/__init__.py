@@ -1,4 +1,6 @@
-"""repro_torch.data — synthetic Zipf CTR generator and Criteo loader (NumPy)."""
+"""repro_torch.data — synthetic Zipf CTR and LM generators and the Criteo
+loader (NumPy)."""
 
 from .criteo import load_criteo_tsv
-from .synthetic import CTRDataset, iterate_batches, make_ctr_dataset
+from .synthetic import (CTRDataset, iterate_batches, make_ctr_dataset,
+                        make_lm_tokens)

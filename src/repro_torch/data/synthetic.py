@@ -16,9 +16,9 @@ scaling. The generator therefore:
 Everything is deterministic in (seed, sizes) and generated with NumPy on the
 host; batches are served as device arrays.
 
-The port's own copy of the CTR half of ``repro.data.synthetic`` (pure
-Python / NumPy), kept verbatim so that ``repro_torch`` imports nothing of
-the JAX package; ``make_lm_tokens`` comes with the LM side.
+The port's own copy of ``repro.data.synthetic``'s CTR generator and of
+its ``make_lm_tokens`` (pure Python / NumPy), kept verbatim so that
+``repro_torch`` imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -176,3 +176,19 @@ def iterate_batches(
             "labels": ds.labels[idx],
         }
 
+
+
+def make_lm_tokens(
+    n_tokens: int,
+    vocab_size: int,
+    *,
+    zipf_a: float = 1.1,
+    seed: int = 0,
+) -> np.ndarray:
+    """Zipf-distributed token stream for LM smoke training (word frequencies
+    are Zipfian too — the paper's closing point about NLP embedding tables)."""
+    rng = np.random.default_rng(seed)
+    p = _zipf_probs(vocab_size, zipf_a)
+    raw = rng.choice(vocab_size, size=n_tokens, p=p)
+    perm = rng.permutation(vocab_size)
+    return perm[raw].astype(np.int32)

@@ -5,12 +5,9 @@ The fused kernel (``csrc/cowclip_adam.cu``) replaces the TPU kernel
 ``repro/kernels/cowclip/cowclip.py:cowclip_adam_update``; the sparse pair
 (``csrc/sparse_catchup.cu``, ``csrc/sparse_update.cu``, launched from
 ``sparse.py``) replace ``repro/kernels/cowclip/sparse.py``'s two kernels.
-Each source says what bounds it and how. All three are compiled for
-``sm_90a`` into one extension by ``torch.utils.cpp_extension.load`` at
-first use, from the sources in this package, into
-``build/repro_torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``). ``csrc/binding.cpp`` is the only file that includes
-``torch/extension.h``; nvcc compiles only the kernels.
+Each source says what bounds it and how. All three are compiled, with
+the port's other kernels, into the one extension of
+``kernels/extension.py``, at first use.
 
 The host computes every scalar the way the JAX kernel rounds it: Python
 floats rounded to f32, ``1 - b1`` and ``1 - b2`` in double and then
@@ -20,35 +17,11 @@ factor through ``decay_factor``.
 
 from __future__ import annotations
 
-import functools
-from pathlib import Path
-
 import numpy as np
 import torch
 
 from ...core.optim import decay_factor, f32
-
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
-
-
-@functools.cache
-def build():
-    """Compile (or load the cached build of) the extension; returns it."""
-    from torch.utils.cpp_extension import load
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)   # load() does not
-    return load(
-        name="repro_torch_cowclip",
-        sources=[str(CSRC / name) for name in (
-            "binding.cpp", "cowclip_adam.cu", "sparse_catchup.cu",
-            "sparse_update.cu")],
-        build_directory=str(BUILD_DIR),
-        extra_include_paths=[str(CSRC)],
-        extra_cuda_cflags=CUDA_FLAGS,
-        verbose=False,
-    )
+from ..extension import build
 
 
 def bias_corrections(step: int, b1: float, b2: float) -> tuple:

@@ -1,6 +1,7 @@
 // Plain C interface between the CowClip + coupled-L2 + Adam kernel
-// (cowclip_adam.cu) and its PyTorch binding (binding.cpp). No PyTorch
-// header is included here, so nvcc compiles the kernel in seconds.
+// (cowclip_adam.cu) and its PyTorch binding (kernels/csrc/binding.cpp).
+// No PyTorch header is included here, so nvcc compiles the kernel in
+// seconds.
 #pragma once
 
 #include <cuda_runtime.h>

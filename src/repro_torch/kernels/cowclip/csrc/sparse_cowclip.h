@@ -1,7 +1,7 @@
 // Plain C interface between the sparse unique-id CowClip kernels
 // (sparse_catchup.cu, sparse_update.cu) and their PyTorch binding
-// (binding.cpp). No PyTorch header is included here, so nvcc compiles the
-// kernels in seconds.
+// (kernels/csrc/binding.cpp). No PyTorch header is included here, so nvcc
+// compiles the kernels in seconds.
 #pragma once
 
 #include <cuda_runtime.h>

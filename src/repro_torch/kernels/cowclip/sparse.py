@@ -18,7 +18,8 @@ Both take ``row_offset``, subtracted from every uid: the form a row-shard
 of a partitioned table uses. The TPU kernels also needed ``safe_uids`` to
 keep pad slots' block indices in range; the CUDA kernels read each slot's
 count and skip pads themselves. Scalars are rounded on the host as for the
-fused kernel (``cowclip.py``). The built extension is ``cowclip.build()``.
+fused kernel (``cowclip.py``). The built extension is
+``kernels.extension.build()``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from ...core.optim import decay_factor
-from .cowclip import _f32, bias_corrections, build
+from ..extension import build
+from .cowclip import _f32, bias_corrections
 
 
 def safe_uids(uids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
-// PyTorch binding of the CowClip + coupled-L2 + Adam kernels: the fused
-// dense update and the two sparse unique-id kernels. The one translation
-// unit that includes torch/extension.h; the host compiler builds it, nvcc
-// builds only the .cu files.
+// PyTorch binding of the port's CUDA kernels: the CowClip + coupled-L2 +
+// Adam kernels (the fused dense update and the two sparse unique-id
+// kernels) and the chunked WKV6 scan. The one translation unit that
+// includes torch/extension.h; the host compiler builds it, nvcc builds only
+// the .cu files.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -10,6 +11,7 @@
 
 #include "cowclip_adam.h"
 #include "sparse_cowclip.h"
+#include "wkv6.h"
 
 namespace {
 
@@ -20,7 +22,7 @@ void check_table(const torch::Tensor& t, const char* name,
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
   TORCH_CHECK(t.device() == like.device(), name, " is on another device");
   TORCH_CHECK(t.sizes() == like.sizes(), name, " shape ", t.sizes(),
-              " != w shape ", like.sizes());
+              " != ", like.sizes());
 }
 
 void cowclip_adam_(torch::Tensor w, torch::Tensor g, torch::Tensor cnt,
@@ -155,6 +157,45 @@ void sparse_update_scatter_(torch::Tensor w, torch::Tensor m, torch::Tensor v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// r, k, v, w [bh, seq, n] f32; u [bh, n]; y [bh, seq, n] and s_out
+// [bh, n, n] allocated by the caller.
+void wkv6_chunked(torch::Tensor r, torch::Tensor k, torch::Tensor v,
+                  torch::Tensor w, torch::Tensor u, torch::Tensor y,
+                  torch::Tensor s_out, int64_t chunk) {
+  TORCH_CHECK(r.dim() == 3, "r must be [BH, S, N]");
+  check_table(r, "r", r);
+  check_table(k, "k", r);
+  check_table(v, "v", r);
+  check_table(w, "w", r);
+  check_table(y, "y", r);
+  const int64_t bh = r.size(0), seq = r.size(1), n = r.size(2);
+  TORCH_CHECK(n >= 1 && n <= kWkv6MaxN, "head size ", n, " outside [1, ",
+              kWkv6MaxN, "]");
+  TORCH_CHECK(chunk >= 1 && chunk <= kWkv6MaxChunk, "chunk ", chunk,
+              " outside [1, ", kWkv6MaxChunk, "]");
+  TORCH_CHECK(seq % chunk == 0, "seq len ", seq, " is no multiple of chunk ",
+              chunk);
+  TORCH_CHECK(bh <= INT32_MAX && seq <= INT32_MAX, "r is too large");
+  for (const auto& t : {u, s_out}) {
+    TORCH_CHECK(t.is_cuda() && t.device() == r.device() &&
+                    t.scalar_type() == torch::kFloat32 && t.is_contiguous(),
+                "u and s_out must be contiguous float32 on r's device");
+  }
+  const std::vector<int64_t> u_shape{bh, n}, s_shape{bh, n, n};
+  TORCH_CHECK(u.sizes() == c10::IntArrayRef(u_shape), "u must be [BH, N]");
+  TORCH_CHECK(s_out.sizes() == c10::IntArrayRef(s_shape),
+              "s_out must be [BH, N, N]");
+  const c10::cuda::CUDAGuard guard(r.device());
+  wkv6_chunked_launch(r.data_ptr<float>(), k.data_ptr<float>(),
+                      v.data_ptr<float>(), w.data_ptr<float>(),
+                      u.data_ptr<float>(), y.data_ptr<float>(),
+                      s_out.data_ptr<float>(), static_cast<int>(bh),
+                      static_cast<int>(seq), static_cast<int>(n),
+                      static_cast<int>(chunk),
+                      at::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
@@ -164,4 +205,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "gather unique-id slot rows with closed-form lazy-decay catch-up");
   mod.def("sparse_update_scatter_", &sparse_update_scatter_,
           "CowClip + coupled-L2 + Adam on slot rows, scattered in place");
+  mod.def("wkv6_chunked", &wkv6_chunked,
+          "chunked RWKV-6 WKV scan: y and the final state, written into "
+          "the given outputs");
 }

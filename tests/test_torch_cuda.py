@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, and the fused and sparse train steps on the card against the CPU
-path.
+version, the fused and sparse train steps on the card against the CPU
+path, and the RWKV-6 LM's forward, prefill and decode on the card against
+the CPU path.
 
 They carry the ``cuda`` marker and skip without a CUDA device. This file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -10,10 +11,13 @@ which imports JAX:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduce_config
 from repro_torch.core.scaling import scale_hyperparams
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import iterate_batches, make_ctr_dataset
@@ -22,7 +26,9 @@ from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
                                          sparse_gather_catchup,
                                          sparse_update_scatter)
 from repro_torch.kernels.cowclip import ref as cc_ref
-from repro_torch.models import ctr
+from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
+                                      clipped_chunks, wkv6, wkv6_reference)
+from repro_torch.models import ctr, lm, rwkv
 
 
 def _need_cuda():
@@ -215,3 +221,141 @@ def test_torch_sparse_step_cuda_matches_cpu_and_repeats_bitwise():
     for a, b, c in zip(out["cuda"], out["cpu"], out["cuda2"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
         assert torch.equal(a, c)
+
+
+def _wkv_inputs(bh, seq, n, seed, zero_frac=0.0):
+    """The JAX kernel tests' distribution: r, k, v ~ N(0, 1), w =
+    exp(-exp(wlog)) with wlog ~ N(-0.6, 1), u ~ N(0, 0.01); ``zero_frac``
+    of the decays set to exactly 0."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((bh, seq, n)) for _ in range(3))
+    w = np.exp(-np.exp(-0.6 + rng.standard_normal((bh, seq, n))))
+    w = np.where(rng.random((bh, seq, n)) < zero_frac, 0.0, w)
+    u = 0.1 * rng.standard_normal((bh, n))
+    return [torch.from_numpy(a.astype(np.float32)).cuda()
+            for a in (r, k, v, w, u)]
+
+
+def _assert_wkv_bar(y, s, y_ref, s_ref):
+    """The JAX kernel test's bar: max |dy| / max |y_ref| < 1e-4, and the
+    state within rtol 1e-3 / atol 1e-4."""
+    scale = y_ref.abs().max().item() + 1e-6
+    assert (y - y_ref).abs().max().item() / scale < 1e-4
+    torch.testing.assert_close(s, s_ref, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,seq,n,chunk", [
+    (2, 32, 16, 16), (4, 64, 32, 16), (1, 128, 64, 16), (8, 48, 8, 16),
+    (2, 64, 16, 4), (2, 64, 16, 8), (4, 4096, 64, 16),
+    (3, 48, 24, 16),             # a partial column tile (16 + 8)
+])
+def test_torch_wkv6_cuda_kernel_matches_plain(bh, seq, n, chunk):
+    """The kernel against the chunked plain version (its function) and
+    against the exact token recurrence, at the JAX sweep shapes and chunks
+    and at N = 64, S = 4096; one launch per call. y equals the
+    recurrence's only where no chunk's decay passes the factorisation's
+    clip (``clipped_chunks`` 0); the final state always does."""
+    _need_cuda()
+    inp = _wkv_inputs(bh, seq, n, seed=bh * seq + n + chunk)
+    before = wkv6.launches
+    y, s = wkv6(*inp, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    _assert_wkv_bar(y, s, *chunked_wkv6_reference(*inp, chunk=chunk))
+    y_ref, s_ref = wkv6_reference(*inp)
+    torch.testing.assert_close(s, s_ref, rtol=1e-3, atol=1e-4)
+    if clipped_chunks(inp[3], chunk=chunk) == 0:
+        _assert_wkv_bar(y, s, y_ref, s_ref)
+
+
+@pytest.mark.cuda
+def test_torch_wkv6_cuda_kernel_zero_decays():
+    """Exact zeros in w (subnormal 1e-38 floor, no flush to zero): y and
+    state against the chunked plain version, the state against the exact
+    recurrence (the factorisation's clip makes y inexact there, on both)."""
+    _need_cuda()
+    inp = _wkv_inputs(4, 64, 32, seed=11, zero_frac=0.05)
+    y, s = wkv6(*inp)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    _assert_wkv_bar(y, s, *chunked_wkv6_reference(*inp))
+    torch.testing.assert_close(s, wkv6_reference(*inp)[1], rtol=1e-3,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_torch_wkv6_cuda_rejects_bad_inputs():
+    _need_cuda()
+    inp = _wkv_inputs(1, 40, 8, seed=0)
+    with pytest.raises(ValueError):
+        wkv6(*inp, chunk=16)                       # ragged S
+    inp = _wkv_inputs(1, 32, 8, seed=0)
+    with pytest.raises(ValueError):
+        wkv6(inp[0], inp[1].cpu(), *inp[2:])       # mixed devices
+    inp[0].requires_grad_(True)
+    with pytest.raises(ValueError, match="no backward"):
+        wkv6(*inp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [23, 4000])
+def test_torch_rwkv_mixer_cuda_ragged_lengths(seq):
+    """A length that is no multiple of the chunk goes through the kernel,
+    padded to a whole chunk: one launch for the layer. y and the final
+    state handed to decode match the CPU path (the plain chunked version,
+    padded the same way) and the exact token scan on the card, at the wkv6
+    bar (max |dy| / max |y| < 1e-4; state rtol 1e-3 / atol 1e-4)."""
+    _need_cuda()
+    d_model, n_heads = 256, 4
+    params = rwkv.init_rwkv6(torch.Generator().manual_seed(seq), d_model,
+                             n_heads)
+    on_card = tree_map(lambda t: t.cuda(), params)
+    x = torch.from_numpy((0.5 * np.random.default_rng(seq).standard_normal(
+        (2, seq, d_model))).astype(np.float32))
+    with torch.inference_mode():
+        before = wkv6.launches
+        y, s = rwkv.rwkv6_train(on_card, x.cuda(), n_heads=n_heads,
+                                backend="chunked", return_state=True)
+        torch.cuda.synchronize()
+        assert wkv6.launches == before + 1
+        y_scan, s_scan = rwkv.rwkv6_train(on_card, x.cuda(), n_heads=n_heads,
+                                          backend="scan", return_state=True)
+        y_cpu, s_cpu = rwkv.rwkv6_train(params, x, n_heads=n_heads,
+                                        backend="chunked", return_state=True)
+    _assert_wkv_bar(y.cpu(), s.cpu(), y_cpu, s_cpu)
+    _assert_wkv_bar(y, s, y_scan, s_scan)
+
+
+@pytest.mark.cuda
+def test_torch_rwkv_lm_cuda_matches_cpu():
+    """The reduced rwkv6-7b (f32) on the card against the CPU path, from
+    the same params: chunked forward logits (one kernel launch per layer),
+    the cached prefill and 4 decode steps fed the same tokens; max abs
+    1e-4, the LM bar of the CPU tests against JAX."""
+    _need_cuda()
+    cfg = dataclasses.replace(reduce_config(get_config("rwkv6-7b")),
+                              wkv_backend="chunked")
+    params = lm.init(cfg, seed=0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    feed = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 2)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = wkv6.launches
+        with torch.inference_mode():
+            logits, _ = lm.forward(p, cfg, tokens.to(dev))
+            launched = wkv6.launches - before
+            last, cache, cur = lm.prefill_with_cache(p, cfg, tokens.to(dev),
+                                                     68)
+            steps = [last]
+            for i in range(4):
+                step, cache = lm.decode_step(p, cfg, feed[i].to(dev), cache,
+                                             cur + i)
+                steps.append(step)
+        assert launched == (cfg.n_layers if dev == "cuda" else 0)
+        out[dev] = [t.cpu() for t in [logits] + steps]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert (a - b).abs().max().item() <= 1e-4

@@ -6,6 +6,8 @@
 * Without CUDA the default device raises instead of training on the CPU.
 * The CLI trains on the CPU when asked to (fused and sparse), and names the
   ROADMAP item of a path that is not ported yet.
+* The LM serving CLI decodes on the CPU with JAX unimportable, and refuses
+  to start without a card when no device is named.
 """
 
 import ast
@@ -139,3 +141,30 @@ def test_torch_cli_checkpoint_and_profile_trace(tmp_path):
     assert set(params) == {"embed", "dense"}
     assert params["embed"]["fm"]["field_0"].shape == (30000, 10)
     assert (trace / "trace.json").stat().st_size > 0
+
+
+def test_torch_serve_decode_cli_on_cpu_without_jax():
+    code = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "sys.argv = ['decode', '--device', 'cpu', '--batch', '2', "
+            "'--new-tokens', '4']; "
+            "runpy.run_module('repro_torch.serve.decode', "
+            "run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert "serving rwkv6-7b (reduced)" in out.stdout
+    assert "generated (2, 4) tokens" in out.stdout
+
+
+def test_torch_serve_decode_cli_without_device_refuses():
+    """No --device means cuda; with no card visible it exits non-zero
+    before building anything."""
+    env = dict(_env(), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.serve.decode"],
+                         env=env, capture_output=True, text=True,
+                         timeout=300, cwd=REPO)
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr
+    assert "serving" not in out.stdout
