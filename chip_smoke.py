@@ -8,16 +8,23 @@ Phases, each fatal on failure:
      update, the sparse pair and the chunked WKV6 scan) for sm_90a into
      one extension, from the sources under src/repro_torch/kernels
   3. fused kernel vs its plain PyTorch version at [10131227, 10],
-     [10131227, 1] and [4, 10], steps 1 and 1000, rtol 1e-5 / atol 1e-7
+     [10131227, 1] and [4, 10], and at the redesign's edges: V = 100003
+     (no multiple of the rows a warp's tile covers) with D in {1, 2, 3,
+     10, 16, 17, 64}, all rows absent and all touched; steps 1 and 1000,
+     rtol 1e-5 / atol 1e-7
   4. train: DeepFM at deepfm-criteo width (26 fields, 33.76M ids, emb 10,
      MLP 3x400, 13 dense) on synthetic Zipf data, batch 131072 (base 1024),
      4 steps of the fused placement plus one eval through train_ctr; the
      kernel must launch exactly 52 times per step and the loss stay finite
-  5. trace: 2 more fused steps under torch.profiler, device time by kernel
+  5. trace: 2 more fused steps under torch.profiler, device time by
+     kernel, and the fused update's kernels summed
   6. agreement: 3 fused steps at a small size on the card against the same
      steps on the CPU (the path the CPU tests hold to the JAX package)
-  7. fused kernel time on the largest table with CUDA events, beside its
-     bound and the plain version's time
+  7. fused kernel time on the largest table with CUDA events (L2 flushed
+     before each launch; the wrapper's host work covered, and also not),
+     beside its bound and the plain version's time: [10131227, 10] with
+     one batch's counts and half touched, and [10131227, 1] (the 26 LR
+     tables' D) with one batch's counts
   8. sparse kernels vs their plain versions: [10131227, 10] and
      [10131227, 1] at capacity 131072 (one Zipf batch of the largest field's
      unique ids plus pads), pending depths 0-1000, steps 1 and 1000; a
@@ -31,18 +38,23 @@ Phases, each fatal on failure:
      against the CPU path, the same steps twice on the card bitwise equal,
      and flushed sparse against fused on the card
  12. sparse kernel times at [10131227, 10] and [10131227, 1] with CUDA
-     events (L2 flushed before each launch), beside their byte bounds and
+     events (L2 flushed before each launch; host work covered, and also
+     not), beside their byte bounds and
      the plain versions' times
  13. wkv6 kernel vs its plain versions (the chunked one and the exact
      recurrence) at the JAX sweep, chunks 4 / 8 / 16, exact zeros in w,
-     [256, 4096, 64] and [64, 32768, 64]; a ragged S raises ValueError
+     [256, 4096, 64] and [64, 32768, 64]; at the redesign's edges (one
+     chunk, BH = 1, N in {8, 16, 32, 64}, chunks 4 / 8 / 16, zeros,
+     segments that do not divide the chunks) also vs the segmented plain
+     version; a ragged S raises ValueError
  14. serve: rwkv6-7b at full width (7,534,546,944 params, bf16 compute,
      chunked backend), score-only prefill of 4 x 4096, 1 x 32768 and a
      ragged 1 x 4001 tokens; 32 wkv6 launches per forward, logits finite
  15. greedy generation: 4 x 64-token prompts, 32 new tokens (32 wkv6
      launches per cached prefill, none in decode); the kernel on layer 0's
      real streams against the exact recurrence
- 16. trace: a full-width prefill and a decode step under torch.profiler
+ 16. trace: a full-width prefill and a decode step under torch.profiler;
+     the wkv6 kernels summed as the scan's share of the prefill
  17. agreement at the reduced f32 size, card vs CPU, at 64 and at a
      ragged 61 tokens: forward logits, cached prefill, 4 decode steps
  18. wkv6 kernel times with CUDA events (L2 flushed before each launch),
@@ -73,8 +85,15 @@ TRAIN_STEPS = 4
 BATCH = 131072
 BASE_BATCH = 1024
 L2_FLUSH_BYTES = 256 * 2**20   # > the H100's 50 MB L2
-PORT_KERNELS = ("cowclip_adam_kernel", "sparse_catchup_kernel",
-                "sparse_update_kernel", "wkv6_chunked_kernel")
+HOST_COVER_CYCLES = 2_000_000  # ~1 ms of the card's clock: > a wrapper's
+                               # host work before its launch
+# the fused update's kernels (one a launch, by D and alignment) and the
+# scan's (the segment pass and the carry only when BH is short of the SMs)
+FUSED_KERNELS = ("cowclip_adam_tile_kernel", "cowclip_adam_kernel")
+WKV6_KERNELS = ("wkv6_segment_state_kernel", "wkv6_segment_carry_kernel",
+                "wkv6_chunked_kernel")
+PORT_KERNELS = FUSED_KERNELS + ("sparse_catchup_kernel",
+                                "sparse_update_kernel") + WKV6_KERNELS
 WKV_Y_REL = 1e-4               # the JAX wkv6 test's bar: max |dy| / max |y|
 WKV_S_RTOL, WKV_S_ATOL = 1e-3, 1e-4   # ... and its bar on the final state
 WKV_FULL = (256, 4096, 64)     # batch 4 x 64 heads, 4096 tokens, head 64
@@ -93,29 +112,21 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_time_ms(fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cuda_time_cold_ms(fn, iters, scratch, warmup=1):
+def cuda_time_cold_ms(fn, iters, scratch, warmup=1, cover=True):
     """Mean time of ``fn`` with the L2 cache flushed before each launch
     (the main path meets its table rows cold): CUDA events around each
     call alone. The flush reads ``scratch``, so it leaves no dirty lines
-    whose write-back would be timed with ``fn``."""
+    whose write-back would be timed with ``fn``; then, with ``cover``, the
+    card spins for HOST_COVER_CYCLES, so the wrapper's host work (longer
+    than a short kernel) is done before the start event runs and is not
+    timed. ``cover=False`` times that host work too (the flush alone)."""
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
         scratch.max()
+        if cover:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -230,10 +241,11 @@ def device_time_by_kernel(fn):
          and e.self_device_time_total > 0), reverse=True)
 
 
-def print_trace(prefix, tag, wall_ms, by_kernel):
+def print_trace(prefix, tag, wall_ms, by_kernel, group=None):
     """Device busy time against wall time, then device time by kernel with
-    its share: the top 12, and the port's own kernels wherever they
-    rank."""
+    its share: the top 12, and the port's own kernels wherever they rank.
+    ``group`` = (label, names): those kernels' device time summed, with
+    its share."""
     busy_ms = sum(t for t, _, _ in by_kernel)
     if not busy_ms:
         print(f"[{prefix}] {tag}: the profiler saw no device time: not "
@@ -245,6 +257,15 @@ def print_trace(prefix, tag, wall_ms, by_kernel):
         if rank < 12 or any(k in name for k in PORT_KERNELS):
             print(f"[{prefix}] #{rank + 1:<3d} {ms_k:9.3f} ms "
                   f"{100 * ms_k / busy_ms:5.1f}% x{n:<5d} {name[:100]}")
+    if group:
+        label, names = group
+        ms_g = sum(t for t, _, name in by_kernel
+                   if any(k in name for k in names))
+        n_g = sum(n for _, n, name in by_kernel
+                  if any(k in name for k in names))
+        print(f"[{prefix}] {label} ({', '.join(names)}): {ms_g:.3f} ms, "
+              f"{100 * ms_g / busy_ms:.1f}% of device time, {n_g} kernel "
+              f"launches")
 
 
 def trace_steps(bundle, params, state, tr, tag):
@@ -262,7 +283,8 @@ def trace_steps(bundle, params, state, tr, tag):
             params, state, aux = bundle.step(params, state, batch)
             float(aux["loss"])
 
-    print_trace("trace", f"{tag}, 2 steps", *device_time_by_kernel(two_steps))
+    print_trace("trace", f"{tag}, 2 steps", *device_time_by_kernel(two_steps),
+                group=("the fused update's kernels", FUSED_KERNELS))
 
 
 def run_small(cfg, hp, path, dev, params0, ds, steps=3):
@@ -315,6 +337,22 @@ def ctr_phases(smi, kind):
                 compare("kernel", f"[{rows}, {dim}] step {step} {name}", a, b,
                         max_abs_err)
             del w, g, cnt, m, v, ref, out
+    edge_rows = 100003
+    for dim in (1, 2, 3, 10, 16, 17, 64):
+        for which in ("absent", "touched"):
+            for step in (1, 1000):
+                cnt = (torch.zeros(edge_rows, device="cuda")
+                       if which == "absent" else torch.randint(
+                           1, 4, (edge_rows,), generator=gen,
+                           device="cuda").to(torch.float32))
+                w, g, cnt, m, v = kernel_inputs(gen, edge_rows, dim, cnt=cnt)
+                ref = reference(w, g, cnt, m, v, step, **kw)
+                out = fused_cowclip_adam(w, g, cnt, m, v, step, **kw)
+                torch.cuda.synchronize()
+                for name, a, b in zip("wmv", out, ref):
+                    compare("kernel", f"edge [{edge_rows}, {dim}] all {which} "
+                            f"step {step} {name}", a, b, max_abs_err)
+                del w, g, cnt, m, v, ref, out
     torch.cuda.empty_cache()
 
     # -- 4. train through the fused placement ---------------------------
@@ -397,22 +435,36 @@ def ctr_phases(smi, kind):
     # -- 7. kernel time on the largest table ----------------------------
     rows, dim = CRITEO_VOCABS[big_field], CONFIG.emb_dim
     step_kw = dict(r=1.0, zeta=1e-5, lr=hp.emb_lr, l2=hp.emb_l2)
+    # L2 flushed before each launch, the host's work covered: at D = 1 a
+    # launch is shorter than the wrapper's host work, which back-to-back
+    # launches would time
     timings = {}
-    for label, cnt in (("one batch's counts", step_cnt), ("half touched", None)):
+    scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for label, dim, cnt in (("one batch's counts", dim, step_cnt),
+                            ("half touched", dim, None),
+                            ("one batch's counts", 1, step_cnt)):
         w, g, cnt, m, v = kernel_inputs(gen, rows, dim, cnt=cnt)
-        ms = cuda_time_ms(lambda: fused_cowclip_adam(w, g, cnt, m, v, 5,
-                                                     **step_kw), 20)
-        plain_ms = cuda_time_ms(lambda: reference(w, g, cnt, m, v, 5,
-                                                  **step_kw), 5)
+
+        def run():
+            fused_cowclip_adam(w, g, cnt, m, v, 5, **step_kw)
+
+        ms = cuda_time_cold_ms(run, 20, scratch)
+        flush_ms = cuda_time_cold_ms(run, 20, scratch, cover=False)
+        plain_ms = cuda_time_cold_ms(lambda: reference(
+            w, g, cnt, m, v, 5, **step_kw), 5, scratch)
         bound_ms, bound_by, touched, nbytes = update_bound(cnt, dim)
-        timings[label] = (ms, plain_ms, bound_ms, bound_by)
-        print(f"[time] [{rows}, {dim}] {label} ({touched} rows touched): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        timings[label, dim] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"[time] [{rows}, {dim}] {label} ({touched} rows touched, L2 "
+              f"flushed): "
+              f"kernel {ms:.4f} ms ({flush_ms:.4f} ms with the flush alone, "
+              f"host work not covered), plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s), {kind} at "
               f"{smi.strip().split(', ')[-1]}", flush=True)
         del w, g, cnt, m, v
-    ms, plain_ms, bound_ms, bound_by = timings["one batch's counts"]
+    del scratch
+    ms, plain_ms, bound_ms, bound_by = timings["one batch's counts",
+                                               CONFIG.emb_dim]
     fused_line = {
         "name": "cowclip_adam_update",
         "route": "cuda",
@@ -596,11 +648,13 @@ def ctr_phases(smi, kind):
         }
         for name, (kernel_fn, plain_fn, bound) in runs.items():
             k_ms = cuda_time_cold_ms(kernel_fn, 20, scratch)
+            f_ms = cuda_time_cold_ms(kernel_fn, 20, scratch, cover=False)
             p_ms = cuda_time_cold_ms(plain_fn, 5, scratch)
             b_ms, b_by, real, nbytes = bound
             sparse_times[name, dim] = (k_ms, p_ms, b_ms, b_by)
             print(f"[time] {name} [{vocab}, {dim}] cap {cap} ({real} real "
-                  f"slots, L2 flushed): kernel {k_ms:.4f} ms, plain "
+                  f"slots, L2 flushed): kernel {k_ms:.4f} ms ({f_ms:.4f} ms "
+                  f"with the flush alone, host work not covered), plain "
                   f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B "
                   f"at {HBM_BYTES_PER_S / 1e12} TB/s), {kind} at "
                   f"{smi.strip().split(', ')[-1]}", flush=True)
@@ -692,8 +746,10 @@ def lm_phases(smi, kind):
                                              sparse_gather_catchup,
                                              sparse_update_scatter)
     from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
-                                          clipped_chunks, wkv6,
+                                          clipped_chunks,
+                                          segmented_wkv6_reference, wkv6,
                                           wkv6_reference)
+    from repro_torch.kernels.wkv6.wkv6 import chunked_wkv6, segment_chunks
     from repro_torch.models import layers, lm, rwkv
     from repro_torch.serve.decode import greedy_generate
 
@@ -725,6 +781,32 @@ def lm_phases(smi, kind):
         wkv_compare(f"{tag} vs exact recurrence ({clipped} clipped "
                     f"chunk-channels)", got, exact, hold_y=clipped == 0)
         del inp, got, chunked, exact
+    # the redesign's edges, through the launcher with the card's segment
+    # choice (None) or a forced one, also against the segmented plain
+    # version of the same split
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bh, seq, n, chunk, segment, zeros in (
+            (3, 16, 64, 16, None, 0.0), (1, 16, 8, 16, None, 0.0),
+            (1, 80, 16, 16, 2, 0.0), (1, 112, 32, 8, 3, 0.0),
+            (2, 64, 64, 4, 5, 0.0), (1, 4096, 64, 16, None, 0.0),
+            (2, 96, 16, 16, 1, 0.05), (1, 256, 64, 16, 3, 0.05),
+            (1, 32768, 64, 16, None, 0.0)):
+        seg = segment or segment_chunks(bh, seq // chunk, sms)
+        tag = (f"edge [{bh}, {seq}, {n}] chunk {chunk} segment {seg}"
+               f"{'' if segment else ' (the card default)'}"
+               f"{' zeros' if zeros else ''}")
+        inp = wkv_inputs(gen, bh, seq, n, zeros)
+        with torch.inference_mode():
+            got = chunked_wkv6(*inp, chunk=chunk, segment=segment)
+            chunked = chunked_wkv6_reference(*inp, chunk=chunk)
+            segmented = segmented_wkv6_reference(*inp, chunk=chunk,
+                                                 segment=seg)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"non-finite wkv6 output at {tag}")
+        wkv_compare(f"{tag} vs chunked plain", got, chunked, err)
+        wkv_compare(f"{tag} vs segmented plain", got, segmented, err)
+        del inp, got, chunked, segmented
     inp = wkv_inputs(gen, *WKV_LONG)
     with torch.inference_mode():
         got = wkv6(*inp)
@@ -855,7 +937,8 @@ def lm_phases(smi, kind):
 
     # -- 16. where a full-width prefill's and a decode step's time goes --
     print_trace("lm-trace", f"prefill {list(LM_PREFILL)}",
-                *device_time_by_kernel(lambda: prefill(LM_PREFILL)))
+                *device_time_by_kernel(lambda: prefill(LM_PREFILL)),
+                group=("the wkv6 scan's kernels", WKV6_KERNELS))
     with torch.inference_mode():
         first, cache, cur = lm.prefill_with_cache(params, cfg, gen_prompt,
                                                   GEN_PROMPT + 1)

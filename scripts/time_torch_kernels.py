@@ -1,0 +1,132 @@
+"""Time the port's fused CowClip update and chunked WKV6 kernels on one card.
+
+    python scripts/time_torch_kernels.py [--src DIR] [--kernels update,wkv6]
+                                         [--quick]
+
+Times with ``chip_smoke.py``'s own timer, inputs and bounds (imported from
+it): CUDA events, the L2 flushed before each launch and the host's work
+covered. It prints each kernel's registers, shared memory and stack
+(``cuobjdump``), then:
+
+* ``update``: the fused CowClip + Adam update at [10131227, 10] and
+  [10131227, 1] (the largest deepfm-criteo table) with one batch's share
+  of rows touched, and at [10131227, 10] with half of them touched; each
+  timed with the host's work covered and with the L2 flush alone, beside
+  its bound;
+* ``wkv6``: ``chunked_wkv6`` at [256, 4096, 64] and [64, 32768, 64] (the
+  main path's prefill shapes) for several segment lengths, the card's own
+  choice first.
+
+``--src`` names the ``src`` directory whose ``repro_torch`` is timed
+(default: this checkout's), so that another commit's kernels, unpacked
+with ``git archive``, are timed with this timer: run one process per
+checkout. Every line names the card and its power limit. ``--quick``
+times one segment length per shape. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as smoke  # noqa: E402
+
+CRITEO_ROWS = 10131227         # the largest deepfm-criteo table
+BATCH_TOUCHED = 36430          # its rows one batch of 131072 touches
+
+
+def resources(ext):
+    """Print the registers, shared memory and stack of each kernel."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    usage = subprocess.run([str(tool), "--dump-resource-usage",
+                            str(Path(ext.__file__))], capture_output=True,
+                           text=True, timeout=120)
+    for line in usage.stdout.splitlines():
+        if "Function" in line or "REG" in line:
+            print("[resources]", line.strip())
+
+
+def time_update(gen, scratch, card):
+    from repro_torch.kernels.cowclip import fused_cowclip_adam
+
+    for dim, label, frac in ((10, "one batch's share",
+                              BATCH_TOUCHED / CRITEO_ROWS),
+                             (1, "one batch's share",
+                              BATCH_TOUCHED / CRITEO_ROWS),
+                             (10, "half", 0.5)):
+        w, g, cnt, m, v = smoke.kernel_inputs(gen, CRITEO_ROWS, dim,
+                                              touched_frac=frac)
+
+        def run():
+            fused_cowclip_adam(w, g, cnt, m, v, 5, lr=1e-3, l2=1e-4)
+
+        covered = smoke.cuda_time_cold_ms(run, 20, scratch)
+        flush = smoke.cuda_time_cold_ms(run, 20, scratch, cover=False)
+        b_ms, b_by, touched, _ = smoke.update_bound(cnt, dim)
+        print(f"[time] cowclip_adam_update [{CRITEO_ROWS}, {dim}] {label} "
+              f"touched ({touched} rows): {covered:.4f} ms (L2 flushed, host "
+              f"covered), {flush:.4f} ms (L2 flushed only), bound "
+              f"{b_ms:.4f} ms by {b_by}, {card}", flush=True)
+        del w, g, cnt, m, v
+
+
+def time_wkv6(gen, scratch, card, quick):
+    from repro_torch.kernels.wkv6.wkv6 import chunked_wkv6, segment_chunks
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bh, seq, n in (smoke.WKV_FULL, smoke.WKV_LONG):
+        r, k, v, w, u = smoke.wkv_inputs(gen, bh, seq, n)
+        own = segment_chunks(bh, seq // 16, sms)
+        choices = [own] if quick else [own] + [
+            s for s in (seq // 16, 128, 64, 32, 16) if s != own]
+        for seg in choices:
+            ms = smoke.cuda_time_cold_ms(
+                lambda: chunked_wkv6(r, k, v, w, u, segment=seg), 10, scratch)
+            print(f"[time] chunked_wkv6 [{bh}, {seq}, {n}] segment {seg} "
+                  f"chunks ({-(-seq // 16 // seg)} a bh"
+                  f"{', the card default' if seg == own else ''}): "
+                  f"{ms:.4f} ms (L2 flushed, host covered), {card}",
+                  flush=True)
+        del r, k, v, w, u
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", type=Path, default=ROOT / "src")
+    ap.add_argument("--kernels", default="update,wkv6")
+    ap.add_argument("--quick", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_torch_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(args.src.resolve()))
+    from repro_torch.kernels.extension import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"{card}; timing {args.src.resolve()}")
+    resources(build())
+    scratch = torch.zeros(smoke.L2_FLUSH_BYTES, dtype=torch.uint8,
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = args.kernels.split(",")
+    if "update" in kernels:
+        time_update(gen, scratch, card)
+    if "wkv6" in kernels:
+        time_wkv6(gen, scratch, card, args.quick)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -158,10 +158,14 @@ void sparse_update_scatter_(torch::Tensor w, torch::Tensor m, torch::Tensor v,
 }
 
 // r, k, v, w [bh, seq, n] f32; u [bh, n]; y [bh, seq, n] and s_out
-// [bh, n, n] allocated by the caller.
+// [bh, n, n] allocated by the caller, and the segment carry's scratch:
+// s_loc, s_in [bh, G-1, n, n] and p_seg [bh, G-1, n] for G segments of
+// `segment` chunks.
 void wkv6_chunked(torch::Tensor r, torch::Tensor k, torch::Tensor v,
                   torch::Tensor w, torch::Tensor u, torch::Tensor y,
-                  torch::Tensor s_out, int64_t chunk) {
+                  torch::Tensor s_out, torch::Tensor s_loc,
+                  torch::Tensor p_seg, torch::Tensor s_in, int64_t chunk,
+                  int64_t segment) {
   TORCH_CHECK(r.dim() == 3, "r must be [BH, S, N]");
   check_table(r, "r", r);
   check_table(k, "k", r);
@@ -175,23 +179,36 @@ void wkv6_chunked(torch::Tensor r, torch::Tensor k, torch::Tensor v,
               " outside [1, ", kWkv6MaxChunk, "]");
   TORCH_CHECK(seq % chunk == 0, "seq len ", seq, " is no multiple of chunk ",
               chunk);
+  TORCH_CHECK(segment >= 1, "segment ", segment, " < 1 chunk");
   TORCH_CHECK(bh <= INT32_MAX && seq <= INT32_MAX, "r is too large");
-  for (const auto& t : {u, s_out}) {
+  const int64_t n_chunks = seq / chunk;
+  const int64_t segs = n_chunks > 0 ? (n_chunks + segment - 1) / segment : 1;
+  TORCH_CHECK(bh * segs <= INT32_MAX, "too many segments");
+  for (const auto& t : {u, s_out, s_loc, p_seg, s_in}) {
     TORCH_CHECK(t.is_cuda() && t.device() == r.device() &&
                     t.scalar_type() == torch::kFloat32 && t.is_contiguous(),
-                "u and s_out must be contiguous float32 on r's device");
+                "u, s_out and the scratch must be contiguous float32 on r's "
+                "device");
   }
-  const std::vector<int64_t> u_shape{bh, n}, s_shape{bh, n, n};
+  const std::vector<int64_t> u_shape{bh, n}, s_shape{bh, n, n},
+      loc_shape{bh, segs - 1, n, n}, p_shape{bh, segs - 1, n};
   TORCH_CHECK(u.sizes() == c10::IntArrayRef(u_shape), "u must be [BH, N]");
   TORCH_CHECK(s_out.sizes() == c10::IntArrayRef(s_shape),
               "s_out must be [BH, N, N]");
+  TORCH_CHECK(s_loc.sizes() == c10::IntArrayRef(loc_shape) &&
+                  s_in.sizes() == c10::IntArrayRef(loc_shape),
+              "s_loc and s_in must be [BH, segments - 1, N, N]");
+  TORCH_CHECK(p_seg.sizes() == c10::IntArrayRef(p_shape),
+              "p_seg must be [BH, segments - 1, N]");
   const c10::cuda::CUDAGuard guard(r.device());
   wkv6_chunked_launch(r.data_ptr<float>(), k.data_ptr<float>(),
                       v.data_ptr<float>(), w.data_ptr<float>(),
                       u.data_ptr<float>(), y.data_ptr<float>(),
-                      s_out.data_ptr<float>(), static_cast<int>(bh),
-                      static_cast<int>(seq), static_cast<int>(n),
-                      static_cast<int>(chunk),
+                      s_out.data_ptr<float>(), s_loc.data_ptr<float>(),
+                      p_seg.data_ptr<float>(), s_in.data_ptr<float>(),
+                      static_cast<int>(bh), static_cast<int>(seq),
+                      static_cast<int>(n), static_cast<int>(chunk),
+                      static_cast<int>(segment),
                       at::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

@@ -4,8 +4,9 @@
 tensor goes through the hand-written kernel (``wkv6.py``) or the call
 raises; a CPU tensor takes the plain chunked version (``ref.py``), so both
 devices compute the same factorisation. ``wkv6.launches`` counts the
-kernel's launches (only those), so a run can show that its main path went
-through the kernel.
+calls that launch the kernels (only those), each 1 kernel, or 3 (segment
+pass, carry, scan) when BH is short of the SMs, so a run can show that
+its main path went through them.
 """
 
 from __future__ import annotations

@@ -10,11 +10,13 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import resolve_device
 
-def init_rmsnorm(d: int, *, lead: tuple = (), device="cpu") -> dict:
+
+def init_rmsnorm(d: int, *, lead: tuple = (), device="cuda") -> dict:
     """``lead`` prepends stacking dims (``[n_repeats]`` in ``lm.init``)."""
     return {"scale": torch.ones(lead + (d,), dtype=torch.float32,
-                                device=device)}
+                                device=resolve_device(device))}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

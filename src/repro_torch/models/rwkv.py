@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..core.device import resolve_device
 from ..kernels.wkv6 import wkv6
 
 F32 = torch.float32
@@ -41,7 +42,8 @@ def _normal(gen, shape, scale, device):
 
 
 def init_rwkv6(gen, d_model: int, n_heads: int, decay_rank: int = 64, *,
-               lead: tuple = (), device="cpu") -> dict:
+               lead: tuple = (), device="cuda") -> dict:
+    device = resolve_device(device)
     n = d_model // n_heads
     s = 1.0 / math.sqrt(d_model)
 
@@ -78,7 +80,8 @@ class RWKVState(NamedTuple):
 
 
 def init_rwkv_state(batch: int, d_model: int, n_heads: int, *,
-                    device="cpu") -> RWKVState:
+                    device="cuda") -> RWKVState:
+    device = resolve_device(device)
     n = d_model // n_heads
     return RWKVState(
         x_prev=torch.zeros((batch, d_model), dtype=F32, device=device),
@@ -218,7 +221,8 @@ def channel_mix_decode(params, h, state: RWKVState):
 
 
 def init_channel_mix(gen, d_model: int, d_ff: int, *, lead: tuple = (),
-                     device="cpu") -> dict:
+                     device="cuda") -> dict:
+    device = resolve_device(device)
     s = 1.0 / math.sqrt(d_model)
     return {
         "mix_k": torch.full(lead + (d_model,), 0.5, dtype=F32, device=device),

@@ -27,7 +27,10 @@ from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
                                          sparse_update_scatter)
 from repro_torch.kernels.cowclip import ref as cc_ref
 from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
-                                      clipped_chunks, wkv6, wkv6_reference)
+                                      clipped_chunks,
+                                      segmented_wkv6_reference, wkv6,
+                                      wkv6_reference)
+from repro_torch.kernels.wkv6.wkv6 import chunked_wkv6, segment_chunks
 from repro_torch.models import ctr, lm, rwkv
 
 
@@ -67,6 +70,43 @@ def test_torch_cowclip_cuda_kernel_matches_plain(vocab, dim, step):
     assert out[0] is w and out[1] is m and out[2] is v
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def _edge_counts(rows, which, seed):
+    """Counts where every row is absent, every row touched, or half."""
+    rng = np.random.default_rng(seed)
+    if which == "absent":
+        return np.zeros(rows, np.float32)
+    if which == "touched":
+        return rng.integers(1, 4, rows).astype(np.float32)
+    return (rng.integers(1, 4, rows) * (rng.random(rows) < 0.5)).astype(
+        np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 2, 3, 10, 16, 17, 64])
+@pytest.mark.parametrize("counts", ["absent", "touched", "half"])
+@pytest.mark.parametrize("step", [1, 1000])
+def test_torch_cowclip_cuda_kernel_edges(dim, counts, step):
+    """The redesigned update's edges: D on both sides of the stream path's
+    limit (16), a V that is no multiple of the rows a block covers (nor of
+    4, so the last float4 is partial), all rows absent or all touched,
+    and tables whose rows are not 16-byte aligned (the warp path);
+    rtol 1e-5 / atol 1e-7 against the plain version."""
+    _need_cuda()
+    vocab = 5003
+    for offset in (0, 1):      # 1: w and cnt start 4 bytes into a buffer
+        w, g, _, m, v = _inputs(vocab, dim, seed=dim * 7 + step + offset)
+        cnt = torch.from_numpy(_edge_counts(vocab, counts, dim + step)).cuda()
+        if offset:
+            w = torch.cat([w.new_zeros(1), w.flatten()])[1:].view(vocab, dim)
+            cnt = torch.cat([cnt.new_zeros(1), cnt])[1:]
+            assert w.data_ptr() % 16 and w.is_contiguous()
+        ref = reference(w, g, cnt, m, v, step, lr=1e-3, l2=1e-4)
+        out = fused_cowclip_adam(w, g, cnt, m, v, step, lr=1e-3, l2=1e-4)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.cuda
@@ -285,6 +325,38 @@ def test_torch_wkv6_cuda_kernel_zero_decays():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bh,seq,n,chunk,segment,zeros", [
+    (3, 16, 64, 16, None, 0.0),     # one chunk
+    (1, 16, 8, 16, None, 0.0),
+    (1, 80, 16, 16, 2, 0.0),        # BH 1; 5 chunks, segments of 2 (ragged)
+    (1, 112, 32, 8, 3, 0.0),        # 14 chunks, segments of 3
+    (2, 64, 64, 4, 5, 0.0),         # 16 chunks, segments of 5
+    (1, 4096, 64, 16, None, 0.0),   # BH 1: the card's own segment choice
+    (2, 96, 16, 16, 1, 0.05),       # exact zeros in w, a chunk a segment
+    (1, 256, 64, 16, 3, 0.05),
+    (2, 40, 20, 8, 2, 0.0),         # N % 4 != 0: the scalar-load path
+])
+def test_torch_wkv6_cuda_segment_edges(bh, seq, n, chunk, segment, zeros):
+    """The redesigned kernel's edges: a single chunk, segments that do not
+    divide the chunks, BH = 1, N in {8, 16, 20, 32, 64}, chunks 4 / 8 / 16,
+    exact zeros in w. Held at the wkv6 bar to the chunked plain version
+    and to the segmented one with the same segment; finite everywhere."""
+    _need_cuda()
+    inp = _wkv_inputs(bh, seq, n, seed=seq + n + chunk, zero_frac=zeros)
+    with torch.inference_mode():
+        y, s = chunked_wkv6(*inp, chunk=chunk, segment=segment)
+        torch.cuda.synchronize()
+        seg = segment or segment_chunks(
+            bh, seq // chunk,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        chunked = chunked_wkv6_reference(*inp, chunk=chunk)
+        segmented = segmented_wkv6_reference(*inp, chunk=chunk, segment=seg)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    _assert_wkv_bar(y, s, *chunked)
+    _assert_wkv_bar(y, s, *segmented)
+
+
+@pytest.mark.cuda
 def test_torch_wkv6_cuda_rejects_bad_inputs():
     _need_cuda()
     inp = _wkv_inputs(1, 40, 8, seed=0)
@@ -309,7 +381,7 @@ def test_torch_rwkv_mixer_cuda_ragged_lengths(seq):
     _need_cuda()
     d_model, n_heads = 256, 4
     params = rwkv.init_rwkv6(torch.Generator().manual_seed(seq), d_model,
-                             n_heads)
+                             n_heads, device="cpu")
     on_card = tree_map(lambda t: t.cuda(), params)
     x = torch.from_numpy((0.5 * np.random.default_rng(seq).standard_normal(
         (2, seq, d_model))).astype(np.float32))

@@ -3,7 +3,8 @@
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or
   the JAX package (checked on the AST, so strings and comments don't count).
 * The port's CLI imports with JAX made unimportable.
-* Without CUDA the default device raises instead of training on the CPU.
+* Without CUDA the default device raises instead of training on the CPU,
+  and no public function of the port defaults ``device`` to ``"cpu"``.
 * The CLI trains on the CPU when asked to (fused and sparse), and names the
   ROADMAP item of a path that is not ported yet.
 * The LM serving CLI decodes on the CPU with JAX unimportable, and refuses
@@ -48,6 +49,55 @@ def test_torch_port_imports_no_jax(path):
     assert path.exists(), path
     bad = _imported_roots(path) & set(FORBIDDEN)
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def _cpu_device_defaults(path: Path) -> list:
+    """``name`` of each public function in ``path`` (not ``_``-prefixed,
+    nor nested in one that is) whose ``device`` parameter defaults to the
+    string ``"cpu"``."""
+    found = []
+
+    def visit(node, private):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                hidden = private or child.name.startswith("_")
+                a = child.args
+                params = a.posonlyargs + a.args
+                pairs = list(zip(params[len(params) - len(a.defaults):],
+                                 a.defaults))
+                pairs += [(p, d) for p, d in zip(a.kwonlyargs, a.kw_defaults)
+                          if d is not None]
+                if not hidden and any(
+                        p.arg == "device" and isinstance(d, ast.Constant)
+                        and d.value == "cpu" for p, d in pairs):
+                    found.append(child.name)
+                visit(child, hidden)
+            elif isinstance(child, ast.ClassDef):
+                visit(child, private or child.name.startswith("_"))
+
+    visit(ast.parse(path.read_text(), filename=str(path)), False)
+    return found
+
+
+def test_torch_port_device_defaults_are_not_cpu(monkeypatch):
+    """Entry points run on the card unless the caller asks for the CPU:
+    no public function of ``repro_torch`` defaults ``device`` to "cpu",
+    and the model initialisers refuse to start without a card when no
+    device is named."""
+    bad = {str(p.relative_to(REPO)): names for p in PORT_FILES
+           if (names := _cpu_device_defaults(p))}
+    assert not bad, f"device defaults to 'cpu' in {bad}"
+    from repro_torch.models import layers, rwkv
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    for call in (lambda: layers.init_rmsnorm(8),
+                 lambda: rwkv.init_rwkv6(gen, 16, 2),
+                 lambda: rwkv.init_rwkv_state(1, 16, 2),
+                 lambda: rwkv.init_channel_mix(gen, 16, 32)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert layers.init_rmsnorm(8, device="cpu")["scale"].device.type == "cpu"
 
 
 def test_torch_cli_imports_without_jax():

@@ -19,7 +19,9 @@ from repro.kernels.wkv6 import wkv6 as jax_wkv6
 from repro.models import rwkv as jax_rwkv
 from repro_torch.kernels.extension import CUDA_FLAGS
 from repro_torch.kernels.wkv6 import (chunked_wkv6_reference, clipped_chunks,
-                                      wkv6, wkv6_reference)
+                                      segmented_wkv6_reference, wkv6,
+                                      wkv6_reference)
+from repro_torch.kernels.wkv6.wkv6 import segment_chunks
 from repro_torch.models import rwkv
 
 SWEEP = [(2, 32, 16), (4, 64, 32), (1, 128, 64), (8, 48, 8)]
@@ -136,6 +138,63 @@ def test_torch_wkv6_clipped_matches_jax():
     assert np.array_equal(port.numpy(), y)
     np.testing.assert_array_equal(s_fin.numpy().reshape(b * h, n, n),
                                   chunked[1])
+
+
+@pytest.mark.parametrize("bh,seq,n,chunk,segment", [
+    (2, 64, 16, 16, 1),      # one chunk a segment
+    (4, 64, 32, 8, 2),       # two
+    (2, 96, 16, 8, 3),       # three: 12 chunks, 4 whole segments
+    (2, 80, 16, 8, 3),       # ragged: 10 chunks, the last segment 1
+    (2, 16, 16, 16, 2),      # a single chunk, shorter than a segment
+    (1, 128, 64, 16, 3),     # BH = 1, ragged: 8 chunks
+])
+def test_torch_wkv6_segmented_matches_chunked(bh, seq, n, chunk, segment):
+    """The kernel's decomposition (segments of whole chunks, a carry over
+    the segments, the scan from each segment's incoming state) is the
+    chunked scan with another rounding order: y within 1e-6 of max |y|,
+    the state within rtol 1e-5 (atol 1e-7 for entries near zero)."""
+    inp = [torch.from_numpy(a) for a in _inputs(bh, seq, n, seed=seq + n)]
+    y, s = segmented_wkv6_reference(*inp, chunk=chunk, segment=segment)
+    y_ref, s_ref = chunked_wkv6_reference(*inp, chunk=chunk)
+    scale = float(y_ref.abs().max())
+    assert float((y - y_ref).abs().max()) / scale < 1e-6
+    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("segment", [1, 2, 3])
+@pytest.mark.parametrize("bh,seq,n", SWEEP)
+def test_torch_wkv6_segmented_matches_jax(bh, seq, n, segment):
+    """The segmented plain version against the JAX Pallas kernel
+    (interpret mode) at the JAX kernel test's bar, on the sweep shapes."""
+    inp = _inputs(bh, seq, n, seed=bh * seq + n)
+    _assert_bar(_torch(segmented_wkv6_reference, inp, segment=segment),
+                _jax(jax_wkv6, inp))
+
+
+@pytest.mark.parametrize("segment", [1, 3])
+def test_torch_wkv6_segmented_clipped_matches_jax(segment):
+    """The all-clipped case of ``test_torch_wkv6_clipped_matches_jax``
+    (wlog ~ N(1.5, 1)): the segmented plain version computes the JAX
+    Pallas kernel's clipped y, at the bar."""
+    inp = _inputs(8, 64, 16, seed=21, wlog_mean=1.5)
+    assert clipped_chunks(torch.from_numpy(inp[3])) > 0
+    _assert_bar(_torch(segmented_wkv6_reference, inp, segment=segment),
+                _jax(jax_wkv6, inp))
+
+
+def test_torch_wkv6_segment_choice():
+    """Segments of whole chunks; one segment when BH gives every SM a
+    block; otherwise enough segments for several waves, and never more
+    than the chunks."""
+    assert segment_chunks(256, 256, 132) == 256
+    assert segment_chunks(64, 0, 132) == 1
+    assert segment_chunks(1, 1, 132) == 1
+    seg = segment_chunks(64, 2048, 132)
+    segs = -(-2048 // seg)
+    assert 64 * segs >= 4 * 132 and seg * (segs - 1) < 2048
+    with pytest.raises(ValueError):
+        segmented_wkv6_reference(*[torch.zeros(1, 16, 4)] * 4,
+                                 torch.zeros(1, 4), segment=0)
 
 
 def test_torch_wkv6_rejects_ragged_seq():
