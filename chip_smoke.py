@@ -15,9 +15,14 @@ Phases, each fatal on failure:
   4. train: DeepFM at deepfm-criteo width (26 fields, 33.76M ids, emb 10,
      MLP 3x400, 13 dense) on synthetic Zipf data, batch 131072 (base 1024),
      4 steps of the fused placement plus one eval through train_ctr; the
-     kernel must launch exactly 52 times per step and the loss stay finite
-  5. trace: 2 more fused steps under torch.profiler, device time by
-     kernel, and the fused update's kernels summed
+     kernel must launch exactly 52 times per step and the loss stay
+     finite; ms/step from train_ctr's CUDA events
+  5. trace: 2 more fused steps through train_ctr under torch.profiler,
+     device time by kernel, the fused update's kernels a step, and every
+     host read of a scalar (aten::_local_scalar_dense) per step, whether
+     it copies from the card, with the ops and port source that made it:
+     none may copy from the card (PyTorch's embedding backward alone
+     excepted, and listed); a known device read is first seen as one
   6. agreement: 3 fused steps at a small size on the card against the same
      steps on the CPU (the path the CPU tests hold to the JAX package)
   7. fused kernel time on the largest table with CUDA events (L2 flushed
@@ -29,18 +34,25 @@ Phases, each fatal on failure:
      [10131227, 1] at capacity 131072 (one Zipf batch of the largest field's
      unique ids plus pads), pending depths 0-1000, steps 1 and 1000; a
      [4, 10] case; a row_offset case against the last of 4 row shards of
-     the largest table; rtol 1e-5 / atol 1e-7
+     the largest table; the grouped launch over the 52 tables of phase 9's
+     first batch (steps 1 and 1000, depths 0-1000): real slot rows and
+     tables at rtol 1e-5 / atol 1e-7, last_step equal, untouched rows
+     bitwise unchanged, the depth equal to the per-table formula
   9. sparse train: the same model, data and hypers through the sparse
      placement, 4 steps, flush and one eval through train_ctr; each sparse
-     kernel must launch exactly 52 times per step and the fused one never
- 10. sparse trace: 2 more sparse steps under torch.profiler
+     kernel must launch exactly once per step over all 52 tables, the
+     single-table wrappers and the fused kernel never
+ 10. sparse trace: 2 more sparse steps, as phase 5, with the sparse pair's
+     device time a step
  11. sparse agreement at phase 6's small size: 3 sparse steps on the card
      against the CPU path, the same steps twice on the card bitwise equal,
      and flushed sparse against fused on the card
- 12. sparse kernel times at [10131227, 10] and [10131227, 1] with CUDA
-     events (L2 flushed before each launch; host work covered, and also
-     not), beside their byte bounds and
-     the plain versions' times
+ 12. sparse kernel times at [10131227, 10] and [10131227, 1], and over one
+     step's 52 tables (one grouped launch each, and the same kernels a
+     launch a table), with CUDA events (L2 flushed before each launch;
+     host work covered, and also not), beside their byte bounds (summed
+     over the tables from the batch's real counts) and the plain versions'
+     times
  13. wkv6 kernel vs its plain versions (the chunked one and the exact
      recurrence) at the JAX sweep, chunks 4 / 8 / 16, exact zeros in w,
      [256, 4096, 64] and [64, 32768, 64]; at the redesign's edges (one
@@ -73,6 +85,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -87,13 +100,15 @@ BASE_BATCH = 1024
 L2_FLUSH_BYTES = 256 * 2**20   # > the H100's 50 MB L2
 HOST_COVER_CYCLES = 2_000_000  # ~1 ms of the card's clock: > a wrapper's
                                # host work before its launch
+STEP_COVER_CYCLES = 40_000_000  # ~20 ms: > the host work of 52 wrapper
+                                # calls, or of one over 52 tables
 # the fused update's kernels (one a launch, by D and alignment) and the
 # scan's (the segment pass and the carry only when BH is short of the SMs)
 FUSED_KERNELS = ("cowclip_adam_tile_kernel", "cowclip_adam_kernel")
 WKV6_KERNELS = ("wkv6_segment_state_kernel", "wkv6_segment_carry_kernel",
                 "wkv6_chunked_kernel")
-PORT_KERNELS = FUSED_KERNELS + ("sparse_catchup_kernel",
-                                "sparse_update_kernel") + WKV6_KERNELS
+SPARSE_KERNELS = ("sparse_catchup_kernel", "sparse_update_kernel")
+PORT_KERNELS = FUSED_KERNELS + SPARSE_KERNELS + WKV6_KERNELS
 WKV_Y_REL = 1e-4               # the JAX wkv6 test's bar: max |dy| / max |y|
 WKV_S_RTOL, WKV_S_ATOL = 1e-3, 1e-4   # ... and its bar on the final state
 WKV_FULL = (256, 4096, 64)     # batch 4 x 64 heads, 4096 tokens, head 64
@@ -112,12 +127,13 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_time_cold_ms(fn, iters, scratch, warmup=1, cover=True):
+def cuda_time_cold_ms(fn, iters, scratch, warmup=1, cover=True,
+                      cover_cycles=HOST_COVER_CYCLES):
     """Mean time of ``fn`` with the L2 cache flushed before each launch
     (the main path meets its table rows cold): CUDA events around each
     call alone. The flush reads ``scratch``, so it leaves no dirty lines
     whose write-back would be timed with ``fn``; then, with ``cover``, the
-    card spins for HOST_COVER_CYCLES, so the wrapper's host work (longer
+    card spins for ``cover_cycles``, so the wrapper's host work (longer
     than a short kernel) is done before the start event runs and is not
     timed. ``cover=False`` times that host work too (the flush alone)."""
     for _ in range(warmup):
@@ -126,7 +142,7 @@ def cuda_time_cold_ms(fn, iters, scratch, warmup=1, cover=True):
     for _ in range(iters):
         scratch.max()
         if cover:
-            torch.cuda._sleep(HOST_COVER_CYCLES)
+            torch.cuda._sleep(cover_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -139,16 +155,20 @@ def cuda_time_cold_ms(fn, iters, scratch, warmup=1, cover=True):
 
 def compare(phase, tag, a, b, worst):
     """Hold ``a`` (kernel) to ``b`` (plain version) at rtol/atol, print the
-    result and fold the max abs error into ``worst[0]``."""
+    result (with ``phase`` None, only a failure) and fold the max abs error
+    into ``worst[0]``."""
     err = (a - b).abs()
     # share of the allowed error used by the worst element (<= 1 passes);
     # a plain relative error is meaningless where the reference is near 0
-    used = (err / (ATOL + RTOL * b.abs())).max().item()
+    used = (err / (ATOL + RTOL * b.abs())).max().item() if err.numel() \
+        else 0.0
     ok = torch.allclose(a, b, rtol=RTOL, atol=ATOL)
-    worst[0] = max(worst[0], err.max().item())
-    print(f"[{phase}] {tag}: max_abs {err.max().item():.3e}, worst "
-          f"|err|/(atol + rtol*|ref|) {used:.3f} (rtol {RTOL}, atol {ATOL}) "
-          f"{'ok' if ok else 'FAIL'}")
+    worst[0] = max(worst[0], err.max().item() if err.numel() else 0.0)
+    if phase is not None or not ok:
+        print(f"[{phase or 'compare'}] {tag}: max_abs "
+              f"{err.max().item():.3e}, worst "
+              f"|err|/(atol + rtol*|ref|) {used:.3f} (rtol {RTOL}, atol "
+              f"{ATOL}) {'ok' if ok else 'FAIL'}")
     check(ok, f"kernel disagrees with its plain version: {tag}")
 
 
@@ -170,32 +190,146 @@ def sparse_tables(gen, rows, dim, max_depth):
     return w, m, v, ls
 
 
-def catchup_bound(counts, dim):
-    """Least time for one catch-up: every slot reads its uid and count and
-    writes 3 rows; a real slot also reads its last_step and 3 table rows.
-    About 2 f32 operations per real element plus one pow per real slot."""
-    cap = counts.numel()
-    real = int((counts > 0).sum())
-    nbytes = cap * (8 + 12 * dim) + real * (4 + 12 * dim)
-    flops = real * (dim + 20)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), real, nbytes
+def criteo_data():
+    """The CTR phases' synthetic Zipf data at deepfm-criteo width, enough
+    for TRAIN_STEPS batches: (train, test)."""
+    from repro_torch.configs.deepfm_criteo import CRITEO_VOCABS
+    from repro_torch.data import make_ctr_dataset
+
+    n_samples = math.ceil(TRAIN_STEPS * BATCH / 0.9 / BATCH) * BATCH
+    return make_ctr_dataset(n_samples, CRITEO_VOCABS, n_dense=13, zipf_a=1.1,
+                            seed=0).split(0.9)
 
 
-def scatter_bound(counts, dim):
-    """Least time for one update: every slot reads its count; a real slot
-    reads its uid and 4 slot rows (w, g, m, v) and writes 3 table rows and
-    its last_step. About 25 f32 operations per real element."""
-    cap = counts.numel()
-    real = int((counts > 0).sum())
-    nbytes = cap * 4 + real * (8 + 28 * dim)
-    flops = real * dim * 25
+def criteo_hypers():
+    """The CTR phases' hyperparameters: CowClip scaling from base batch
+    BASE_BATCH to BATCH."""
+    from repro_torch.core.scaling import scale_hyperparams
+
+    return scale_hyperparams("cowclip", base_lr=1e-4, base_l2=1e-5,
+                             base_batch=BASE_BATCH, batch_size=BATCH,
+                             base_dense_lr=2e-4)
+
+
+def step_slot_sets(ids, vocabs):
+    """One batch's slot set of every field, by the sparse step's own dedup
+    (capacity min(batch, vocab)): ``[(uids, counts)]`` in field order."""
+    from repro_torch.models.embedding import batch_unique
+
+    uniq = batch_unique(ids, vocabs)
+    return [(uniq[f"field_{i}"].uids, uniq[f"field_{i}"].counts)
+            for i in range(len(vocabs))]
+
+
+def step_tables(gen, vocabs, slot_sets, dims, max_depth):
+    """The tables of one sparse step, in the step's order (the fm tables,
+    then the LR ones): ``(w, m, v, last_step, uids, counts)`` each, with
+    pending depths 0 to ``max_depth`` drawn on the card."""
+    return [(*sparse_tables(gen, vocab, dim, max_depth), uids, counts)
+            for dim in dims for vocab, (uids, counts) in zip(vocabs,
+                                                             slot_sets)]
+
+
+def _bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), real, nbytes
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def catchup_bound(tables):
+    """Least time for the catch-up of ``tables`` (``[(counts, dim)]``):
+    every slot reads its count and writes 3 rows (a pad's are zeros); a
+    real slot also reads its uid, its last_step and 3 table rows. About 2
+    f32 operations per real element plus one pow per real slot. Returns
+    (ms, by, real slots, bytes)."""
+    nbytes = flops = reals = 0
+    for counts, dim in tables:
+        cap, real = counts.numel(), int((counts > 0).sum())
+        nbytes += cap * (4 + 12 * dim) + real * (8 + 12 * dim)
+        flops += real * (dim + 20)
+        reals += real
+    return (*_bound(nbytes, flops), reals, nbytes)
+
+
+def scatter_bound(tables):
+    """Least time for the update of ``tables`` (``[(counts, dim)]``):
+    every slot reads its count; a real slot reads its uid and 4 slot rows
+    (w, g, m, v) and writes 3 table rows and its last_step. About 25 f32
+    operations per real element. Returns (ms, by, real slots, bytes)."""
+    nbytes = flops = reals = 0
+    for counts, dim in tables:
+        cap, real = counts.numel(), int((counts > 0).sum())
+        nbytes += cap * 4 + real * (8 + 28 * dim)
+        flops += real * dim * 25
+        reals += real
+    return (*_bound(nbytes, flops), reals, nbytes)
+
+
+def time_sparse_step(cc, gen, vocabs, slot_sets, dims, scratch, *, lr, l2,
+                     step=1000, plain=True, iters=20):
+    """One step's catch-up and update over every table (``step_tables``
+    of ``slot_sets``), each timed with the L2 flushed before it and the
+    host's work covered (STEP_COVER_CYCLES), and with the flush alone;
+    ``cc`` is the wrappers' module (``repro_torch.kernels.cowclip``): its
+    grouped wrappers where it has them, else its single-table ones, one
+    call a table. With ``plain``, the plain versions' time too, table by
+    table. Returns {name: (ms, flush-alone ms, plain ms or None, bound ms,
+    bound by, real slots, bytes)}."""
+    from repro_torch.kernels.cowclip import ref as cc_ref
+
+    group = step_tables(gen, vocabs, slot_sets, dims, 1000)
+    cols = [list(c) for c in zip(*group)]       # w, m, v, ls, uids, counts
+    kw = dict(lr=lr, l2=l2)
+    upd_kw = dict(kw, r=1.0, zeta=1e-5)
+    grouped = hasattr(cc, "sparse_gather_catchup_tables")
+    if grouped:
+        rows, _ = cc.sparse_gather_catchup_tables(*cols, step, **kw)
+    else:
+        rows = [cc.sparse_gather_catchup(*t, step, **kw) for t in group]
+    grads = [0.1 * torch.randn(r[0].shape, generator=gen, device="cuda")
+             for r in rows]
+
+    def catchup():
+        if grouped:
+            cc.sparse_gather_catchup_tables(*cols, step, **kw)
+            return
+        for t in group:
+            cc.sparse_gather_catchup(*t, step, **kw)
+
+    def update():
+        if grouped:
+            cc.sparse_update_scatter_tables(
+                *cols, [r[0] for r in rows], grads, [r[1] for r in rows],
+                [r[2] for r in rows], step, **upd_kw)
+            return
+        for t, r, g in zip(group, rows, grads):
+            cc.sparse_update_scatter(*t, r[0], g, r[1], r[2], step, **upd_kw)
+
+    def plain_catchup():
+        for w, m, v, ls, uids, _ in group:
+            cc_ref.sparse_gather_catchup_reference(w, m, v, ls, uids, step,
+                                                   **kw)
+
+    def plain_update():
+        for t, r, g in zip(group, rows, grads):
+            cc_ref.sparse_update_scatter_reference(*t, r[0], g, r[1], r[2],
+                                                   step, **upd_kw)
+
+    shapes = [(t[5], t[0].shape[1]) for t in group]
+    out = {}
+    for name, fn, plain_fn, bound in (
+            ("sparse_gather_catchup", catchup, plain_catchup,
+             catchup_bound(shapes)),
+            ("sparse_update_scatter", update, plain_update,
+             scatter_bound(shapes))):
+        ms = cuda_time_cold_ms(fn, iters, scratch,
+                               cover_cycles=STEP_COVER_CYCLES)
+        flush_ms = cuda_time_cold_ms(fn, iters, scratch, cover=False)
+        plain_ms = (cuda_time_cold_ms(plain_fn, 3, scratch,
+                                      cover_cycles=STEP_COVER_CYCLES)
+                    if plain else None)
+        out[name] = (ms, flush_ms, plain_ms, *bound)
+    return out
 
 
 def kernel_inputs(gen, rows, dim, touched_frac=0.5, cnt=None):
@@ -218,34 +352,45 @@ def update_bound(cnt, dim):
     touched = int((cnt > 0).sum())
     nbytes = touched * 28 * dim + (rows - touched) * 8 * dim + 4 * rows
     flops = touched * dim * 21 + (rows - touched) * dim
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), touched, nbytes
+    return (*_bound(nbytes, flops), touched, nbytes)
+
+
+def profiled(fn, with_stack=False):
+    """Run ``fn`` once under torch.profiler: (wall ms, the profile)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts,
+                                with_stack=with_stack) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, prof
+
+
+def by_kernel(prof):
+    """[(device ms, count, name)] of a profile's kernels and copies (not
+    the device-side spans of the steps' labels), sorted by device time."""
+    return sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0
+         and not e.key.startswith(STEP_LABEL)), reverse=True)
 
 
 def device_time_by_kernel(fn):
     """Run ``fn`` once under torch.profiler: (wall ms, [(device ms, count,
     name)] sorted by device time)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0), reverse=True)
+    wall_ms, prof = profiled(fn)
+    return wall_ms, by_kernel(prof)
 
 
-def print_trace(prefix, tag, wall_ms, by_kernel, group=None):
+def print_trace(prefix, tag, wall_ms, by_kernel, group=None, steps=None):
     """Device busy time against wall time, then device time by kernel with
     its share: the top 12, and the port's own kernels wherever they rank.
     ``group`` = (label, names): those kernels' device time summed, with
-    its share."""
+    its share (and per step, over ``steps`` steps)."""
     busy_ms = sum(t for t, _, _ in by_kernel)
     if not busy_ms:
         print(f"[{prefix}] {tag}: the profiler saw no device time: not "
@@ -263,28 +408,110 @@ def print_trace(prefix, tag, wall_ms, by_kernel, group=None):
                    if any(k in name for k in names))
         n_g = sum(n for _, n, name in by_kernel
                   if any(k in name for k in names))
-        print(f"[{prefix}] {label} ({', '.join(names)}): {ms_g:.3f} ms, "
-              f"{100 * ms_g / busy_ms:.1f}% of device time, {n_g} kernel "
-              f"launches")
+        per_step = f", {ms_g / steps:.3f} ms a step" if steps else ""
+        print(f"[{prefix}] {label} ({', '.join(names)}): {ms_g:.3f} ms"
+              f"{per_step}, {100 * ms_g / busy_ms:.1f}% of device time, "
+              f"{n_g} kernel launches")
 
 
-def trace_steps(bundle, params, state, tr, tag):
-    """2 steps under torch.profiler: device busy time against wall time,
-    and device time by kernel."""
-    from repro_torch.data import iterate_batches
+STEP_LABEL = "chip_smoke step"
+HOST_READ = "aten::_local_scalar_dense"   # the host reads a scalar
+# ops under which PyTorch itself may read a device scalar (a segment
+# count of the CUDA embedding backward); such a read is listed, not fatal
+TOLERATED_READ_OPS = ("aten::embedding_dense_backward",)
 
-    batches = iterate_batches(tr, BATCH, seed=1)
+
+def host_reads(prof):
+    """Every host read of a scalar in a profile (the profile taken with its
+    Python stack): (the traced step whose time range holds it, or "between
+    the steps"; "device" when the read copies from the card (a CUDA
+    runtime call under it), else "host"; the ops it was called from,
+    innermost first; the innermost function of the port it was called
+    from, if any, from its thread's Python stack; every caller's name)."""
+    events = prof.events()
+    steps = [(e.time_range.start, e.time_range.end, e.name)
+             for e in events if e.name.startswith(STEP_LABEL)]
+    reads = []
+    for e in events:
+        if e.name != HOST_READ:
+            continue
+        where = next((name for a, b, name in steps
+                      if a <= e.time_range.start <= b), "between the steps")
+        callers, stack, up = [], list(e.stack or []), e.cpu_parent
+        while up is not None:
+            callers.append(up.name)
+            stack += up.stack or []
+            up = up.cpu_parent
+        ops = [c for c in callers if "::" in c][:3]
+        # the Python frames are caller events or each event's recorded stack
+        frame = next((c for c in callers + stack if "repro_torch" in c),
+                     "no function of the port")
+        below, device = list(e.cpu_children), False
+        while below and not device:
+            child = below.pop()
+            device = child.name.startswith("cuda")
+            below.extend(child.cpu_children)
+        reads.append((where, "device" if device else "host",
+                      " < ".join(ops) or "(called alone)", frame,
+                      " ".join(callers)))
+    return reads
+
+
+def trace_steps(cfg, bundle, params, state, tr, tag, group):
+    """2 steps through train_ctr under torch.profiler (its flush a no-op
+    and no eval, so the trace holds the steps and the loop alone): device
+    busy against wall time, device time by kernel, ``group``'s kernels a
+    step, and every host read of a scalar with the step it fell in, whether
+    it copies from the card, and the ops and port source that made it.
+    Fails if any read, in a step or between the steps, copies from the
+    card (a loss read in the loop, ``bincount``'s max and min), unless it
+    is under one of TOLERATED_READ_OPS; and first fails unless a known
+    device read and a known host read are told apart."""
+    from repro_torch.train import train_ctr
+
+    def control():    # one read of a device scalar, then of a host one
+        float(torch.ones((), device="cuda"))
+        float(torch.ones(()))
+
+    kinds = sorted(r[1] for r in host_reads(profiled(control,
+                                                      with_stack=True)[1]))
+    check(kinds == ["device", "host"],
+          f"the trace's host reads of a device and a host scalar were "
+          f"classified {kinds}")
+
+    labels = iter(range(2))
+
+    def labelled_step(params, state, batch):
+        with torch.profiler.record_function(f"{STEP_LABEL} {next(labels)}"):
+            return bundle.step(params, state, batch)
 
     def two_steps():
-        nonlocal params, state
-        for _ in range(2):
-            batch = {k: torch.as_tensor(x, device="cuda")
-                     for k, x in next(batches).items()}
-            params, state, aux = bundle.step(params, state, batch)
-            float(aux["loss"])
+        train_ctr(cfg, None, tr, None, batch_size=BATCH, seed=1,
+                  step_bundle=bundle._replace(step=labelled_step,
+                                              flush=lambda p, s: (p, s)),
+                  max_steps=2, init_state=(params, state), device="cuda")
 
-    print_trace("trace", f"{tag}, 2 steps", *device_time_by_kernel(two_steps),
-                group=("the fused update's kernels", FUSED_KERNELS))
+    wall_ms, prof = profiled(two_steps, with_stack=True)
+    print_trace("trace", f"{tag}, 2 steps", wall_ms, by_kernel(prof),
+                group=group, steps=2)
+    reads = host_reads(prof)
+    for where in [f"{STEP_LABEL} {i}" for i in range(2)] + [
+            "between the steps"]:
+        here = [r[1:4] for r in reads if r[0] == where]
+        n_dev = sum(kind == "device" for kind, _, _ in here)
+        print(f"[trace] {tag}, {where}: {len(here)} host reads "
+              f"({HOST_READ}), {n_dev} of a device scalar")
+        for read in sorted(set(here)):
+            print(f"[trace]   x{here.count(read)} of a {read[0]} scalar, "
+                  f"from {read[1]}, in {read[2]}")
+    tolerated = [r[:4] for r in reads if r[1] == "device"
+                 and any(op in r[4] for op in TOLERATED_READ_OPS)]
+    for read in sorted(set(tolerated)):
+        print(f"[trace] {tag}: x{tolerated.count(read)} PyTorch's own read "
+              f"of a device scalar, left to ROADMAP queue 1 item 3: {read}")
+    bad = [r[:4] for r in reads if r[1] == "device"
+           and not any(op in r[4] for op in TOLERATED_READ_OPS)]
+    check(not bad, f"{tag}: host reads of a device scalar: {bad}")
 
 
 def run_small(cfg, hp, path, dev, params0, ds, steps=3):
@@ -314,11 +541,13 @@ def ctr_phases(smi, kind):
     from repro_torch.configs.deepfm_criteo import CONFIG, CRITEO_VOCABS
     from repro_torch.core.scaling import scale_hyperparams
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.data import make_ctr_dataset
+    from repro_torch.data import iterate_batches, make_ctr_dataset
     from repro_torch.embed import store_for
     from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
                                              sparse_gather_catchup,
-                                             sparse_update_scatter)
+                                             sparse_gather_catchup_tables,
+                                             sparse_update_scatter,
+                                             sparse_update_scatter_tables)
     from repro_torch.kernels.cowclip import ref as cc_ref
     from repro_torch.models import ctr
     from repro_torch.train import train_ctr
@@ -360,16 +589,11 @@ def ctr_phases(smi, kind):
     check(cfg.vocab_sizes == CRITEO_VOCABS and cfg.n_dense == 13
           and cfg.emb_dim == 10 and cfg.mlp_dims == (400, 400, 400),
           "not the deepfm-criteo width")
-    n_samples = math.ceil(TRAIN_STEPS * BATCH / 0.9 / BATCH) * BATCH
     t0 = time.perf_counter()
-    ds = make_ctr_dataset(n_samples, CRITEO_VOCABS, n_dense=13, zipf_a=1.1,
-                          seed=0)
-    tr, te = ds.split(0.9)
+    tr, te = criteo_data()
     print(f"[train] synthetic Zipf data: {len(tr)} train / {len(te)} test "
           f"rows in {time.perf_counter() - t0:.1f} s", flush=True)
-    hp = scale_hyperparams("cowclip", base_lr=1e-4, base_l2=1e-5,
-                           base_batch=BASE_BATCH, batch_size=BATCH,
-                           base_dense_lr=2e-4)
+    hp = criteo_hypers()
     bundle = store_for(cfg).make_bundle(
         cfg, hp, warmup_steps=max(1, len(tr) // BATCH))
     n_tables = 2 * cfg.n_fields
@@ -386,7 +610,7 @@ def ctr_phases(smi, kind):
     for i, (loss, sec) in enumerate(zip(res.losses, res.step_seconds)):
         print(f"[train] step {i + 1}: loss {loss:.6f} {sec * 1e3:.1f} ms")
     steady = res.step_seconds[1:]
-    print(f"[train] ms/step after the first: "
+    print(f"[train] ms/step after the first (CUDA events): "
           f"{1e3 * sum(steady) / len(steady):.1f}; eval AUC "
           f"{res.final_eval['auc']:.6f} logloss "
           f"{res.final_eval['logloss']:.6f} "
@@ -409,7 +633,8 @@ def ctr_phases(smi, kind):
 
     # -- 5. where a step's device time goes (2 more steps, profiled) -----
     # after the launch count was read, so these launches are not counted
-    trace_steps(bundle, res.params, res.opt_state, tr, "fused")
+    trace_steps(cfg, bundle, res.params, res.opt_state, tr, "fused",
+                ("the fused update's kernels", FUSED_KERNELS))
     del res, bundle
     torch.cuda.empty_cache()
 
@@ -541,6 +766,73 @@ def ctr_phases(smi, kind):
             del w, m, v, ls, got, want, tables, g, untouched
         torch.cuda.empty_cache()
 
+    # the grouped launch over the 52 tables of phase 9's first batch (the
+    # main path's form)
+    batch_ids = torch.as_tensor(
+        next(iterate_batches(tr, BATCH, seed=0))["ids"], device="cuda")
+    slot_sets = step_slot_sets(batch_ids, CRITEO_VOCABS)
+    dims = (CONFIG.emb_dim, 1)
+    for step in (1, 1000):
+        group = step_tables(gen, CRITEO_VOCABS, slot_sets, dims, 1000)
+        cols = [list(c) for c in zip(*group)]       # w, m, v, ls, uids, counts
+        rows, depth = sparse_gather_catchup_tables(*cols, step, **sparse_kw)
+        grads = [0.1 * torch.randn(r[0].shape, generator=gen, device="cuda")
+                 for r in rows]
+        tables = [[t.clone() for t in c] for c in cols[:4]]
+        sparse_update_scatter_tables(
+            *tables, cols[4], cols[5], [r[0] for r in rows], grads,
+            [r[1] for r in rows], [r[2] for r in rows], step, r=1.0,
+            zeta=1e-5, **sparse_kw)
+        torch.cuda.synchronize()
+        # the step's former depth diagnostic, table by table
+        stacked = torch.stack([
+            torch.max(torch.where(
+                c > 0, (step - 1) - ls[torch.clamp_max(u.to(torch.int64),
+                                                       ls.shape[0] - 1)], 0))
+            for _, _, _, ls, u, c in group]).max().to(torch.int32)
+        check(int(depth) == int(stacked),
+              f"grouped depth {int(depth)} != {int(stacked)} at step {step}")
+        worst_rows, worst_tables, untouched_rows = [0.0], [0.0], 0
+        for i, (w, m, v, ls, uids, counts) in enumerate(group):
+            tag = f"grouped step {step}, table {i} [{w.shape[0]}, " \
+                  f"{w.shape[1]}]"
+            real = counts > 0
+            want = cc_ref.sparse_gather_catchup_reference(
+                w, m, v, ls, uids, step, **sparse_kw)
+            for name, a, b in zip("wmv", rows[i], want):
+                check(bool(torch.isfinite(a).all()),
+                      f"non-finite catch-up rows, {tag}")
+                compare(None, f"catch-up {tag} {name}_rows (real slots)",
+                        a[real], b[real], worst_rows)
+            want = cc_ref.sparse_update_scatter_reference(
+                w, m, v, ls, uids, counts, rows[i][0], grads[i], rows[i][1],
+                rows[i][2], step, r=1.0, zeta=1e-5, **sparse_kw)
+            got = [t[i] for t in tables]
+            for name, a, b in zip("wmv", got, want):
+                compare(None, f"update {tag} table {name}", a, b,
+                        worst_tables)
+            check(torch.equal(got[3], want[3]),
+                  f"last_step differs from the plain version, {tag}")
+            untouched = torch.ones(w.shape[0], dtype=torch.bool,
+                                   device="cuda")
+            untouched[uids[real].to(torch.int64)] = False
+            check(all(torch.equal(a[untouched], b[untouched])
+                      for a, b in zip(got, (w, m, v, ls))),
+                  f"the update wrote an untouched row, {tag}")
+            untouched_rows += int(untouched.sum())
+            del want, got, untouched
+        err_c[0] = max(err_c[0], worst_rows[0])
+        err_u[0] = max(err_u[0], worst_tables[0])
+        print(f"[sparse-kernel] grouped, step {step}, {len(group)} tables "
+              f"in one launch each: catch-up rows on the real slots max_abs "
+              f"{worst_rows[0]:.3e}, tables after the update max_abs "
+              f"{worst_tables[0]:.3e} (rtol {RTOL}, atol {ATOL}) ok; "
+              f"last_step equal; {untouched_rows} untouched rows bitwise "
+              f"unchanged; depth {int(depth)} = the per-table formula's",
+              flush=True)
+        del group, cols, rows, depth, grads, tables, stacked
+        torch.cuda.empty_cache()
+
     # -- 9. train through the sparse placement ---------------------------
     cfg_s = dataclasses.replace(CONFIG, placement="sparse", emb_sigma=1e-2)
     sbundle = store_for(cfg_s).make_bundle(
@@ -553,26 +845,30 @@ def ctr_phases(smi, kind):
         return params, state, aux
 
     torch.cuda.reset_peak_memory_stats()
-    fused_cowclip_adam.launches = 0
-    sparse_gather_catchup.launches = 0
-    sparse_update_scatter.launches = 0
+    counters = (sparse_gather_catchup_tables, sparse_update_scatter_tables,
+                sparse_gather_catchup, sparse_update_scatter,
+                fused_cowclip_adam)
+    for wrapper in counters:
+        wrapper.launches = 0
     sres = train_ctr(cfg_s, None, tr, te, batch_size=BATCH, epochs=1,
                      seed=0, step_bundle=sbundle._replace(step=recorded_step),
                      max_steps=TRAIN_STEPS, device="cuda")
     torch.cuda.synchronize()
-    s_launches = (sparse_gather_catchup.launches,
-                  sparse_update_scatter.launches)
-    f_launches = fused_cowclip_adam.launches
+    s_launches = (sparse_gather_catchup_tables.launches,
+                  sparse_update_scatter_tables.launches)
+    other_launches = tuple(w.launches for w in counters[2:])
     print(f"[sparse-train] deepfm-criteo sparse: batch {BATCH}, {sres.steps} "
-          f"steps, launches: sparse_gather_catchup {s_launches[0]}, "
-          f"sparse_update_scatter {s_launches[1]} (expected {n_tables} x "
-          f"{TRAIN_STEPS} each), cowclip_adam {f_launches} (expected 0)")
+          f"steps, {n_tables} tables; launches: sparse_gather_catchup "
+          f"{s_launches[0]}, sparse_update_scatter {s_launches[1]} "
+          f"(expected 1 a step each, {TRAIN_STEPS}); single-table "
+          f"wrappers {other_launches[:2]} and cowclip_adam "
+          f"{other_launches[2]} (expected 0)")
     for i, (loss, sec, depth) in enumerate(zip(sres.losses,
                                                sres.step_seconds, depths)):
         print(f"[sparse-train] step {i + 1}: loss {loss:.6f} "
               f"{sec * 1e3:.1f} ms, catchup_depth_max {int(depth)}")
     steady = sres.step_seconds[1:]
-    print(f"[sparse-train] ms/step after the first: "
+    print(f"[sparse-train] ms/step after the first (CUDA events): "
           f"{1e3 * sum(steady) / len(steady):.1f}; eval AUC "
           f"{sres.final_eval['auc']:.6f} logloss "
           f"{sres.final_eval['logloss']:.6f} "
@@ -580,11 +876,12 @@ def ctr_phases(smi, kind):
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     check(sres.steps == TRAIN_STEPS, f"sparse ran {sres.steps} steps")
-    check(s_launches == (n_tables * TRAIN_STEPS,) * 2,
+    check(s_launches == (TRAIN_STEPS,) * 2,
           f"sparse kernels launched {s_launches} times, expected "
-          f"{n_tables * TRAIN_STEPS} each")
-    check(f_launches == 0, f"the fused kernel launched {f_launches} times "
-                           f"on the sparse path")
+          f"{TRAIN_STEPS} each")
+    check(other_launches == (0, 0, 0),
+          f"single-table sparse and fused launches {other_launches} on the "
+          f"sparse path")
     check(all(math.isfinite(x) for x in sres.losses), "non-finite sparse loss")
     auc = sres.final_eval["auc"]
     check(math.isfinite(auc) and 0.0 <= auc <= 1.0, f"sparse AUC {auc}")
@@ -592,8 +889,9 @@ def ctr_phases(smi, kind):
         check(bool(torch.isfinite(leaf).all()), "non-finite sparse params")
 
     # -- 10. where a sparse step's device time goes ----------------------
-    trace_steps(sbundle, sres.params, sres.opt_state, tr, "sparse")
-    del sres, sbundle, ds, tr, te
+    trace_steps(cfg_s, sbundle, sres.params, sres.opt_state, tr, "sparse",
+                ("the sparse pair's kernels", SPARSE_KERNELS))
+    del sres, sbundle, tr, te
     torch.cuda.empty_cache()
 
     # -- 11. sparse agreement on a small input ---------------------------
@@ -638,13 +936,13 @@ def ctr_phases(smi, kind):
                                               counts_big, 1000, **sparse_kw),
                 lambda: cc_ref.sparse_gather_catchup_reference(
                     w, m, v, ls, uids_big, 1000, **sparse_kw),
-                catchup_bound(counts_big, dim)),
+                catchup_bound([(counts_big, dim)])),
             "sparse_update_scatter": (
                 lambda: sparse_update_scatter(w, m, v, ls, *upd, r=1.0,
                                               zeta=1e-5, **sparse_kw),
                 lambda: cc_ref.sparse_update_scatter_reference(
                     w, m, v, ls, *upd, r=1.0, zeta=1e-5, **sparse_kw),
-                scatter_bound(counts_big, dim)),
+                scatter_bound([(counts_big, dim)])),
         }
         for name, (kernel_fn, plain_fn, bound) in runs.items():
             k_ms = cuda_time_cold_ms(kernel_fn, 20, scratch)
@@ -659,6 +957,32 @@ def ctr_phases(smi, kind):
                   f"at {HBM_BYTES_PER_S / 1e12} TB/s), {kind} at "
                   f"{smi.strip().split(', ')[-1]}", flush=True)
         del w, m, v, ls, g, rows_c, upd, runs
+    torch.cuda.empty_cache()
+    # one step's 52 tables: the grouped launch (the main path's), and the
+    # same kernel through the single-table wrappers, a launch a table
+    from repro_torch.kernels import cowclip as cc
+
+    power = smi.strip().split(", ")[-1]
+    per_table = types.SimpleNamespace(
+        sparse_gather_catchup=sparse_gather_catchup,
+        sparse_update_scatter=sparse_update_scatter)
+    for form, module, plain in (("one grouped launch", cc, True),
+                                (f"{n_tables} single-table launches",
+                                 per_table, False)):
+        times = time_sparse_step(module, gen, CRITEO_VOCABS, slot_sets, dims,
+                                 scratch, plain=plain, **sparse_kw)
+        torch.cuda.empty_cache()
+        for name, (k_ms, f_ms, p_ms, b_ms, b_by, real, nbytes) in \
+                times.items():
+            if plain:
+                sparse_times[name, "step"] = (k_ms, p_ms, b_ms, b_by)
+            plain_txt = f", plain {p_ms:.4f} ms" if plain else ""
+            print(f"[time] {name}, one step's {n_tables} tables ({real} real "
+                  f"slots), {form}, L2 flushed: {k_ms:.4f} ms, host work "
+                  f"covered ({f_ms:.4f} ms with the flush alone){plain_txt}, "
+                  f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B at "
+                  f"{HBM_BYTES_PER_S / 1e12} TB/s), {kind} at {power}",
+                  flush=True)
     del scratch
 
     lines = [fused_line]
@@ -667,7 +991,7 @@ def ctr_phases(smi, kind):
              err_c[0]),
             ("sparse_update_scatter", "sparse_update.cu", 179, s_launches[1],
              err_u[0])):
-        k_ms, p_ms, b_ms, b_by = sparse_times[name, CONFIG.emb_dim]
+        k_ms, p_ms, b_ms, b_by = sparse_times[name, "step"]
         lines.append({
             "name": name,
             "route": "cuda",

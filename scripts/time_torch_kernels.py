@@ -1,6 +1,7 @@
-"""Time the port's fused CowClip update and chunked WKV6 kernels on one card.
+"""Time the port's CowClip update kernels and chunked WKV6 on one card.
 
-    python scripts/time_torch_kernels.py [--src DIR] [--kernels update,wkv6]
+    python scripts/time_torch_kernels.py [--src DIR]
+                                         [--kernels update,sparse,wkv6]
                                          [--quick]
 
 Times with ``chip_smoke.py``'s own timer, inputs and bounds (imported from
@@ -13,6 +14,16 @@ covered. It prints each kernel's registers, shared memory and stack
   of rows touched, and at [10131227, 10] with half of them touched; each
   timed with the host's work covered and with the L2 flush alone, beside
   its bound;
+* ``sparse``: the sparse pair (``sparse_gather_catchup``,
+  ``sparse_update_scatter``) over one step's 52 deepfm-criteo tables (the
+  26 fm tables at D = 10 and the 26 LR ones at D = 1, slot sets of
+  ``chip_smoke.py`` phase 9's first batch of 131072, pending depths
+  0-1000, step 1000), each kernel timed over the whole step with the host's
+  work covered and with the L2 flush alone, beside its per-step bound:
+  through the grouped wrappers where the timed port has them, else
+  through the single-table wrappers a table at a time (the form before
+  the grouped launch); then the largest table alone at D = 10 and D = 1
+  through the single-table wrappers, three timings each;
 * ``wkv6``: ``chunked_wkv6`` at [256, 4096, 64] and [64, 32768, 64] (the
   main path's prefill shapes) for several segment lengths, the card's own
   choice first.
@@ -20,8 +31,10 @@ covered. It prints each kernel's registers, shared memory and stack
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that another commit's kernels, unpacked
 with ``git archive``, are timed with this timer: run one process per
-checkout. Every line names the card and its power limit. ``--quick``
-times one segment length per shape. Exits non-zero without a CUDA device.
+checkout; to hold a change against its parent, run them in turns in one
+call: parent, change, change, parent. Every line names the card and its
+power limit. ``--quick`` times one segment length per shape. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -79,6 +92,50 @@ def time_update(gen, scratch, card):
         del w, g, cnt, m, v
 
 
+def time_sparse(gen, scratch, card):
+    from repro_torch.configs.deepfm_criteo import CRITEO_VOCABS
+    from repro_torch.data import iterate_batches
+    from repro_torch.kernels import cowclip as cc
+
+    tr, _ = smoke.criteo_data()
+    first = next(iterate_batches(tr, smoke.BATCH, seed=0))
+    ids = torch.as_tensor(first["ids"], device="cuda")
+    slot_sets = smoke.step_slot_sets(ids, CRITEO_VOCABS)
+    hp = smoke.criteo_hypers()
+    form = ("one grouped launch" if hasattr(cc, "sparse_gather_catchup_tables")
+            else f"{2 * len(CRITEO_VOCABS)} single-table launches")
+    times = smoke.time_sparse_step(cc, gen, CRITEO_VOCABS, slot_sets, (10, 1),
+                                   scratch, lr=hp.emb_lr, l2=hp.emb_l2,
+                                   plain=False)
+    for name, (ms, flush, _, b_ms, b_by, real, nbytes) in times.items():
+        print(f"[time] {name}, one step's {2 * len(CRITEO_VOCABS)} tables "
+              f"({real} real slots), {form}: {ms:.4f} ms (L2 flushed, host "
+              f"covered), {flush:.4f} ms (L2 flushed only), bound {b_ms:.4f} "
+              f"ms by {b_by} ({nbytes} B), {card}", flush=True)
+    # the largest table alone, through the single-table wrappers: three
+    # timings of 50 launches each, to show their spread
+    big = max(range(len(CRITEO_VOCABS)), key=CRITEO_VOCABS.__getitem__)
+    uids, counts = slot_sets[big]
+    for dim in (10, 1):
+        w, m, v, ls = smoke.sparse_tables(gen, CRITEO_VOCABS[big], dim, 1000)
+        g = 0.1 * torch.randn(uids.numel(), dim, generator=gen, device="cuda")
+        kw = dict(lr=hp.emb_lr, l2=hp.emb_l2)
+        rows = cc.sparse_gather_catchup(w, m, v, ls, uids, counts, 1000, **kw)
+        runs = (("sparse_gather_catchup", lambda: cc.sparse_gather_catchup(
+                    w, m, v, ls, uids, counts, 1000, **kw)),
+                ("sparse_update_scatter", lambda: cc.sparse_update_scatter(
+                    w, m, v, ls, uids, counts, rows[0], g, rows[1], rows[2],
+                    1000, r=1.0, zeta=1e-5, **kw)))
+        for name, fn in runs:
+            times = [smoke.cuda_time_cold_ms(fn, 50, scratch)
+                     for _ in range(3)]
+            print(f"[time] {name} [{CRITEO_VOCABS[big]}, {dim}] alone (cap "
+                  f"{uids.numel()}, {int((counts > 0).sum())} real slots): "
+                  f"{', '.join(f'{t:.4f}' for t in times)} ms (L2 flushed, "
+                  f"host covered; 3 x 50 launches), {card}", flush=True)
+        del w, m, v, ls, g, rows
+
+
 def time_wkv6(gen, scratch, card, quick):
     from repro_torch.kernels.wkv6.wkv6 import chunked_wkv6, segment_chunks
 
@@ -123,6 +180,8 @@ def main() -> int:
     kernels = args.kernels.split(",")
     if "update" in kernels:
         time_update(gen, scratch, card)
+    if "sparse" in kernels:
+        time_sparse(gen, scratch, card)
     if "wkv6" in kernels:
         time_wkv6(gen, scratch, card, args.quick)
     return 0

@@ -3,12 +3,16 @@
 ``fused_cowclip_adam`` updates a whole ``[V, D]`` table's ``(w, m, v)`` in
 place; ``sparse_gather_catchup`` gathers a batch's unique-id slot rows with
 their pending decay applied, and ``sparse_update_scatter`` updates those
-rows into the tables in place. A CUDA tensor goes through the hand-written
-kernel (``cowclip.py``, ``sparse.py``) or the call raises; a CPU tensor
-takes the plain PyTorch version (``ref.py``) and copies its result back, so
-both devices share one in-place contract. Each wrapper's ``.launches``
-counts its kernel's launches (only those), so a run can show that its main
-path went through the kernel.
+rows into the tables in place. ``sparse_gather_catchup_tables`` and
+``sparse_update_scatter_tables`` do the same for a list of tables in one
+launch (the sparse train step's form); the single-table wrappers launch
+it for a list of one (a row shard's form, with its ``row_offset``). A CUDA
+tensor goes through the hand-written kernel (``cowclip.py``,
+``sparse.py``) or the call raises; a CPU tensor takes the plain PyTorch
+version (``ref.py``) and copies its result back, so both devices share
+one in-place contract. Each wrapper's ``.launches`` counts its kernel's
+launches (only those), so a run can show that its main path went through
+the kernel.
 """
 
 from __future__ import annotations
@@ -123,11 +127,11 @@ def sparse_gather_catchup(
                 w, m, v, last_step, uids, int(step), lr=lr, l2=l2, b1=b1,
                 b2=b2, eps=eps, row_offset=row_offset)
         _kernel_device(w, lr, l2)
-        out = sparse.sparse_gather_catchup(
-            w, m, v, last_step, uids, counts, int(step), lr=lr, l2=l2,
-            row_offset=row_offset)
+        rows, _ = sparse.sparse_gather_catchup_tables(
+            [w], [m], [v], [last_step], [uids], [counts], int(step), lr=lr,
+            l2=l2, row_offsets=[row_offset], with_depth=False)
         sparse_gather_catchup.launches += 1
-    return out
+    return rows[0]
 
 
 def sparse_update_scatter(
@@ -155,12 +159,99 @@ def sparse_update_scatter(
                 table.copy_(value)
             return w, m, v, last_step
         _kernel_device(w, lr, l2)
-        sparse.sparse_update_scatter(
-            w, m, v, last_step, uids, counts, w_rows, g_rows, m_rows, v_rows,
-            int(step), **kw)
+        row_offset = kw.pop("row_offset")
+        sparse.sparse_update_scatter_tables(
+            [w], [m], [v], [last_step], [uids], [counts], [w_rows], [g_rows],
+            [m_rows], [v_rows], int(step), row_offsets=[row_offset], **kw)
         sparse_update_scatter.launches += 1
     return w, m, v, last_step
 
 
+def _validate_tables(lists, step, rows=()):
+    """Check a grouped call's parallel lists: one length, every table as
+    the single-table wrapper checks it, all on the first table's device.
+    Returns the device and the number of tables."""
+    n = len(lists[0])
+    if n == 0 or any(len(x) != n for x in lists + tuple(r for _, r in rows)):
+        raise ValueError("the table lists must be non-empty and of one "
+                         "length")
+    for i in range(n):
+        _validate_sparse(*(x[i] for x in lists), step,
+                         rows=[(name, r[i]) for name, r in rows])
+        if lists[0][i].device != lists[0][0].device:
+            raise ValueError(f"table {i} is on {lists[0][i].device}, table 0 "
+                             f"on {lists[0][0].device}")
+    return lists[0][0].device, n
+
+
+def _offsets(row_offsets, n):
+    offsets = [0] * n if row_offsets is None else list(row_offsets)
+    if len(offsets) != n:
+        raise ValueError(f"{len(offsets)} row offsets for {n} tables")
+    return offsets
+
+
+def sparse_gather_catchup_tables(
+    ws, ms, vs, last_steps, uids, counts, step, *,
+    lr=1e-4, l2=1e-5, b1=0.9, b2=0.999, eps=1e-8, row_offsets=None,
+):
+    """``sparse_gather_catchup`` over a list of tables at once (index i of
+    every list is table i; ``row_offsets`` defaults to 0 each): on the card
+    one kernel launch (one per ``sparse.MAX_TABLES`` tables), counted by
+    ``.launches``. Returns ``(rows, depth)``: the f32 ``(w_rows, m_rows,
+    v_rows)`` of each table, and ``depth``, a 0-dim int32 tensor, the
+    largest number of pending decay-only steps ``max(step - 1 -
+    last_step[row], 0)`` over the real slots of all tables (0 with none):
+    the sparse step's ``catchup_depth_max``.
+    """
+    lists = (ws, ms, vs, last_steps, uids, counts)
+    device, n = _validate_tables(lists, step)
+    offsets = _offsets(row_offsets, n)
+    if device.type == "cpu":   # the plain versions, table by table
+        rows = [sparse_gather_catchup(
+                    *(x[i] for x in lists), step, lr=lr, l2=l2, b1=b1, b2=b2,
+                    eps=eps, row_offset=offsets[i]) for i in range(n)]
+        return rows, ref.catchup_depth_reference(
+            last_steps, uids, counts, int(step), row_offsets=offsets)
+    with torch.no_grad():
+        _kernel_device(ws[0], lr, l2)
+        out = sparse.sparse_gather_catchup_tables(
+            *lists, int(step), lr=lr, l2=l2, row_offsets=offsets)
+        sparse_gather_catchup_tables.launches += sparse.launches_for(n)
+    return out
+
+
+def sparse_update_scatter_tables(
+    ws, ms, vs, last_steps, uids, counts, w_rows, g_rows, m_rows, v_rows,
+    step, *, r=1.0, zeta=1e-5, lr=1e-4, l2=1e-5, b1=0.9, b2=0.999, eps=1e-8,
+    clip=True, row_offsets=None,
+):
+    """``sparse_update_scatter`` over a list of tables at once, in place:
+    on the card one kernel launch (one per ``sparse.MAX_TABLES`` tables),
+    counted by ``.launches``. The uids of each table must be distinct (a
+    dedup's slot set)."""
+    lists = (ws, ms, vs, last_steps, uids, counts)
+    device, n = _validate_tables(lists, step, rows=(
+        ("w_rows", w_rows), ("g_rows", g_rows), ("m_rows", m_rows),
+        ("v_rows", v_rows)))
+    offsets = _offsets(row_offsets, n)
+    kw = dict(r=r, zeta=zeta, lr=lr, l2=l2, b1=b1, b2=b2, eps=eps,
+              clip=clip)
+    if device.type == "cpu":   # the plain versions, table by table
+        for i in range(n):
+            sparse_update_scatter(
+                *(x[i] for x in lists), w_rows[i], g_rows[i], m_rows[i],
+                v_rows[i], step, row_offset=offsets[i], **kw)
+        return
+    with torch.no_grad():
+        _kernel_device(ws[0], lr, l2)
+        sparse.sparse_update_scatter_tables(
+            *lists, w_rows, g_rows, m_rows, v_rows, int(step),
+            row_offsets=offsets, **kw)
+        sparse_update_scatter_tables.launches += sparse.launches_for(n)
+
+
 sparse_gather_catchup.launches = 0
 sparse_update_scatter.launches = 0
+sparse_gather_catchup_tables.launches = 0
+sparse_update_scatter_tables.launches = 0

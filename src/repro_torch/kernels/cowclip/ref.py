@@ -66,6 +66,26 @@ def sparse_gather_catchup_reference(
         lr=lr, l2=l2, b1=b1, b2=b2, eps=eps)
 
 
+def catchup_depth_reference(last_steps, uids, counts, step, *,
+                            row_offsets=None):
+    """The deepest pending catch-up among the real slots of a list of
+    tables: ``max(step - 1 - last_step[row], 0)`` over every slot with a
+    count, its row ``uid - row_offset`` clamped into the table as the
+    gather clamps it; 0 with no real slot. A 0-dim int32 tensor. (The
+    reference step's ``catchup_depth_max``, whose rows are never ahead of
+    ``step - 1``.)"""
+    offsets = [0] * len(uids) if row_offsets is None else row_offsets
+    depth = torch.zeros((), dtype=torch.int32, device=counts[0].device)
+    for ls, u, c, off in zip(last_steps, uids, counts, offsets):
+        if u.numel() == 0:
+            continue
+        loc = torch.clamp(u.to(torch.int64) - off, 0, ls.shape[0] - 1)
+        k = torch.clamp_min((step - 1) - ls[loc], 0)
+        depth = torch.maximum(depth, torch.where(c > 0, k, 0).max()
+                              .to(torch.int32))
+    return depth
+
+
 def sparse_update_scatter_reference(
     w, m, v, last_step, uids, counts, w_rows, g_rows, m_rows, v_rows, step,
     *, r=1.0, zeta=1e-5, lr=1e-4, l2=1e-5, b1=0.9, b2=0.999, eps=1e-8,

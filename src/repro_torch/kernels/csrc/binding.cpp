@@ -72,67 +72,136 @@ void check_vec(const torch::Tensor& t, const char* name,
               "], got ", t.sizes());
 }
 
-// w, m, v [V, D] f32; last_step [V] int32; uids [cap] int32; counts [cap]
-// f32; the three [cap, D] f32 outputs are allocated by the caller.
-void sparse_gather_catchup(torch::Tensor w, torch::Tensor m, torch::Tensor v,
-                           torch::Tensor last_step, torch::Tensor uids,
-                           torch::Tensor counts, torch::Tensor w_out,
-                           torch::Tensor m_out, torch::Tensor v_out,
-                           int64_t row_offset, int64_t lim, double factor) {
-  TORCH_CHECK(w.dim() == 2, "w must be [V, D]");
-  check_table(w, "w", w);
-  check_table(m, "m", w);
-  check_table(v, "v", w);
-  check_vec(last_step, "last_step", torch::kInt32, w.size(0), w);
-  check_vec(uids, "uids", torch::kInt32, uids.size(0), w);
-  check_vec(counts, "counts", torch::kFloat32, uids.size(0), w);
-  const std::vector<int64_t> out_shape{uids.size(0), w.size(1)};
-  for (const auto& t : {w_out, m_out, v_out}) {
-    TORCH_CHECK(t.is_cuda() && t.device() == w.device() &&
-                    t.scalar_type() == torch::kFloat32 && t.is_contiguous() &&
-                    t.sizes() == c10::IntArrayRef(out_shape),
-                "outputs must be contiguous float32 [cap, D] on w's device");
+void check_rows(const torch::Tensor& t, const char* name, int64_t cap,
+                int64_t dim, const torch::Tensor& like) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device(), name,
+              " must be a CUDA tensor on w's device");
+  TORCH_CHECK(t.scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK(t.dim() == 2 && t.size(0) == cap && t.size(1) == dim, name,
+              " must be [", cap, ", ", dim, "], got ", t.sizes());
+}
+
+// Checks table i of a sparse list (w, m, v [V, D] f32; last_step [V]
+// int32; uids [cap] int32; counts [cap] f32; all on the first w's device)
+// and returns its cap.
+int64_t check_sparse_table(const std::vector<torch::Tensor>& w,
+                           const std::vector<torch::Tensor>& m,
+                           const std::vector<torch::Tensor>& v,
+                           const std::vector<torch::Tensor>& last_step,
+                           const std::vector<torch::Tensor>& uids,
+                           const std::vector<torch::Tensor>& counts,
+                           size_t i) {
+  TORCH_CHECK(w[i].dim() == 2, "w must be [V, D]");
+  TORCH_CHECK(w[i].device() == w[0].device(), "tables on two devices");
+  check_table(w[i], "w", w[i]);
+  check_table(m[i], "m", w[i]);
+  check_table(v[i], "v", w[i]);
+  check_vec(last_step[i], "last_step", torch::kInt32, w[i].size(0), w[i]);
+  TORCH_CHECK(uids[i].dim() == 1 && uids[i].size(0) <= INT32_MAX,
+              "uids must be [cap]");
+  const int64_t cap = uids[i].size(0);
+  check_vec(uids[i], "uids", torch::kInt32, cap, w[i]);
+  check_vec(counts[i], "counts", torch::kFloat32, cap, w[i]);
+  return cap;
+}
+
+void check_list_sizes(std::initializer_list<size_t> sizes) {
+  const size_t n = *sizes.begin();
+  TORCH_CHECK(n >= 1 && n <= kSparseMaxTables, "a sparse launch takes 1 to ",
+              kSparseMaxTables, " tables, got ", n);
+  for (const size_t s : sizes) {
+    TORCH_CHECK(s == n, "the table lists differ in length");
   }
-  const c10::cuda::CUDAGuard guard(w.device());
-  sparse_catchup_launch(
-      w.data_ptr<float>(), m.data_ptr<float>(), v.data_ptr<float>(),
-      last_step.data_ptr<int>(), uids.data_ptr<int>(),
-      counts.data_ptr<float>(), w_out.data_ptr<float>(),
-      m_out.data_ptr<float>(), v_out.data_ptr<float>(), w.size(0),
-      static_cast<int>(uids.size(0)), static_cast<int>(w.size(1)),
-      row_offset, static_cast<int>(lim), static_cast<float>(factor),
-      at::cuda::getCurrentCUDAStream().stream());
+}
+
+// One launch over the tables of the lists (index i of every list is table
+// i): their [cap, D] f32 slot rows, caught up through lim, are written
+// into w_out, m_out, v_out (allocated by the caller), and depth (one int32,
+// or None for no depth) is raised to the deepest catch-up of a real slot,
+// after being zeroed here when zero_depth.
+void sparse_gather_catchup(
+    std::vector<torch::Tensor> w, std::vector<torch::Tensor> m,
+    std::vector<torch::Tensor> v, std::vector<torch::Tensor> last_step,
+    std::vector<torch::Tensor> uids, std::vector<torch::Tensor> counts,
+    std::vector<torch::Tensor> w_out, std::vector<torch::Tensor> m_out,
+    std::vector<torch::Tensor> v_out, std::vector<int64_t> row_offset,
+    int64_t lim, double factor, std::optional<torch::Tensor> depth,
+    bool zero_depth) {
+  check_list_sizes({w.size(), m.size(), v.size(), last_step.size(),
+                    uids.size(), counts.size(), w_out.size(), m_out.size(),
+                    v_out.size(), row_offset.size()});
+  std::vector<SparseCatchupTable> tables(w.size());
+  for (size_t i = 0; i < w.size(); ++i) {
+    const int64_t cap =
+        check_sparse_table(w, m, v, last_step, uids, counts, i);
+    const int64_t dim = w[i].size(1);
+    check_rows(w_out[i], "w_out", cap, dim, w[i]);
+    check_rows(m_out[i], "m_out", cap, dim, w[i]);
+    check_rows(v_out[i], "v_out", cap, dim, w[i]);
+    tables[i] = SparseCatchupTable{
+        w[i].data_ptr<float>(),      m[i].data_ptr<float>(),
+        v[i].data_ptr<float>(),      last_step[i].data_ptr<int>(),
+        uids[i].data_ptr<int>(),     counts[i].data_ptr<float>(),
+        w_out[i].data_ptr<float>(),  m_out[i].data_ptr<float>(),
+        v_out[i].data_ptr<float>(),  w[i].size(0),
+        row_offset[i],               static_cast<int>(cap),
+        static_cast<int>(dim)};
+  }
+  int* depth_ptr = nullptr;
+  if (depth.has_value()) {
+    TORCH_CHECK(depth->is_cuda() && depth->device() == w[0].device() &&
+                    depth->scalar_type() == torch::kInt32 &&
+                    depth->numel() == 1 && depth->is_contiguous(),
+                "depth must be one int32 on w's device");
+    depth_ptr = depth->data_ptr<int>();
+  }
+  const c10::cuda::CUDAGuard guard(w[0].device());
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream().stream();
+  if (depth_ptr != nullptr && zero_depth) {
+    C10_CUDA_CHECK(cudaMemsetAsync(depth_ptr, 0, sizeof(int), stream));
+  }
+  sparse_catchup_launch(tables.data(), static_cast<int>(tables.size()),
+                        static_cast<int>(lim), static_cast<float>(factor),
+                        depth_ptr, stream);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// Updates w, m, v [V, D] and last_step [V] in place from the [cap, D] slot
-// rows; the scalars are rounded on the host as for cowclip_adam_.
-void sparse_update_scatter_(torch::Tensor w, torch::Tensor m, torch::Tensor v,
-                            torch::Tensor last_step, torch::Tensor uids,
-                            torch::Tensor counts, torch::Tensor w_rows,
-                            torch::Tensor g_rows, torch::Tensor m_rows,
-                            torch::Tensor v_rows, int64_t row_offset,
-                            int64_t step, double r, double zeta, double lr,
-                            double l2, double b1, double b2,
-                            double one_minus_b1, double one_minus_b2,
-                            double eps, double bc1, double bc2, bool clip) {
-  TORCH_CHECK(w.dim() == 2, "w must be [V, D]");
-  check_table(w, "w", w);
-  check_table(m, "m", w);
-  check_table(v, "v", w);
-  check_vec(last_step, "last_step", torch::kInt32, w.size(0), w);
-  check_vec(uids, "uids", torch::kInt32, uids.size(0), w);
-  check_vec(counts, "counts", torch::kFloat32, uids.size(0), w);
-  const std::vector<int64_t> row_shape{uids.size(0), w.size(1)};
-  for (const auto& t : {w_rows, g_rows, m_rows, v_rows}) {
-    TORCH_CHECK(t.is_cuda() && t.device() == w.device() &&
-                    t.scalar_type() == torch::kFloat32 && t.is_contiguous() &&
-                    t.sizes() == c10::IntArrayRef(row_shape),
-                "slot rows must be contiguous float32 [cap, D] on w's "
-                "device");
+// One launch over the tables of the lists: w, m, v [V, D] and last_step
+// [V] updated in place from the [cap, D] slot rows; the scalars are
+// rounded on the host as for cowclip_adam_.
+void sparse_update_scatter_(
+    std::vector<torch::Tensor> w, std::vector<torch::Tensor> m,
+    std::vector<torch::Tensor> v, std::vector<torch::Tensor> last_step,
+    std::vector<torch::Tensor> uids, std::vector<torch::Tensor> counts,
+    std::vector<torch::Tensor> w_rows, std::vector<torch::Tensor> g_rows,
+    std::vector<torch::Tensor> m_rows, std::vector<torch::Tensor> v_rows,
+    std::vector<int64_t> row_offset, int64_t step, double r, double zeta,
+    double lr, double l2, double b1, double b2, double one_minus_b1,
+    double one_minus_b2, double eps, double bc1, double bc2, bool clip) {
+  check_list_sizes({w.size(), m.size(), v.size(), last_step.size(),
+                    uids.size(), counts.size(), w_rows.size(), g_rows.size(),
+                    m_rows.size(), v_rows.size(), row_offset.size()});
+  std::vector<SparseUpdateTable> tables(w.size());
+  for (size_t i = 0; i < w.size(); ++i) {
+    const int64_t cap =
+        check_sparse_table(w, m, v, last_step, uids, counts, i);
+    const int64_t dim = w[i].size(1);
+    check_rows(w_rows[i], "w_rows", cap, dim, w[i]);
+    check_rows(g_rows[i], "g_rows", cap, dim, w[i]);
+    check_rows(m_rows[i], "m_rows", cap, dim, w[i]);
+    check_rows(v_rows[i], "v_rows", cap, dim, w[i]);
+    tables[i] = SparseUpdateTable{
+        w[i].data_ptr<float>(),        m[i].data_ptr<float>(),
+        v[i].data_ptr<float>(),        last_step[i].data_ptr<int>(),
+        uids[i].data_ptr<int>(),       counts[i].data_ptr<float>(),
+        w_rows[i].data_ptr<float>(),   g_rows[i].data_ptr<float>(),
+        m_rows[i].data_ptr<float>(),   v_rows[i].data_ptr<float>(),
+        w[i].size(0),                  row_offset[i],
+        static_cast<int>(cap),         static_cast<int>(dim),
+        clip && dim >= 2 ? 1 : 0};
   }
-  const c10::cuda::CUDAGuard guard(w.device());
-  const int dim = static_cast<int>(w.size(1));
+  const c10::cuda::CUDAGuard guard(w[0].device());
   CowclipAdamParams p{static_cast<float>(r),
                       static_cast<float>(zeta),
                       static_cast<float>(lr),
@@ -145,15 +214,10 @@ void sparse_update_scatter_(torch::Tensor w, torch::Tensor m, torch::Tensor v,
                       static_cast<float>(bc1),
                       static_cast<float>(bc2),
                       1.0f,
-                      clip && dim >= 2 ? 1 : 0};
-  sparse_update_launch(
-      w.data_ptr<float>(), m.data_ptr<float>(), v.data_ptr<float>(),
-      last_step.data_ptr<int>(), uids.data_ptr<int>(),
-      counts.data_ptr<float>(), w_rows.data_ptr<float>(),
-      g_rows.data_ptr<float>(), m_rows.data_ptr<float>(),
-      v_rows.data_ptr<float>(), w.size(0), static_cast<int>(uids.size(0)),
-      dim, row_offset, static_cast<int>(step), p,
-      at::cuda::getCurrentCUDAStream().stream());
+                      0};
+  sparse_update_launch(tables.data(), static_cast<int>(tables.size()),
+                       static_cast<int>(step), p,
+                       at::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -219,9 +283,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("cowclip_adam_", &cowclip_adam_,
           "fused CowClip + coupled-L2 + Adam update of (w, m, v), in place");
   mod.def("sparse_gather_catchup", &sparse_gather_catchup,
-          "gather unique-id slot rows with closed-form lazy-decay catch-up");
+          "gather the unique-id slot rows of a list of tables with "
+          "closed-form lazy-decay catch-up, one launch");
   mod.def("sparse_update_scatter_", &sparse_update_scatter_,
-          "CowClip + coupled-L2 + Adam on slot rows, scattered in place");
+          "CowClip + coupled-L2 + Adam on the slot rows of a list of "
+          "tables, scattered in place, one launch");
   mod.def("wkv6_chunked", &wkv6_chunked,
           "chunked RWKV-6 WKV scan: y and the final state, written into "
           "the given outputs");

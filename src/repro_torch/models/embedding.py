@@ -26,6 +26,7 @@ field's batch column into a **static padded capacity**:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
@@ -61,14 +62,49 @@ def lookup(tables: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+_COUNT_ALIGN = 64        # floats: each field's counts start 256-B aligned
+
+
+@functools.cache
+def _count_layout(vocab_sizes: tuple, device: torch.device):
+    """Where each field's counts live in the one bin buffer of
+    ``field_counts``: field i's id 0 at ``starts[i]``, a multiple of
+    _COUNT_ALIGN (so the fused kernel's aligned path takes every field),
+    with a drop bin just below it (ids < 0) and one at ``starts[i] +
+    vocab_i`` (ids >= vocab_i). Returns the starts as a list, then as
+    int64 tensors on ``device`` the clamp bounds ``-1`` and ``vocab_i`` and
+    the starts (made once per layout, so a step copies nothing to the
+    card), and the buffer's length."""
+    starts, end = [], 0
+    for v in vocab_sizes:
+        start = -(-(end + 1) // _COUNT_ALIGN) * _COUNT_ALIGN
+        starts.append(start)
+        end = start + v + 1
+
+    def on_device(values):
+        return torch.tensor(values, dtype=torch.int64, device=device)
+
+    return (starts, on_device([-1] * len(starts)),
+            on_device(list(vocab_sizes)), on_device(starts), end)
+
+
 def field_counts(ids: torch.Tensor, vocab_sizes: Sequence[int]) -> dict:
     """Per-field id occurrence counts in the batch (CowClip's ``cnt``):
     ``{"field_i": [vocab_i] float32}``, the ``cnt`` the fused kernel
-    reads."""
-    return {
-        f"field_{i}": torch.bincount(ids[:, i], minlength=v).to(torch.float32)
-        for i, v in enumerate(vocab_sizes)
-    }
+    reads. Ids outside ``[0, vocab_i)`` are dropped, as the reference's
+    ``segment_sum`` drops them. All fields go through one ``index_add_`` of
+    ones into a static-size buffer, so nothing is read back to the host;
+    sums of ones are exact in f32 below 2**24 in any order, so the counts
+    are deterministic on the card too."""
+    starts, lows, highs, offsets, size = _count_layout(
+        tuple(vocab_sizes), ids.device)
+    bins = torch.clamp(ids, lows, highs) + offsets
+    counts = torch.zeros(size, dtype=torch.float32, device=ids.device)
+    counts.index_add_(0, bins.reshape(-1),
+                      torch.ones(bins.numel(), dtype=torch.float32,
+                                 device=ids.device))
+    return {f"field_{i}": counts[s:s + v]
+            for i, (s, v) in enumerate(zip(starts, vocab_sizes))}
 
 
 class UniqueField(NamedTuple):

@@ -118,7 +118,8 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
     dim]`` slot rows: gather + lazy-decay catch-up (the
     ``sparse_gather_catchup`` kernel) -> forward/backward on the rows ->
     CowClip -> coupled L2 -> Adam -> scatter (``sparse_update_scatter``).
-    Update traffic is O(batch), not O(vocab).
+    Each kernel is one launch a step over every table. Update traffic is
+    O(batch), not O(vocab).
 
     Ids absent from a batch are not touched: their coupled-L2 decay accrues
     in a per-row ``last_step`` and is applied on their next touch or by
@@ -127,15 +128,16 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
 
     ``aux["catchup_depth_max"]`` is the deepest pending decay among this
     step's touched rows (0 when every one of them was in the last batch),
-    a 0-dim int32 tensor on the params' device. ``nonfinite_guard`` skips
-    the whole update when the batch loss is NaN/Inf, as the fused step's
-    does.
+    a 0-dim int32 tensor on the params' device, computed by the catch-up
+    kernel as it applies the decay. ``nonfinite_guard`` skips the whole
+    update when the batch loss is NaN/Inf, as the fused step's does.
 
     Returns ``(step, init, flush)``; ``flush(params, state)`` applies all
     pending decay (needed before eval, checkpoint or comparing against the
     dense path).
     """
-    from ..kernels.cowclip import sparse_gather_catchup, sparse_update_scatter
+    from ..kernels.cowclip import (sparse_gather_catchup_tables,
+                                   sparse_update_scatter_tables)
 
     if dense_tx is None:
         dense_tx = dense_tower_tx(hp)
@@ -157,25 +159,18 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
         uniq = ctr.unique_batch(cfg, batch["ids"])
         utree = _uniq_tree(params["embed"], uniq)
         tables = list(_tables(params, state, utree))
-
-        # diagnostic: deepest pending catch-up among this step's real slots
-        depth = torch.stack([
-            torch.max(torch.where(
-                u.counts > 0,
-                (t - 1) - ls[torch.clamp_max(u.uids.to(torch.int64),
-                                             ls.shape[0] - 1)],
-                0))
-            for _, _, u, _, _, _, ls in tables]).max().to(torch.int32)
+        ws, ms, vs, lss = ([tb[i] for tb in tables] for i in range(3, 7))
+        uids = [tb[2].uids for tb in tables]
+        counts = [tb[2].counts for tb in tables]
 
         # gather + pending decay, so the forward sees the rows exactly as
-        # the dense path would at step t
+        # the dense path would at step t; one launch for every table, which
+        # also gives the deepest pending catch-up among the real slots
+        caught, depth = sparse_gather_catchup_tables(
+            ws, ms, vs, lss, uids, counts, t, **adam_kw)
         rows = {g: {} for g in params["embed"]}
-        moments = {}
-        for g, f, u, w, m, v, ls in tables:
-            wr, mr, vr = sparse_gather_catchup(
-                w, m, v, ls, u.uids, u.counts, t, **adam_kw)
+        for (g, f, *_), (wr, _, _) in zip(tables, caught):
             rows[g][f] = wr.requires_grad_()
-            moments[g, f] = (mr, vr)
 
         dense_view = tree_map(lambda p: p.detach().requires_grad_(),
                               params["dense"])
@@ -188,17 +183,17 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
             if not bool(torch.isfinite(loss)):
                 return params, state, dict(aux, skipped_steps=1)
             aux["skipped_steps"] = 0
-        leaves = tree_leaves(rows) + tree_leaves(dense_view)
+        w_rows = [c[0] for c in caught]
+        leaves = w_rows + tree_leaves(dense_view)
         grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
 
-        # CowClip -> coupled L2 -> Adam on the touched rows, scattered back;
-        # untouched rows keep accruing lazy decay through last_step
-        for g, f, u, w, m, v, ls in tables:
-            wr = rows[g][f]
-            mr, vr = moments[g, f]
-            sparse_update_scatter(
-                w, m, v, ls, u.uids, u.counts, wr.detach(), grads[id(wr)],
-                mr, vr, t, r=r, zeta=zeta, clip=clip, **adam_kw)
+        # CowClip -> coupled L2 -> Adam on the touched rows, scattered back
+        # in one launch; untouched rows keep accruing lazy decay through
+        # last_step
+        sparse_update_scatter_tables(
+            ws, ms, vs, lss, uids, counts, [wr.detach() for wr in w_rows],
+            [grads[id(wr)] for wr in w_rows], [c[1] for c in caught],
+            [c[2] for c in caught], t, r=r, zeta=zeta, clip=clip, **adam_kw)
 
         g_dense = tree_map(lambda p: grads[id(p)], dense_view)
         d_updates, d_state = dense_tx.update(
@@ -263,10 +258,42 @@ class TrainResult:
     steps: int
     params: object = None
     opt_state: object = None
-    # per-step batch loss and wall-clock seconds (each step ends with the
-    # loss read on the host, so a step's time covers its device work)
+    # per-step batch loss (kept on the device during an epoch and read once
+    # after its last step) and seconds. On the card a step's seconds are
+    # the device stream's time from a CUDA event recorded just before the
+    # step's batch copy to one just after the step: its device work plus
+    # any time the card waited within it for the host to queue the work.
+    # On the CPU they are the host clock around the step.
     losses: list = dataclasses.field(default_factory=list)
     step_seconds: list = dataclasses.field(default_factory=list)
+
+
+class _StepClock:
+    """Seconds per step of one epoch. On the card, CUDA events recorded on
+    the stream before and after each step, read after the epoch (its
+    losses have been read by then, so the read waits for nothing more);
+    elsewhere the host clock."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        """Mark the start or the end of a step."""
+        if not self.cuda:
+            self.marks.append(time.perf_counter())
+            return
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.marks.append(event)
+
+    def seconds(self) -> list:
+        pairs = zip(self.marks[::2], self.marks[1::2])
+        if not self.cuda:
+            return [b - a for a, b in pairs]
+        if self.marks:
+            self.marks[-1].synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in pairs]
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -337,15 +364,20 @@ def train_ctr(
     for epoch in range(epochs):
         if max_steps is not None and n_steps >= max_steps:
             break
+        clock = _StepClock(dev)
+        epoch_losses = []
         for b in iterate_batches(train_ds, batch_size, seed=seed + epoch):
-            ts = time.perf_counter()
+            clock.mark()
             params, opt_state, aux = step_fn(params, opt_state,
                                              _to_device(b, dev))
-            losses.append(float(aux["loss"]))
-            step_seconds.append(time.perf_counter() - ts)
+            clock.mark()
+            epoch_losses.append(aux["loss"])
             n_steps += 1
             if max_steps is not None and n_steps >= max_steps:
                 break
+        if epoch_losses:   # the epoch's one read of the device
+            losses.extend(torch.stack(epoch_losses).tolist())
+        step_seconds.extend(clock.seconds())
         if eval_every_epoch and test_ds is not None:
             params, opt_state = flush(params, opt_state)
             ev = eval_fn(params, test_ds)

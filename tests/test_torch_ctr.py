@@ -15,12 +15,13 @@ import pytest
 import torch
 
 from repro.models import ctr as jax_ctr
+from repro.models import embedding as jax_embedding
 from repro.train import metrics as jax_metrics
 from repro_torch.core.scaling import scale_hyperparams
 from repro_torch.core.tree import flatten_with_paths, tree_map
 from repro_torch.data import make_ctr_dataset
 from repro_torch.embed import store_for
-from repro_torch.models import ctr
+from repro_torch.models import ctr, embedding
 from repro_torch.train import metrics, train_ctr
 from repro_torch.train.checkpoint import params_from_numpy
 
@@ -118,3 +119,30 @@ def test_torch_ctr_bf16_auc_within_tolerance():
         aucs[dtype] = res.final_eval["auc"]
     assert aucs["float32"] > 0.55, aucs   # it learned something
     assert abs(aucs["bfloat16"] - aucs["float32"]) <= 2e-3, aucs
+
+
+@pytest.mark.parametrize("case", ["in_range", "out_of_range"])
+def test_torch_field_counts_match_jax(case):
+    """The fused step's per-field counts equal JAX's ``segment_sum`` bit for
+    bit: ids outside ``[0, vocab)`` (``vocab``, ``vocab + 5``, ``-1``) are
+    dropped, not counted in a longer vector; in range they equal
+    ``bincount``. Every field's counts are contiguous and 16-byte aligned
+    (the fused kernel's fast path)."""
+    rng = np.random.default_rng(3)
+    ids = np.stack([rng.integers(0, v, size=64) for v in VOCABS], axis=1)
+    if case == "out_of_range":
+        ids[:3] = np.stack([VOCABS, np.add(VOCABS, 5), np.full(5, -1)])
+        ids[3:6, 1] = [-1, VOCABS[1], VOCABS[1] + 5]
+    ids = ids.astype(np.int32)
+    got = embedding.field_counts(torch.from_numpy(ids), VOCABS)
+    want = jax_embedding.field_counts(jnp.asarray(ids), VOCABS)
+    assert got.keys() == want.keys()
+    for i, (f, c) in enumerate(got.items()):
+        assert c.dtype == torch.float32 and c.shape == (VOCABS[i],)
+        assert c.is_contiguous() and c.data_ptr() % 16 == 0
+        np.testing.assert_array_equal(c.numpy(), np.asarray(want[f]))
+        if case == "in_range":
+            assert torch.equal(c, torch.bincount(
+                torch.from_numpy(ids[:, i]), minlength=VOCABS[i]).float())
+    assert sum(float(c.sum()) for c in got.values()) == (
+        64 * len(VOCABS) if case == "in_range" else 64 * len(VOCABS) - 18)

@@ -24,8 +24,11 @@ from repro_torch.data import iterate_batches, make_ctr_dataset
 from repro_torch.embed import store_for
 from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
                                          sparse_gather_catchup,
-                                         sparse_update_scatter)
+                                         sparse_gather_catchup_tables,
+                                         sparse_update_scatter,
+                                         sparse_update_scatter_tables)
 from repro_torch.kernels.cowclip import ref as cc_ref
+from repro_torch.kernels.cowclip.sparse import MAX_TABLES, launches_for
 from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
                                       clipped_chunks,
                                       segmented_wkv6_reference, wkv6,
@@ -214,6 +217,78 @@ def test_torch_sparse_cuda_kernels_match_plain(rows, dim, cap, off, vocab,
         == (before[0] + 1, before[1] + 1)
 
 
+# (rows, dim, cap, n_ids, off, vocab) of a mixed list of tables: pads, the
+# CowClip-exempt D = 1, a capacity of 1, no real slot, a table full to its
+# capacity with overflow, dim above a warp, rows that fill a warp's
+# elements with one slot (300) or take several chunks (400), and a row
+# shard whose pad uids land in its range
+_GROUPED = ((50, 8, 12, 10, 0, None), (1000, 10, 512, 508, 0, None),
+            (1000, 1, 512, 508, 0, None), (7, 8, 1, 1, 0, None),
+            (30, 4, 6, 0, 0, None), (40, 8, 5, 200, 0, None),
+            (400, 33, 64, 60, 0, None), (20, 300, 12, 10, 0, None),
+            (16, 400, 6, 5, 0, None), (300, 10, 160, 156, 100, 380))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tables", [len(_GROUPED), MAX_TABLES + 6],
+                         ids=["mixed", "split"])
+@pytest.mark.parametrize("step", [1, 1000])
+def test_torch_sparse_cuda_grouped_match_plain(n_tables, step):
+    """The grouped kernels over a mixed list (cycled to ``n_tables``; the
+    split case takes two launches) against the plain versions table by
+    table: catch-up rows on the real slots (pads finite), the tables after
+    the update, ``last_step`` equal, and the depth equal to the plain
+    formula and to the step's former per-table formula; rtol 1e-5 / atol
+    1e-7."""
+    _need_cuda()
+    specs = [_GROUPED[i % len(_GROUPED)] for i in range(n_tables)]
+    cases = [_sparse_case(rows, dim, cap, n_ids, step, seed=i + step,
+                          off=off, vocab=vocab)
+             for i, (rows, dim, cap, n_ids, off, vocab) in enumerate(specs)]
+    offs = [spec[4] for spec in specs]
+    kw = dict(lr=1e-3, l2=1e-4)
+    lists = [[c[k] for c in cases] for k in ("w", "m", "v", "ls", "uids",
+                                             "counts")]
+    before = (sparse_gather_catchup_tables.launches,
+              sparse_update_scatter_tables.launches)
+    rows, depth = sparse_gather_catchup_tables(*lists, step,
+                                               row_offsets=offs, **kw)
+    tables = [[c[k].clone() for c in cases] for k in ("w", "m", "v", "ls")]
+    sparse_update_scatter_tables(
+        *tables, lists[4], lists[5], [r[0] for r in rows],
+        [c["g"] for c in cases], [r[1] for r in rows], [r[2] for r in rows],
+        step, row_offsets=offs, **kw)
+    torch.cuda.synchronize()
+    assert (sparse_gather_catchup_tables.launches,
+            sparse_update_scatter_tables.launches) == tuple(
+        b + launches_for(n_tables) for b in before)
+    stacked = torch.stack([
+        torch.max(torch.where(
+            c["counts"] > 0,
+            (step - 1) - c["ls"][torch.clamp(c["uids"].long() - off, 0,
+                                             c["ls"].shape[0] - 1)], 0))
+        for c, off in zip(cases, offs)]).max()
+    assert depth.dtype == torch.int32 and depth.shape == ()
+    assert int(depth) == int(stacked) == int(cc_ref.catchup_depth_reference(
+        lists[3], lists[4], lists[5], step, row_offsets=offs))
+    for i, (c, off) in enumerate(zip(cases, offs)):
+        real = c["counts"] > 0
+        want = cc_ref.sparse_gather_catchup_reference(
+            c["w"], c["m"], c["v"], c["ls"], c["uids"], step, row_offset=off,
+            **kw)
+        for a, b in zip(rows[i], want):
+            assert bool(torch.isfinite(a).all())
+            torch.testing.assert_close(a[real], b[real], rtol=1e-5,
+                                       atol=1e-7)
+        want = cc_ref.sparse_update_scatter_reference(
+            c["w"], c["m"], c["v"], c["ls"], c["uids"], c["counts"],
+            rows[i][0], c["g"], rows[i][1], rows[i][2], step, row_offset=off,
+            **kw)
+        for a, b in zip((t[i] for t in tables[:3]), want[:3]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+        assert torch.equal(tables[3][i], want[3])
+
+
 @pytest.mark.cuda
 def test_torch_sparse_cuda_rejects_mixed_devices():
     _need_cuda()
@@ -232,7 +307,8 @@ def test_torch_sparse_step_cuda_matches_cpu_and_repeats_bitwise():
     """Three sparse steps on the card against the CPU path, rtol 1e-5 /
     atol 1e-5; the same steps again on the card are bitwise equal (the row
     gradient is a sorted segment sum, no atomics); each sparse kernel
-    launches once per table per step, the fused one never."""
+    launches once per step over all the tables (through the grouped
+    wrappers, none through the single-table ones), the fused one never."""
     _need_cuda()
     cfg = ctr.CTRConfig(name="deepfm", vocab_sizes=(2000, 700, 120, 30, 5),
                         n_dense=4, emb_dim=8, mlp_dims=(32, 32, 32),
@@ -246,17 +322,18 @@ def test_torch_sparse_step_cuda_matches_cpu_and_repeats_bitwise():
         bundle = store_for(cfg).make_bundle(cfg, hp, warmup_steps=2)
         params = tree_map(lambda t: t.clone().to(dev), params0)
         state = bundle.init(params)
-        before = (fused_cowclip_adam.launches, sparse_gather_catchup.launches,
-                  sparse_update_scatter.launches)
+        counters = (fused_cowclip_adam, sparse_gather_catchup,
+                    sparse_update_scatter, sparse_gather_catchup_tables,
+                    sparse_update_scatter_tables)
+        before = [f.launches for f in counters]
         for b in iterate_batches(ds, 512, seed=0):
             params, state, _ = bundle.step(
                 params, state,
                 {k: torch.as_tensor(x, device=dev) for k, x in b.items()})
         params, state = bundle.flush(params, state)
-        after = (fused_cowclip_adam.launches, sparse_gather_catchup.launches,
-                 sparse_update_scatter.launches)
-        n = 0 if dev == "cpu" else 3 * 2 * cfg.n_fields
-        assert tuple(a - b for a, b in zip(after, before)) == (0, n, n)
+        n = 0 if dev == "cpu" else 3
+        assert [f.launches - b for f, b in zip(counters, before)] == [
+            0, 0, 0, n, n]
         out[run] = [t.cpu() for t in tree_leaves(params)]
     for a, b, c in zip(out["cuda"], out["cpu"], out["cuda2"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -35,8 +35,11 @@ from repro_torch.core import optim
 from repro_torch.core.cowclip import cowclip_rows
 from repro_torch.kernels.cowclip import (sparse_cowclip_adam_reference,
                                          sparse_gather_catchup,
-                                         sparse_update_scatter)
-from repro_torch.kernels.cowclip.sparse import safe_uids
+                                         sparse_gather_catchup_tables,
+                                         sparse_update_scatter,
+                                         sparse_update_scatter_tables)
+from repro_torch.kernels.cowclip.sparse import (MAX_TABLES, launches_for,
+                                                safe_uids)
 from repro_torch.models import embedding
 from repro_torch.serve.engine import collapse_pending_decay
 
@@ -120,6 +123,107 @@ def test_torch_sparse_kernels_match_jax(dim, use_kernel):
     for a, b, name in zip(out_t[:3], out_j[:3], "wmv"):
         np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **TOL)
     np.testing.assert_array_equal(_np(out_t[3]), _np(out_j[3]))
+
+
+def _table_case(rng, vocab, dim, cap, n_ids, off=0, extra_rows=0):
+    """A table (or its shard ``[off, vocab)`` with ``extra_rows`` pad rows
+    after it, as a row-sharded layout pads it) with pending depths 0..5,
+    ``cap`` slots holding the distinct ids of ``n_ids`` draws from the
+    shard's range (the smallest ``cap`` on overflow), pads holding the
+    global ``vocab``, and a slot-row gradient."""
+    tb = _tables(rng, vocab - off + extra_rows, dim, max_depth=6)
+    uids, counts = _slots(rng, vocab - off, cap, n_ids)
+    real = counts > 0
+    uids[real] += off
+    uids[~real] = vocab
+    tb.update(uids=uids, counts=counts, off=off, g=(
+        0.1 * rng.standard_normal((cap, dim))).astype(np.float32))
+    return tb
+
+
+def _mixed_cases(rng):
+    """D = 8 and D = 1 with pads, a capacity of 1, a table with no real
+    slot, a table full to its capacity and one past it (overflow), and a
+    row shard whose pad uid lands in its range."""
+    return [_table_case(rng, 50, 8, 12, 10), _table_case(rng, 50, 1, 12, 10),
+            _table_case(rng, 9, 8, 1, 1), _table_case(rng, 30, 4, 6, 0),
+            _table_case(rng, 6, 8, 6, 60), _table_case(rng, 40, 1, 5, 200),
+            _table_case(rng, 64, 6, 10, 7, off=40, extra_rows=4)]
+
+
+@pytest.mark.parametrize("case,use_kernel", [
+    ("mixed", False), ("mixed", True), ("split", False)],
+    ids=["mixed-jax_reference", "mixed-jax_pallas_interpret",
+         "split-jax_reference"])
+def test_torch_sparse_grouped_match_jax(case, use_kernel):
+    """The grouped wrappers over a list of tables (on the CPU: the plain
+    versions table by table) against JAX's per-table kernels at step 7:
+    catch-up rows on the real slots, the tables after the update and
+    ``last_step`` (equal), and the depth against the JAX step's formula.
+    "split" is a list longer than one launch takes."""
+    rng = np.random.default_rng(12)
+    t = 7
+    if case == "mixed":
+        cases = _mixed_cases(rng)
+    else:
+        cases = [_table_case(rng, 40, (8, 1)[i % 2], 8, 6)
+                 for i in range(MAX_TABLES + 6)]
+        assert launches_for(len(cases)) == 2
+    keys = ("w", "m", "v", "ls", "uids", "counts")
+    lists = [[_t(c[k]) for c in cases] for k in keys]
+    offs = [c["off"] for c in cases]
+    rows, depth = sparse_gather_catchup_tables(*lists, t, row_offsets=offs,
+                                               **KW)
+    assert depth.dtype == torch.int32 and depth.shape == ()
+    want_depth = max(int(np.max(np.where(
+        c["counts"] > 0,
+        (t - 1) - c["ls"][np.clip(c["uids"] - c["off"], 0,
+                                  c["ls"].shape[0] - 1)], 0)))
+        for c in cases)
+    assert int(depth) == want_depth > 0
+
+    tables = [[_t(c[k]) for c in cases] for k in ("w", "m", "v", "ls")]
+    assert sparse_update_scatter_tables(
+        *tables, lists[4], lists[5], [r[0] for r in rows],
+        [_t(c["g"]) for c in cases], [r[1] for r in rows],
+        [r[2] for r in rows], t, row_offsets=offs, **KW) is None
+    for i, c in enumerate(cases):
+        real = c["counts"] > 0
+        args = [_j(c[k]) for k in keys]
+        rows_j = jax_catchup(*args, jnp.asarray(t, jnp.int32),
+                             use_kernel=use_kernel, row_offset=c["off"], **KW)
+        for a, b, name in zip(rows[i], rows_j, "wmv"):
+            np.testing.assert_allclose(_np(a)[real], _np(b)[real],
+                                       err_msg=f"table {i} {name}_rows", **TOL)
+            assert np.isfinite(_np(a)).all()
+        out_j = jax_update(
+            *args, *(_j(_np(r)) for r in rows[i][:1]), _j(c["g"]),
+            *(_j(_np(r)) for r in rows[i][1:]), jnp.asarray(t, jnp.int32),
+            use_kernel=use_kernel, row_offset=c["off"], **KW)
+        for a, b, name in zip((x[i] for x in tables[:3]), out_j[:3], "wmv"):
+            np.testing.assert_allclose(_np(a), _np(b),
+                                       err_msg=f"table {i} {name}", **TOL)
+        np.testing.assert_array_equal(_np(tables[3][i]), _np(out_j[3]))
+
+
+def test_torch_sparse_grouped_rejects_bad_lists():
+    w = torch.zeros(6, 3)
+    ls = torch.zeros(6, dtype=torch.int32)
+    uids = torch.tensor([1, 6], dtype=torch.int32)
+    cnt = torch.tensor([2.0, 0.0])
+    one = ([w], [w], [w], [ls], [uids], [cnt])
+    with pytest.raises(ValueError):        # lists of two lengths
+        sparse_gather_catchup_tables(*one[:5], [cnt, cnt], 1)
+    with pytest.raises(ValueError):        # no table
+        sparse_gather_catchup_tables([], [], [], [], [], [], 1)
+    with pytest.raises(ValueError):        # a row offset per table
+        sparse_gather_catchup_tables(*one, 1, row_offsets=[0, 0])
+    with pytest.raises(TypeError):
+        sparse_gather_catchup_tables(*one[:3], [ls.long()], *one[4:], 1)
+    rows = torch.zeros(2, 3)
+    with pytest.raises(ValueError):
+        sparse_update_scatter_tables(*one, [rows], [rows[:1]], [rows],
+                                     [rows], 1)
 
 
 @pytest.mark.parametrize("clip", [True, False])

@@ -9,11 +9,14 @@ float32 on the CPU, differing in summation order only). Checkpoints
 interchange in both directions.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import build_train_step as jax_build_train_step
 from repro.core import scale_hyperparams as jax_scale_hyperparams
@@ -120,6 +123,85 @@ def test_torch_train_ctr_matches_jax_auc():
         jax.tree.map(jnp.asarray, params_to_numpy(res_t.params)), te,
         batch_size=256)
     assert abs(ev_t["auc"] - ev_j["auc"]) <= 1e-5
+
+
+@pytest.mark.parametrize("placement", ["fused", "sparse"])
+def test_torch_train_ctr_losses_read_once_per_epoch(placement):
+    """``train_ctr`` keeps each step's loss on the device and reads an
+    epoch's losses at once: over 2 epochs its ``losses`` and final eval
+    equal, bit for bit, a replay of the same steps that reads every loss on
+    the host as it comes (the loop before the repair), with one
+    ``step_seconds`` per step."""
+    _, cfg, _, hp, ds = _setup()
+    cfg = dataclasses.replace(cfg, placement=placement)
+    tr, te = ds.split(0.9)
+    bundle = store_for(cfg).make_bundle(cfg, hp, warmup_steps=WARMUP)
+    params0 = ctr.init(cfg, seed=6, device="cpu")
+
+    def fresh():
+        params = tree_map(torch.clone, params0)
+        return params, bundle.init(params)
+
+    res = train_ctr(cfg, None, tr, te, batch_size=BATCH, epochs=2, seed=0,
+                    step_bundle=bundle, init_state=fresh())
+    params, state = fresh()
+    losses, evaluate = [], make_eval_fn(cfg)
+    for epoch in range(2):
+        for b in iterate_batches(tr, BATCH, seed=epoch):
+            batch = {k: torch.as_tensor(x) for k, x in b.items()}
+            params, state, aux = bundle.step(params, state, batch)
+            losses.append(float(aux["loss"]))
+        params, state = bundle.flush(params, state)
+        ev = evaluate(params, te)
+    assert res.steps == len(losses) > 2
+    assert res.losses == losses
+    assert len(res.step_seconds) == res.steps
+    assert all(sec > 0 for sec in res.step_seconds)
+    for key in ("auc", "logloss"):
+        assert res.final_eval[key] == ev[key], key
+
+
+class _ScalarReads(TorchDispatchMode):
+    """Counts the host's reads of a tensor's scalar (``float``, ``int``,
+    ``bool``, ``.item()``: ``aten::_local_scalar_dense``) while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("placement", ["fused", "sparse"])
+def test_torch_train_ctr_reads_no_scalar_in_a_step(placement):
+    """No step of ``train_ctr`` reads a scalar on the host: over 2 epochs
+    without eval it makes no read at all (the epoch's losses come back by
+    one ``tolist``), while the same run with a step that reads its loss,
+    as the loop did before the repair, shows one read a step."""
+    _, cfg, _, hp, ds = _setup()
+    cfg = dataclasses.replace(cfg, placement=placement)
+    tr, _ = ds.split(0.9)
+    bundle = store_for(cfg).make_bundle(cfg, hp, warmup_steps=WARMUP)
+    params0 = ctr.init(cfg, seed=6, device="cpu")
+
+    def reading_step(params, state, batch):
+        out = bundle.step(params, state, batch)
+        float(out[2]["loss"])
+        return out
+
+    counts = []
+    for b in (bundle, bundle._replace(step=reading_step)):
+        params = tree_map(torch.clone, params0)
+        state = b.init(params)
+        with _ScalarReads() as reads:
+            res = train_ctr(cfg, None, tr, None, batch_size=BATCH, epochs=2,
+                            seed=0, step_bundle=b, init_state=(params, state))
+        counts.append(reads.count)
+        assert len(res.losses) == res.steps > 2
+    assert counts == [0, res.steps]
 
 
 def test_torch_loads_jax_checkpoint_and_back(tmp_path):

@@ -118,6 +118,7 @@ def _run_both(cfg_j, cfg_t, hp_j, hp_t, ds, n_steps, seed):
     batches = list(iterate_batches(tr, BATCH, seed=0))[:n_steps]
     batches_j = list(jax_iterate_batches(tr, BATCH, seed=0))[:n_steps]
     assert len(batches) == n_steps
+    depths = []
     for i, (bt, bj) in enumerate(zip(batches, batches_j)):
         params_j, state_j, aux_j = bundle_j.step(params_j, state_j,
                                                  _jax_batch(bj))
@@ -125,9 +126,13 @@ def _run_both(cfg_j, cfg_t, hp_j, hp_t, ds, n_steps, seed):
                                                  _torch_batch(bt))
         np.testing.assert_allclose(float(aux_t["loss"]),
                                    float(aux_j["loss"]), rtol=1e-5)
+        assert aux_t["catchup_depth_max"].dtype == torch.int32
         assert (int(aux_t["catchup_depth_max"])
                 == int(aux_j["catchup_depth_max"])), i
+        depths.append(int(aux_t["catchup_depth_max"]))
         _assert_close(params_t, params_j, f"step {i + 1}")
+    # the step's rows really had pending decay to catch up
+    assert n_steps < 3 or max(depths) > 0
     assert state_t["step"] == int(state_j["step"]) == n_steps
     for g in ("m", "v"):
         _assert_close(state_t[g], state_j[g], f"state {g}")
