@@ -71,6 +71,32 @@ Phases, each fatal on failure:
      ragged 61 tokens: forward logits, cached prefill, 4 decode steps
  18. wkv6 kernel times with CUDA events (L2 flushed before each launch),
      beside its bound and the plain version's time
+ 19. scan engine, fused: 8 steps of the fused placement at phase 4's width
+     and batch through train_ctr's eager engine and through its scan
+     engine (4 steps a captured CUDA graph), from the same params over the
+     same batches, under PyTorch's default algorithms (the step times;
+     eager against eager and against the graph, the leaves that differ:
+     the CUDA embedding backward is not deterministic at this batch) and
+     under torch.use_deterministic_algorithms (params, moments, counters
+     and losses bitwise equal); one replay traced: 52 fused-update
+     launches a step, no host read of a scalar, the idle share
+ 20. scan engine, sparse: as 19 through the sparse placement; one launch
+     of each sparse kernel a step, the fused kernel and the single-table
+     wrappers none
+ 21. guard: at phase 6's small size, a chunk of 4 batches whose second
+     holds a NaN under nonfinite_guard, both placements: the poisoned
+     step leaves params, moments, last_step and step bitwise unchanged,
+     the graph's replay equals the eager steps, skipped_steps sum to 1
+ 22. serving: a ServingEngine over phase 19's fused snapshot at full
+     width, batch_size 8192 (one captured graph): requests of 1, 100,
+     8192 and 20,000 rows against the eager forward (1e-5); a
+     MicroBatcher behind 8 client threads answers every request once; a
+     HotEmbeddingCache equals the engine (1e-5); rows/s, p50 / p99 ms
+ 23. decode graph (beside phase 15): the decode step captured once for
+     batch 4; 4 x 64-token prompts, 32 new tokens: the eager tokens,
+     logits within 1e-4; ms per decoded token eager and graph, and a
+     traced replay beside phase 16's eager step
+Phases 19-22 run between 12 and 13.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's src/ beside this file.
@@ -120,6 +146,15 @@ LM_RAGGED = (1, 4001)          # a prompt length that is no multiple of 16
 LM_REPEATS = 2
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
 LM_AGREE = 1e-4                # max abs logits, card vs CPU (f32, reduced)
+GRAPH_STEPS = 8                # steps of each engine, phases 19-20
+SCAN_STEPS = 4                 # steps a captured graph, phases 19-20
+TIMED_CHUNKS = 25              # chunks timed each way, steady state, 19-20
+SERVE_BATCH = 8192             # the serving engine's one shape, phase 22
+SERVE_SIZES = (1, 100, 8192, 20000)   # request rows, phase 22
+SERVE_TIMED = 1000             # requests timed one at a time, phase 22
+SERVE_FULL_TIMED = 64          # SERVE_BATCH-row requests timed, phase 22
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 125  # micro-batcher clients x requests
+HOT_CAPACITY = 65536           # hot rows a field on the card, phase 22
 
 
 def check(cond, msg):
@@ -190,15 +225,15 @@ def sparse_tables(gen, rows, dim, max_depth):
     return w, m, v, ls
 
 
-def criteo_data():
+def criteo_data(steps=TRAIN_STEPS, seed=0):
     """The CTR phases' synthetic Zipf data at deepfm-criteo width, enough
-    for TRAIN_STEPS batches: (train, test)."""
+    for ``steps`` batches: (train, test)."""
     from repro_torch.configs.deepfm_criteo import CRITEO_VOCABS
     from repro_torch.data import make_ctr_dataset
 
-    n_samples = math.ceil(TRAIN_STEPS * BATCH / 0.9 / BATCH) * BATCH
+    n_samples = math.ceil(steps * BATCH / 0.9 / BATCH) * BATCH
     return make_ctr_dataset(n_samples, CRITEO_VOCABS, n_dense=13, zipf_a=1.1,
-                            seed=0).split(0.9)
+                            seed=seed).split(0.9)
 
 
 def criteo_hypers():
@@ -265,14 +300,16 @@ def scatter_bound(tables):
     return (*_bound(nbytes, flops), reals, nbytes)
 
 
-def time_sparse_step(cc, gen, vocabs, slot_sets, dims, scratch, *, lr, l2,
-                     step=1000, plain=True, iters=20):
+def time_sparse_step(cc, gen, vocabs, slot_sets, dims, scratch, step, *,
+                     lr, l2, plain=True, iters=20):
     """One step's catch-up and update over every table (``step_tables``
-    of ``slot_sets``), each timed with the L2 flushed before it and the
-    host's work covered (STEP_COVER_CYCLES), and with the flush alone;
-    ``cc`` is the wrappers' module (``repro_torch.kernels.cowclip``): its
-    grouped wrappers where it has them, else its single-table ones, one
-    call a table. With ``plain``, the plain versions' time too, table by
+    of ``slot_sets``, pending depths through step 1000), each timed with
+    the L2 flushed before it and the host's work covered
+    (STEP_COVER_CYCLES), and with the flush alone; ``cc`` is the wrappers'
+    module (``repro_torch.kernels.cowclip``): its grouped wrappers where it
+    has them, else its single-table ones, one call a table. ``step`` is
+    the step 1000 as ``cc``'s wrappers take it, made before the timed
+    launches. With ``plain``, the plain versions' time too, table by
     table. Returns {name: (ms, flush-alone ms, plain ms or None, bound ms,
     bound by, real slots, bytes)}."""
     from repro_torch.kernels.cowclip import ref as cc_ref
@@ -508,7 +545,7 @@ def trace_steps(cfg, bundle, params, state, tr, tag, group):
                  and any(op in r[4] for op in TOLERATED_READ_OPS)]
     for read in sorted(set(tolerated)):
         print(f"[trace] {tag}: x{tolerated.count(read)} PyTorch's own read "
-              f"of a device scalar, left to ROADMAP queue 1 item 3: {read}")
+              f"of a device scalar (tolerated; a CUDA graph capture would refuse it): {read}")
     bad = [r[:4] for r in reads if r[1] == "device"
            and not any(op in r[4] for op in TOLERATED_READ_OPS)]
     check(not bad, f"{tag}: host reads of a device scalar: {bad}")
@@ -547,7 +584,8 @@ def ctr_phases(smi, kind):
                                              sparse_gather_catchup,
                                              sparse_gather_catchup_tables,
                                              sparse_update_scatter,
-                                             sparse_update_scatter_tables)
+                                             sparse_update_scatter_tables,
+                                             step_scalars)
     from repro_torch.kernels.cowclip import ref as cc_ref
     from repro_torch.models import ctr
     from repro_torch.train import train_ctr
@@ -559,8 +597,9 @@ def ctr_phases(smi, kind):
     for rows, dim in ((10131227, 10), (10131227, 1), (4, 10)):
         for step in (1, 1000):
             w, g, cnt, m, v = kernel_inputs(gen, rows, dim)
-            ref = reference(w, g, cnt, m, v, step, **kw)
-            out = fused_cowclip_adam(w, g, cnt, m, v, step, **kw)
+            block = step_scalars(step, device="cuda")
+            ref = reference(w, g, cnt, m, v, block, **kw)
+            out = fused_cowclip_adam(w, g, cnt, m, v, block, **kw)
             torch.cuda.synchronize()
             for name, a, b in zip("wmv", out, ref):
                 compare("kernel", f"[{rows}, {dim}] step {step} {name}", a, b,
@@ -575,8 +614,9 @@ def ctr_phases(smi, kind):
                            1, 4, (edge_rows,), generator=gen,
                            device="cuda").to(torch.float32))
                 w, g, cnt, m, v = kernel_inputs(gen, edge_rows, dim, cnt=cnt)
-                ref = reference(w, g, cnt, m, v, step, **kw)
-                out = fused_cowclip_adam(w, g, cnt, m, v, step, **kw)
+                block = step_scalars(step, device="cuda")
+                ref = reference(w, g, cnt, m, v, block, **kw)
+                out = fused_cowclip_adam(w, g, cnt, m, v, block, **kw)
                 torch.cuda.synchronize()
                 for name, a, b in zip("wmv", out, ref):
                     compare("kernel", f"edge [{edge_rows}, {dim}] all {which} "
@@ -665,18 +705,21 @@ def ctr_phases(smi, kind):
     # launches would time
     timings = {}
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    from repro_torch.kernels import cowclip as cc
+
+    block5 = step_scalars(5, device="cuda")
     for label, dim, cnt in (("one batch's counts", dim, step_cnt),
                             ("half touched", dim, None),
                             ("one batch's counts", 1, step_cnt)):
         w, g, cnt, m, v = kernel_inputs(gen, rows, dim, cnt=cnt)
 
         def run():
-            fused_cowclip_adam(w, g, cnt, m, v, 5, **step_kw)
+            fused_cowclip_adam(w, g, cnt, m, v, block5, **step_kw)
 
         ms = cuda_time_cold_ms(run, 20, scratch)
         flush_ms = cuda_time_cold_ms(run, 20, scratch, cover=False)
         plain_ms = cuda_time_cold_ms(lambda: reference(
-            w, g, cnt, m, v, 5, **step_kw), 5, scratch)
+            w, g, cnt, m, v, block5, **step_kw), 5, scratch)
         bound_ms, bound_by, touched, nbytes = update_bound(cnt, dim)
         timings[label, dim] = (ms, plain_ms, bound_ms, bound_by)
         print(f"[time] [{rows}, {dim}] {label} ({touched} rows touched, L2 "
@@ -733,9 +776,11 @@ def ctr_phases(smi, kind):
         for step in (1, 1000):
             w, m, v, ls = sparse_tables(gen, rows, dim, 1000)
             kw = dict(sparse_kw, row_offset=off)
-            got = sparse_gather_catchup(w, m, v, ls, uids, counts, step, **kw)
+            block = step_scalars(step, device="cuda")
+            got = sparse_gather_catchup(w, m, v, ls, uids, counts, block,
+                                        **kw)
             want = cc_ref.sparse_gather_catchup_reference(
-                w, m, v, ls, uids, step, **kw)
+                w, m, v, ls, uids, block, **kw)
             torch.cuda.synchronize()
             for name, a, b in zip("wmv", got, want):
                 check(bool(torch.isfinite(a).all()),
@@ -745,7 +790,7 @@ def ctr_phases(smi, kind):
             g = 0.1 * torch.randn(counts.numel(), dim, generator=gen,
                                   device="cuda")
             tables = [t.clone() for t in (w, m, v, ls)]
-            upd = (uids, counts, got[0], g, got[1], got[2], step)
+            upd = (uids, counts, got[0], g, got[1], got[2], block)
             sparse_update_scatter(*tables, *upd, r=1.0, zeta=1e-5, **kw)
             want = cc_ref.sparse_update_scatter_reference(
                 w, m, v, ls, *upd, r=1.0, zeta=1e-5, **kw)
@@ -775,13 +820,14 @@ def ctr_phases(smi, kind):
     for step in (1, 1000):
         group = step_tables(gen, CRITEO_VOCABS, slot_sets, dims, 1000)
         cols = [list(c) for c in zip(*group)]       # w, m, v, ls, uids, counts
-        rows, depth = sparse_gather_catchup_tables(*cols, step, **sparse_kw)
+        block = step_scalars(step, device="cuda")
+        rows, depth = sparse_gather_catchup_tables(*cols, block, **sparse_kw)
         grads = [0.1 * torch.randn(r[0].shape, generator=gen, device="cuda")
                  for r in rows]
         tables = [[t.clone() for t in c] for c in cols[:4]]
         sparse_update_scatter_tables(
             *tables, cols[4], cols[5], [r[0] for r in rows], grads,
-            [r[1] for r in rows], [r[2] for r in rows], step, r=1.0,
+            [r[1] for r in rows], [r[2] for r in rows], block, r=1.0,
             zeta=1e-5, **sparse_kw)
         torch.cuda.synchronize()
         # the step's former depth diagnostic, table by table
@@ -798,7 +844,7 @@ def ctr_phases(smi, kind):
                   f"{w.shape[1]}]"
             real = counts > 0
             want = cc_ref.sparse_gather_catchup_reference(
-                w, m, v, ls, uids, step, **sparse_kw)
+                w, m, v, ls, uids, block, **sparse_kw)
             for name, a, b in zip("wmv", rows[i], want):
                 check(bool(torch.isfinite(a).all()),
                       f"non-finite catch-up rows, {tag}")
@@ -806,7 +852,7 @@ def ctr_phases(smi, kind):
                         a[real], b[real], worst_rows)
             want = cc_ref.sparse_update_scatter_reference(
                 w, m, v, ls, uids, counts, rows[i][0], grads[i], rows[i][1],
-                rows[i][2], step, r=1.0, zeta=1e-5, **sparse_kw)
+                rows[i][2], block, r=1.0, zeta=1e-5, **sparse_kw)
             got = [t[i] for t in tables]
             for name, a, b in zip("wmv", got, want):
                 compare(None, f"update {tag} table {name}", a, b,
@@ -830,7 +876,7 @@ def ctr_phases(smi, kind):
               f"last_step equal; {untouched_rows} untouched rows bitwise "
               f"unchanged; depth {int(depth)} = the per-table formula's",
               flush=True)
-        del group, cols, rows, depth, grads, tables, stacked
+        del group, cols, rows, depth, grads, tables, stacked, block
         torch.cuda.empty_cache()
 
     # -- 9. train through the sparse placement ---------------------------
@@ -923,19 +969,21 @@ def ctr_phases(smi, kind):
     # -- 12. sparse kernel times on the largest table --------------------
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     sparse_times = {}
+    block1000 = step_scalars(1000, device="cuda")
     for dim in (CONFIG.emb_dim, 1):
         w, m, v, ls = sparse_tables(gen, vocab, dim, 1000)
         g = 0.1 * torch.randn(cap, dim, generator=gen, device="cuda")
         rows_c = sparse_gather_catchup(w, m, v, ls, uids_big, counts_big,
-                                       1000, **sparse_kw)
+                                       block1000, **sparse_kw)
         upd = (uids_big, counts_big, rows_c[0], g, rows_c[1], rows_c[2],
-               1000)
+               block1000)
         runs = {
             "sparse_gather_catchup": (
                 lambda: sparse_gather_catchup(w, m, v, ls, uids_big,
-                                              counts_big, 1000, **sparse_kw),
+                                              counts_big, block1000,
+                                              **sparse_kw),
                 lambda: cc_ref.sparse_gather_catchup_reference(
-                    w, m, v, ls, uids_big, 1000, **sparse_kw),
+                    w, m, v, ls, uids_big, block1000, **sparse_kw),
                 catchup_bound([(counts_big, dim)])),
             "sparse_update_scatter": (
                 lambda: sparse_update_scatter(w, m, v, ls, *upd, r=1.0,
@@ -960,8 +1008,6 @@ def ctr_phases(smi, kind):
     torch.cuda.empty_cache()
     # one step's 52 tables: the grouped launch (the main path's), and the
     # same kernel through the single-table wrappers, a launch a table
-    from repro_torch.kernels import cowclip as cc
-
     power = smi.strip().split(", ")[-1]
     per_table = types.SimpleNamespace(
         sparse_gather_catchup=sparse_gather_catchup,
@@ -970,7 +1016,8 @@ def ctr_phases(smi, kind):
                                 (f"{n_tables} single-table launches",
                                  per_table, False)):
         times = time_sparse_step(module, gen, CRITEO_VOCABS, slot_sets, dims,
-                                 scratch, plain=plain, **sparse_kw)
+                                 scratch, block1000, plain=plain,
+                                 **sparse_kw)
         torch.cuda.empty_cache()
         for name, (k_ms, f_ms, p_ms, b_ms, b_by, real, nbytes) in \
                 times.items():
@@ -1006,6 +1053,438 @@ def ctr_phases(smi, kind):
             "library_ms": None,
         })
     return lines
+
+
+def tree_diff(a, b):
+    """The leaves of two trees of tensors that are not bitwise equal:
+    [(path, elements that differ, max abs difference)]."""
+    from repro_torch.core.tree import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    check(fa.keys() == fb.keys(), "the trees differ in structure")
+    return [(k, int(fa[k].ne(fb[k]).sum()),
+             float(f"{(fa[k].double() - fb[k].double()).abs().max():.2e}"))
+            for k in fa if not torch.equal(fa[k], fb[k])]
+
+
+def steady_ms(bundle, runner, params, state, chunk):
+    """Steady-state ms/step of the eager steps and the graph: TIMED_CHUNKS
+    rounds, each one replay of ``chunk`` through ``runner`` and then its
+    SCAN_STEPS batches through ``bundle.step`` (the batches already on the
+    card, so neither side copies from the host), CUDA events around each
+    chunk's steps. Returns (eager, graph), each a list of ms a step, one a
+    chunk."""
+    batches = [{k: v[i] for k, v in chunk.items()}
+               for i in range(SCAN_STEPS)]
+
+    def eager_chunk():
+        for batch in batches:
+            bundle.step(params, state, batch)
+
+    spans = {"eager": [], "graph": []}
+    for _ in range(TIMED_CHUNKS):
+        for name, fn in (("graph", lambda: runner(params, state, chunk)),
+                         ("eager", eager_chunk)):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            spans[name].append((a, b))
+    torch.cuda.synchronize()
+    return tuple([a.elapsed_time(b) / SCAN_STEPS for a, b in spans[name]]
+                 for name in ("eager", "graph"))
+
+
+def spread(ms):
+    """'mean (median, min-max, n)' of a list of ms."""
+    a = np.asarray(ms)
+    return (f"{a.mean():.3f} (median {np.median(a):.3f}, {a.min():.3f}-"
+            f"{a.max():.3f}, {a.size} chunks)")
+
+
+def graph_engine_phase(placement, tr, hp, power, kind):
+    """Phase 19 (fused) or 20 (sparse): GRAPH_STEPS steps of
+    ``train_ctr`` at deepfm-criteo width and batch BATCH with the eager
+    engine and with the scan engine (SCAN_STEPS steps a captured graph),
+    from the same params over the same batches, twice: under PyTorch's
+    default algorithms, where the eager engine is not deterministic at
+    this batch (its CUDA embedding backward: for the fused placement, one
+    step's gradients computed twice are compared first; then the leaves
+    that differ, eager against eager and against the graph) and the step
+    times are taken, and under ``torch.use_deterministic_algorithms``, where
+    params, moments, the state's counters and the losses must be bitwise
+    equal. Then one chunk's replay, traced: its kernels by name (the
+    update's launches a step: CUPTI traces a graph's kernels), its host
+    reads of scalars (none allowed) and its idle share; and the steady
+    state, ``steady_ms`` under each mode of algorithms. Returns (cfg,
+    bundle, params, state) of the last scan run."""
+    from repro_torch.configs.deepfm_criteo import CONFIG
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.prefetch import chunk_epoch
+    from repro_torch.embed import store_for
+    from repro_torch.kernels import cowclip as cc
+    from repro_torch.models import ctr
+    from repro_torch.train import engine as engine_lib
+    from repro_torch.train import train_ctr
+
+    tag = f"graph-{placement}"
+    cfg = dataclasses.replace(CONFIG, placement=placement, emb_sigma=1e-2)
+    bundle = store_for(cfg).make_bundle(
+        cfg, hp, warmup_steps=max(1, len(tr) // BATCH))
+    params0 = ctr.init(cfg, seed=7, device="cuda")
+
+    def run(engine):
+        params = tree_map(torch.clone, params0)
+        return train_ctr(
+            cfg, None, tr, None, batch_size=BATCH, seed=3,
+            step_bundle=bundle, max_steps=GRAPH_STEPS, engine=engine,
+            scan_steps=SCAN_STEPS, init_state=(params, bundle.init(params)),
+            device="cuda")
+
+    # default algorithms: where the eager steps differ (one step's
+    # gradients twice from the same params and batch, then whole runs),
+    # and the step times
+    if placement == "fused":
+        from repro_torch.data import iterate_batches
+        from repro_torch.train.loop import _loss_and_grads
+
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                 next(iterate_batches(tr, BATCH, seed=3)).items()}
+        grads = [_loss_and_grads(params0, cfg, batch)[1] for _ in range(2)]
+        print(f"[{tag}] one step's gradients twice, same params and batch: "
+              f"{tree_diff(*grads)} differ (vocab of each field: "
+              f"{list(cfg.vocab_sizes)})", flush=True)
+        del batch, grads
+    eager, again = run("eager"), run("eager")
+    leaves = lambda r: (r.params, r.opt_state)  # noqa: E731
+    runs_differ = tree_diff(leaves(eager), leaves(again))
+    del again
+    scan = run("scan")
+    graph_differ = tree_diff(leaves(eager), leaves(scan))
+    eager_ms = 1e3 * sum(eager.step_seconds[1:]) / (GRAPH_STEPS - 1)
+    graph_ms = 1e3 * sum(scan.step_seconds[SCAN_STEPS:]) / (
+        GRAPH_STEPS - SCAN_STEPS)
+    first_ms = 1e3 * scan.step_seconds[0]
+    print(f"[{tag}] deepfm-criteo {placement}, batch {BATCH}, "
+          f"{GRAPH_STEPS} steps, PyTorch's default algorithms: eager "
+          f"against eager: {len(runs_differ)} leaves differ "
+          f"{runs_differ[:6]}; eager against "
+          f"the scan engine: {len(graph_differ)} leaves differ; losses "
+          f"{'equal' if eager.losses == scan.losses else 'differ'}",
+          flush=True)
+    print(f"[{tag}] train_ctr's ms/step (CUDA events, input pipeline "
+          f"included): eager {eager_ms:.2f} (steps 2-{GRAPH_STEPS}: "
+          f"{[round(1e3 * x, 2) for x in eager.step_seconds]}), graph "
+          f"{graph_ms:.2f} (its one chunk after the first; the first, its "
+          f"capture included, {first_ms:.1f} ms a step), {kind} at {power}",
+          flush=True)
+    del eager, scan
+    torch.cuda.empty_cache()
+
+    # deterministic algorithms: the graph must replay the eager steps
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, scan = run("eager"), run("scan")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del params0
+    check(eager.steps == scan.steps == GRAPH_STEPS,
+          f"{placement}: {eager.steps} / {scan.steps} steps")
+    diff = tree_diff(leaves(eager), leaves(scan))
+    print(f"[{tag}] under torch.use_deterministic_algorithms: eager vs scan "
+          f"({SCAN_STEPS} steps a graph): params and state "
+          f"{'bitwise equal' if not diff else f'DIFFER at {diff[:4]}'}; "
+          f"losses "
+          f"{'bitwise equal' if eager.losses == scan.losses else 'DIFFER'} "
+          f"(last {scan.losses[-1]:.6f})", flush=True)
+    check(not diff and eager.losses == scan.losses,
+          f"{placement}: the graph replays differ from the eager steps")
+    del eager
+    params, state = scan.params, scan.opt_state
+    del scan
+    torch.cuda.empty_cache()
+
+    # one chunk's replay, traced, through a runner of its own
+    chunk = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(chunk_epoch(tr, BATCH, SCAN_STEPS, seed=4)).items()}
+    runner = engine_lib.make_chunk_runner(bundle.step.scan_step)
+    wrappers = (cc.fused_cowclip_adam, cc.sparse_gather_catchup,
+                cc.sparse_update_scatter, cc.sparse_gather_catchup_tables,
+                cc.sparse_update_scatter_tables)
+    for w in wrappers:
+        w.launches = 0
+    runner(params, state, chunk)          # the capture and a first replay
+    torch.cuda.synchronize()
+    calls = [w.launches for w in wrappers]
+    wall_ms, prof = profiled(lambda: runner(params, state, chunk))
+    kernels = by_kernel(prof)
+    group = (FUSED_KERNELS if placement == "fused" else SPARSE_KERNELS)
+    print_trace(tag, f"one replay of {SCAN_STEPS} steps", wall_ms, kernels,
+                group=("the update's kernels", group), steps=SCAN_STEPS)
+    counts = {n: sum(c for _, c, k in kernels if n in k)
+              for n in FUSED_KERNELS + SPARSE_KERNELS}
+    reads = sum(e.name == HOST_READ for e in prof.events())
+    n_tables = 2 * cfg.n_fields
+    want = ({"cowclip_adam_tile_kernel": 0, "cowclip_adam_kernel": 0,
+             "sparse_catchup_kernel": SCAN_STEPS,
+             "sparse_update_kernel": SCAN_STEPS} if placement == "sparse"
+            else {"sparse_catchup_kernel": 0, "sparse_update_kernel": 0})
+    fused = sum(counts[n] for n in FUSED_KERNELS)
+    print(f"[{tag}] kernels of one replay (CUPTI sees a graph's kernels): "
+          f"{counts}; host reads of a scalar in the replay "
+          f"{reads}; wrapper calls for the warm-up step and the capture "
+          f"(fused, single-table catch-up and update, grouped catch-up and "
+          f"update) {calls}", flush=True)
+    check(reads == 0, f"{placement}: {reads} host reads in a replay")
+    check(all(counts[n] == v for n, v in want.items()),
+          f"{placement}: kernels a replay {counts}, expected {want}")
+    if placement == "fused":
+        check(fused == n_tables * SCAN_STEPS,
+              f"fused update launched {fused} times in a replay of "
+              f"{SCAN_STEPS} steps, expected {n_tables} a step")
+    else:
+        check(calls[0] == calls[1] == calls[2] == 0,
+              f"single-table or fused wrappers called {calls[:3]} on the "
+              f"sparse graph")
+    del prof
+
+    # the steady state: many chunks each way, under each mode of
+    # algorithms (a graph captured under the mode it replays)
+    for mode in ("default", "deterministic"):
+        det = mode == "deterministic"
+        if det:
+            del runner
+            torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            if det:
+                runner = engine_lib.make_chunk_runner(bundle.step.scan_step)
+                runner(params, state, chunk)          # the capture
+            eager_ms, graph_ms = steady_ms(bundle, runner, params, state,
+                                           chunk)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"[{tag}] steady ms/step ({mode} algorithms; CUDA events "
+              f"around each chunk of {SCAN_STEPS} steps on batches already "
+              f"on the card, eager and graph in turns): eager "
+              f"{spread(eager_ms)}, graph {spread(graph_ms)}, {kind} at "
+              f"{power}", flush=True)
+        check(all(math.isfinite(x) and x > 0 for x in eager_ms + graph_ms),
+              f"{placement}: a steady chunk time is not positive")
+    del runner, chunk
+    torch.cuda.empty_cache()
+    return cfg, bundle, params, state
+
+
+def guard_phase(power, kind):
+    """Phase 21: a chunk of 4 batches at phase 6's small size, the second
+    with a NaN dense feature, under nonfinite_guard on both placements:
+    the poisoned eager step leaves params, moments, last_step and step
+    bitwise unchanged, and the graph's replay equals the eager steps bit
+    for bit, its skipped_steps summing to 1."""
+    from repro_torch.core.scaling import scale_hyperparams
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import make_ctr_dataset
+    from repro_torch.data.prefetch import chunk_epoch
+    from repro_torch.embed import store_for
+    from repro_torch.models import ctr
+    from repro_torch.train import engine as engine_lib
+
+    shp = scale_hyperparams("cowclip", base_lr=1e-3, base_l2=1e-3,
+                            base_batch=256, batch_size=512,
+                            base_dense_lr=2e-3)
+    for placement in ("fused", "sparse"):
+        cfg = ctr.CTRConfig(name="deepfm",
+                            vocab_sizes=(2000, 700, 120, 30, 5), n_dense=4,
+                            emb_dim=8, mlp_dims=(32, 32, 32), emb_sigma=1e-2,
+                            placement=placement)
+        sds = make_ctr_dataset(4 * 512, cfg.vocab_sizes, n_dense=4, seed=1)
+        bundle = store_for(cfg).make_bundle(cfg, shp, warmup_steps=2,
+                                            nonfinite_guard=True)
+        chunk = next(chunk_epoch(sds, 512, 4, seed=1))
+        chunk["dense"][1, 0, 0] = np.nan
+        chunk = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in chunk.items()}
+        params0 = ctr.init(cfg, seed=1, device="cuda")
+
+        p = tree_map(torch.clone, params0)
+        s = bundle.init(p)
+        skipped, unchanged = [], True
+        for i in range(4):
+            before = tree_map(torch.clone, (p, s)) if i == 1 else None
+            p, s, aux = bundle.step(p, s, {k: v[i] for k, v in chunk.items()})
+            skipped.append(int(aux["skipped_steps"]))
+            if before is not None:
+                unchanged = not tree_diff(before, (p, s))
+        eager = (p, s)
+        p = tree_map(torch.clone, params0)
+        s = bundle.init(p)
+        runner = engine_lib.make_chunk_runner(bundle.step.scan_step)
+        p, s, aux = runner(p, s, chunk)
+        diff = tree_diff(eager, (p, s))
+        n_skipped = int(aux["skipped_steps"].sum())
+        print(f"[guard] {placement}, a NaN batch 2nd of 4: eager skipped "
+              f"{skipped}, the poisoned step left params and state "
+              f"{'bitwise unchanged' if unchanged else 'CHANGED'}; graph "
+              f"replay skipped {n_skipped}, step {int(s['step'])}, "
+              f"{'bitwise equal to' if not diff else 'DIFFERS from'} the "
+              f"eager steps", flush=True)
+        check(skipped == [0, 1, 0, 0] and unchanged and n_skipped == 1
+              and int(s["step"]) == 3 and not diff,
+              f"{placement}: the guard under a graph is not the eager "
+              f"guard's skip ({diff[:4]})")
+
+
+def serving_phase(cfg, bundle, params, state, tr, te, power, kind):
+    """Phase 22: a ServingEngine over the fused bundle's snapshot at full
+    width, one captured graph at SERVE_BATCH rows: requests of
+    SERVE_SIZES rows against the eager forward, a MicroBatcher behind
+    SERVE_CLIENTS client threads, and a HotEmbeddingCache against the
+    engine; rows/s and p50 / p99 / max ms a request, over SERVE_TIMED
+    requests one at a time (SERVE_FULL_TIMED of SERVE_BATCH rows), the
+    test split's rows taken in turn and cycled."""
+    import threading
+
+    from repro_torch.models import ctr
+    from repro_torch.serve import (HotEmbeddingCache, MicroBatcher,
+                                   ServingEngine, id_frequencies)
+
+    eng = ServingEngine.from_training(bundle, params, state, cfg,
+                                      batch_size=SERVE_BATCH)
+    n_max = max(SERVE_SIZES)
+    check(len(te) >= n_max, f"{len(te)} test rows < {n_max}")
+    ids, dense = te.ids[:n_max], te.dense[:n_max]
+    with torch.inference_mode():
+        ref = ctr.apply(eng.params, cfg, torch.as_tensor(ids, device="cuda"),
+                        torch.as_tensor(dense, device="cuda")).cpu().numpy()
+    errs = {}
+    for n in SERVE_SIZES:
+        got = eng.score(ids[:n], dense[:n])
+        check(got.shape == (n,) and np.isfinite(got).all(),
+              f"serving {n} rows: bad scores")
+        errs[n] = float(np.abs(got - ref[:n]).max())
+    print(f"[serve] deepfm-criteo fused snapshot after {GRAPH_STEPS} steps, "
+          f"batch_size {SERVE_BATCH}: max |score - eager forward| by "
+          f"request rows {errs} (bar 1e-5); captures {eng.n_traces}",
+          flush=True)
+    check(max(errs.values()) <= 1e-5 and eng.n_traces == 1,
+          "the serving engine disagrees with the forward, or recaptured")
+
+    # the test split tiled, so that a request's rows are a contiguous view
+    # made before the clock starts
+    reps = -(-max(100 * SERVE_TIMED, SERVE_BATCH * SERVE_FULL_TIMED)
+             // len(te))
+    ids_all = np.concatenate([te.ids] * reps)
+    dense_all = np.concatenate([te.dense] * reps)
+
+    def latencies(score, rows, count):
+        lat = []
+        t0 = time.perf_counter()
+        for i in range(count):
+            a = time.perf_counter()
+            score(ids_all[i * rows:(i + 1) * rows],
+                  dense_all[i * rows:(i + 1) * rows])
+            lat.append(time.perf_counter() - a)
+        return lat, time.perf_counter() - t0
+
+    def report(what, lat, seconds, rows):
+        ms = np.asarray(lat) * 1e3
+        print(f"[serve] {what}: {rows / seconds:.0f} rows/s, p50 "
+              f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f}"
+              f" ms, max {ms.max():.3f} ms a request ({len(lat)} requests),"
+              f" {kind} at {power}", flush=True)
+
+    lat, sec = latencies(eng.score, 100, SERVE_TIMED)
+    report("engine, 100-row requests one at a time", lat, sec,
+           100 * SERVE_TIMED)
+    lat, sec = latencies(eng.score, SERVE_BATCH, SERVE_FULL_TIMED)
+    report(f"engine, {SERVE_BATCH}-row requests one at a time", lat, sec,
+           SERVE_BATCH * SERVE_FULL_TIMED)
+
+    gen = np.random.default_rng(0)
+    sizes = gen.integers(1, 512, (SERVE_CLIENTS, SERVE_REQUESTS))
+    starts = gen.integers(0, n_max - 512, (SERVE_CLIENTS, SERVE_REQUESTS))
+    results, lat = {}, []
+    lock = threading.Lock()
+    with MicroBatcher(eng.score, max_batch=SERVE_BATCH,
+                      max_wait_ms=2.0) as mb:
+        barrier = threading.Barrier(SERVE_CLIENTS)
+
+        def client(c):
+            barrier.wait()
+            for j in range(SERVE_REQUESTS):
+                a, n = int(starts[c, j]), int(sizes[c, j])
+                t = time.perf_counter()
+                out = mb.score(ids[a:a + n], dense[a:a + n])
+                with lock:
+                    lat.append(time.perf_counter() - t)
+                    results.setdefault((c, j), []).append(out)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        sec = time.perf_counter() - t0
+        stats = mb.stats()
+    once = all(len(results.get((c, j), [])) == 1
+               for c in range(SERVE_CLIENTS) for j in range(SERVE_REQUESTS))
+    err = max(float(np.abs(results[c, j][0] - ref[starts[c, j]:starts[c, j]
+                                                  + sizes[c, j]]).max())
+              for (c, j) in results)
+    print(f"[serve] micro-batcher, {SERVE_CLIENTS} client threads x "
+          f"{SERVE_REQUESTS} requests of 1-511 rows: every request answered "
+          f"{'once' if once else 'NOT once'}, max |score - eager forward| "
+          f"{err:.3e}; {stats['dispatches']} dispatches, mean fill "
+          f"{stats['mean_fill']:.1f} rows", flush=True)
+    check(once and len(results) == SERVE_CLIENTS * SERVE_REQUESTS
+          and err <= 1e-5, "the micro-batcher lost, repeated or changed a "
+          "request")
+    report("micro-batcher", lat, sec, int(sizes.sum()))
+
+    freqs = id_frequencies(tr.ids, cfg.vocab_sizes)
+    cache = HotEmbeddingCache(cfg, eng.params, freqs, capacity=HOT_CAPACITY,
+                              batch_size=SERVE_BATCH)
+    got = cache.score(ids, dense)
+    want = eng.score(ids, dense)
+    err = float(np.abs(got - want).max())
+    print(f"[serve] hot-id cache, {HOT_CAPACITY} rows a field on the card "
+          f"({cache.stats()['device_rows']} of {cache.stats()['host_rows']})"
+          f": max |cached - engine| over {n_max} rows {err:.3e} (bar 1e-5), "
+          f"hit rate {cache.hit_rate():.4f}, captures {cache.n_traces}",
+          flush=True)
+    check(err <= 1e-5 and cache.n_traces == 1,
+          "the hot-id cache disagrees with the engine, or recaptured")
+    lat, sec = latencies(cache.score, 100, SERVE_TIMED)
+    report("hot-id cache, 100-row requests one at a time", lat, sec,
+           100 * SERVE_TIMED)
+    del eng, cache, ids_all, dense_all
+
+
+def graph_phases(smi, kind):
+    """Phases 19-22: the scan engine at deepfm-criteo width on both
+    placements, the guard under a graph, and CTR serving. Every tensor is
+    freed on return."""
+    power = smi.strip().split(", ")[-1]
+    t0 = time.perf_counter()
+    tr, te = criteo_data(steps=GRAPH_STEPS, seed=1)
+    print(f"[graph] synthetic Zipf data: {len(tr)} train / {len(te)} test "
+          f"rows in {time.perf_counter() - t0:.1f} s", flush=True)
+    hp = criteo_hypers()
+    fused = graph_engine_phase("fused", tr, hp, power, kind)
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_engine_phase("sparse", tr, hp, power, kind)
+    gc.collect()
+    torch.cuda.empty_cache()
+    guard_phase(power, kind)
+    serving_phase(*fused, tr, te, power, kind)
+    del fused
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def wkv_inputs(gen, bh, seq, n, zero_frac=0.0):
@@ -1075,7 +1554,7 @@ def lm_phases(smi, kind):
                                           wkv6_reference)
     from repro_torch.kernels.wkv6.wkv6 import chunked_wkv6, segment_chunks
     from repro_torch.models import layers, lm, rwkv
-    from repro_torch.serve.decode import greedy_generate
+    from repro_torch.serve.decode import GraphDecoder, greedy_generate
 
     power = smi.strip().split(", ")[-1]
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -1213,27 +1692,51 @@ def lm_phases(smi, kind):
     gen_prompt = torch.as_tensor(make_lm_tokens(
         GEN_BATCH * GEN_PROMPT, cfg.vocab_size, seed=2).reshape(
             GEN_BATCH, GEN_PROMPT), device="cuda")
-    timing, gen_launches = {}, []
-    for new in (0, GEN_NEW):
-        wkv6.launches = 0
-        t0 = time.perf_counter()
-        res = greedy_generate(params, cfg, gen_prompt, new)
-        torch.cuda.synchronize()
-        timing[new] = time.perf_counter() - t0
-        gen_launches.append(wkv6.launches)
-    check(gen_launches == [cfg.n_layers] * 2,
+    # phase 23 beside it: the decode step as a replayed CUDA graph
+    t0 = time.perf_counter()
+    decoder = GraphDecoder(params, cfg)
+    decoder.graph(GEN_BATCH)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    timing, gen_launches, gens = {}, [], {}
+    for mode in ("eager", "graph"):
+        for new in (0, GEN_NEW):
+            wkv6.launches = 0
+            t0 = time.perf_counter()
+            gens[mode] = greedy_generate(params, cfg, gen_prompt, new,
+                                         decoder=decoder,
+                                         graph=mode == "graph")
+            torch.cuda.synchronize()
+            timing[mode, new] = time.perf_counter() - t0
+            gen_launches.append(wkv6.launches)
+    res = gens["eager"]
+    check(gen_launches == [cfg.n_layers] * 4,
           f"greedy generation launched wkv6 {gen_launches} times, expected "
           f"{cfg.n_layers} per cached prefill and none in decode")
     check(tuple(res.tokens.shape) == (GEN_BATCH, GEN_NEW)
           and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
           and bool(torch.isfinite(res.logits).all()),
           "greedy generation: bad tokens or non-finite logits")
-    decode_ms = (timing[GEN_NEW] - timing[0]) * 1e3 / GEN_NEW
+    decode_ms = {mode: (timing[mode, GEN_NEW] - timing[mode, 0]) * 1e3
+                 / GEN_NEW for mode in ("eager", "graph")}
     print(f"[gen] {GEN_BATCH} requests x {GEN_PROMPT}-token prompts, "
-          f"{GEN_NEW} greedy tokens: cached prefill {timing[0] * 1e3:.1f} ms, "
-          f"{decode_ms:.2f} ms per decoded token ({GEN_BATCH * 1e3 / decode_ms:.0f} "
+          f"{GEN_NEW} greedy tokens, eager decode steps: cached prefill "
+          f"{timing['eager', 0] * 1e3:.1f} ms, {decode_ms['eager']:.2f} ms "
+          f"per decoded token ({GEN_BATCH * 1e3 / decode_ms['eager']:.0f} "
           f"tokens/s), {kind} at {power}; wkv6 launches {gen_launches}; "
           f"first tokens {res.tokens[0, :8].tolist()}", flush=True)
+    same = torch.equal(gens["graph"].tokens, res.tokens)
+    gap = (gens["graph"].logits - res.logits).abs().max().item()
+    print(f"[decode-graph] the decode step captured once for batch "
+          f"{GEN_BATCH} ({capture_s:.2f} s with its warm-up step): "
+          f"{decode_ms['graph']:.2f} ms per decoded token "
+          f"({GEN_BATCH * 1e3 / decode_ms['graph']:.0f} tokens/s) against "
+          f"{decode_ms['eager']:.2f} eager; tokens "
+          f"{'equal to' if same else 'DIFFER from'} the eager ones, last "
+          f"logits max_abs {gap:.3e} (bar {LM_AGREE}), {kind} at {power}",
+          flush=True)
+    check(same and gap <= LM_AGREE and list(decoder.graphs) == [GEN_BATCH],
+          "the decode graph's generation differs from the eager one")
     with torch.inference_mode():
         p0 = tree_map(lambda t: t[0], params["dense"]["blocks"]["pos_0"])
         x = params["embed"]["tokens"][prompts[LM_PREFILL][:1]].to(cfg.dtype)
@@ -1273,7 +1776,11 @@ def lm_phases(smi, kind):
 
     print_trace("lm-trace", f"decode step, batch {GEN_BATCH}",
                 *device_time_by_kernel(decode_one))
-    del first, cache
+    step_graph = decoder.graph(GEN_BATCH)
+    step_graph.start(first.argmax(-1), cache)
+    print_trace("lm-trace", f"decode step as a graph replay, batch "
+                f"{GEN_BATCH}", *device_time_by_kernel(step_graph.step))
+    del first, cache, step_graph, decoder, gens
     del params, prompts, gen_prompt
     gc.collect()
     torch.cuda.empty_cache()
@@ -1385,6 +1892,7 @@ def main() -> int:
     lines = ctr_phases(smi, kind)
     gc.collect()
     torch.cuda.empty_cache()
+    graph_phases(smi, kind)
     lines.append(lm_phases(smi, kind))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

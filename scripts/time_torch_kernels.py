@@ -32,7 +32,9 @@ covered. It prints each kernel's registers, shared memory and stack
 (default: this checkout's), so that another commit's kernels, unpacked
 with ``git archive``, are timed with this timer: run one process per
 checkout; to hold a change against its parent, run them in turns in one
-call: parent, change, change, parent. Every line names the card and its
+call: parent, change, change, parent. Where a port's CowClip wrappers read
+the step from device memory, its block is made once, before the timed
+launches (``step_arg``). Every line names the card and its
 power limit. ``--quick`` times one segment length per shape. Exits
 non-zero without a CUDA device.
 """
@@ -55,6 +57,15 @@ CRITEO_ROWS = 10131227         # the largest deepfm-criteo table
 BATCH_TOUCHED = 36430          # its rows one batch of 131072 touches
 
 
+def step_arg(cc, step):
+    """``step`` as the wrappers of ``cc`` (a checkout's
+    ``repro_torch.kernels.cowclip``) take it: where they read the step
+    from the card, its ``StepScalars`` block, made here once, outside the
+    timed launches; an earlier port's wrappers take the int."""
+    make = getattr(cc, "step_scalars", None)
+    return make(step, device="cuda") if make is not None else step
+
+
 def resources(ext):
     """Print the registers, shared memory and stack of each kernel."""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -69,8 +80,9 @@ def resources(ext):
 
 
 def time_update(gen, scratch, card):
-    from repro_torch.kernels.cowclip import fused_cowclip_adam
+    from repro_torch.kernels import cowclip as cc
 
+    step = step_arg(cc, 5)
     for dim, label, frac in ((10, "one batch's share",
                               BATCH_TOUCHED / CRITEO_ROWS),
                              (1, "one batch's share",
@@ -80,7 +92,7 @@ def time_update(gen, scratch, card):
                                               touched_frac=frac)
 
         def run():
-            fused_cowclip_adam(w, g, cnt, m, v, 5, lr=1e-3, l2=1e-4)
+            cc.fused_cowclip_adam(w, g, cnt, m, v, step, lr=1e-3, l2=1e-4)
 
         covered = smoke.cuda_time_cold_ms(run, 20, scratch)
         flush = smoke.cuda_time_cold_ms(run, 20, scratch, cover=False)
@@ -105,8 +117,8 @@ def time_sparse(gen, scratch, card):
     form = ("one grouped launch" if hasattr(cc, "sparse_gather_catchup_tables")
             else f"{2 * len(CRITEO_VOCABS)} single-table launches")
     times = smoke.time_sparse_step(cc, gen, CRITEO_VOCABS, slot_sets, (10, 1),
-                                   scratch, lr=hp.emb_lr, l2=hp.emb_l2,
-                                   plain=False)
+                                   scratch, step_arg(cc, 1000),
+                                   lr=hp.emb_lr, l2=hp.emb_l2, plain=False)
     for name, (ms, flush, _, b_ms, b_by, real, nbytes) in times.items():
         print(f"[time] {name}, one step's {2 * len(CRITEO_VOCABS)} tables "
               f"({real} real slots), {form}: {ms:.4f} ms (L2 flushed, host "
@@ -120,12 +132,13 @@ def time_sparse(gen, scratch, card):
         w, m, v, ls = smoke.sparse_tables(gen, CRITEO_VOCABS[big], dim, 1000)
         g = 0.1 * torch.randn(uids.numel(), dim, generator=gen, device="cuda")
         kw = dict(lr=hp.emb_lr, l2=hp.emb_l2)
-        rows = cc.sparse_gather_catchup(w, m, v, ls, uids, counts, 1000, **kw)
+        step = step_arg(cc, 1000)
+        rows = cc.sparse_gather_catchup(w, m, v, ls, uids, counts, step, **kw)
         runs = (("sparse_gather_catchup", lambda: cc.sparse_gather_catchup(
-                    w, m, v, ls, uids, counts, 1000, **kw)),
+                    w, m, v, ls, uids, counts, step, **kw)),
                 ("sparse_update_scatter", lambda: cc.sparse_update_scatter(
                     w, m, v, ls, uids, counts, rows[0], g, rows[1], rows[2],
-                    1000, r=1.0, zeta=1e-5, **kw)))
+                    step, r=1.0, zeta=1e-5, **kw)))
         for name, fn in runs:
             times = [smoke.cuda_time_cold_ms(fn, 50, scratch)
                      for _ in range(3)]

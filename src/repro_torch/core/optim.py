@@ -6,10 +6,15 @@ functions ``(init, update)`` over trees of tensors, and ``update`` returns
 ``torch.optim``) so each transform's op order mirrors the reference one for
 one, which is what lets the parity tests hold the port to 1e-5.
 
-Scalars that JAX computes in float32 on device (bias corrections, scheduled
-step sizes) are computed here as 0-dim float32 CPU tensors: the same f32
-arithmetic, and PyTorch passes a 0-dim CPU tensor to a CUDA kernel by value,
-so no host/device copy is made. Step counters are Python ints.
+Step counters are 0-dim int32 tensors on the params' device, as they are
+in the JAX state under ``jit``, and every scalar derived from them (bias
+corrections, scheduled step sizes) is a 0-dim float32 tensor computed from
+the counter on that device: the same f32 arithmetic as JAX's, nothing read
+by the host, and nothing a captured CUDA graph would freeze at its capture
+step. ``bias_corrections`` is the one function that turns a step into its
+bias corrections, for the dense tower's Adam and the CowClip kernels'
+step block alike: the host's f32 rounding of them, looked up by the
+counter on its device.
 """
 
 from __future__ import annotations
@@ -19,16 +24,73 @@ from typing import Any, Callable, NamedTuple, Union
 import numpy as np
 import torch
 
-from .tree import tree_map
+from .tree import tree_leaves, tree_map
 
 PyTree = Any
-Schedule = Callable[[int], torch.Tensor]
+Schedule = Callable[[torch.Tensor], torch.Tensor]
 ScalarOrSchedule = Union[float, Schedule]
 
 
 def f32(x) -> torch.Tensor:
     """A 0-dim float32 CPU tensor (f32 scalar math as JAX does it)."""
     return torch.tensor(x, dtype=torch.float32)
+
+
+def counter(like) -> torch.Tensor:
+    """A step counter at 0: a 0-dim int32 tensor on the device of the
+    first leaf of ``like`` (the CPU for an empty tree)."""
+    leaves = tree_leaves(like)
+    device = leaves[0].device if leaves else None
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _host_bias_column(b: float) -> list:
+    """``1/(1 - b^t)`` for t = 0, 1, ... in the host's f32 rounding (each
+    from a 0-dim CPU tensor, as ``kernels.cowclip.cowclip
+    .bias_corrections`` computes it), up to the first t at which it is
+    1.0: ``b^t`` is then at most half an ulp of 1, and stays so, so every
+    later step's is 1.0 too (about ``17.3 / (1 - b)`` values)."""
+    column = [(1.0 / (1.0 - b ** f32(0))).item()]
+    while column[-1] != 1.0:
+        column.append((1.0 / (1.0 - b ** f32(len(column)))).item())
+    return column
+
+
+_BIAS_TABLES: dict = {}
+
+
+def _bias_table(b1: float, b2: float, device) -> torch.Tensor:
+    """``[T + 1, 2]`` f32 on ``device``: row t the host's bias corrections
+    at step t, through the first T at which both are 1.0. Built once per
+    ``(b1, b2, device)``, outside any capture: a train step's first call,
+    or its warm-up."""
+    key = (float(b1), float(b2), torch.device(device))
+    table = _BIAS_TABLES.get(key)
+    if table is None:
+        c1, c2 = _host_bias_column(b1), _host_bias_column(b2)
+        n = max(len(c1), len(c2))
+        table = torch.tensor([c1 + [1.0] * (n - len(c1)),
+                              c2 + [1.0] * (n - len(c2))],
+                             dtype=torch.float32).T.contiguous()
+        table = _BIAS_TABLES[key] = table.to(device)
+    return table
+
+
+def bias_corrections(count, b1: float, b2: float) -> tuple:
+    """Adam's bias corrections ``(1/(1 - b1^t), 1/(1 - b2^t))`` at the
+    1-based step ``count`` (an int tensor of any shape, or an int): f32
+    tensors of that shape on its device, with no host read. They are the
+    host's rounding (``kernels.cowclip.cowclip.bias_corrections``) bit for
+    bit on every device, looked up by the counter in a table of it
+    (``_bias_table``): the card's own ``powf`` rounds ``b^t`` an ulp off
+    the host's for some t, and so does the CPU's vectorized ``pow``."""
+    if not isinstance(count, torch.Tensor):
+        count = torch.tensor(int(count), dtype=torch.int32)
+    table = _bias_table(b1, b2, count.device)
+    idx = torch.clamp(count.to(torch.int32), 0, table.shape[0] - 1)
+    rows = torch.index_select(table, 0, idx.reshape(-1)).reshape(
+        *idx.shape, 2)
+    return rows[..., 0], rows[..., 1]
 
 
 class GradientTransformation(NamedTuple):
@@ -60,13 +122,12 @@ def scale(step_size: float) -> GradientTransformation:
 
 
 class ScaleByScheduleState(NamedTuple):
-    count: int
+    count: torch.Tensor      # 0-dim int32, on the params' device
 
 
 def scale_by_schedule(schedule: Schedule) -> GradientTransformation:
     def init_fn(params):
-        del params
-        return ScaleByScheduleState(count=0)
+        return ScaleByScheduleState(count=counter(params))
 
     def update_fn(updates, state, params=None, **extras):
         del params, extras
@@ -84,7 +145,7 @@ def scale_by_neg_lr(lr: ScalarOrSchedule) -> GradientTransformation:
 
 
 class ScaleByAdamState(NamedTuple):
-    count: int
+    count: torch.Tensor      # 0-dim int32, on the params' device
     mu: PyTree
     nu: PyTree
 
@@ -99,7 +160,7 @@ def scale_by_adam(
     def init_fn(params):
         mu = tree_map(torch.zeros_like, params)
         nu = tree_map(torch.zeros_like, params)
-        return ScaleByAdamState(count=0, mu=mu, nu=nu)
+        return ScaleByAdamState(count=counter(params), mu=mu, nu=nu)
 
     def update_fn(updates, state, params=None, **extras):
         del params, extras
@@ -107,9 +168,7 @@ def scale_by_adam(
         mu = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g, state.mu, updates)
         nu = tree_map(lambda v, g: b2 * v + (1.0 - b2) * torch.square(g),
                       state.nu, updates)
-        c = f32(count)
-        mu_hat_scale = 1.0 / (1.0 - b1 ** c)
-        nu_hat_scale = 1.0 / (1.0 - b2 ** c)
+        mu_hat_scale, nu_hat_scale = bias_corrections(count, b1, b2)
         updates = tree_map(
             lambda m, v: (m * mu_hat_scale) / (torch.sqrt(v * nu_hat_scale)
                                                + eps),
@@ -238,14 +297,13 @@ def sparse_adam_rows(g_rows, w_rows, m_rows, v_rows, step, *, lr, l2,
     """The step-``t`` update of gathered rows (already caught up through
     t-1): coupled L2, Adam with bias correction, apply; the math of
     ``add_decayed_weights -> scale_by_adam -> scale_by_neg_lr`` restricted
-    to the touched rows. Returns f32 (w, m, v)."""
+    to the touched rows. ``step`` is an int or an int tensor. Returns f32
+    (w, m, v)."""
     w = w_rows.to(torch.float32)
     g = g_rows.to(torch.float32) + l2 * w
     m = b1 * m_rows.to(torch.float32) + (1.0 - b1) * g
     v = b2 * v_rows.to(torch.float32) + (1.0 - b2) * torch.square(g)
-    t = f32(int(step))
-    mu_hat_scale = 1.0 / (1.0 - b1 ** t)
-    nu_hat_scale = 1.0 / (1.0 - b2 ** t)
+    mu_hat_scale, nu_hat_scale = bias_corrections(step, b1, b2)
     w = w - lr * (m * mu_hat_scale) / (torch.sqrt(v * nu_hat_scale) + eps)
     return w, m, v
 

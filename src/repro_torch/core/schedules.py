@@ -1,18 +1,17 @@
-"""Learning-rate schedules: functions of the Python-int step counter that
-return 0-dim float32 tensors, computed in f32 as ``repro.core.schedules``
-computes them."""
+"""Learning-rate schedules: functions of the step counter (a 0-dim int32
+tensor) that return 0-dim float32 tensors on the counter's device,
+computed in f32 as ``repro.core.schedules`` computes them, with no host
+read."""
 
 from __future__ import annotations
 
 import torch
 
-from .optim import f32
-
 
 def constant(value: float):
     def schedule(count):
-        del count
-        return f32(value)
+        return torch.full((), value, dtype=torch.float32,
+                          device=count.device)
 
     return schedule
 
@@ -24,7 +23,8 @@ def linear_warmup(base: float, warmup_steps: int):
         return constant(base)
 
     def schedule(count):
-        frac = torch.clamp_max((f32(count) + 1.0) / warmup_steps, 1.0)
+        frac = torch.clamp_max((count.to(torch.float32) + 1.0)
+                               / warmup_steps, 1.0)
         return base * frac
 
     return schedule

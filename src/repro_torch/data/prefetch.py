@@ -1,62 +1,202 @@
-"""Background prefetch of host batches on a worker thread.
+"""Chunked epochs and double-buffered prefetch for the training engines.
 
-A port of ``repro.data.prefetch.prefetch``, host side only: ``prefetch``
-runs any host iterator on a daemon thread behind a bounded queue, so the
-NumPy slicing of item *i+1* overlaps the consumer's work on item *i*.
-Closing the generator early stops the worker; worker exceptions re-raise in
-the consumer. Pinned staging buffers and side-stream copies come with the
-CUDA-graph engine (ROADMAP queue 1 item 3).
+A port of ``repro.data.prefetch``. The scan engine (``train.engine``)
+consumes *chunks*, K batches stacked into one ``[K, batch, ...]`` array per
+field, and one CUDA graph replay covers K optimizer steps:
+
+* ``chunk_epoch``: one epoch of stacked chunks as contiguous NumPy arrays,
+  in exactly ``iterate_batches``'s shuffle order and tail rule (same seed,
+  same batches in the same order, so the scan engine equals the eager
+  loop bit for bit).
+* ``prefetch``: runs a host iterator on a worker thread behind a bounded
+  queue. Given a CUDA ``device``, the consumer's side pins each item and
+  copies it to the card on a side stream, item *i+1*'s copy issued before
+  item *i* is yielded, so it overlaps item *i*'s compute. The worker
+  makes no CUDA call, so it can never break a graph capture on the
+  consumer's thread. The compute stream waits on the copy's event before
+  it uses the tensors, and each device tensor records its use on the
+  compute stream, so the allocator cannot hand its memory out again
+  before that use is done (the pinned host buffer is held the same way
+  by PyTorch's pinned allocator until its copy is done). Without a device
+  it yields the host items as they come, the CPU path.
+* ``prefetch_chunks``: the composition the scan engine uses.
+
+Closing the generator early (``max_steps``, errors) stops the worker;
+worker exceptions re-raise in the consumer.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from .synthetic import CTRDataset, note_dropped_remainder
 
 _DONE = object()
 
 
-def prefetch(host_iter, *, buffer_size: int = 2):
-    """Drive ``host_iter`` on a worker thread, yielding its items in order."""
-    q: queue.Queue = queue.Queue(maxsize=max(1, buffer_size))
-    stop = threading.Event()
-    failure: list = []
+def chunk_epoch(
+    ds: CTRDataset,
+    batch_size: int,
+    scan_steps: int,
+    *,
+    shuffle: bool = True,
+    seed: int = 0,
+    drop_remainder: bool = True,
+) -> Iterator[dict]:
+    """One epoch of ``[k, batch_size, ...]`` stacked chunks (host arrays).
 
-    def put(item) -> bool:
-        while not stop.is_set():
+    ``k == scan_steps`` except possibly for the epoch's final chunk, which
+    carries the leftover ``k < scan_steps`` batches (never dropped: only
+    the sub-``batch_size`` row tail follows ``drop_remainder``, exactly as
+    in ``iterate_batches``). A row tail that would not fill a batch is
+    rejected with ``drop_remainder=False``: a captured step needs static
+    batch shapes. One fancy-index per chunk gathers all ``k`` batches.
+    """
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
+    n = len(ds)
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    if drop_remainder:
+        note_dropped_remainder(n, batch_size)
+    n_batches = n // batch_size if drop_remainder else -(-n // batch_size)
+    if not drop_remainder and n % batch_size:
+        raise ValueError(
+            "chunk_epoch requires drop_remainder=True (the captured step "
+            f"needs static batch shapes; {n % batch_size} tail rows do not "
+            "fill a batch)")
+    for start in range(0, n_batches, scan_steps):
+        k = min(scan_steps, n_batches - start)
+        idx = order[start * batch_size:(start + k) * batch_size]
+        yield {
+            "ids": ds.ids[idx].reshape(k, batch_size, -1),
+            "dense": ds.dense[idx].reshape(k, batch_size, -1),
+            "labels": ds.labels[idx].reshape(k, batch_size),
+        }
+
+
+class _Worker:
+    """Runs ``host_iter`` on a daemon thread, up to ``buffer_size`` items
+    ahead of the consumer. The thread makes no CUDA call, so it can run
+    through a graph capture on the consumer's thread."""
+
+    def __init__(self, host_iter, buffer_size: int):
+        self.queue: queue.Queue = queue.Queue(maxsize=max(1, buffer_size))
+        self.stop = threading.Event()
+        self.failure: list = []
+
+        def work():
             try:
-                q.put(item, timeout=0.1)
+                for item in host_iter:
+                    if not self.put(item):
+                        return
+            except BaseException as e:  # re-raised in the consumer
+                self.failure.append(e)
+            finally:
+                self.put(_DONE)
+
+        threading.Thread(target=work, daemon=True,
+                         name="repro-torch-prefetch").start()
+
+    def put(self, item) -> bool:
+        while not self.stop.is_set():
+            try:
+                self.queue.put(item, timeout=0.1)
                 return True
             except queue.Full:
                 continue
         return False
 
-    def work():
+    def items(self):
         try:
-            for item in host_iter:
-                if not put(item):
-                    return
-        except BaseException as e:  # re-raised in the consumer
-            failure.append(e)
+            while True:
+                item = self.queue.get()
+                if item is _DONE:
+                    break
+                yield item
+            if self.failure:
+                raise self.failure[0]
         finally:
-            put(_DONE)
+            self.stop.set()
+            # unblock a worker stuck on a full queue
+            while True:
+                try:
+                    self.queue.get_nowait()
+                except queue.Empty:
+                    break
 
-    worker = threading.Thread(target=work, daemon=True,
-                              name="repro-torch-prefetch")
-    worker.start()
+
+class _Staged:
+    """One item pinned and copied to the card on ``copy_stream``, and the
+    event its copy ends with."""
+
+    __slots__ = ("tensors", "event")
+
+    def __init__(self, item: dict, device, copy_stream):
+        pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                  for k, v in item.items()}
+        with torch.cuda.stream(copy_stream):
+            self.tensors = {k: p.to(device, non_blocking=True)
+                            for k, p in pinned.items()}
+            self.event = torch.cuda.Event()
+            self.event.record(copy_stream)
+
+    def ready(self) -> dict:
+        """The tensors, once the current stream has waited for the copy;
+        each records its use on that stream."""
+        stream = torch.cuda.current_stream()
+        stream.wait_event(self.event)
+        for t in self.tensors.values():
+            t.record_stream(stream)
+        return self.tensors
+
+
+def prefetch(host_iter, *, buffer_size: int = 2,
+             device: Optional[torch.device] = None):
+    """Drive ``host_iter`` (items: dicts of NumPy arrays when ``device`` is
+    a CUDA device) on a worker thread, yielding its items in order; on a
+    CUDA ``device``, as dicts of tensors on it, each pinned and copied on a
+    side stream one item ahead of the consumer."""
+    if device is None or torch.device(device).type != "cuda":
+        yield from _Worker(host_iter, buffer_size).items()
+        return
+    device = torch.device(device)
+    stream = torch.cuda.Stream(device)
+    items = _Worker(host_iter, buffer_size).items()
+    pending = None
     try:
-        while True:
-            item = q.get()
-            if item is _DONE:
-                break
-            yield item
-        if failure:
-            raise failure[0]
+        for item in items:
+            staged = _Staged(item, device, stream)
+            if pending is not None:
+                yield pending.ready()
+            pending = staged
+        if pending is not None:
+            yield pending.ready()
     finally:
-        stop.set()
-        # unblock a worker stuck on a full queue
-        while True:
-            try:
-                q.get_nowait()
-            except queue.Empty:
-                break
+        items.close()
+
+
+def prefetch_chunks(
+    ds: CTRDataset,
+    batch_size: int,
+    scan_steps: int,
+    *,
+    shuffle: bool = True,
+    seed: int = 0,
+    drop_remainder: bool = True,
+    buffer_size: int = 2,
+    device: Optional[torch.device] = None,
+) -> Iterator[dict]:
+    """One epoch of ``[k, batch, ...]`` chunks, stacked on a background
+    thread and, on a CUDA ``device``, copied to it ahead of consumption
+    (the scan engine's input pipeline)."""
+    return prefetch(
+        chunk_epoch(ds, batch_size, scan_steps, shuffle=shuffle, seed=seed,
+                    drop_remainder=drop_remainder),
+        buffer_size=buffer_size, device=device)

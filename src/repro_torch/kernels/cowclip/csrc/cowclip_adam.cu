@@ -12,6 +12,10 @@
 //   absent (cnt == 0):
 //     w     <- w * factor ;  m, v held
 //
+// bc1 and bc2 (and the guard's flag) come from the step's block in device
+// memory (`CowclipStep`), read by every block at its start; with a null
+// `ok` there is no guard, and where *ok == 0 every block returns at once.
+//
 // Unlike the JAX kernel, which returns new arrays, this one updates w, m and
 // v in place: at Criteo width that saves three table-sized allocations
 // (about 4.5 GB) per step.
@@ -74,12 +78,18 @@ __device__ __forceinline__ void set(float4& a, int i, float x) {
   else a.w = x;
 }
 
+// The step's bias corrections, from its block in device memory.
+struct Bias {
+  float bc1, bc2;
+};
+
 // Adam on one element: updates *mj, *vj; returns the new w.
 __device__ __forceinline__ float adam_w(float wj, float gl, float* mj,
-                                        float* vj, const CowclipAdamParams& p) {
+                                        float* vj, const CowclipAdamParams& p,
+                                        const Bias& b) {
   const float m2 = p.b1 * *mj + p.one_minus_b1 * gl;
   const float v2 = p.b2 * *vj + p.one_minus_b2 * gl * gl;
-  const float upd = (m2 * p.bc1) / (sqrtf(v2 * p.bc2) + p.eps);
+  const float upd = (m2 * b.bc1) / (sqrtf(v2 * b.bc2) + p.eps);
   *mj = m2;
   *vj = v2;
   return wj - p.lr * upd;
@@ -92,7 +102,8 @@ __device__ __noinline__ void update_row(float* __restrict__ w,
                                         float* __restrict__ m,
                                         float* __restrict__ v, long long row,
                                         int dim, float c,
-                                        const CowclipAdamParams& p) {
+                                        const CowclipAdamParams& p,
+                                        const Bias& b) {
   const long long base = row * dim;
   if (!(c > 0.0f)) {
     for (int j = 0; j < dim; ++j) w[base + j] *= p.factor;
@@ -118,7 +129,8 @@ __device__ __noinline__ void update_row(float* __restrict__ w,
   for (int j = 0; j < kMaxRowDim; ++j) {
     if (j < dim) {
       float mj = m[base + j], vj = v[base + j];
-      w[base + j] = adam_w(wl[j], gl[j] * scale + p.l2 * wl[j], &mj, &vj, p);
+      w[base + j] =
+          adam_w(wl[j], gl[j] * scale + p.l2 * wl[j], &mj, &vj, p, b);
       m[base + j] = mj;
       v[base + j] = vj;
     }
@@ -136,11 +148,15 @@ cowclip_adam_tile_kernel(float* __restrict__ w, const float* __restrict__ g,
                          const float* __restrict__ cnt,
                          float* __restrict__ m, float* __restrict__ v,
                          long long rows, int dim, int tile_rows,
-                         CowclipAdamParams p) {
+                         CowclipAdamParams p,
+                         const CowclipStep* __restrict__ step,
+                         const int* __restrict__ ok) {
+  if (ok != nullptr && *ok == 0) return;
+  const Bias bias{step->bc1, step->bc2};
   const long long rows_v = rows / 4 * 4;
   if (blockIdx.x == gridDim.x - 1 && rows_v + threadIdx.x < rows) {
     const long long row = rows_v + threadIdx.x;
-    update_row(w, g, m, v, row, dim, cnt[row], p);
+    update_row(w, g, m, v, row, dim, cnt[row], p, bias);
   }
   __shared__ float counts[kWarps][kTile];
   __shared__ float wsq[kWarps][kTile];   // w^2 and g^2 of a touched tile;
@@ -247,7 +263,8 @@ cowclip_adam_tile_kernel(float* __restrict__ w, const float* __restrict__ g,
           const float scale = p.do_clip ? gsq[wid][row * dim] : 1.0f;
           float mi = get(mf, i), vi = get(vf, i);
           set(x[k], i,
-              adam_w(wi, get(gf, i) * scale + p.l2 * wi, &mi, &vi, p));
+              adam_w(wi, get(gf, i) * scale + p.l2 * wi, &mi, &vi, p,
+                     bias));
           set(mf, i, mi);
           set(vf, i, vi);
         }
@@ -268,7 +285,10 @@ __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 cowclip_adam_kernel(float* __restrict__ w, const float* __restrict__ g,
                     const float* __restrict__ cnt, float* __restrict__ m,
                     float* __restrict__ v, long long rows, int dim,
-                    CowclipAdamParams p) {
+                    CowclipAdamParams p, const CowclipStep* __restrict__ step,
+                    const int* __restrict__ ok) {
+  if (ok != nullptr && *ok == 0) return;
+  const Bias bias{step->bc1, step->bc2};
   const int lane = threadIdx.x % kWarp;
   const long long row =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
@@ -305,7 +325,7 @@ cowclip_adam_kernel(float* __restrict__ w, const float* __restrict__ g,
 
   for (int j = lane; j < dim; j += kWarp) {
     const float wj = wr[j];
-    wr[j] = adam_w(wj, gr[j] * scale + p.l2 * wj, mr + j, vr + j, p);
+    wr[j] = adam_w(wj, gr[j] * scale + p.l2 * wj, mr + j, vr + j, p, bias);
   }
 }
 
@@ -317,7 +337,8 @@ bool aligned16(const void* p) {
 
 void cowclip_adam_launch(float* w, const float* g, const float* cnt,
                          float* m, float* v, long long rows, int dim,
-                         CowclipAdamParams p, cudaStream_t stream) {
+                         CowclipAdamParams p, const CowclipStep* step,
+                         const int* ok, cudaStream_t stream) {
   if (rows == 0 || dim == 0) return;
   const bool tiles = dim <= kMaxRowDim && aligned16(w) && aligned16(g) &&
                      aligned16(cnt) && aligned16(m) && aligned16(v);
@@ -325,7 +346,7 @@ void cowclip_adam_launch(float* w, const float* g, const float* cnt,
     const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
     cowclip_adam_kernel<<<static_cast<unsigned>(blocks),
                           kWarp * kRowsPerBlock, 0, stream>>>(
-        w, g, cnt, m, v, rows, dim, p);
+        w, g, cnt, m, v, rows, dim, p, step, ok);
     return;
   }
   int device = 0, sms = 0;
@@ -341,5 +362,5 @@ void cowclip_adam_launch(float* w, const float* g, const float* cnt,
   if (blocks < 1) blocks = 1;    // fewer than 4 rows: the tail alone
   cowclip_adam_tile_kernel<<<static_cast<unsigned>(blocks), kWarps * kWarp,
                              0, stream>>>(w, g, cnt, m, v, rows, dim,
-                                          tile_rows, p);
+                                          tile_rows, p, step, ok);
 }

@@ -13,7 +13,9 @@
 // and `depth` = the largest k over the real slots of all tables (the
 // step's catch-up depth diagnostic). The k == 0 guard multiplies by
 // exactly 1.0, so a row that is already caught up passes through bit for
-// bit. Pad slots (count 0) read no table row and write zero rows.
+// bit. Pad slots (count 0) read no table row and write zero rows. The
+// step comes from its block in device memory (`CowclipStep`), read at each
+// block's start, so a captured CUDA graph takes each replay's step.
 //
 // Bound: device-memory bytes. Per slot its count is read and 3 rows
 // written (4 + 12*dim bytes); a real slot also reads its uid, its
@@ -73,7 +75,7 @@ struct CatchupParams {
   SparseCatchupTable tables[kSparseMaxTables];
   int block_begin[kSparseMaxTables + 1];  // first block of each table
   int n;
-  int lim;
+  const CowclipStep* step;
   float factor;
   int* depth;
 };
@@ -84,6 +86,7 @@ __global__ void __launch_bounds__(kThreads, 4)
 sparse_catchup_kernel(const __grid_constant__ CatchupParams p) {
   __shared__ int s_depth[kWarps];
 
+  const int lim = p.step->step - 1;
   const int t = sparse_find_table(p.block_begin, p.n, blockIdx.x);
   const SparseCatchupTable tb = p.tables[t];
   const int dim = tb.dim;
@@ -137,7 +140,7 @@ sparse_catchup_kernel(const __grid_constant__ CatchupParams p) {
       sparse_next_element(slot, j, slot_step, j_step, dim);
     }
     if (c0 == 0 && row >= 0) {
-      k = max(p.lim - ls, 0);
+      k = max(lim - ls, 0);
       scale = k > 0 ? powf(p.factor, static_cast<float>(k)) : 1.0f;
     }
     slot = slot0;
@@ -169,14 +172,15 @@ sparse_catchup_kernel(const __grid_constant__ CatchupParams p) {
 
 }  // namespace
 
-void sparse_catchup_launch(const SparseCatchupTable* tables, int n, int lim,
-                           float factor, int* depth, cudaStream_t stream) {
+void sparse_catchup_launch(const SparseCatchupTable* tables, int n,
+                           const CowclipStep* step, float factor, int* depth,
+                           cudaStream_t stream) {
   CatchupParams p;
   for (int t = 0; t < n; ++t) p.tables[t] = tables[t];
   const int blocks =
       sparse_block_prefix(tables, n, kWarps, kWarpElems, p.block_begin);
   p.n = n;
-  p.lim = lim;
+  p.step = step;
   p.factor = factor;
   p.depth = depth;
   if (blocks == 0) return;

@@ -52,22 +52,32 @@ struct SparseUpdateTable {
 
 // For each of the n tables: gathers the rows of its `cap` slots from w, m,
 // v at uid - row_offset (clamped into the table) and scales w by
-// factor**k, k = max(lim - last_step[row], 0); exactly 1.0 at k == 0.
-// Pad slots (counts == 0) read nothing and write zero rows. `depth` (one
-// int32 on the card, or null for none) is raised to the largest k over the
-// real slots of all tables; the caller zeroes it first. n <=
-// kSparseMaxTables.
-void sparse_catchup_launch(const SparseCatchupTable* tables, int n, int lim,
-                           float factor, int* depth, cudaStream_t stream);
+// factor**k, k = max(lim - last_step[row], 0), lim = step->step - 1 (read
+// from device memory at each block's start); exactly 1.0 at k == 0. Pad
+// slots (counts == 0) read nothing and write zero rows. `depth` (one int32
+// on the card, or null for none) is raised to the largest k over the real
+// slots of all tables; the caller zeroes it first. n <= kSparseMaxTables.
+//
+// The table descriptors go to the kernel by value, built on the host at
+// each call; a captured CUDA graph keeps the ones of its capture. That is
+// right only because a graph's tables, slot sets, rows and their caps are
+// the same tensors at every replay: the step and its scalars, which do
+// change, are read from `step` in device memory instead.
+void sparse_catchup_launch(const SparseCatchupTable* tables, int n,
+                           const CowclipStep* step, float factor, int* depth,
+                           cudaStream_t stream);
 
 // For each of the n tables and each slot with counts > 0 whose row
 // uid - row_offset lies in the table: CowClip (do_clip), coupled L2 and
 // Adam on the caught-up slot rows, the new (w, m, v) written in place at
-// that row and last_step stamped with `step`. Pad slots write nothing.
-// p.factor and p.do_clip are not read (do_clip is per table). The uids of
-// one table must be distinct. n <= kSparseMaxTables.
-void sparse_update_launch(const SparseUpdateTable* tables, int n, int step,
-                          CowclipAdamParams p, cudaStream_t stream);
+// that row and last_step stamped with step->step. Pad slots write
+// nothing, and nothing at all is written where *ok == 0 (`ok` null: no
+// guard). p.factor and p.do_clip are not read (do_clip is per table). The
+// uids of one table must be distinct. n <= kSparseMaxTables. The
+// descriptors are captured by value as the catch-up's are.
+void sparse_update_launch(const SparseUpdateTable* tables, int n,
+                          CowclipAdamParams p, const CowclipStep* step,
+                          const int* ok, cudaStream_t stream);
 
 #ifdef __CUDACC__
 // What the two kernels share: a warp owns the slots whose rows fill at most

@@ -14,7 +14,10 @@
 //   w     <- w - lr * (m*bc1) / (sqrt(v*bc2) + eps)
 //
 // and (w, m, v) land at table row uid - row_offset, last_step[row] = step.
-// Pad slots (c == 0) and rows outside the table write nothing. The uids of
+// The step and bc1, bc2 come from the step's block in device memory
+// (`CowclipStep`), read at each block's start; where the guard's flag is 0
+// every block returns before writing. Pad slots (c == 0) and rows outside
+// the table write nothing. The uids of
 // one table are distinct, so no two slots write one row: no atomics, and
 // blocks need no order. JAX wrote in place through input_output_aliases;
 // here the tables are simply written.
@@ -74,8 +77,9 @@ struct UpdateParams {
   SparseUpdateTable tables[kSparseMaxTables];
   int block_begin[kSparseMaxTables + 1];  // first block of each table
   int n;
-  int step;
   CowclipAdamParams p;
+  const CowclipStep* step;
+  const int* ok;  // null: no guard
 };
 // Hopper under CUDA 12.1+ takes up to 32,764 bytes of kernel parameters.
 static_assert(sizeof(UpdateParams) <= 32764, "descriptor too large");
@@ -90,13 +94,13 @@ __device__ inline float clip_scale(float c, float gsq, float wsq,
 
 // Coupled L2 + Adam on one element; writes the table row's element.
 __device__ inline void adam_element(const SparseUpdateTable& tb,
-                                    const CowclipAdamParams& h,
-                                    long long dst, float w, float g,
-                                    float scale, float m, float v) {
+                                    const CowclipAdamParams& h, float bc1,
+                                    float bc2, long long dst, float w,
+                                    float g, float scale, float m, float v) {
   const float gl = g * scale + h.l2 * w;
   const float m2 = h.b1 * m + h.one_minus_b1 * gl;
   const float v2 = h.b2 * v + h.one_minus_b2 * gl * gl;
-  const float upd = (m2 * h.bc1) / (sqrtf(v2 * h.bc2) + h.eps);
+  const float upd = (m2 * bc1) / (sqrtf(v2 * bc2) + h.eps);
   tb.w[dst] = w - h.lr * upd;
   tb.m[dst] = m2;
   tb.v[dst] = v2;
@@ -107,6 +111,9 @@ sparse_update_kernel(const __grid_constant__ UpdateParams p) {
   __shared__ float s_w[kWarps][kStaged];
   __shared__ float s_g[kWarps][kStaged];
 
+  if (p.ok != nullptr && *p.ok == 0) return;
+  const int step = p.step->step;
+  const float bc1 = p.step->bc1, bc2 = p.step->bc2;
   const int t = sparse_find_table(p.block_begin, p.n, blockIdx.x);
   const SparseUpdateTable tb = p.tables[t];
   const CowclipAdamParams& h = p.p;
@@ -130,7 +137,7 @@ sparse_update_kernel(const __grid_constant__ UpdateParams p) {
         static_cast<long long>(tb.uids[first + lane]) - tb.row_offset;
     if (c > 0.0f && r >= 0 && r < tb.rows) {
       row = r;
-      tb.last_step[r] = p.step;
+      tb.last_step[r] = step;
     }
   }
   if (!__any_sync(kFull, row >= 0)) return;   // a warp of pads
@@ -155,7 +162,7 @@ sparse_update_kernel(const __grid_constant__ UpdateParams p) {
       scale = clip_scale(__shfl_sync(kFull, c, 0), gsq, wsq, h);
     }
     for (int e = lane; e < dim; e += 32) {
-      adam_element(tb, h, r0 * dim + e, tb.w_rows[base + e],
+      adam_element(tb, h, bc1, bc2, r0 * dim + e, tb.w_rows[base + e],
                    tb.g_rows[base + e], scale, tb.m_rows[base + e],
                    tb.v_rows[base + e]);
     }
@@ -221,7 +228,8 @@ sparse_update_kernel(const __grid_constant__ UpdateParams p) {
     const long long r = __shfl_sync(kFull, row, src);
     const float sc = __shfl_sync(kFull, scale, src);
     if (e < n_elems && r >= 0) {
-      adam_element(tb, h, r * dim + j, wv[i], gv[i], sc, mv[i], vv[i]);
+      adam_element(tb, h, bc1, bc2, r * dim + j, wv[i], gv[i], sc, mv[i],
+                   vv[i]);
     }
     sparse_next_element(slot, j, slot_step, j_step, dim);
   }
@@ -229,15 +237,17 @@ sparse_update_kernel(const __grid_constant__ UpdateParams p) {
 
 }  // namespace
 
-void sparse_update_launch(const SparseUpdateTable* tables, int n, int step,
-                          CowclipAdamParams p, cudaStream_t stream) {
+void sparse_update_launch(const SparseUpdateTable* tables, int n,
+                          CowclipAdamParams p, const CowclipStep* step,
+                          const int* ok, cudaStream_t stream) {
   UpdateParams up;
   for (int t = 0; t < n; ++t) up.tables[t] = tables[t];
   const int blocks =
       sparse_block_prefix(tables, n, kWarps, kWarpElems, up.block_begin);
   up.n = n;
-  up.step = step;
   up.p = p;
+  up.step = step;
+  up.ok = ok;
   if (blocks == 0) return;
   sparse_update_kernel<<<blocks, kThreads, 0, stream>>>(up);
 }

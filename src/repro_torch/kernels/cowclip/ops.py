@@ -13,6 +13,13 @@ version (``ref.py``) and copies its result back, so both devices share
 one in-place contract. Each wrapper's ``.launches`` counts its kernel's
 launches (only those), so a run can show that its main path went through
 the kernel.
+
+``step`` is the ``StepScalars`` block (``cowclip.step_scalars``) that the
+kernels and the plain versions read from memory on the tables' device: the
+1-based step, its bias corrections and its guard's flag (a flag of 0
+leaves every table as it was). A train step fills it on the card from its
+step counter; a caller with a step number builds it once with
+``step_scalars(t, device=...)``.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import ref, sparse
-from .cowclip import cowclip_adam_update
+from .cowclip import StepScalars, cowclip_adam_update
 from .ref import cowclip_adam_reference as reference
 
 
@@ -44,9 +51,11 @@ def _check_table(w):
     return w.shape
 
 
-def _check_step(step):
-    if int(step) < 1:
-        raise ValueError(f"step is 1-based, got {step}")
+def _check_step(step, device):
+    if not isinstance(step, StepScalars):
+        raise TypeError("step must be a StepScalars (cowclip.step_scalars), "
+                        f"got {type(step).__name__}")
+    _check("the step block", step.words, torch.int32, (4,), device)
 
 
 def _validate(w, g, cnt, m, v, step):
@@ -54,7 +63,7 @@ def _validate(w, g, cnt, m, v, step):
     for name, t in (("w", w), ("g", g), ("m", m), ("v", v)):
         _check(name, t, torch.float32, (vocab, dim), w.device)
     _check("cnt", cnt, torch.float32, (vocab,), w.device)
-    _check_step(step)
+    _check_step(step, w.device)
 
 
 def fused_cowclip_adam(
@@ -63,8 +72,8 @@ def fused_cowclip_adam(
 ):
     """One CowClip + coupled-L2 + Adam step of a ``[V, D]`` table, in place.
 
-    ``cnt`` is the ``[V]`` f32 per-id batch count, ``step`` the 1-based
-    Python-int step. Returns ``(w, m, v)``.
+    ``cnt`` is the ``[V]`` f32 per-id batch count, ``step`` the step's
+    ``StepScalars``. Returns ``(w, m, v)``.
     """
     _validate(w, g, cnt, m, v, step)
     kw = dict(r=r, zeta=zeta, lr=lr, l2=l2, b1=b1, b2=b2, eps=eps)
@@ -77,7 +86,7 @@ def fused_cowclip_adam(
             return w, m, v
         if w.device.type != "cuda":
             raise ValueError(f"no fused CowClip kernel for device {w.device}")
-        cowclip_adam_update(w, g, cnt, m, v, int(step), **kw)
+        cowclip_adam_update(w, g, cnt, m, v, step, **kw)
         fused_cowclip_adam.launches += 1
     return w, m, v
 
@@ -97,7 +106,7 @@ def _validate_sparse(w, m, v, last_step, uids, counts, step, rows=()):
     _check("counts", counts, torch.float32, (cap,), w.device)
     for name, t in rows:
         _check(name, t, torch.float32, (cap, dim), w.device)
-    _check_step(step)
+    _check_step(step, w.device)
 
 
 def _kernel_device(w, lr, l2):
@@ -124,11 +133,11 @@ def sparse_gather_catchup(
     with torch.no_grad():
         if w.device.type == "cpu":
             return ref.sparse_gather_catchup_reference(
-                w, m, v, last_step, uids, int(step), lr=lr, l2=l2, b1=b1,
+                w, m, v, last_step, uids, step, lr=lr, l2=l2, b1=b1,
                 b2=b2, eps=eps, row_offset=row_offset)
         _kernel_device(w, lr, l2)
         rows, _ = sparse.sparse_gather_catchup_tables(
-            [w], [m], [v], [last_step], [uids], [counts], int(step), lr=lr,
+            [w], [m], [v], [last_step], [uids], [counts], step, lr=lr,
             l2=l2, row_offsets=[row_offset], with_depth=False)
         sparse_gather_catchup.launches += 1
     return rows[0]
@@ -154,7 +163,7 @@ def sparse_update_scatter(
         if w.device.type == "cpu":
             new = ref.sparse_update_scatter_reference(
                 w, m, v, last_step, uids, counts, w_rows, g_rows, m_rows,
-                v_rows, int(step), **kw)
+                v_rows, step, **kw)
             for table, value in zip((w, m, v, last_step), new):
                 table.copy_(value)
             return w, m, v, last_step
@@ -162,7 +171,7 @@ def sparse_update_scatter(
         row_offset = kw.pop("row_offset")
         sparse.sparse_update_scatter_tables(
             [w], [m], [v], [last_step], [uids], [counts], [w_rows], [g_rows],
-            [m_rows], [v_rows], int(step), row_offsets=[row_offset], **kw)
+            [m_rows], [v_rows], step, row_offsets=[row_offset], **kw)
         sparse_update_scatter.launches += 1
     return w, m, v, last_step
 
@@ -212,11 +221,11 @@ def sparse_gather_catchup_tables(
                     *(x[i] for x in lists), step, lr=lr, l2=l2, b1=b1, b2=b2,
                     eps=eps, row_offset=offsets[i]) for i in range(n)]
         return rows, ref.catchup_depth_reference(
-            last_steps, uids, counts, int(step), row_offsets=offsets)
+            last_steps, uids, counts, step, row_offsets=offsets)
     with torch.no_grad():
         _kernel_device(ws[0], lr, l2)
         out = sparse.sparse_gather_catchup_tables(
-            *lists, int(step), lr=lr, l2=l2, row_offsets=offsets)
+            *lists, step, lr=lr, l2=l2, row_offsets=offsets)
         sparse_gather_catchup_tables.launches += sparse.launches_for(n)
     return out
 
@@ -246,7 +255,7 @@ def sparse_update_scatter_tables(
     with torch.no_grad():
         _kernel_device(ws[0], lr, l2)
         sparse.sparse_update_scatter_tables(
-            *lists, w_rows, g_rows, m_rows, v_rows, int(step),
+            *lists, w_rows, g_rows, m_rows, v_rows, step,
             row_offsets=offsets, **kw)
         sparse_update_scatter_tables.launches += sparse.launches_for(n)
 

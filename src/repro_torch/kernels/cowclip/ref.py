@@ -10,6 +10,10 @@ held. The sparse versions compose ``core.optim.decay_catchup_rows`` and
 
 Index conventions, the reference's: a gather clamps an out-of-range row
 index into the table, a scatter drops it.
+
+``step`` is the ``StepScalars`` block the kernels read (its step, and its
+guard's flag: a guarded update whose flag is 0 changes nothing), so a
+plain version takes what its kernel takes.
 """
 
 from __future__ import annotations
@@ -17,8 +21,7 @@ from __future__ import annotations
 import torch
 
 from ...core.cowclip import cowclip_rows, cowclip_table
-from ...core.optim import (decay_catchup_rows, decay_factor, f32,
-                           sparse_adam_rows)
+from ...core.optim import decay_catchup_rows, decay_factor, sparse_adam_rows
 
 
 def cowclip_adam_reference(
@@ -26,6 +29,7 @@ def cowclip_adam_reference(
     r=1.0, zeta=1e-5, lr=1e-4, l2=1e-5, b1=0.9, b2=0.999, eps=1e-8,
 ):
     """Returns new ``(w, m, v)``; the inputs are not modified."""
+    step, ok = step.step, step.ok
     w32 = w.to(torch.float32)
     m_in = m.to(torch.float32)
     v_in = v.to(torch.float32)
@@ -35,7 +39,7 @@ def cowclip_adam_reference(
 
     m32 = b1 * m_in + (1.0 - b1) * g32
     v32 = b2 * v_in + (1.0 - b2) * torch.square(g32)
-    t = f32(int(step))
+    t = step.to(torch.float32)
     m_hat = m32 / (1.0 - b1 ** t)
     v_hat = v32 / (1.0 - b2 ** t)
     touched = (cnt > 0.0)[:, None]
@@ -44,6 +48,9 @@ def cowclip_adam_reference(
                       w32 * decay_factor(lr, l2))
     m32 = torch.where(touched, m32, m_in)
     v32 = torch.where(touched, v32, v_in)
+    if ok is not None:
+        w32, m32, v32 = (torch.where(ok, a, b.to(torch.float32))
+                         for a, b in ((w32, w), (m32, m), (v32, v)))
     return w32.to(w.dtype), m32.to(m.dtype), v32.to(v.dtype)
 
 
@@ -60,6 +67,7 @@ def sparse_gather_catchup_reference(
     table, so a pad slot reads a row nothing uses) and apply their pending
     decay through ``step - 1``: the rows as the dense path sees them at the
     start of step ``step``. Returns f32 ``(w_rows, m_rows, v_rows)``."""
+    step = step.step
     loc = torch.clamp(uids.to(torch.int64) - row_offset, 0, w.shape[0] - 1)
     return decay_catchup_rows(
         w[loc], m[loc], v[loc], last_step[loc], step - 1,
@@ -74,6 +82,7 @@ def catchup_depth_reference(last_steps, uids, counts, step, *,
     gather clamps it; 0 with no real slot. A 0-dim int32 tensor. (The
     reference step's ``catchup_depth_max``, whose rows are never ahead of
     ``step - 1``.)"""
+    step = step.step
     offsets = [0] * len(uids) if row_offsets is None else row_offsets
     depth = torch.zeros((), dtype=torch.int32, device=counts[0].device)
     for ls, u, c, off in zip(last_steps, uids, counts, offsets):
@@ -95,8 +104,11 @@ def sparse_update_scatter_reference(
     copies of the tables at ``uids - row_offset`` with ``last_step = step``.
     Pad slots (``counts == 0``) and out-of-range rows are dropped. Returns
     new ``(w, m, v, last_step)``; the inputs are not modified."""
+    step, ok = step.step, step.ok
     loc = uids.to(torch.int64) - row_offset
     keep = (counts > 0) & (loc >= 0) & (loc < w.shape[0])
+    if ok is not None:
+        keep = keep & ok
     g32 = g_rows.to(torch.float32)
     if clip:
         g32 = cowclip_rows(g32, w_rows, counts, r=r, zeta=zeta)
@@ -109,7 +121,7 @@ def sparse_update_scatter_reference(
         table[rows] = row_vals[keep].to(table.dtype)
         out.append(table)
     last_step = last_step.clone()
-    last_step[rows] = int(step)
+    last_step[rows] = step.to(last_step.dtype)
     return (*out, last_step)
 
 

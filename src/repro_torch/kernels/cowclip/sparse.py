@@ -21,9 +21,15 @@ launch of each; a single table is a list of one.
 Both take ``row_offset``, subtracted from every uid: the form a row-shard
 of a partitioned table uses. The TPU kernels also needed ``safe_uids`` to
 keep pad slots' block indices in range; the CUDA kernels read each slot's
-count and skip pads themselves. Scalars are rounded on the host as for the
-fused kernel (``cowclip.py``). The built extension is
-``kernels.extension.build()``.
+count and skip pads themselves. Constant scalars are rounded on the host
+as for the fused kernel (``cowclip.py``); the step, its bias corrections
+and the guard's flag come from the step's ``StepScalars`` block in device
+memory. The built extension is ``kernels.extension.build()``.
+
+Each call builds the kernels' table descriptors on the host and passes
+them by value, so a captured CUDA graph replays its capture's: right
+because a graph's tables, slot sets and row buffers are the same tensors
+at every replay, while what changes (the step) is read on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 
 from ...core.optim import decay_factor
 from ..extension import build
-from .cowclip import _f32, bias_corrections
+from .cowclip import _f32
 
 
 def safe_uids(uids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -60,13 +66,16 @@ def sparse_gather_catchup_tables(ws, ms, vs, last_steps, uids, counts, step,
                                  with_depth: bool = True):
     """Launch the catch-up kernel over the tables (index i of every list
     is table i), ``launches_for(len(ws))`` launches: each table's slot rows
-    caught up through ``step - 1``. Returns ``(rows, depth)``: a new f32
+    caught up through ``step - 1`` (``step`` a ``StepScalars`` on the
+    tables' device). Returns ``(rows, depth)``: a new f32
     ``(w_rows, m_rows, v_rows)`` of ``[cap, dim]`` per table (pad slots'
     rows zero) and the deepest pending catch-up of a real slot, a 0-dim
     int32 tensor (None without ``with_depth``, which spares the single-table
-    wrapper the depth's memset and atomics). Inputs are checked by the
-    caller (``ops.sparse_gather_catchup_tables``) and again by the
-    binding."""
+    wrapper the depth's memset and atomics). The depth is zeroed by the
+    first launch, on the stream (inside a captured graph: at every replay,
+    into the graph's own buffer, which lives as long as the graph). Inputs
+    are checked by the caller (``ops.sparse_gather_catchup_tables``) and
+    again by the binding."""
     rows = [tuple(torch.empty((u.shape[0], w.shape[1]), dtype=torch.float32,
                               device=w.device) for _ in range(3))
             for w, u in zip(ws, uids)]
@@ -79,7 +88,7 @@ def sparse_gather_catchup_tables(ws, ms, vs, last_steps, uids, counts, step,
         ext.sparse_gather_catchup(
             ws[part], ms[part], vs[part], last_steps[part], uids[part],
             counts[part], *outs, [int(o) for o in row_offsets[part]],
-            int(step) - 1, factor, depth, lo == 0)
+            step.words, factor, depth, lo == 0)
     return rows, depth
 
 
@@ -89,18 +98,17 @@ def sparse_update_scatter_tables(ws, ms, vs, last_steps, uids, counts,
                                  b1: float, b2: float, eps: float,
                                  clip: bool, row_offsets) -> None:
     """Launch the update kernel over the tables, ``launches_for(len(ws))``
-    launches: every table's ``w, m, v, last_step`` updated in place.
-    Inputs are checked by the caller (``ops.sparse_update_scatter_tables``)
-    and again by the binding."""
-    bc1, bc2 = bias_corrections(step, b1, b2)
+    launches: every table's ``w, m, v, last_step`` updated in place, at the
+    step of ``step`` (a ``StepScalars``; nothing written where its guard's
+    flag is 0). Inputs are checked by the caller
+    (``ops.sparse_update_scatter_tables``) and again by the binding."""
     scalars = (_f32(r), _f32(zeta), _f32(lr), _f32(l2), _f32(b1), _f32(b2),
-               _f32(1.0 - b1), _f32(1.0 - b2), _f32(eps), bc1, bc2,
-               bool(clip))
+               _f32(1.0 - b1), _f32(1.0 - b2), _f32(eps), bool(clip))
     ext = build()
     for lo in range(0, len(ws), MAX_TABLES):
         part = slice(lo, lo + MAX_TABLES)
         ext.sparse_update_scatter_(
             ws[part], ms[part], vs[part], last_steps[part], uids[part],
             counts[part], w_rows[part], g_rows[part], m_rows[part],
-            v_rows[part], [int(o) for o in row_offsets[part]], int(step),
-            *scalars)
+            v_rows[part], [int(o) for o in row_offsets[part]], step.words,
+            step.guarded, *scalars)

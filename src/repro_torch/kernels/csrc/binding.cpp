@@ -25,11 +25,27 @@ void check_table(const torch::Tensor& t, const char* name,
               " != ", like.sizes());
 }
 
+// The step's block (`CowclipStep`: step, bc1, bc2 and the guard's flag,
+// one int32 [4] tensor on w's device, bc1 and bc2 as their f32 bits): its
+// pointer, and the flag's pointer when `guarded`, else null.
+std::pair<const CowclipStep*, const int*> step_block(
+    const torch::Tensor& words, bool guarded, const torch::Tensor& like) {
+  TORCH_CHECK(words.is_cuda() && words.device() == like.device(),
+              "the step block must be on w's device");
+  TORCH_CHECK(words.scalar_type() == torch::kInt32 && words.is_contiguous() &&
+                  words.numel() == 4,
+              "the step block must be 4 contiguous int32 words");
+  static_assert(sizeof(CowclipStep) == 4 * sizeof(int), "CowclipStep");
+  const auto* step = reinterpret_cast<const CowclipStep*>(
+      words.data_ptr<int>());
+  return {step, guarded ? &step->ok : nullptr};
+}
+
 void cowclip_adam_(torch::Tensor w, torch::Tensor g, torch::Tensor cnt,
-                   torch::Tensor m, torch::Tensor v, double r, double zeta,
-                   double lr, double l2, double b1, double b2,
-                   double one_minus_b1, double one_minus_b2, double eps,
-                   double bc1, double bc2, double factor) {
+                   torch::Tensor m, torch::Tensor v, torch::Tensor step_words,
+                   bool guarded, double r, double zeta, double lr, double l2,
+                   double b1, double b2, double one_minus_b1,
+                   double one_minus_b2, double eps, double factor) {
   TORCH_CHECK(w.dim() == 2, "w must be [V, D]");
   check_table(w, "w", w);
   check_table(g, "g", w);
@@ -39,6 +55,7 @@ void cowclip_adam_(torch::Tensor w, torch::Tensor g, torch::Tensor cnt,
                   cnt.is_contiguous() && cnt.device() == w.device(),
               "cnt must be a contiguous float32 tensor on w's device");
   TORCH_CHECK(cnt.dim() == 1 && cnt.size(0) == w.size(0), "cnt must be [V]");
+  const auto [step, ok] = step_block(step_words, guarded, w);
   const c10::cuda::CUDAGuard guard(w.device());
   const int dim = static_cast<int>(w.size(1));
   CowclipAdamParams p{static_cast<float>(r),
@@ -50,13 +67,11 @@ void cowclip_adam_(torch::Tensor w, torch::Tensor g, torch::Tensor cnt,
                       static_cast<float>(one_minus_b1),
                       static_cast<float>(one_minus_b2),
                       static_cast<float>(eps),
-                      static_cast<float>(bc1),
-                      static_cast<float>(bc2),
                       static_cast<float>(factor),
                       dim >= 2 ? 1 : 0};
   cowclip_adam_launch(w.data_ptr<float>(), g.data_ptr<float>(),
                       cnt.data_ptr<float>(), m.data_ptr<float>(),
-                      v.data_ptr<float>(), w.size(0), dim, p,
+                      v.data_ptr<float>(), w.size(0), dim, p, step, ok,
                       at::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -116,18 +131,19 @@ void check_list_sizes(std::initializer_list<size_t> sizes) {
 }
 
 // One launch over the tables of the lists (index i of every list is table
-// i): their [cap, D] f32 slot rows, caught up through lim, are written
-// into w_out, m_out, v_out (allocated by the caller), and depth (one int32,
-// or None for no depth) is raised to the deepest catch-up of a real slot,
-// after being zeroed here when zero_depth.
+// i): their [cap, D] f32 slot rows, caught up through the step block's
+// step - 1, are written into w_out, m_out, v_out (allocated by the
+// caller), and depth (one int32, or None for no depth) is raised to the
+// deepest catch-up of a real slot, after being zeroed here, on the stream,
+// when zero_depth (inside a captured graph, so each replay zeroes it).
 void sparse_gather_catchup(
     std::vector<torch::Tensor> w, std::vector<torch::Tensor> m,
     std::vector<torch::Tensor> v, std::vector<torch::Tensor> last_step,
     std::vector<torch::Tensor> uids, std::vector<torch::Tensor> counts,
     std::vector<torch::Tensor> w_out, std::vector<torch::Tensor> m_out,
     std::vector<torch::Tensor> v_out, std::vector<int64_t> row_offset,
-    int64_t lim, double factor, std::optional<torch::Tensor> depth,
-    bool zero_depth) {
+    torch::Tensor step_words, double factor,
+    std::optional<torch::Tensor> depth, bool zero_depth) {
   check_list_sizes({w.size(), m.size(), v.size(), last_step.size(),
                     uids.size(), counts.size(), w_out.size(), m_out.size(),
                     v_out.size(), row_offset.size()});
@@ -156,29 +172,31 @@ void sparse_gather_catchup(
                 "depth must be one int32 on w's device");
     depth_ptr = depth->data_ptr<int>();
   }
+  const CowclipStep* step = step_block(step_words, false, w[0]).first;
   const c10::cuda::CUDAGuard guard(w[0].device());
   const cudaStream_t stream = at::cuda::getCurrentCUDAStream().stream();
   if (depth_ptr != nullptr && zero_depth) {
     C10_CUDA_CHECK(cudaMemsetAsync(depth_ptr, 0, sizeof(int), stream));
   }
-  sparse_catchup_launch(tables.data(), static_cast<int>(tables.size()),
-                        static_cast<int>(lim), static_cast<float>(factor),
-                        depth_ptr, stream);
+  sparse_catchup_launch(tables.data(), static_cast<int>(tables.size()), step,
+                        static_cast<float>(factor), depth_ptr, stream);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // One launch over the tables of the lists: w, m, v [V, D] and last_step
-// [V] updated in place from the [cap, D] slot rows; the scalars are
-// rounded on the host as for cowclip_adam_.
+// [V] updated in place from the [cap, D] slot rows, the step and its bias
+// corrections read from the step block (nothing written where a guarded
+// block's flag is 0); the other scalars are rounded on the host as for
+// cowclip_adam_.
 void sparse_update_scatter_(
     std::vector<torch::Tensor> w, std::vector<torch::Tensor> m,
     std::vector<torch::Tensor> v, std::vector<torch::Tensor> last_step,
     std::vector<torch::Tensor> uids, std::vector<torch::Tensor> counts,
     std::vector<torch::Tensor> w_rows, std::vector<torch::Tensor> g_rows,
     std::vector<torch::Tensor> m_rows, std::vector<torch::Tensor> v_rows,
-    std::vector<int64_t> row_offset, int64_t step, double r, double zeta,
-    double lr, double l2, double b1, double b2, double one_minus_b1,
-    double one_minus_b2, double eps, double bc1, double bc2, bool clip) {
+    std::vector<int64_t> row_offset, torch::Tensor step_words, bool guarded,
+    double r, double zeta, double lr, double l2, double b1, double b2,
+    double one_minus_b1, double one_minus_b2, double eps, bool clip) {
   check_list_sizes({w.size(), m.size(), v.size(), last_step.size(),
                     uids.size(), counts.size(), w_rows.size(), g_rows.size(),
                     m_rows.size(), v_rows.size(), row_offset.size()});
@@ -201,6 +219,7 @@ void sparse_update_scatter_(
         static_cast<int>(cap),         static_cast<int>(dim),
         clip && dim >= 2 ? 1 : 0};
   }
+  const auto [step, ok] = step_block(step_words, guarded, w[0]);
   const c10::cuda::CUDAGuard guard(w[0].device());
   CowclipAdamParams p{static_cast<float>(r),
                       static_cast<float>(zeta),
@@ -211,13 +230,10 @@ void sparse_update_scatter_(
                       static_cast<float>(one_minus_b1),
                       static_cast<float>(one_minus_b2),
                       static_cast<float>(eps),
-                      static_cast<float>(bc1),
-                      static_cast<float>(bc2),
                       1.0f,
                       0};
-  sparse_update_launch(tables.data(), static_cast<int>(tables.size()),
-                       static_cast<int>(step), p,
-                       at::cuda::getCurrentCUDAStream().stream());
+  sparse_update_launch(tables.data(), static_cast<int>(tables.size()), p,
+                       step, ok, at::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -3,8 +3,10 @@
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``; without a CUDA device the run stops rather than train on the
 CPU). The port trains ``--placement fused`` (the default here) and
-``--placement sparse`` with the eager engine; the flags of paths not ported
-yet exit with a message that names their ROADMAP item.
+``--placement sparse``, with ``--engine scan`` (the default, as in the
+reference: ``--scan-steps`` steps captured as one CUDA graph on the card,
+run in turn on the CPU) or ``--engine eager``; the flags of paths not
+ported yet exit with a message that names their ROADMAP item.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
@@ -13,6 +15,8 @@ Usage:
       --placement sparse --batch 8192 --epochs 2 --rule cowclip
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
       --placement sparse --device cpu --samples 4096 --batch 512 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
+      --engine scan --scan-steps 4 --batch 8192 --epochs 1
 """
 
 from __future__ import annotations
@@ -59,9 +63,6 @@ def _unported_flags(args, placement) -> list:
     out = []
     if placement in NOT_PORTED:
         out.append((f"--placement {placement}", NOT_PORTED[placement]))
-    if args.engine == "scan":
-        out.append(("--engine scan",
-                    "ROADMAP queue 1 item 3 (the CUDA-graph engine)"))
     if args.mode == "stream" or args.cold_store != "none":
         out.append(("--mode stream / --cold-store",
                     "ROADMAP queue 1 item 5 (streaming and hot/cold tiers)"))
@@ -100,9 +101,12 @@ def run_ctr(args) -> None:
     store = store_for(cfg)
     params0 = ctr_lib.init(cfg, seed=args.seed, device=device)
     n_params = sum(int(x.numel()) for x in tree_leaves(params0))
+    engine = (f"scan ({args.scan_steps} steps a graph)"
+              if args.engine == "scan" else "eager")
     print(f"[train] {args.model}: {n_params/1e6:.1f}M params "
           f"({len(tr)} train rows, batch {args.batch}, rule {args.rule}, "
-          f"embedding store {store.describe()}, engine eager, mode epochs, "
+          f"embedding store {store.describe()}, engine {engine}, mode "
+          f"epochs, "
           f"compute {args.compute_dtype}, device {device})")
 
     hp = scale_hyperparams(
@@ -126,6 +130,7 @@ def run_ctr(args) -> None:
         res = train_ctr(cfg, None, tr, te, batch_size=args.batch,
                         epochs=args.epochs, seed=args.seed, log_fn=print,
                         step_bundle=bundle, max_steps=args.steps,
+                        engine=args.engine, scan_steps=args.scan_steps,
                         init_state=(params0, bundle.init(params0)))
     if args.profile_trace:
         os.makedirs(args.profile_trace, exist_ok=True)
@@ -198,11 +203,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sharded placements only (not ported yet)")
     ap.add_argument("--partition", default="div", choices=("div", "mod"),
                     help="sharded placements only (not ported yet)")
-    ap.add_argument("--engine", default="eager", choices=("eager", "scan"),
-                    help="training hot loop; 'eager' (the default here) "
-                         "runs one step per call, 'scan' is not ported yet")
+    ap.add_argument("--engine", default="scan", choices=("eager", "scan"),
+                    help="training hot loop: 'scan' (default) captures "
+                         "--scan-steps steps as one CUDA graph on the card "
+                         "(runs them in turn on the CPU); 'eager' runs one "
+                         "step per call")
     ap.add_argument("--scan-steps", type=int, default=8,
-                    help="--engine scan only (not ported yet)")
+                    help="--engine scan: optimizer steps per captured "
+                         "chunk")
     ap.add_argument("--compute-dtype", default="float32",
                     choices=("float32", "bfloat16"),
                     help="forward/backward activation dtype; masters, "

@@ -3,8 +3,11 @@
 A port of ``repro.models.embedding``. One table per categorical field,
 ``[vocab_f, dim]``: an id's vector is a *row* (the paper's "column"). The
 lookup is ``F.embedding``, whose backward builds the dense ``[vocab, dim]``
-gradient by a sorted segment reduction on CUDA (deterministic, unlike an
-atomic ``index_add_``).
+gradient by a sorted segment reduction on CUDA. Under PyTorch's default
+algorithms that backward is not deterministic run to run at large batches
+on fields whose ids repeat heavily (131,072 rows of deepfm-criteo: the
+fields of 306 ids or fewer; ROADMAP queue 3); under
+``torch.use_deterministic_algorithms`` it is.
 
 Sparse unique-id layer
 ----------------------
@@ -197,7 +200,8 @@ def _lookup_slots(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     """``rows[inv]`` with the reference's overflow semantics: a slot index
     past the last row reads the last row in the forward and passes no
     gradient back. The gradient reaches ``rows`` through ``F.embedding``'s
-    sorted segment sum (deterministic on CUDA)."""
+    sorted segment sum, which on CUDA is bitwise repeatable only under
+    ``torch.use_deterministic_algorithms`` (the module note says when)."""
     cap = rows.shape[0]
     # int32 indices: the backward's sort then runs on 32-bit keys
     out = F.embedding(torch.clamp_max(inv, cap - 1), rows)

@@ -240,8 +240,8 @@ def _mask_pad_vocab(logits, cfg: LMConfig):
         return logits
     pad = torch.arange(cfg.padded_vocab, device=logits.device) \
         >= cfg.vocab_size
-    return torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
-                                         device=logits.device), logits)
+    # a fill, not a copy of a host scalar: a CUDA graph may capture it
+    return logits.masked_fill(pad, -1e30)
 
 
 def loss_fn(params, cfg: LMConfig, tokens, prefix_emb=None):
@@ -290,10 +290,14 @@ def _decode_position(p, kind, cfg, x, state):
 
 
 def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
-                cache: dict, cur_index):
+                cache: dict, cur_index, *, inplace: bool = False):
     """One serving step: the latest tokens [B] -> (next-token logits
     [B, V_padded] f32, updated cache). ``cur_index`` (tokens already in the
-    cache) positions attention caches; the recurrent state needs none."""
+    cache) positions attention caches; the recurrent state needs none, so
+    a captured step is right at any position. With ``inplace`` each
+    layer's new state is written into ``cache`` itself (after that layer
+    has read its old one), which is returned: what a CUDA graph over a
+    static cache needs (``serve.decode.DecodeGraph``)."""
     _require_ported(cfg)
     x = _embed(params, cfg, token[:, None])
     blocks = params["dense"]["blocks"]
@@ -304,11 +308,15 @@ def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
         for i, kind in enumerate(cfg.block_pattern):
             x, new_states[f"pos_{i}"] = _decode_position(
                 block[f"pos_{i}"], kind, cfg, x, block_cache[f"pos_{i}"])
+            if inplace:
+                tree_map(lambda old, new: old.copy_(new),
+                         block_cache[f"pos_{i}"], new_states[f"pos_{i}"])
         per_repeat.append(new_states)
     x = layers.rmsnorm(params["dense"]["final_norm"], x, cfg.norm_eps)
     logits = (x[:, 0] @ params["dense"]["head"].to(cfg.dtype)).to(
         torch.float32)
-    return _mask_pad_vocab(logits, cfg), _stack(per_repeat)
+    return (_mask_pad_vocab(logits, cfg),
+            cache if inplace else _stack(per_repeat))
 
 
 def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,

@@ -1,0 +1,204 @@
+"""The multi-step training engine: K steps captured as one CUDA graph.
+
+A port of ``repro.train.engine``. Its answer to the per-step overheads
+around the large-batch update (dispatch, the host-to-device copy, fresh
+buffers) is one compiled ``lax.scan`` over K steps a dispatch; PyTorch's
+counterpart of one compiled dispatch is one captured CUDA graph:
+
+* ``make_chunk_runner`` wraps a placement's capturable step
+  (``StepFn.scan_step``: no host read, scalars on the device, the
+  params and the state written in place) in a runner over ``[k, batch,
+  ...]`` chunks. On the card it captures K copies of the step, forward,
+  ``torch.autograd.grad`` and every kernel included, into one graph over
+  static chunk buffers, and each call copies the chunk into those buffers
+  and replays the graph: one launch for K steps, where an eager step costs
+  some 1,500. Each distinct k (an epoch's tail chunk, a ``max_steps``
+  cut) is captured once, as the reference re-jits once per distinct k. A
+  capture that fails raises: there is no fallback to eager steps. On the
+  CPU the runner runs the K bodies in turn (the path the tests hold to the
+  JAX package).
+* ``run_epoch`` drives one epoch of chunks from ``data.prefetch``: a
+  worker thread stacks the next K batches while the current chunk runs,
+  and on the card their copy, through pinned memory on a side stream,
+  overlaps the replay.
+
+Equivalence: ``chunk_epoch`` replays ``iterate_batches``'s shuffle order
+and a replay runs the kernels the eager step launches, in the same order,
+on the same tensors, so the scan engine equals the eager one bit for bit
+(params, state and per-step aux). Not ported yet: ``drive_planned_stream``
+(streaming with the hot/cold tiers, ROADMAP queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..core.tree import tree_leaves, tree_map
+from ..data import prefetch as prefetch_lib
+
+ENGINES = ("eager", "scan")
+
+
+def _stack_aux(auxes: list) -> dict:
+    return {name: torch.stack([a[name] for a in auxes]) for name in auxes[0]}
+
+
+class _Capture(NamedTuple):
+    """One captured chunk of ``k`` steps: the graph, its static input
+    buffers and its per-step aux, stacked."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: dict
+    aux: dict
+
+
+class ChunkRunner:
+    """``(params, opt_state, chunk) -> (params, opt_state, aux_stack)``
+    over a capturable step; see ``make_chunk_runner``."""
+
+    def __init__(self, scan_step: Callable):
+        self.scan_step = scan_step
+        self._captures: dict = {}
+
+    @property
+    def n_captures(self) -> int:
+        """Graphs captured so far (one per distinct chunk geometry and
+        state)."""
+        return len(self._captures)
+
+    def __call__(self, params, opt_state, chunk: dict):
+        leaves = tree_leaves((params, opt_state))
+        device = leaves[0].device
+        if device.type != "cuda":
+            return self._run_bodies(params, opt_state, chunk)
+        chunk = {name: torch.as_tensor(v, device=device)
+                 for name, v in chunk.items()}
+        k = chunk["labels"].shape[0]
+        key = (tuple((name, tuple(v.shape), v.dtype)
+                     for name, v in chunk.items()),
+               tuple(t.data_ptr() for t in leaves))
+        cap = self._captures.get(key)
+        if cap is None:
+            cap = self._capture(params, opt_state, chunk, k)
+            self._captures[key] = cap
+        for name, buf in cap.inputs.items():
+            buf.copy_(chunk[name], non_blocking=True)
+        cap.graph.replay()
+        return params, opt_state, {n: v.clone() for n, v in cap.aux.items()}
+
+    def _run_bodies(self, params, opt_state, chunk):
+        """The CPU path: the k bodies in turn."""
+        auxes = []
+        for i in range(chunk["labels"].shape[0]):
+            batch = {name: torch.as_tensor(v[i]) for name, v in chunk.items()}
+            params, opt_state, aux = self.scan_step(params, opt_state, batch)
+            auxes.append(aux)
+        return params, opt_state, _stack_aux(auxes)
+
+    def _capture(self, params, opt_state, chunk, k) -> _Capture:
+        """Warm one step up on a side stream, over clones of the state (so
+        the training state is not touched), then capture ``k`` steps on
+        that stream over static copies of the chunk."""
+        from ..kernels.extension import build
+
+        build()
+        inputs = {name: v.clone() for name, v in chunk.items()}
+        stream = torch.cuda.Stream(inputs["labels"].device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            warm = tree_map(torch.clone, (params, opt_state))
+            self.scan_step(*warm, {n: v[0] for n, v in inputs.items()})
+            del warm
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+
+        graph = torch.cuda.CUDAGraph()
+        auxes = []
+        before = tree_leaves((params, opt_state))
+        with torch.cuda.graph(graph, stream=stream):
+            p, s = params, opt_state
+            for i in range(k):
+                p, s, aux = self.scan_step(
+                    p, s, {n: v[i] for n, v in inputs.items()})
+                auxes.append(aux)
+            aux = _stack_aux(auxes)
+        after = tree_leaves((p, s))
+        if len(after) != len(before) or any(
+                a is not b for a, b in zip(after, before)):
+            raise RuntimeError(
+                "the scan engine captures steps that write their params and "
+                "state in place; this step returned new tensors")
+        return _Capture(graph, inputs, aux)
+
+
+def make_chunk_runner(scan_step: Callable) -> ChunkRunner:
+    """A runner ``(params, opt_state, chunk) -> (params, opt_state,
+    aux_stack)``: ``chunk`` leaves are ``[k, ...]`` stacked batches (on the
+    params' device), ``aux_stack`` the step's aux dict with a leading ``k``
+    axis, and ``params``/``opt_state`` the same trees, updated in place.
+
+    On the card ``scan_step`` must be capturable (``core.builders
+    .StepFn``): each distinct chunk geometry (and params/state storage)
+    is captured once into a CUDA graph, whose replays run the ``k``
+    steps; a capture that fails raises. On the CPU the ``k`` bodies run
+    in turn.
+    """
+    return ChunkRunner(scan_step)
+
+
+def run_epoch(
+    runner: Callable,
+    params,
+    opt_state,
+    ds,
+    batch_size: int,
+    scan_steps: int,
+    *,
+    seed: int = 0,
+    shuffle: bool = True,
+    max_steps: Optional[int] = None,
+    buffer_size: int = 2,
+    on_chunk: Optional[Callable] = None,
+) -> Tuple[object, object, int, Optional[dict]]:
+    """One epoch of chunks through ``runner``, on the params' device.
+
+    Returns ``(params, opt_state, steps_run, last_aux_stack)``. Respects
+    ``max_steps`` (remaining budget for *this* epoch) by slicing the final
+    chunk's leading axis, at most one more capture for the cut shape.
+    ``on_chunk(k, aux_stack)``, when given, is called around each chunk
+    of ``k`` steps: before it with ``aux_stack`` None, after it with its
+    aux (the train loop's clock and loss record).
+    """
+    device = tree_leaves(params)[0].device
+    steps_run = 0
+    last_aux = None
+    chunks = prefetch_lib.prefetch_chunks(
+        ds, batch_size, scan_steps, shuffle=shuffle, seed=seed,
+        buffer_size=buffer_size,
+        device=device if device.type == "cuda" else None)
+    try:
+        for chunk in chunks:
+            k = chunk["labels"].shape[0]
+            if max_steps is not None and steps_run + k > max_steps:
+                k = max_steps - steps_run
+                if k <= 0:
+                    break
+                chunk = {name: v[:k] for name, v in chunk.items()}
+            if on_chunk is not None:
+                on_chunk(k, None)
+            params, opt_state, last_aux = runner(params, opt_state, chunk)
+            if on_chunk is not None:
+                on_chunk(k, last_aux)
+            steps_run += k
+            if max_steps is not None and steps_run >= max_steps:
+                break
+    finally:
+        chunks.close()
+    return params, opt_state, steps_run, last_aux
+
+
+def resolve_scan_step(step_bundle):
+    """The capturable body of a bundle's step: its ``StepFn.scan_step``."""
+    return step_bundle.step.scan_step

@@ -1,8 +1,11 @@
 """CTR training loop: the fused and sparse train steps, epochs, eval.
 
-A port of the fused and sparse placements of ``repro.train.loop``. Steps
-run eagerly (there is no jit); ``engine="scan"`` and ``mode="stream"`` are
-not ported yet and raise, naming their ROADMAP item.
+A port of the fused and sparse placements of ``repro.train.loop``. Each
+step reads nothing on the host and writes its params and state in place,
+so it runs eagerly (``engine="eager"``) or as K steps captured into one
+CUDA graph (``engine="scan"``, ``train.engine``). Not ported yet:
+``mode="stream"`` (ROADMAP queue 1 item 5) and training through a bare
+optimizer, the substrate placement (item 4).
 """
 
 from __future__ import annotations
@@ -14,10 +17,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.builders import StepFn, dense_tower_tx
+from ..core import builders
+from ..core.builders import StepFn, dense_tower_tx, skipped, write_back
 from ..core.device import resolve_device
-from ..core.optim import apply_updates, decay_catchup_rows
+from ..core.optim import apply_updates, counter, decay_catchup_rows
 from ..core.tree import tree_leaves, tree_map
+from ..data import prefetch as prefetch_lib
 from ..data.synthetic import CTRDataset, iterate_batches
 from ..models import ctr
 from . import metrics
@@ -36,6 +41,18 @@ def _loss_and_grads(params, cfg, batch):
     return loss.detach(), tree_map(lambda _: next(grads), view)
 
 
+def _update_dense(params, state, grads, dense_tx, t, ok):
+    """The dense tower's update and the step counter, written in place
+    (under the guard's flag ``ok``, where-selected: a skipped step keeps
+    the old values)."""
+    d_updates, d_state = dense_tx.update(grads, state["dense"],
+                                         params["dense"])
+    write_back(params["dense"], apply_updates(params["dense"], d_updates),
+               ok)
+    write_back(state["dense"], d_state, ok)
+    write_back(state["step"], t, ok)
+
+
 def make_fused_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
                           zeta: float = 1e-5, dense_tx=None,
                           nonfinite_guard: bool = False):
@@ -43,23 +60,27 @@ def make_fused_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
     CowClip + coupled-L2 + Adam update (``repro_torch.kernels.cowclip``:
     the CUDA kernel on the card, its plain version on the CPU). The dense
     tower goes through ``dense_tx``. State: ``{"step", "m", "v", "dense"}``
-    with ``m``/``v`` trees shaped like ``params["embed"]``.
+    with ``m``/``v`` trees shaped like ``params["embed"]`` and ``step`` a
+    0-dim int32 tensor on the params' device.
 
-    The embedding tables and their moments are updated in place; the dense
-    tower is replaced. Returns ``(step, init)``.
+    Everything is updated in place (the tables and moments by the kernel,
+    the dense tower, its optimizer state and the step by ``write_back``);
+    the kernels read the step and its bias corrections from a block the
+    step fills on the card. Nothing is read on the host, so the step is
+    its own ``scan_step``. Returns ``(step, init)``.
 
     ``nonfinite_guard`` skips the whole update (params, moments and step
     counter) when the batch loss is NaN/Inf, reported as
-    ``aux["skipped_steps"]``; it reads the loss on the host every step.
+    ``aux["skipped_steps"]`` (``core.builders.nonfinite_guard``).
     """
-    from ..kernels.cowclip import fused_cowclip_adam
+    from ..kernels.cowclip import fused_cowclip_adam, step_scalars
 
     if dense_tx is None:
         dense_tx = dense_tower_tx(hp)
 
     def init(params):
         return {
-            "step": 0,
+            "step": counter(params),
             "m": tree_map(torch.zeros_like, params["embed"]),
             "v": tree_map(torch.zeros_like, params["embed"]),
             "dense": dense_tx.init(params["dense"]),
@@ -67,27 +88,23 @@ def make_fused_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
 
     def step_impl(params, state, batch):
         loss, grads = _loss_and_grads(params, cfg, batch)
-        if nonfinite_guard and not bool(torch.isfinite(loss)):
-            return params, state, {"loss": loss, "skipped_steps": 1}
+        ok = builders.nonfinite_guard(loss) if nonfinite_guard else None
         counts = ctr.batch_counts(cfg, batch["ids"], params)
         t = state["step"] + 1
+        scalars = step_scalars(t, ok=ok)
 
         # 1-dim LR tables are CowClip-exempt but share the kernel (the
         # kernel itself skips clipping when dim < 2).
         tree_map(
             lambda w, g, c, m, v: fused_cowclip_adam(
-                w, g, c, m, v, t, r=r, zeta=zeta, lr=hp.emb_lr,
+                w, g, c, m, v, scalars, r=r, zeta=zeta, lr=hp.emb_lr,
                 l2=hp.emb_l2),
             params["embed"], grads["embed"], counts, state["m"], state["v"])
-
-        d_updates, d_state = dense_tx.update(
-            grads["dense"], state["dense"], params["dense"])
-        new_dense = apply_updates(params["dense"], d_updates)
-        new_state = dict(state, step=t, dense=d_state)
+        _update_dense(params, state, grads["dense"], dense_tx, t, ok)
         aux = {"loss": loss}
         if nonfinite_guard:
-            aux["skipped_steps"] = 0
-        return {"embed": params["embed"], "dense": new_dense}, new_state, aux
+            aux["skipped_steps"] = skipped(ok)
+        return params, state, aux
 
     return StepFn(step_impl), init
 
@@ -123,21 +140,24 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
 
     Ids absent from a batch are not touched: their coupled-L2 decay accrues
     in a per-row ``last_step`` and is applied on their next touch or by
-    ``flush``, which keeps the path equivalent to the dense one. The tables,
-    moments and ``last_step`` are updated in place.
+    ``flush``, which keeps the path equivalent to the dense one. Everything
+    is updated in place, and nothing is read on the host, as in the fused
+    step.
 
     ``aux["catchup_depth_max"]`` is the deepest pending decay among this
     step's touched rows (0 when every one of them was in the last batch),
     a 0-dim int32 tensor on the params' device, computed by the catch-up
     kernel as it applies the decay. ``nonfinite_guard`` skips the whole
-    update when the batch loss is NaN/Inf, as the fused step's does.
+    update when the batch loss is NaN/Inf, as the fused step's does (the
+    update kernel writes nothing under the flag, so ``last_step`` holds).
 
     Returns ``(step, init, flush)``; ``flush(params, state)`` applies all
     pending decay (needed before eval, checkpoint or comparing against the
     dense path).
     """
     from ..kernels.cowclip import (sparse_gather_catchup_tables,
-                                   sparse_update_scatter_tables)
+                                   sparse_update_scatter_tables,
+                                   step_scalars)
 
     if dense_tx is None:
         dense_tx = dense_tower_tx(hp)
@@ -145,7 +165,7 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
 
     def init(params):
         return {
-            "step": 0,
+            "step": counter(params),
             "m": tree_map(torch.zeros_like, params["embed"]),
             "v": tree_map(torch.zeros_like, params["embed"]),
             "last_step": tree_map(
@@ -156,6 +176,7 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
 
     def step_impl(params, state, batch):
         t = state["step"] + 1
+        scalars = step_scalars(t, b1=b1, b2=b2)
         uniq = ctr.unique_batch(cfg, batch["ids"])
         utree = _uniq_tree(params["embed"], uniq)
         tables = list(_tables(params, state, utree))
@@ -167,7 +188,7 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
         # the dense path would at step t; one launch for every table, which
         # also gives the deepest pending catch-up among the real slots
         caught, depth = sparse_gather_catchup_tables(
-            ws, ms, vs, lss, uids, counts, t, **adam_kw)
+            ws, ms, vs, lss, uids, counts, scalars, **adam_kw)
         rows = {g: {} for g in params["embed"]}
         for (g, f, *_), (wr, _, _) in zip(tables, caught):
             rows[g][f] = wr.requires_grad_()
@@ -179,10 +200,11 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
                                     batch["dense"])
             loss = metrics.logloss(logits, batch["labels"])
         aux = {"loss": loss.detach(), "catchup_depth_max": depth}
+        ok = None
         if nonfinite_guard:
-            if not bool(torch.isfinite(loss)):
-                return params, state, dict(aux, skipped_steps=1)
-            aux["skipped_steps"] = 0
+            ok = builders.nonfinite_guard(aux["loss"])
+            scalars = step_scalars(t, b1=b1, b2=b2, ok=ok)
+            aux["skipped_steps"] = skipped(ok)
         w_rows = [c[0] for c in caught]
         leaves = w_rows + tree_leaves(dense_view)
         grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
@@ -193,14 +215,12 @@ def make_sparse_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
         sparse_update_scatter_tables(
             ws, ms, vs, lss, uids, counts, [wr.detach() for wr in w_rows],
             [grads[id(wr)] for wr in w_rows], [c[1] for c in caught],
-            [c[2] for c in caught], t, r=r, zeta=zeta, clip=clip, **adam_kw)
+            [c[2] for c in caught], scalars, r=r, zeta=zeta, clip=clip,
+            **adam_kw)
 
         g_dense = tree_map(lambda p: grads[id(p)], dense_view)
-        d_updates, d_state = dense_tx.update(
-            g_dense, state["dense"], params["dense"])
-        new_dense = apply_updates(params["dense"], d_updates)
-        new_state = dict(state, step=t, dense=d_state)
-        return {"embed": params["embed"], "dense": new_dense}, new_state, aux
+        _update_dense(params, state, g_dense, dense_tx, t, ok)
+        return params, state, aux
 
     return StepFn(step_impl), init, _make_lazy_flush(adam_kw)
 
@@ -221,7 +241,7 @@ def _make_lazy_flush(adam_kw: dict):
                         w, state["m"][g][f], state["v"][g][f], ls, step,
                         **adam_kw)
                     w.copy_(caught)
-                    ls.fill_(step)
+                    ls.copy_(torch.as_tensor(step, dtype=ls.dtype))
         return params, state
 
     return flush
@@ -260,44 +280,59 @@ class TrainResult:
     opt_state: object = None
     # per-step batch loss (kept on the device during an epoch and read once
     # after its last step) and seconds. On the card a step's seconds are
-    # the device stream's time from a CUDA event recorded just before the
-    # step's batch copy to one just after the step: its device work plus
-    # any time the card waited within it for the host to queue the work.
-    # On the CPU they are the host clock around the step.
+    # the device stream's time between CUDA events: under the eager engine
+    # recorded just before the step (its batch already copied, on a side
+    # stream) and just after it; under the scan engine around each chunk's
+    # replay (the copy into the graph's buffers and the k steps), divided
+    # by k. Either holds any time the card waited within it for the host.
+    # On the CPU they are the host clock around the step (or chunk).
     losses: list = dataclasses.field(default_factory=list)
     step_seconds: list = dataclasses.field(default_factory=list)
 
 
 class _StepClock:
     """Seconds per step of one epoch. On the card, CUDA events recorded on
-    the stream before and after each step, read after the epoch (its
-    losses have been read by then, so the read waits for nothing more);
-    elsewhere the host clock."""
+    the stream before and after each step or chunk, read after the epoch
+    (its losses have been read by then, so the read waits for nothing
+    more); elsewhere the host clock."""
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
-        self.marks = []
+        self.spans = []     # [start, end, steps]
 
-    def mark(self):
-        """Mark the start or the end of a step."""
+    def _now(self):
         if not self.cuda:
-            self.marks.append(time.perf_counter())
-            return
+            return time.perf_counter()
         event = torch.cuda.Event(enable_timing=True)
         event.record()
-        self.marks.append(event)
+        return event
+
+    def start(self):
+        self.spans.append([self._now(), None, 0])
+
+    def stop(self, steps: int = 1):
+        """End the open span, which covered ``steps`` steps."""
+        self.spans[-1][1:] = [self._now(), steps]
 
     def seconds(self) -> list:
-        pairs = zip(self.marks[::2], self.marks[1::2])
-        if not self.cuda:
-            return [b - a for a, b in pairs]
-        if self.marks:
-            self.marks[-1].synchronize()
-        return [a.elapsed_time(b) / 1e3 for a, b in pairs]
+        """Each span's seconds over its steps, once a step."""
+        if self.cuda and self.spans:
+            self.spans[-1][1].synchronize()
+        out = []
+        for a, b, steps in self.spans:
+            sec = (a.elapsed_time(b) / 1e3 if self.cuda else b - a)
+            out.extend([sec / steps] * steps)
+        return out
 
 
-def _to_device(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+def _epoch_batches(ds, batch_size: int, seed: int, device):
+    """One epoch of device batches in ``iterate_batches``'s order: on the
+    card staged through pinned memory and copied one batch ahead on a side
+    stream (``data.prefetch``), on the CPU wrapped as they come."""
+    host = iterate_batches(ds, batch_size, seed=seed)
+    if device.type == "cuda":
+        return prefetch_lib.prefetch(host, device=device)
+    return ({k: torch.as_tensor(v) for k, v in b.items()} for b in host)
 
 
 def train_ctr(
@@ -314,6 +349,7 @@ def train_ctr(
     step_bundle=None,
     max_steps: Optional[int] = None,
     engine: str = "eager",
+    scan_steps: int = 8,
     mode: str = "epochs",
     init_state=None,
     device="cuda",
@@ -324,18 +360,24 @@ def train_ctr(
     bundle's ``prepare``, or from ``init_state = (params, opt_state)``
     (already prepared; batches then go to the params' device). ``flush``
     runs before every eval. ``max_steps`` caps the total step count across
-    epochs. Batches come from ``iterate_batches`` in the reference's exact
-    shuffle order (seed ``seed + epoch``).
+    epochs. Batches come in ``iterate_batches``'s exact shuffle order (seed
+    ``seed + epoch``).
+
+    ``engine`` selects the hot loop (``train.engine``): ``"eager"``, one
+    step at a time, or ``"scan"``, ``scan_steps`` steps a chunk, captured
+    on the card as one CUDA graph (each distinct chunk length once) over
+    chunks prefetched two deep; on the CPU the scan engine runs the
+    chunk's steps in turn. Both consume the same batches
+    and run the same kernels, so they give the same params bit for bit.
 
     Not ported yet: the composable-optimizer path (``tx`` without a
-    bundle), ``engine="scan"`` and ``mode="stream"``.
+    bundle, ROADMAP queue 1 item 4) and ``mode="stream"`` (item 5).
     """
-    if engine == "scan":
-        raise NotImplementedError(
-            "engine='scan' is not ported yet: the CUDA-graph engine is "
-            "ROADMAP queue 1 item 3; use engine='eager'")
-    if engine != "eager":
-        raise ValueError(f"unknown engine {engine!r}")
+    from . import engine as engine_lib
+
+    if engine not in engine_lib.ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of "
+                         f"{engine_lib.ENGINES}")
     if mode == "stream":
         raise NotImplementedError(
             "mode='stream' is not ported yet: streaming training is ROADMAP "
@@ -356,6 +398,9 @@ def train_ctr(
         opt_state = step_bundle.init(params)
     dev = tree_leaves(params)[0].device
     step_fn, flush = step_bundle.step, step_bundle.flush
+    runner = (engine_lib.make_chunk_runner(
+        engine_lib.resolve_scan_step(step_bundle)) if engine == "scan"
+        else None)
     eval_fn = make_eval_fn(cfg)
 
     history, losses, step_seconds = [], [], []
@@ -366,17 +411,33 @@ def train_ctr(
             break
         clock = _StepClock(dev)
         epoch_losses = []
-        for b in iterate_batches(train_ds, batch_size, seed=seed + epoch):
-            clock.mark()
-            params, opt_state, aux = step_fn(params, opt_state,
-                                             _to_device(b, dev))
-            clock.mark()
-            epoch_losses.append(aux["loss"])
-            n_steps += 1
-            if max_steps is not None and n_steps >= max_steps:
-                break
+        if runner is not None:
+            def on_chunk(k, aux):
+                if aux is None:
+                    clock.start()
+                    return
+                clock.stop(k)
+                epoch_losses.append(aux["loss"])
+
+            params, opt_state, ran, _ = engine_lib.run_epoch(
+                runner, params, opt_state, train_ds, batch_size, scan_steps,
+                seed=seed + epoch,
+                max_steps=None if max_steps is None else max_steps - n_steps,
+                on_chunk=on_chunk)
+            n_steps += ran
+        else:
+            batches = _epoch_batches(train_ds, batch_size, seed + epoch, dev)
+            for batch in batches:
+                clock.start()
+                params, opt_state, aux = step_fn(params, opt_state, batch)
+                clock.stop()
+                epoch_losses.append(aux["loss"].reshape(1))
+                n_steps += 1
+                if max_steps is not None and n_steps >= max_steps:
+                    break
+            batches.close()
         if epoch_losses:   # the epoch's one read of the device
-            losses.extend(torch.stack(epoch_losses).tolist())
+            losses.extend(torch.cat(epoch_losses).tolist())
         step_seconds.extend(clock.seconds())
         if eval_every_epoch and test_ds is not None:
             params, opt_state = flush(params, opt_state)

@@ -22,7 +22,8 @@ from repro.core.optim import decay_factor as jax_decay_factor
 from repro.kernels.cowclip import fused_cowclip_adam as jax_fused
 from repro.kernels.cowclip import reference as jax_reference
 from repro_torch.core.optim import decay_factor
-from repro_torch.kernels.cowclip import fused_cowclip_adam, reference
+from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
+                                         step_scalars)
 
 
 def _inputs(vocab, dim, seed=0, cnt_mode="random"):
@@ -41,7 +42,7 @@ def _inputs(vocab, dim, seed=0, cnt_mode="random"):
 def _torch_update(arrays, step, **kw):
     """Port's wrapper on CPU tensors; returns numpy (w, m, v)."""
     w, g, cnt, m, v = (torch.from_numpy(a.copy()) for a in arrays)
-    out = fused_cowclip_adam(w, g, cnt, m, v, step, **kw)
+    out = fused_cowclip_adam(w, g, cnt, m, v, step_scalars(step), **kw)
     return [t.numpy() for t in out]
 
 
@@ -106,10 +107,10 @@ def test_torch_cowclip_in_place_and_no_launch_on_cpu():
     arrays = _inputs(50, 6, seed=1)
     w, g, cnt, m, v = (torch.from_numpy(a.copy()) for a in arrays)
     before = fused_cowclip_adam.launches
-    out = fused_cowclip_adam(w, g, cnt, m, v, 2)
+    out = fused_cowclip_adam(w, g, cnt, m, v, step_scalars(2))
     assert out[0] is w and out[1] is m and out[2] is v
     assert fused_cowclip_adam.launches == before
-    ref = reference(*(torch.from_numpy(a) for a in arrays), 2)
+    ref = reference(*(torch.from_numpy(a) for a in arrays), step_scalars(2))
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     # absent rows: w scaled by the decay factor, moments held
@@ -121,11 +122,13 @@ def test_torch_cowclip_in_place_and_no_launch_on_cpu():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "shape", "cnt_shape",
-                                 "step"])
+                                 "step", "step_int"])
 def test_torch_cowclip_wrapper_rejects_bad_inputs(bad):
+    """Bad tables, a step of 0, and a bare int where the step's block goes
+    (the wrappers take a ``StepScalars`` only)."""
     w, g, cnt, m, v = (torch.from_numpy(a.copy())
                        for a in _inputs(16, 4, seed=2))
-    step = 1
+    step = lambda: step_scalars(1)  # noqa: E731
     if bad == "dtype":
         g = g.double()
     elif bad == "contiguous":
@@ -134,7 +137,9 @@ def test_torch_cowclip_wrapper_rejects_bad_inputs(bad):
         v = v[:8]
     elif bad == "cnt_shape":
         cnt = cnt[:, None]
+    elif bad == "step":
+        step = lambda: step_scalars(0)  # noqa: E731
     else:
-        step = 0
+        step = lambda: 1  # noqa: E731
     with pytest.raises((TypeError, ValueError)):
-        fused_cowclip_adam(w, g, cnt, m, v, step)
+        fused_cowclip_adam(w, g, cnt, m, v, step())

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version, the fused and sparse train steps on the card against the CPU
-path, and the RWKV-6 LM's forward, prefill and decode on the card against
-the CPU path.
+path, the RWKV-6 LM's forward, prefill and decode on the card against
+the CPU path, and the CUDA graphs (the scan engine's chunks, the guard's
+skip under them, serving and the decode step) against the eager runs.
 
 They carry the ``cuda`` marker and skip without a CUDA device. This file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -26,7 +27,8 @@ from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
                                          sparse_gather_catchup,
                                          sparse_gather_catchup_tables,
                                          sparse_update_scatter,
-                                         sparse_update_scatter_tables)
+                                         sparse_update_scatter_tables,
+                                         step_scalars)
 from repro_torch.kernels.cowclip import ref as cc_ref
 from repro_torch.kernels.cowclip.sparse import MAX_TABLES, launches_for
 from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
@@ -35,6 +37,10 @@ from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
                                       wkv6_reference)
 from repro_torch.kernels.wkv6.wkv6 import chunked_wkv6, segment_chunks
 from repro_torch.models import ctr, lm, rwkv
+from repro_torch.serve import ServingEngine
+from repro_torch.serve.decode import GraphDecoder, greedy_generate
+from repro_torch.train import engine as engine_lib
+from repro_torch.train import train_ctr
 
 
 def _need_cuda():
@@ -65,9 +71,10 @@ def test_torch_cowclip_cuda_kernel_matches_plain(vocab, dim, step):
     """rtol 1e-5 / atol 1e-7: the JAX kernel's bar against its reference."""
     _need_cuda()
     w, g, cnt, m, v = _inputs(vocab, dim, seed=vocab * dim + step)
-    ref = reference(w, g, cnt, m, v, step)
+    block = step_scalars(step, device="cuda")
+    ref = reference(w, g, cnt, m, v, block)
     before = fused_cowclip_adam.launches
-    out = fused_cowclip_adam(w, g, cnt, m, v, step)
+    out = fused_cowclip_adam(w, g, cnt, m, v, block)
     torch.cuda.synchronize()
     assert fused_cowclip_adam.launches == before + 1
     assert out[0] is w and out[1] is m and out[2] is v
@@ -105,8 +112,9 @@ def test_torch_cowclip_cuda_kernel_edges(dim, counts, step):
             w = torch.cat([w.new_zeros(1), w.flatten()])[1:].view(vocab, dim)
             cnt = torch.cat([cnt.new_zeros(1), cnt])[1:]
             assert w.data_ptr() % 16 and w.is_contiguous()
-        ref = reference(w, g, cnt, m, v, step, lr=1e-3, l2=1e-4)
-        out = fused_cowclip_adam(w, g, cnt, m, v, step, lr=1e-3, l2=1e-4)
+        block = step_scalars(step, device="cuda")
+        ref = reference(w, g, cnt, m, v, block, lr=1e-3, l2=1e-4)
+        out = fused_cowclip_adam(w, g, cnt, m, v, block, lr=1e-3, l2=1e-4)
         torch.cuda.synchronize()
         for a, b in zip(out, ref):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
@@ -117,7 +125,8 @@ def test_torch_cowclip_cuda_rejects_mixed_devices():
     _need_cuda()
     w, g, cnt, m, v = _inputs(8, 4, seed=0)
     with pytest.raises(ValueError):
-        fused_cowclip_adam(w, g.cpu(), cnt, m, v, 1)
+        fused_cowclip_adam(w, g.cpu(), cnt, m, v,
+                           step_scalars(1, device="cuda"))
 
 
 @pytest.mark.cuda
@@ -193,10 +202,11 @@ def test_torch_sparse_cuda_kernels_match_plain(rows, dim, cap, off, vocab,
     real = c["counts"] > 0
     assert bool(real.any()) and not bool(real.all())
     before = (sparse_gather_catchup.launches, sparse_update_scatter.launches)
+    block = step_scalars(step, device="cuda")
     got = sparse_gather_catchup(c["w"], c["m"], c["v"], c["ls"], c["uids"],
-                                c["counts"], step, **kw)
+                                c["counts"], block, **kw)
     want = cc_ref.sparse_gather_catchup_reference(
-        c["w"], c["m"], c["v"], c["ls"], c["uids"], step, **kw)
+        c["w"], c["m"], c["v"], c["ls"], c["uids"], block, **kw)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
@@ -204,10 +214,10 @@ def test_torch_sparse_cuda_kernels_match_plain(rows, dim, cap, off, vocab,
 
     tables = [c[k].clone() for k in ("w", "m", "v", "ls")]
     out = sparse_update_scatter(*tables, c["uids"], c["counts"], got[0],
-                                c["g"], got[1], got[2], step, **kw)
+                                c["g"], got[1], got[2], block, **kw)
     want = cc_ref.sparse_update_scatter_reference(
         *(c[k] for k in ("w", "m", "v", "ls")), c["uids"], c["counts"],
-        got[0], c["g"], got[1], got[2], step, **kw)
+        got[0], c["g"], got[1], got[2], block, **kw)
     torch.cuda.synchronize()
     assert all(a is b for a, b in zip(out, tables))
     for a, b in zip(out[:3], want[:3]):
@@ -251,13 +261,14 @@ def test_torch_sparse_cuda_grouped_match_plain(n_tables, step):
                                              "counts")]
     before = (sparse_gather_catchup_tables.launches,
               sparse_update_scatter_tables.launches)
-    rows, depth = sparse_gather_catchup_tables(*lists, step,
+    block = step_scalars(step, device="cuda")
+    rows, depth = sparse_gather_catchup_tables(*lists, block,
                                                row_offsets=offs, **kw)
     tables = [[c[k].clone() for c in cases] for k in ("w", "m", "v", "ls")]
     sparse_update_scatter_tables(
         *tables, lists[4], lists[5], [r[0] for r in rows],
         [c["g"] for c in cases], [r[1] for r in rows], [r[2] for r in rows],
-        step, row_offsets=offs, **kw)
+        block, row_offsets=offs, **kw)
     torch.cuda.synchronize()
     assert (sparse_gather_catchup_tables.launches,
             sparse_update_scatter_tables.launches) == tuple(
@@ -270,11 +281,11 @@ def test_torch_sparse_cuda_grouped_match_plain(n_tables, step):
         for c, off in zip(cases, offs)]).max()
     assert depth.dtype == torch.int32 and depth.shape == ()
     assert int(depth) == int(stacked) == int(cc_ref.catchup_depth_reference(
-        lists[3], lists[4], lists[5], step, row_offsets=offs))
+        lists[3], lists[4], lists[5], block, row_offsets=offs))
     for i, (c, off) in enumerate(zip(cases, offs)):
         real = c["counts"] > 0
         want = cc_ref.sparse_gather_catchup_reference(
-            c["w"], c["m"], c["v"], c["ls"], c["uids"], step, row_offset=off,
+            c["w"], c["m"], c["v"], c["ls"], c["uids"], block, row_offset=off,
             **kw)
         for a, b in zip(rows[i], want):
             assert bool(torch.isfinite(a).all())
@@ -282,7 +293,7 @@ def test_torch_sparse_cuda_grouped_match_plain(n_tables, step):
                                        atol=1e-7)
         want = cc_ref.sparse_update_scatter_reference(
             c["w"], c["m"], c["v"], c["ls"], c["uids"], c["counts"],
-            rows[i][0], c["g"], rows[i][1], rows[i][2], step, row_offset=off,
+            rows[i][0], c["g"], rows[i][1], rows[i][2], block, row_offset=off,
             **kw)
         for a, b in zip((t[i] for t in tables[:3]), want[:3]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
@@ -293,13 +304,18 @@ def test_torch_sparse_cuda_grouped_match_plain(n_tables, step):
 def test_torch_sparse_cuda_rejects_mixed_devices():
     _need_cuda()
     c = _sparse_case(64, 4, 8, 6, 3, seed=0)
+    block = step_scalars(3, device="cuda")
     with pytest.raises(ValueError):
         sparse_gather_catchup(c["w"], c["m"], c["v"], c["ls"].cpu(),
-                              c["uids"], c["counts"], 3)
+                              c["uids"], c["counts"], block)
     rows = torch.zeros(8, 4, device="cuda")
     with pytest.raises(ValueError):
         sparse_update_scatter(c["w"], c["m"], c["v"], c["ls"], c["uids"],
-                              c["counts"], rows, c["g"].cpu(), rows, rows, 3)
+                              c["counts"], rows, c["g"].cpu(), rows, rows,
+                              block)
+    with pytest.raises(ValueError):         # a step block on the host
+        sparse_gather_catchup(c["w"], c["m"], c["v"], c["ls"], c["uids"],
+                              c["counts"], step_scalars(3))
 
 
 @pytest.mark.cuda
@@ -508,3 +524,299 @@ def test_torch_rwkv_lm_cuda_matches_cpu():
         out[dev] = [t.cpu() for t in [logits] + steps]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert (a - b).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the scan engine, the guard, serving, decode
+# ---------------------------------------------------------------------------
+
+
+def _small_ctr(placement):
+    cfg = ctr.CTRConfig(name="deepfm", vocab_sizes=(2000, 700, 120, 30, 5),
+                        n_dense=4, emb_dim=8, mlp_dims=(32, 32, 32),
+                        emb_sigma=1e-2, placement=placement)
+    hp = scale_hyperparams("cowclip", base_lr=1e-3, base_l2=1e-3,
+                           base_batch=256, batch_size=512, base_dense_lr=2e-3)
+    ds = make_ctr_dataset(11 * 512 + 100, cfg.vocab_sizes, n_dense=4, seed=1)
+    return cfg, hp, ds
+
+
+def _flat(tree):
+    from repro_torch.core.tree import flatten_with_paths
+
+    return {k: v.cpu() for k, v in flatten_with_paths(tree).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["fused", "sparse"])
+def test_torch_scan_engine_cuda_graph_equals_eager(placement):
+    """train_ctr on the card over 2 epochs of 10 batches, scan_steps 4 (a
+    tail chunk of 2) and a max_steps cut at 13: the graph replays' params,
+    state and losses equal the eager steps' bit for bit; 3 graphs (k = 4,
+    2 and the cut's 3)."""
+    _need_cuda()
+    cfg, hp, ds = _small_ctr(placement)
+    tr, te = ds.split(0.95)
+    params0 = ctr.init(cfg, seed=2, device="cpu")
+    res, runners = {}, []
+    real = engine_lib.make_chunk_runner
+
+    def spy(step):
+        runners.append(real(step))
+        return runners[-1]
+
+    engine_lib.make_chunk_runner = spy
+    try:
+        for eng in ("eager", "scan"):
+            bundle = store_for(cfg).make_bundle(cfg, hp, warmup_steps=3)
+            params = tree_map(lambda t: t.clone().cuda(), params0)
+            res[eng] = train_ctr(
+                cfg, None, tr, te, batch_size=512, epochs=2, seed=0,
+                step_bundle=bundle, max_steps=13, engine=eng, scan_steps=4,
+                init_state=(params, bundle.init(params)))
+    finally:
+        engine_lib.make_chunk_runner = real
+    a, b = res["eager"], res["scan"]
+    assert a.steps == b.steps == 13 and a.losses == b.losses
+    for x, y in ((a.params, b.params), (a.opt_state, b.opt_state)):
+        fx, fy = _flat(x), _flat(y)
+        for k in fx:
+            assert torch.equal(fx[k], fy[k]), k
+    assert runners[0].n_captures == 3
+    assert a.final_eval["auc"] == b.final_eval["auc"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["fused", "sparse"])
+def test_torch_scan_engine_cuda_guard_skips_inside_a_graph(placement):
+    """A chunk of 4 with a NaN dense feature in its second batch, replayed
+    from a graph under nonfinite_guard: the same params and state as the
+    guarded eager steps, bit for bit, skipped_steps summing to 1, and the
+    poisoned step alone changes nothing (its tables, moments, last_step
+    and step bitwise as before)."""
+    _need_cuda()
+    from repro_torch.data.prefetch import chunk_epoch
+
+    cfg, hp, ds = _small_ctr(placement)
+    bundle = store_for(cfg).make_bundle(cfg, hp, warmup_steps=3,
+                                        nonfinite_guard=True)
+    chunk = next(chunk_epoch(ds, 512, 4, seed=3))
+    chunk["dense"][1, 0, 0] = np.nan
+    chunk = {k: torch.from_numpy(v).cuda() for k, v in chunk.items()}
+    params0 = ctr.init(cfg, seed=3, device="cuda")
+
+    p = tree_map(torch.clone, params0)
+    s = bundle.init(p)
+    p, s, _ = bundle.step(p, s, {k: v[0] for k, v in chunk.items()})
+    before = {k: v.clone() for k, v in _flat({"p": p, "s": s}).items()}
+    p, s, aux = bundle.step(p, s, {k: v[1] for k, v in chunk.items()})
+    assert int(aux["skipped_steps"]) == 1
+    after = _flat({"p": p, "s": s})
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+    for i in (2, 3):
+        p, s, _ = bundle.step(p, s, {k: v[i] for k, v in chunk.items()})
+    eager = _flat({"p": p, "s": s})
+
+    p = tree_map(torch.clone, params0)
+    s = bundle.init(p)
+    runner = engine_lib.make_chunk_runner(engine_lib.resolve_scan_step(bundle))
+    p, s, aux = runner(p, s, chunk)
+    assert int(aux["skipped_steps"].sum()) == 1 and int(s["step"]) == 3
+    graph = _flat({"p": p, "s": s})
+    for k in eager:
+        assert torch.equal(eager[k], graph[k]), k
+
+
+@pytest.mark.cuda
+def test_torch_scan_engine_capture_with_a_host_read_raises():
+    """A step that reads its loss on the host cannot be captured: the
+    runner raises (no eager fallback), and the training state is as it
+    was."""
+    _need_cuda()
+    from repro_torch.data.prefetch import chunk_epoch
+
+    cfg, hp, ds = _small_ctr("fused")
+    bundle = store_for(cfg).make_bundle(cfg, hp)
+
+    def reading_step(params, state, batch):
+        out = bundle.step(params, state, batch)
+        float(out[2]["loss"])
+        return out
+
+    params = ctr.init(cfg, seed=4, device="cuda")
+    state = bundle.init(params)
+    before = {k: v.clone() for k, v in _flat(
+        {"p": params, "s": state}).items()}
+    chunk = {k: torch.from_numpy(v).cuda()
+             for k, v in next(chunk_epoch(ds, 512, 2, seed=0)).items()}
+    with pytest.raises(RuntimeError):
+        engine_lib.make_chunk_runner(reading_step)(params, state, chunk)
+    torch.cuda.synchronize()
+    after = _flat({"p": params, "s": state})
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+
+
+@pytest.mark.cuda
+def test_torch_cuda_bias_corrections_equal_host_rounding():
+    """``core.optim.bias_corrections`` of counters on the card (as a train
+    step fills its block; CUDA's own powf would round b^t an ulp off the
+    host's for some t) equals the host's ``bias_corrections(t)`` bit for
+    bit, t = 1 .. 20000, and a block filled from a counter on the card
+    carries those bits."""
+    _need_cuda()
+    from repro_torch.core import optim
+    from repro_torch.kernels.cowclip.cowclip import bias_corrections
+
+    def bits(x):
+        return int(np.float32(x).view(np.int32))
+
+    steps = torch.arange(1, 20001, dtype=torch.int32, device="cuda")
+    for b1, b2 in ((0.9, 0.999), (0.8, 0.99)):
+        got = [c.view(torch.int32).cpu().tolist()
+               for c in optim.bias_corrections(steps, b1, b2)]
+        for t in range(1, 20001):
+            want = bias_corrections(t, b1, b2)
+            assert [got[0][t - 1], got[1][t - 1]] == [
+                bits(w) for w in want], (b1, b2, t)
+    for t in (1, 2, 17, 1000, 19999):
+        words = step_scalars(torch.tensor(t, dtype=torch.int32,
+                                          device="cuda")).words
+        want = bias_corrections(t, 0.9, 0.999)
+        assert words.tolist() == [t, bits(want[0]), bits(want[1]), 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [False, True])
+def test_torch_cowclip_cuda_kernels_read_the_guard_flag(flag):
+    """A guarded step block with flag 0: the fused and the sparse update
+    kernels write nothing; flag 1: the unguarded kernels' result bit for
+    bit (and the plain versions' at rtol 1e-5 / atol 1e-7)."""
+    _need_cuda()
+    t = torch.tensor(7, dtype=torch.int32, device="cuda")
+    guarded = step_scalars(t, ok=torch.tensor(flag, device="cuda"))
+    plain_block = step_scalars(t)
+    w, g, cnt, m, v = _inputs(1000, 10, seed=5)
+    runs = []
+    for block in (guarded, plain_block):
+        tables = [x.clone() for x in (w, m, v)]
+        fused_cowclip_adam(tables[0], g, cnt, tables[1], tables[2], block)
+        runs.append(tables)
+    want = reference(w, g, cnt, m, v, guarded)
+    torch.cuda.synchronize()
+    for a, b, old, r in zip(runs[0], runs[1], (w, m, v), want):
+        assert torch.equal(a, b if flag else old)
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-7)
+
+    c = _sparse_case(1000, 10, 256, 400, 7, seed=6)
+    rows, _ = sparse_gather_catchup_tables(
+        [c["w"]], [c["m"]], [c["v"]], [c["ls"]], [c["uids"]], [c["counts"]],
+        guarded)
+    outs = []
+    for block in (guarded, plain_block):
+        tables = [c[k].clone() for k in ("w", "m", "v", "ls")]
+        sparse_update_scatter_tables(
+            *[[x] for x in tables], [c["uids"]], [c["counts"]],
+            [rows[0][0]], [c["g"]], [rows[0][1]], [rows[0][2]], block)
+        outs.append(tables)
+    torch.cuda.synchronize()
+    for a, b, old in zip(outs[0], outs[1], (c["w"], c["m"], c["v"],
+                                             c["ls"])):
+        assert torch.equal(a, b if flag else old)
+
+
+@pytest.mark.cuda
+def test_torch_serving_engine_cuda_one_capture():
+    """The serving engine on the card: scores of 1 to 300 rows equal the
+    eager forward within 1e-5 through one captured graph."""
+    _need_cuda()
+    cfg, _, _ = _small_ctr("fused")
+    params = ctr.init(cfg, seed=5, device="cuda")
+    rng = np.random.default_rng(0)
+    ids = np.stack([rng.integers(0, v, 300) for v in cfg.vocab_sizes],
+                   1).astype(np.int32)
+    dense = rng.normal(size=(300, 4)).astype(np.float32)
+    with torch.inference_mode():
+        ref = ctr.apply(params, cfg, torch.from_numpy(ids).cuda(),
+                        torch.from_numpy(dense).cuda()).cpu().numpy()
+    eng = ServingEngine(cfg, params, batch_size=64)
+    for n in (1, 3, 64, 65, 300):
+        np.testing.assert_allclose(eng.score(ids[:n], dense[:n]), ref[:n],
+                                   atol=1e-5)
+    assert eng.n_traces == 1
+
+
+@pytest.mark.cuda
+def test_torch_decode_graph_cuda_equals_eager():
+    """Greedy decoding of the reduced rwkv6-7b on the card: the replayed
+    decode graph gives the eager steps' tokens, and logits within 1e-4;
+    one capture per batch size."""
+    _need_cuda()
+    cfg = dataclasses.replace(reduce_config(get_config("rwkv6-7b")),
+                              wkv_backend="chunked")
+    params = lm.init(cfg, seed=0, device="cuda")
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 32))).cuda()
+    eager = greedy_generate(params, cfg, prompt, 12, graph=False)
+    decoder = GraphDecoder(params, cfg)
+    for _ in range(2):
+        got = greedy_generate(params, cfg, prompt, 12, decoder=decoder)
+        assert torch.equal(got.tokens, eager.tokens)
+        assert (got.logits - eager.logits).abs().max().item() <= 1e-4
+    assert list(decoder.graphs) == [3]
+
+
+@pytest.mark.cuda
+def test_torch_fused_grads_cuda_deterministic_mode():
+    """One fused step's gradients at batch 4096, twice from the same
+    params and batch: bitwise equal under torch.use_deterministic_algorithms
+    (the mode in which chip_smoke.py holds the scan engine to the eager
+    one at full width). Under the default algorithms PyTorch's CUDA
+    embedding backward is not deterministic past 3072 indices on fields
+    whose ids repeat heavily (ROADMAP queue 3)."""
+    _need_cuda()
+    from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.train.loop import _loss_and_grads
+
+    cfg = ctr.CTRConfig(name="deepfm", vocab_sizes=(20000, 300, 40),
+                        n_dense=4, emb_dim=10, mlp_dims=(64, 64),
+                        emb_sigma=1e-2)
+    ds = make_ctr_dataset(4096, cfg.vocab_sizes, n_dense=4, zipf_a=1.1,
+                          seed=2)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(iterate_batches(ds, 4096, seed=0)).items()}
+    params = ctr.init(cfg, seed=1, device="cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        grads = [flatten_with_paths(_loss_and_grads(params, cfg, batch)[1])
+                 for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
+
+
+@pytest.mark.cuda
+def test_torch_prefetch_cuda_stages_items_in_order():
+    """The CUDA prefetch: items of several lengths, each pinned on the
+    consumer's side and copied on a side stream, reach the card in order,
+    equal to their host arrays; closing early stops the worker."""
+    _need_cuda()
+    from repro_torch.data.prefetch import prefetch
+
+    rng = np.random.default_rng(0)
+    items = [{"a": rng.standard_normal((n, 3)).astype(np.float32),
+              "b": rng.integers(0, 9, (n,)).astype(np.int32)}
+             for n in (8, 8, 8, 5, 8, 12, 8, 8, 8, 8, 3)]
+    got = list(prefetch(iter(items), device="cuda"))
+    torch.cuda.synchronize()
+    assert len(got) == len(items)
+    for g, want in zip(got, items):
+        for k, v in want.items():
+            assert g[k].device.type == "cuda"
+            np.testing.assert_array_equal(g[k].cpu().numpy(), v)
+    it = prefetch(iter(items), device="cuda")
+    first = next(it)
+    it.close()
+    np.testing.assert_array_equal(first["a"].cpu().numpy(), items[0]["a"])

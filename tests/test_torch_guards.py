@@ -164,7 +164,7 @@ def test_torch_cli_sparse_alias_conflicts_with_other_placement():
     (["--placement", "sharded_sparse"], "queue 1 item 7"),
     (["--placement", "substrate"], "queue 1 item 4"),
     (["--placement", "sharded"], "queue 1 item 7"),
-    (["--engine", "scan"], "queue 1 item 3"),
+    (["--host-devices", "8"], "queue 1 item 7"),
     (["--mode", "stream"], "queue 1 item 5"),
     (["--snapshot-dir", "snaps"], "queue 1 item 6"),
     (["--task", "lm"], "queue 1 item 8"),

@@ -37,7 +37,8 @@ from repro_torch.kernels.cowclip import (sparse_cowclip_adam_reference,
                                          sparse_gather_catchup,
                                          sparse_gather_catchup_tables,
                                          sparse_update_scatter,
-                                         sparse_update_scatter_tables)
+                                         sparse_update_scatter_tables,
+                                         step_scalars)
 from repro_torch.kernels.cowclip.sparse import (MAX_TABLES, launches_for,
                                                 safe_uids)
 from repro_torch.models import embedding
@@ -100,7 +101,7 @@ def test_torch_sparse_kernels_match_jax(dim, use_kernel):
 
     rows_t = sparse_gather_catchup(
         _t(tb["w"]), _t(tb["m"]), _t(tb["v"]), _t(tb["ls"]), _t(uids),
-        _t(counts), t, **KW)
+        _t(counts), step_scalars(t), **KW)
     rows_j = jax_catchup(
         _j(tb["w"]), _j(tb["m"]), _j(tb["v"]), _j(tb["ls"]), _j(uids),
         _j(counts), jnp.asarray(t, jnp.int32), use_kernel=use_kernel, **KW)
@@ -112,7 +113,7 @@ def test_torch_sparse_kernels_match_jax(dim, use_kernel):
     tables_t = [_t(tb[k]) for k in ("w", "m", "v", "ls")]
     out_t = sparse_update_scatter(
         *tables_t, _t(uids), _t(counts), rows_t[0], _t(g_rows), rows_t[1],
-        rows_t[2], t, **KW)
+        rows_t[2], step_scalars(t), **KW)
     assert all(a is b for a, b in zip(out_t, tables_t))   # in place
     # JAX on the same caught-up rows (the port's), so only the update differs
     out_j = jax_update(
@@ -172,8 +173,8 @@ def test_torch_sparse_grouped_match_jax(case, use_kernel):
     keys = ("w", "m", "v", "ls", "uids", "counts")
     lists = [[_t(c[k]) for c in cases] for k in keys]
     offs = [c["off"] for c in cases]
-    rows, depth = sparse_gather_catchup_tables(*lists, t, row_offsets=offs,
-                                               **KW)
+    rows, depth = sparse_gather_catchup_tables(*lists, step_scalars(t),
+                                               row_offsets=offs, **KW)
     assert depth.dtype == torch.int32 and depth.shape == ()
     want_depth = max(int(np.max(np.where(
         c["counts"] > 0,
@@ -186,7 +187,8 @@ def test_torch_sparse_grouped_match_jax(case, use_kernel):
     assert sparse_update_scatter_tables(
         *tables, lists[4], lists[5], [r[0] for r in rows],
         [_t(c["g"]) for c in cases], [r[1] for r in rows],
-        [r[2] for r in rows], t, row_offsets=offs, **KW) is None
+        [r[2] for r in rows], step_scalars(t), row_offsets=offs,
+        **KW) is None
     for i, c in enumerate(cases):
         real = c["counts"] > 0
         args = [_j(c[k]) for k in keys]
@@ -212,18 +214,21 @@ def test_torch_sparse_grouped_rejects_bad_lists():
     uids = torch.tensor([1, 6], dtype=torch.int32)
     cnt = torch.tensor([2.0, 0.0])
     one = ([w], [w], [w], [ls], [uids], [cnt])
+    step = step_scalars(1)
     with pytest.raises(ValueError):        # lists of two lengths
-        sparse_gather_catchup_tables(*one[:5], [cnt, cnt], 1)
+        sparse_gather_catchup_tables(*one[:5], [cnt, cnt], step)
     with pytest.raises(ValueError):        # no table
-        sparse_gather_catchup_tables([], [], [], [], [], [], 1)
+        sparse_gather_catchup_tables([], [], [], [], [], [], step)
     with pytest.raises(ValueError):        # a row offset per table
-        sparse_gather_catchup_tables(*one, 1, row_offsets=[0, 0])
+        sparse_gather_catchup_tables(*one, step, row_offsets=[0, 0])
     with pytest.raises(TypeError):
-        sparse_gather_catchup_tables(*one[:3], [ls.long()], *one[4:], 1)
+        sparse_gather_catchup_tables(*one[:3], [ls.long()], *one[4:], step)
+    with pytest.raises(TypeError):         # a bare int for the step's block
+        sparse_gather_catchup_tables(*one, 1)
     rows = torch.zeros(2, 3)
     with pytest.raises(ValueError):
         sparse_update_scatter_tables(*one, [rows], [rows[:1]], [rows],
-                                     [rows], 1)
+                                     [rows], step)
 
 
 @pytest.mark.parametrize("clip", [True, False])
@@ -240,7 +245,8 @@ def test_torch_sparse_update_untouched_rows_bitwise(clip):
             for _ in range(4)]
     tables = [_t(tb[k]) for k in ("w", "m", "v", "ls")]
     sparse_update_scatter(*tables, _t(uids), _t(counts), *rows[:2],
-                          rows[2], rows[3].abs(), t, clip=clip, **KW)
+                          rows[2], rows[3].abs(), step_scalars(t), clip=clip,
+                          **KW)
     absent = np.setdiff1d(np.arange(vocab), real)
     for a, k in zip(tables, ("w", "m", "v", "ls")):
         np.testing.assert_array_equal(_np(a)[absent], tb[k][absent])
@@ -270,28 +276,29 @@ def test_torch_sparse_kernels_row_offset():
 
     rows = sparse_gather_catchup(
         *(_t(shard[k]) for k in ("w", "m", "v", "ls")), _t(uids),
-        _t(counts), t, row_offset=off, **KW)
+        _t(counts), step_scalars(t), row_offset=off, **KW)
     rows_j = jax_ref.sparse_gather_catchup_reference(
         *(_j(shard[k]) for k in ("w", "m", "v", "ls")), _j(uids),
         jnp.asarray(t, jnp.int32), row_offset=off, **KW)
     full = sparse_gather_catchup(
         *(_t(tb[k]) for k in ("w", "m", "v", "ls")), _t(uids), _t(counts),
-        t, **KW)
+        step_scalars(t), **KW)
     for a, b, c in zip(rows, rows_j, full):
         np.testing.assert_allclose(_np(a)[:n_real], _np(b)[:n_real], **TOL)
         np.testing.assert_array_equal(_np(a)[:n_real], _np(c)[:n_real])
 
     shard_t = [_t(shard[k]) for k in ("w", "m", "v", "ls")]
     sparse_update_scatter(*shard_t, _t(uids), _t(counts), rows[0],
-                          _t(g_rows), rows[1], rows[2], t, row_offset=off,
-                          **KW)
+                          _t(g_rows), rows[1], rows[2], step_scalars(t),
+                          row_offset=off, **KW)
     out_j = jax_ref.sparse_update_scatter_reference(
         *(_j(shard[k]) for k in ("w", "m", "v", "ls")), _j(uids),
         _j(counts), _j(_np(rows[0])), _j(g_rows), _j(_np(rows[1])),
         _j(_np(rows[2])), jnp.asarray(t, jnp.int32), row_offset=off, **KW)
     full_t = [_t(tb[k]) for k in ("w", "m", "v", "ls")]
     sparse_update_scatter(*full_t, _t(uids), _t(counts), *full[:1],
-                          _t(g_rows), full[1], full[2], t, **KW)
+                          _t(g_rows), full[1], full[2], step_scalars(t),
+                          **KW)
     for a, b, c, k in zip(shard_t, out_j, full_t, ("w", "m", "v", "ls")):
         np.testing.assert_allclose(_np(a), _np(b), **TOL)
         np.testing.assert_array_equal(_np(a)[:vocab - off], _np(c)[off:])
@@ -306,7 +313,7 @@ def test_torch_sparse_cowclip_adam_reference_matches_jax():
     g_rows = (0.1 * rng.standard_normal((cap, dim))).astype(np.float32)
     out_t = sparse_cowclip_adam_reference(
         *(_t(tb[k]) for k in ("w", "m", "v", "ls")), _t(uids), _t(counts),
-        _t(g_rows), t, **KW)
+        _t(g_rows), step_scalars(t), **KW)
     out_j = jax_ref.sparse_cowclip_adam_reference(
         *(_j(tb[k]) for k in ("w", "m", "v", "ls")), _j(uids), _j(counts),
         _j(g_rows), jnp.asarray(t, jnp.int32), **KW)
@@ -338,16 +345,19 @@ def test_torch_sparse_wrappers_reject_bad_inputs():
     ls = torch.zeros(6, dtype=torch.int32)
     uids = torch.tensor([1, 6], dtype=torch.int32)
     cnt = torch.tensor([2.0, 0.0])
+    step = step_scalars(1)
     with pytest.raises(TypeError):
-        sparse_gather_catchup(w, w, w, ls.long(), uids, cnt, 1)
+        sparse_gather_catchup(w, w, w, ls.long(), uids, cnt, step)
     with pytest.raises(ValueError):
-        sparse_gather_catchup(w, w, w, ls, uids, cnt[:1], 1)
+        sparse_gather_catchup(w, w, w, ls, uids, cnt[:1], step)
     with pytest.raises(ValueError):
-        sparse_gather_catchup(w, w, w, ls, uids, cnt, 0)
+        sparse_gather_catchup(w, w, w, ls, uids, cnt, step_scalars(0))
+    with pytest.raises(TypeError):          # a bare int for the step's block
+        sparse_gather_catchup(w, w, w, ls, uids, cnt, 1)
     rows = torch.zeros(2, 3)
     with pytest.raises(ValueError):
         sparse_update_scatter(w, w, w, ls, uids, cnt, rows, rows[:1], rows,
-                              rows, 1)
+                              rows, step)
 
 
 # ---------------------------------------------------------------------------

@@ -282,7 +282,9 @@ def test_torch_sparse_handoff_from_jax_checkpoint(tmp_path):
     template = {"params": params_t, "opt_state": bundle_t.init(params_t)}
     back = checkpoint.restore(path, template)
     params_t, state_t = back["params"], back["opt_state"]
-    assert state_t["step"] == K and isinstance(state_t["step"], int)
+    # the step counter is a 0-dim int32 tensor, as in the JAX state
+    assert state_t["step"].dtype == torch.int32 and state_t["step"].dim() == 0
+    assert int(state_t["step"]) == K
     assert state_t["last_step"]["fm"]["field_0"].dtype == torch.int32
     _assert_close(params_t, params_j, "restored params", exact=True)
 
