@@ -4,9 +4,10 @@
 
 Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi); TF32 off for matmul and cuDNN
-  2. build: the four kernels (the fused CowClip + coupled-L2 + Adam
-     update, the sparse pair and the chunked WKV6 scan) for sm_90a into
-     one extension, from the sources under src/repro_torch/kernels
+  2. build: the five kernels (the fused CowClip + coupled-L2 + Adam
+     update, the sparse pair, the chunked WKV6 scan and the embedding
+     backward) for sm_90a into one extension, from the sources under
+     src/repro_torch/kernels
   3. fused kernel vs its plain PyTorch version at [10131227, 10],
      [10131227, 1] and [4, 10], and at the redesign's edges: V = 100003
      (no multiple of the rows a warp's tile covers) with D in {1, 2, 3,
@@ -15,14 +16,15 @@ Phases, each fatal on failure:
   4. train: DeepFM at deepfm-criteo width (26 fields, 33.76M ids, emb 10,
      MLP 3x400, 13 dense) on synthetic Zipf data, batch 131072 (base 1024),
      4 steps of the fused placement plus one eval through train_ctr; the
-     kernel must launch exactly 52 times per step and the loss stay
-     finite; ms/step from train_ctr's CUDA events
+     kernel must launch exactly 52 times per step, the embedding backward
+     run twice (the fm and the LR lookup), and the loss stay finite;
+     ms/step from train_ctr's CUDA events
   5. trace: 2 more fused steps through train_ctr under torch.profiler,
      device time by kernel, the fused update's kernels a step, and every
      host read of a scalar (aten::_local_scalar_dense) per step, whether
      it copies from the card, with the ops and port source that made it:
-     none may copy from the card (PyTorch's embedding backward alone
-     excepted, and listed); a known device read is first seen as one
+     none may copy from the card, and none of PyTorch's embedding backward
+     kernels may run; a known device read is first seen as one
   6. agreement: 3 fused steps at a small size on the card against the same
      steps on the CPU (the path the CPU tests hold to the JAX package)
   7. fused kernel time on the largest table with CUDA events (L2 flushed
@@ -41,7 +43,8 @@ Phases, each fatal on failure:
   9. sparse train: the same model, data and hypers through the sparse
      placement, 4 steps, flush and one eval through train_ctr; each sparse
      kernel must launch exactly once per step over all 52 tables, the
-     single-table wrappers and the fused kernel never
+     single-table wrappers and the fused kernel never, the embedding
+     backward twice a step (into the fm and the LR slot rows)
  10. sparse trace: 2 more sparse steps, as phase 5, with the sparse pair's
      device time a step
  11. sparse agreement at phase 6's small size: 3 sparse steps on the card
@@ -72,14 +75,14 @@ Phases, each fatal on failure:
  18. wkv6 kernel times with CUDA events (L2 flushed before each launch),
      beside its bound and the plain version's time
  19. scan engine, fused: 8 steps of the fused placement at phase 4's width
-     and batch through train_ctr's eager engine and through its scan
-     engine (4 steps a captured CUDA graph), from the same params over the
-     same batches, under PyTorch's default algorithms (the step times;
-     eager against eager and against the graph, the leaves that differ:
-     the CUDA embedding backward is not deterministic at this batch) and
-     under torch.use_deterministic_algorithms (params, moments, counters
-     and losses bitwise equal); one replay traced: 52 fused-update
-     launches a step, no host read of a scalar, the idle share
+     and batch through train_ctr's eager engine, again, and through its
+     scan engine (4 steps a captured CUDA graph), from the same params
+     over the same batches, under PyTorch's default algorithms: one
+     step's gradients computed twice, then params, moments, counters and
+     losses of the three runs, all bitwise equal; one replay traced: 52
+     fused-update launches a step, the embedding backward's level
+     launches, none of PyTorch's embedding backward, no host read of a
+     scalar, the idle share; the steady ms/step over 25 chunks each way
  20. scan engine, sparse: as 19 through the sparse placement; one launch
      of each sparse kernel a step, the fused kernel and the single-table
      wrappers none
@@ -96,7 +99,24 @@ Phases, each fatal on failure:
      batch 4; 4 x 64-token prompts, 32 new tokens: the eager tokens,
      logits within 1e-4; ms per decoded token eager and graph, and a
      traced replay beside phase 16's eager step
-Phases 19-22 run between 12 and 13.
+ 24. embedding backward vs its plain version (rtol 1e-5 / atol 1e-7, and
+     whether bitwise): one Zipf batch's 26 fields at 131,072 rows in one
+     call, D = 10 and 1, each run twice (bitwise); D = 16, 17, 64; a
+     field of one id; ids past their tables; the sparse step's slot rows;
+     its time at D = 10 and 1 beside its byte bound, the plain version
+     and PyTorch's embedding_dense_backward on the same inputs
+ 25. substrate: the composable optimizer chain at phase 19's width,
+     params and batches: in lockstep with the fused placement, every
+     param within rtol 1e-5 / atol 1e-8 after the first step and the
+     untouched embedding rows bitwise after each of 4 (the later steps'
+     gaps printed); 4 steps eager (the embedding backward twice a step)
+     and through the scan engine: bitwise equal; a traced replay (0 host
+     reads, the embedding backward's launches); steady ms/step over 10
+     chunks each way; metrics.auc on the card against auc_numpy on its
+     eval (1e-6)
+ 26. Table-7 clips: the substrate with each of the six clip kinds at
+     phase 6's small size, 3 steps on the card against the CPU
+Phase 24 runs after 12; phases 19-22, 25 and 26 between 24 and 13.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's src/ beside this file.
@@ -134,7 +154,15 @@ FUSED_KERNELS = ("cowclip_adam_tile_kernel", "cowclip_adam_kernel")
 WKV6_KERNELS = ("wkv6_segment_state_kernel", "wkv6_segment_carry_kernel",
                 "wkv6_chunked_kernel")
 SPARSE_KERNELS = ("sparse_catchup_kernel", "sparse_update_kernel")
-PORT_KERNELS = FUSED_KERNELS + SPARSE_KERNELS + WKV6_KERNELS
+EMBED_KERNELS = ("embedding_backward_level_kernel",)
+EMBED_GROUP = ("the embedding backward's kernels", EMBED_KERNELS)
+PORT_KERNELS = FUSED_KERNELS + SPARSE_KERNELS + WKV6_KERNELS + EMBED_KERNELS
+# PyTorch's CUDA embedding_dense_backward (EmbeddingBackwardKernel.cu,
+# Embedding.cu): none of its kernels may run in a traced step of the port
+TORCH_EMBED_BACKWARD = ("embedding_backward_feature_kernel",
+                        "compute_grad_weight", "sum_and_scatter",
+                        "krn_partials_per_segment",
+                        "krn_partial_segment_offset")
 WKV_Y_REL = 1e-4               # the JAX wkv6 test's bar: max |dy| / max |y|
 WKV_S_RTOL, WKV_S_ATOL = 1e-3, 1e-4   # ... and its bar on the final state
 WKV_FULL = (256, 4096, 64)     # batch 4 x 64 heads, 4096 tokens, head 64
@@ -149,12 +177,19 @@ LM_AGREE = 1e-4                # max abs logits, card vs CPU (f32, reduced)
 GRAPH_STEPS = 8                # steps of each engine, phases 19-20
 SCAN_STEPS = 4                 # steps a captured graph, phases 19-20
 TIMED_CHUNKS = 25              # chunks timed each way, steady state, 19-20
+SUBSTRATE_STEPS = 4            # steps of each engine, phase 25
+SUBSTRATE_CHUNKS = 10          # chunks timed each way, phase 25
 SERVE_BATCH = 8192             # the serving engine's one shape, phase 22
 SERVE_SIZES = (1, 100, 8192, 20000)   # request rows, phase 22
 SERVE_TIMED = 1000             # requests timed one at a time, phase 22
 SERVE_FULL_TIMED = 64          # SERVE_BATCH-row requests timed, phase 22
 SERVE_CLIENTS, SERVE_REQUESTS = 8, 125  # micro-batcher clients x requests
 HOT_CAPACITY = 65536           # hot rows a field on the card, phase 22
+
+
+# each port kernel's wrapper calls on its main path's run (phase 4 for
+# the embedding backward), for the kernels' JSON line
+MAIN_PATH_LAUNCHES: dict = {}
 
 
 def check(cond, msg):
@@ -423,11 +458,11 @@ def device_time_by_kernel(fn):
     return wall_ms, by_kernel(prof)
 
 
-def print_trace(prefix, tag, wall_ms, by_kernel, group=None, steps=None):
+def print_trace(prefix, tag, wall_ms, by_kernel, groups=(), steps=None):
     """Device busy time against wall time, then device time by kernel with
     its share: the top 12, and the port's own kernels wherever they rank.
-    ``group`` = (label, names): those kernels' device time summed, with
-    its share (and per step, over ``steps`` steps)."""
+    Each of ``groups``, (label, names): those kernels' device time summed,
+    with its share (and per step, over ``steps`` steps)."""
     busy_ms = sum(t for t, _, _ in by_kernel)
     if not busy_ms:
         print(f"[{prefix}] {tag}: the profiler saw no device time: not "
@@ -439,8 +474,7 @@ def print_trace(prefix, tag, wall_ms, by_kernel, group=None, steps=None):
         if rank < 12 or any(k in name for k in PORT_KERNELS):
             print(f"[{prefix}] #{rank + 1:<3d} {ms_k:9.3f} ms "
                   f"{100 * ms_k / busy_ms:5.1f}% x{n:<5d} {name[:100]}")
-    if group:
-        label, names = group
+    for label, names in groups:
         ms_g = sum(t for t, _, name in by_kernel
                    if any(k in name for k in names))
         n_g = sum(n for _, n, name in by_kernel
@@ -453,9 +487,13 @@ def print_trace(prefix, tag, wall_ms, by_kernel, group=None, steps=None):
 
 STEP_LABEL = "chip_smoke step"
 HOST_READ = "aten::_local_scalar_dense"   # the host reads a scalar
-# ops under which PyTorch itself may read a device scalar (a segment
-# count of the CUDA embedding backward); such a read is listed, not fatal
-TOLERATED_READ_OPS = ("aten::embedding_dense_backward",)
+
+
+def torch_embedding_backward(kernels):
+    """PyTorch's own embedding backward kernels among a trace's
+    ``by_kernel`` rows: [(name, launches)]."""
+    return [(name, n) for _, n, name in kernels
+            if any(k in name for k in TORCH_EMBED_BACKWARD)]
 
 
 def host_reads(prof):
@@ -501,8 +539,8 @@ def trace_steps(cfg, bundle, params, state, tr, tag, group):
     step, and every host read of a scalar with the step it fell in, whether
     it copies from the card, and the ops and port source that made it.
     Fails if any read, in a step or between the steps, copies from the
-    card (a loss read in the loop, ``bincount``'s max and min), unless it
-    is under one of TOLERATED_READ_OPS; and first fails unless a known
+    card (a loss read in the loop, ``bincount``'s max and min), or if
+    PyTorch's own embedding backward ran; and first fails unless a known
     device read and a known host read are told apart."""
     from repro_torch.train import train_ctr
 
@@ -529,8 +567,11 @@ def trace_steps(cfg, bundle, params, state, tr, tag, group):
                   max_steps=2, init_state=(params, state), device="cuda")
 
     wall_ms, prof = profiled(two_steps, with_stack=True)
-    print_trace("trace", f"{tag}, 2 steps", wall_ms, by_kernel(prof),
-                group=group, steps=2)
+    kernels = by_kernel(prof)
+    print_trace("trace", f"{tag}, 2 steps", wall_ms, kernels,
+                groups=(group, EMBED_GROUP), steps=2)
+    theirs = torch_embedding_backward(kernels)
+    check(not theirs, f"{tag}: PyTorch's embedding backward ran: {theirs}")
     reads = host_reads(prof)
     for where in [f"{STEP_LABEL} {i}" for i in range(2)] + [
             "between the steps"]:
@@ -541,24 +582,18 @@ def trace_steps(cfg, bundle, params, state, tr, tag, group):
         for read in sorted(set(here)):
             print(f"[trace]   x{here.count(read)} of a {read[0]} scalar, "
                   f"from {read[1]}, in {read[2]}")
-    tolerated = [r[:4] for r in reads if r[1] == "device"
-                 and any(op in r[4] for op in TOLERATED_READ_OPS)]
-    for read in sorted(set(tolerated)):
-        print(f"[trace] {tag}: x{tolerated.count(read)} PyTorch's own read "
-              f"of a device scalar (tolerated; a CUDA graph capture would refuse it): {read}")
-    bad = [r[:4] for r in reads if r[1] == "device"
-           and not any(op in r[4] for op in TOLERATED_READ_OPS)]
+    bad = [r[:4] for r in reads if r[1] == "device"]
     check(not bad, f"{tag}: host reads of a device scalar: {bad}")
 
 
-def run_small(cfg, hp, path, dev, params0, ds, steps=3):
+def run_small(cfg, hp, path, dev, params0, ds, steps=3, **kw):
     """``steps`` steps of ``path`` on ``dev`` from ``params0`` over the
     first batches of ``ds``, then ``flush``; the params' leaves on the
-    CPU."""
+    CPU. ``kw`` goes to ``make_bundle`` (a clip kind)."""
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.embed import store_for
 
-    b = store_for(cfg, path=path).make_bundle(cfg, hp, warmup_steps=2)
+    b = store_for(cfg, path=path).make_bundle(cfg, hp, warmup_steps=2, **kw)
     p = tree_map(lambda t: t.clone().to(dev), params0)
     s = b.init(p)
     for i in range(steps):
@@ -587,6 +622,7 @@ def ctr_phases(smi, kind):
                                              sparse_update_scatter_tables,
                                              step_scalars)
     from repro_torch.kernels.cowclip import ref as cc_ref
+    from repro_torch.kernels.embedding import embedding_backward
     from repro_torch.models import ctr
     from repro_torch.train import train_ctr
 
@@ -638,15 +674,18 @@ def ctr_phases(smi, kind):
         cfg, hp, warmup_steps=max(1, len(tr) // BATCH))
     n_tables = 2 * cfg.n_fields
     torch.cuda.reset_peak_memory_stats()
-    fused_cowclip_adam.launches = 0
+    fused_cowclip_adam.launches = embedding_backward.launches = 0
     res = train_ctr(cfg, None, tr, te, batch_size=BATCH, epochs=1, seed=0,
                     step_bundle=bundle, max_steps=TRAIN_STEPS, device="cuda")
     torch.cuda.synchronize()
     launches = fused_cowclip_adam.launches
+    MAIN_PATH_LAUNCHES["embedding_backward"] = embedding_backward.launches
     n_ids = sum(CRITEO_VOCABS)
     print(f"[train] deepfm-criteo fused: {n_ids} ids x (10 + 1), batch "
           f"{BATCH}, {res.steps} steps, kernel launches {launches} "
-          f"(expected {n_tables} x {TRAIN_STEPS})")
+          f"(expected {n_tables} x {TRAIN_STEPS}); embedding backward runs "
+          f"{embedding_backward.launches} (expected 2 x {TRAIN_STEPS}: the "
+          f"fm and the LR lookup)")
     for i, (loss, sec) in enumerate(zip(res.losses, res.step_seconds)):
         print(f"[train] step {i + 1}: loss {loss:.6f} {sec * 1e3:.1f} ms")
     steady = res.step_seconds[1:]
@@ -661,6 +700,8 @@ def ctr_phases(smi, kind):
     check(launches == n_tables * TRAIN_STEPS,
           f"kernel launched {launches} times, expected "
           f"{n_tables * TRAIN_STEPS}")
+    check(embedding_backward.launches == 2 * TRAIN_STEPS,
+          f"embedding backward ran {embedding_backward.launches} times")
     check(all(math.isfinite(x) for x in res.losses), "non-finite loss")
     auc = res.final_eval["auc"]
     check(math.isfinite(auc) and 0.0 <= auc <= 1.0, f"AUC {auc}")
@@ -894,7 +935,7 @@ def ctr_phases(smi, kind):
     counters = (sparse_gather_catchup_tables, sparse_update_scatter_tables,
                 sparse_gather_catchup, sparse_update_scatter,
                 fused_cowclip_adam)
-    for wrapper in counters:
+    for wrapper in counters + (embedding_backward,):
         wrapper.launches = 0
     sres = train_ctr(cfg_s, None, tr, te, batch_size=BATCH, epochs=1,
                      seed=0, step_bundle=sbundle._replace(step=recorded_step),
@@ -928,6 +969,12 @@ def ctr_phases(smi, kind):
     check(other_launches == (0, 0, 0),
           f"single-table sparse and fused launches {other_launches} on the "
           f"sparse path")
+    print(f"[sparse-train] embedding backward runs "
+          f"{embedding_backward.launches} (expected 2 x {TRAIN_STEPS}: the "
+          f"fm and the LR slot rows)")
+    check(embedding_backward.launches == 2 * TRAIN_STEPS,
+          f"embedding backward ran {embedding_backward.launches} times on "
+          f"the sparse path")
     check(all(math.isfinite(x) for x in sres.losses), "non-finite sparse loss")
     auc = sres.final_eval["auc"]
     check(math.isfinite(auc) and 0.0 <= auc <= 1.0, f"sparse AUC {auc}")
@@ -1067,8 +1114,8 @@ def tree_diff(a, b):
             for k in fa if not torch.equal(fa[k], fb[k])]
 
 
-def steady_ms(bundle, runner, params, state, chunk):
-    """Steady-state ms/step of the eager steps and the graph: TIMED_CHUNKS
+def steady_ms(bundle, runner, params, state, chunk, rounds=TIMED_CHUNKS):
+    """Steady-state ms/step of the eager steps and the graph: ``rounds``
     rounds, each one replay of ``chunk`` through ``runner`` and then its
     SCAN_STEPS batches through ``bundle.step`` (the batches already on the
     card, so neither side copies from the host), CUDA events around each
@@ -1082,7 +1129,7 @@ def steady_ms(bundle, runner, params, state, chunk):
             bundle.step(params, state, batch)
 
     spans = {"eager": [], "graph": []}
-    for _ in range(TIMED_CHUNKS):
+    for _ in range(rounds):
         for name, fn in (("graph", lambda: runner(params, state, chunk)),
                          ("eager", eager_chunk)):
             a = torch.cuda.Event(enable_timing=True)
@@ -1106,19 +1153,16 @@ def spread(ms):
 def graph_engine_phase(placement, tr, hp, power, kind):
     """Phase 19 (fused) or 20 (sparse): GRAPH_STEPS steps of
     ``train_ctr`` at deepfm-criteo width and batch BATCH with the eager
-    engine and with the scan engine (SCAN_STEPS steps a captured graph),
-    from the same params over the same batches, twice: under PyTorch's
-    default algorithms, where the eager engine is not deterministic at
-    this batch (its CUDA embedding backward: for the fused placement, one
-    step's gradients computed twice are compared first; then the leaves
-    that differ, eager against eager and against the graph) and the step
-    times are taken, and under ``torch.use_deterministic_algorithms``, where
-    params, moments, the state's counters and the losses must be bitwise
-    equal. Then one chunk's replay, traced: its kernels by name (the
-    update's launches a step: CUPTI traces a graph's kernels), its host
-    reads of scalars (none allowed) and its idle share; and the steady
-    state, ``steady_ms`` under each mode of algorithms. Returns (cfg,
-    bundle, params, state) of the last scan run."""
+    engine, again, and with the scan engine (SCAN_STEPS steps a captured
+    graph), from the same params over the same batches, under PyTorch's
+    default algorithms: params, moments, the state's counters and the
+    losses must be bitwise equal across the three runs (for the fused
+    placement one step's gradients computed twice are compared first).
+    Then one chunk's replay, traced: its kernels by name (the update's
+    launches a step, the embedding backward's; CUPTI traces a graph's
+    kernels; none of PyTorch's embedding backward), its host reads of
+    scalars (none allowed) and its idle share; and the steady state,
+    ``steady_ms``. Returns (cfg, bundle, params, state) of the scan run."""
     from repro_torch.configs.deepfm_criteo import CONFIG
     from repro_torch.core.tree import tree_map
     from repro_torch.data.prefetch import chunk_epoch
@@ -1133,6 +1177,8 @@ def graph_engine_phase(placement, tr, hp, power, kind):
     bundle = store_for(cfg).make_bundle(
         cfg, hp, warmup_steps=max(1, len(tr) // BATCH))
     params0 = ctr.init(cfg, seed=7, device="cuda")
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "deterministic algorithms are on")
 
     def run(engine):
         params = tree_map(torch.clone, params0)
@@ -1142,9 +1188,6 @@ def graph_engine_phase(placement, tr, hp, power, kind):
             scan_steps=SCAN_STEPS, init_state=(params, bundle.init(params)),
             device="cuda")
 
-    # default algorithms: where the eager steps differ (one step's
-    # gradients twice from the same params and batch, then whole runs),
-    # and the step times
     if placement == "fused":
         from repro_torch.data import iterate_batches
         from repro_torch.train.loop import _loss_and_grads
@@ -1152,15 +1195,21 @@ def graph_engine_phase(placement, tr, hp, power, kind):
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in
                  next(iterate_batches(tr, BATCH, seed=3)).items()}
         grads = [_loss_and_grads(params0, cfg, batch)[1] for _ in range(2)]
-        print(f"[{tag}] one step's gradients twice, same params and batch: "
-              f"{tree_diff(*grads)} differ (vocab of each field: "
-              f"{list(cfg.vocab_sizes)})", flush=True)
+        differ = tree_diff(*grads)
+        print(f"[{tag}] one step's gradients twice, same params and batch, "
+              f"default algorithms: "
+              f"{'bitwise equal' if not differ else f'DIFFER at {differ}'} "
+              f"(vocab of each field: {list(cfg.vocab_sizes)})", flush=True)
+        check(not differ, "one step's gradients differ run to run")
         del batch, grads
     eager, again = run("eager"), run("eager")
     leaves = lambda r: (r.params, r.opt_state)  # noqa: E731
     runs_differ = tree_diff(leaves(eager), leaves(again))
+    same_losses = eager.losses == again.losses
     del again
     scan = run("scan")
+    check(eager.steps == scan.steps == GRAPH_STEPS,
+          f"{placement}: {eager.steps} / {scan.steps} steps")
     graph_differ = tree_diff(leaves(eager), leaves(scan))
     eager_ms = 1e3 * sum(eager.step_seconds[1:]) / (GRAPH_STEPS - 1)
     graph_ms = 1e3 * sum(scan.step_seconds[SCAN_STEPS:]) / (
@@ -1168,41 +1217,27 @@ def graph_engine_phase(placement, tr, hp, power, kind):
     first_ms = 1e3 * scan.step_seconds[0]
     print(f"[{tag}] deepfm-criteo {placement}, batch {BATCH}, "
           f"{GRAPH_STEPS} steps, PyTorch's default algorithms: eager "
-          f"against eager: {len(runs_differ)} leaves differ "
-          f"{runs_differ[:6]}; eager against "
-          f"the scan engine: {len(graph_differ)} leaves differ; losses "
-          f"{'equal' if eager.losses == scan.losses else 'differ'}",
-          flush=True)
+          f"against eager: "
+          f"{'bitwise equal' if not runs_differ else f'DIFFER at {runs_differ[:6]}'}"
+          f", losses {'equal' if same_losses else 'DIFFER'}; eager against "
+          f"the scan engine ({SCAN_STEPS} steps a graph): params and state "
+          f"{'bitwise equal' if not graph_differ else f'DIFFER at {graph_differ[:6]}'}"
+          f", losses "
+          f"{'bitwise equal' if eager.losses == scan.losses else 'DIFFER'} "
+          f"(last {scan.losses[-1]:.6f})", flush=True)
     print(f"[{tag}] train_ctr's ms/step (CUDA events, input pipeline "
           f"included): eager {eager_ms:.2f} (steps 2-{GRAPH_STEPS}: "
           f"{[round(1e3 * x, 2) for x in eager.step_seconds]}), graph "
           f"{graph_ms:.2f} (its one chunk after the first; the first, its "
           f"capture included, {first_ms:.1f} ms a step), {kind} at {power}",
           flush=True)
-    del eager, scan
-    torch.cuda.empty_cache()
-
-    # deterministic algorithms: the graph must replay the eager steps
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        eager, scan = run("eager"), run("scan")
-    finally:
-        torch.use_deterministic_algorithms(False)
-    del params0
-    check(eager.steps == scan.steps == GRAPH_STEPS,
-          f"{placement}: {eager.steps} / {scan.steps} steps")
-    diff = tree_diff(leaves(eager), leaves(scan))
-    print(f"[{tag}] under torch.use_deterministic_algorithms: eager vs scan "
-          f"({SCAN_STEPS} steps a graph): params and state "
-          f"{'bitwise equal' if not diff else f'DIFFER at {diff[:4]}'}; "
-          f"losses "
-          f"{'bitwise equal' if eager.losses == scan.losses else 'DIFFER'} "
-          f"(last {scan.losses[-1]:.6f})", flush=True)
-    check(not diff and eager.losses == scan.losses,
+    check(not runs_differ and same_losses,
+          f"{placement}: two eager runs differ under the default algorithms")
+    check(not graph_differ and eager.losses == scan.losses,
           f"{placement}: the graph replays differ from the eager steps")
     del eager
     params, state = scan.params, scan.opt_state
-    del scan
+    del scan, params0
     torch.cuda.empty_cache()
 
     # one chunk's replay, traced, through a runner of its own
@@ -1221,9 +1256,11 @@ def graph_engine_phase(placement, tr, hp, power, kind):
     kernels = by_kernel(prof)
     group = (FUSED_KERNELS if placement == "fused" else SPARSE_KERNELS)
     print_trace(tag, f"one replay of {SCAN_STEPS} steps", wall_ms, kernels,
-                group=("the update's kernels", group), steps=SCAN_STEPS)
+                groups=(("the update's kernels", group), EMBED_GROUP),
+                steps=SCAN_STEPS)
     counts = {n: sum(c for _, c, k in kernels if n in k)
-              for n in FUSED_KERNELS + SPARSE_KERNELS}
+              for n in FUSED_KERNELS + SPARSE_KERNELS + EMBED_KERNELS}
+    theirs = torch_embedding_backward(kernels)
     reads = sum(e.name == HOST_READ for e in prof.events())
     n_tables = 2 * cfg.n_fields
     want = ({"cowclip_adam_tile_kernel": 0, "cowclip_adam_kernel": 0,
@@ -1232,11 +1269,17 @@ def graph_engine_phase(placement, tr, hp, power, kind):
             else {"sparse_catchup_kernel": 0, "sparse_update_kernel": 0})
     fused = sum(counts[n] for n in FUSED_KERNELS)
     print(f"[{tag}] kernels of one replay (CUPTI sees a graph's kernels): "
-          f"{counts}; host reads of a scalar in the replay "
-          f"{reads}; wrapper calls for the warm-up step and the capture "
-          f"(fused, single-table catch-up and update, grouped catch-up and "
-          f"update) {calls}", flush=True)
+          f"{counts} ({counts[EMBED_KERNELS[0]] / SCAN_STEPS:g} embedding "
+          f"backward level launches a step, 2 runs a step); PyTorch's "
+          f"embedding backward kernels {theirs}; host reads of a scalar in "
+          f"the replay {reads}; wrapper calls for the warm-up step and the "
+          f"capture (fused, single-table catch-up and update, grouped "
+          f"catch-up and update) {calls}", flush=True)
     check(reads == 0, f"{placement}: {reads} host reads in a replay")
+    check(not theirs, f"{placement}: PyTorch's embedding backward in a "
+          f"replay: {theirs}")
+    check(counts[EMBED_KERNELS[0]] >= 2 * SCAN_STEPS,
+          f"{placement}: no embedding backward in a replay")
     check(all(counts[n] == v for n, v in want.items()),
           f"{placement}: kernels a replay {counts}, expected {want}")
     if placement == "fused":
@@ -1249,29 +1292,13 @@ def graph_engine_phase(placement, tr, hp, power, kind):
               f"sparse graph")
     del prof
 
-    # the steady state: many chunks each way, under each mode of
-    # algorithms (a graph captured under the mode it replays)
-    for mode in ("default", "deterministic"):
-        det = mode == "deterministic"
-        if det:
-            del runner
-            torch.cuda.empty_cache()
-        torch.use_deterministic_algorithms(det, warn_only=True)
-        try:
-            if det:
-                runner = engine_lib.make_chunk_runner(bundle.step.scan_step)
-                runner(params, state, chunk)          # the capture
-            eager_ms, graph_ms = steady_ms(bundle, runner, params, state,
-                                           chunk)
-        finally:
-            torch.use_deterministic_algorithms(False)
-        print(f"[{tag}] steady ms/step ({mode} algorithms; CUDA events "
-              f"around each chunk of {SCAN_STEPS} steps on batches already "
-              f"on the card, eager and graph in turns): eager "
-              f"{spread(eager_ms)}, graph {spread(graph_ms)}, {kind} at "
-              f"{power}", flush=True)
-        check(all(math.isfinite(x) and x > 0 for x in eager_ms + graph_ms),
-              f"{placement}: a steady chunk time is not positive")
+    eager_ms, graph_ms = steady_ms(bundle, runner, params, state, chunk)
+    print(f"[{tag}] steady ms/step (default algorithms; CUDA events around "
+          f"each chunk of {SCAN_STEPS} steps on batches already on the card, "
+          f"eager and graph in turns): eager {spread(eager_ms)}, graph "
+          f"{spread(graph_ms)}, {kind} at {power}", flush=True)
+    check(all(math.isfinite(x) and x > 0 for x in eager_ms + graph_ms),
+          f"{placement}: a steady chunk time is not positive")
     del runner, chunk
     torch.cuda.empty_cache()
     return cfg, bundle, params, state
@@ -1464,10 +1491,328 @@ def serving_phase(cfg, bundle, params, state, tr, te, power, kind):
     del eng, cache, ids_all, dense_all
 
 
+def embed_bound(n, dim, rows):
+    """Least time for the embedding backward of ``n`` cotangent rows into
+    a ``[rows, dim]`` gradient: the cotangent and the keys read once, the
+    whole gradient written once (its zero fill included); one add per
+    cotangent element. Returns (ms, by, bytes)."""
+    nbytes = n * dim * 4 + n * 4 + rows * dim * 4
+    return (*_bound(nbytes, n * dim), nbytes)
+
+
+def embed_phase(smi, kind):
+    """Phase 24: the embedding backward against its plain version (rtol
+    1e-5 / atol 1e-7, and whether bitwise) on one Zipf batch's 26
+    deepfm-criteo fields at 131,072 rows (one launch over all of them, as
+    the fused step's lookups make it), D = 10 and 1, run twice there
+    (bitwise); at D = 16, 17 and 64; a field of one id; ids past their
+    tables (dropped); the sparse step's use over the batch's [capacity, D]
+    slot rows. Times at D = 10 and 1 (L2 flushed, host work covered)
+    beside the byte bound, the plain version and PyTorch's
+    ``embedding_dense_backward`` on the same inputs. Returns its JSON
+    line."""
+    from repro_torch.configs.deepfm_criteo import CRITEO_VOCABS
+    from repro_torch.data import iterate_batches
+    from repro_torch.kernels.embedding import (embedding_backward,
+                                               field_layout, reference)
+    from repro_torch.models.embedding import batch_unique
+
+    power = smi.strip().split(", ")[-1]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    tr, _ = criteo_data()
+    ids = torch.as_tensor(next(iterate_batches(tr, BATCH, seed=0))["ids"],
+                          device="cuda")
+    del tr
+    dev = torch.device("cuda")
+    layout = field_layout(tuple(CRITEO_VOCABS), dev)
+    keys, rows = layout.keys(ids), layout.rows
+    err = [0.0]
+
+    def case(tag, keys, rows, dim, twice=False):
+        cot = 1e-3 * torch.randn(keys.numel(), dim, generator=gen,
+                                 device="cuda")
+        got = embedding_backward(keys, cot, rows)
+        want = reference(keys, cot, rows)
+        torch.cuda.synchronize()
+        compare("embed-kernel", f"{tag} ({keys.numel()} rows into "
+                f"[{rows}, {dim}]; bitwise "
+                f"{'equal' if torch.equal(got, want) else 'different'})",
+                got, want, err)
+        if twice:
+            again = embedding_backward(keys, cot, rows)
+            same = torch.equal(got, again)
+            print(f"[embed-kernel] {tag}, run twice: "
+                  f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+            check(same, f"the embedding backward differs run to run: {tag}")
+
+    for dim in (10, 1):
+        case(f"one batch's 26 fields, D = {dim}", keys, rows, dim, twice=True)
+    for dim in (16, 17, 64):
+        case(f"one batch's 26 fields, D = {dim}", keys, rows, dim)
+        torch.cuda.empty_cache()
+    case("a field of one id, D = 10", torch.zeros(BATCH, dtype=torch.int32,
+                                                  device="cuda"), 1, 10,
+         twice=True)
+    past = ids.clone()
+    past[::5] = layout.vocab_t.to(past.dtype)          # id V_f: dropped
+    past[1::7] += layout.vocab_t.to(past.dtype)
+    dropped = layout.keys(past)
+    case(f"ids past their tables ({int((dropped == rows).sum())} dropped), "
+         f"D = 10", dropped, rows, 10)
+    uniq = batch_unique(ids, CRITEO_VOCABS)
+    inv = torch.stack([uniq[f"field_{i}"].inv
+                       for i in range(len(CRITEO_VOCABS))], dim=1)
+    slots = field_layout(tuple(u.capacity for u in uniq.values()), dev)
+    for dim in (10, 1):
+        case(f"the sparse step's slot rows, D = {dim}", slots.keys(inv),
+             slots.rows, dim)
+    del uniq, inv, past, dropped
+    torch.cuda.empty_cache()
+
+    scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    times = {}
+    for dim in (10, 1):
+        cot = 1e-3 * torch.randn(keys.numel(), dim, generator=gen,
+                                 device="cuda")
+        k_ms = cuda_time_cold_ms(lambda: embedding_backward(keys, cot, rows),
+                                 20, scratch)
+        p_ms = cuda_time_cold_ms(lambda: reference(keys, cot, rows), 3,
+                                 scratch)
+        lib_ms = cuda_time_cold_ms(
+            lambda: torch.ops.aten.embedding_dense_backward(
+                cot, keys, rows, -1, False), 20, scratch)
+        b_ms, b_by, nbytes = embed_bound(keys.numel(), dim, rows)
+        times[dim] = (k_ms, p_ms, b_ms, b_by, lib_ms)
+        print(f"[time] embedding_backward, one batch's 26 fields ({keys.numel()}"
+              f" rows into [{rows}, {dim}]; L2 flushed, host work covered; "
+              f"the sort, zero fill and levels): kernel {k_ms:.4f} ms, "
+              f"PyTorch's embedding_dense_backward {lib_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s), {kind} at {power}",
+              flush=True)
+        del cot
+    del scratch, keys
+    torch.cuda.empty_cache()
+    k_ms, p_ms, b_ms, b_by, lib_ms = times[10]
+    return {
+        "name": "embedding_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding/csrc/"
+                  "embedding_backward.cu",
+        # no TPU kernel: the JAX lookup whose gradient XLA computes
+        "replaces": "src/repro/models/embedding.py:61",
+        "launches": MAIN_PATH_LAUNCHES["embedding_backward"],
+        "max_abs_err": err[0],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": lib_ms,
+    }
+
+
+def substrate_phase(tr, te, hp, power, kind):
+    """Phase 25: the substrate placement at deepfm-criteo width and batch
+    BATCH, SUBSTRATE_STEPS steps from phase 19's params over its batches
+    through train_ctr's eager engine, counting the embedding backward's
+    runs (its main path), and through the scan engine: scan == eager
+    bitwise (params, state, losses); one replay traced (0 host
+    reads, the embedding backward's launches a step, none of PyTorch's);
+    the steady ms/step over SUBSTRATE_CHUNKS chunks each way; the eval's
+    AUC by ``metrics.auc`` on the card against ``auc_numpy``. Before
+    that, substrate and fused step by step in lockstep: every param after
+    the first step within rtol 1e-5 / atol 1e-8 (the bar of the JAX
+    package's ``test_fused_train_step_matches_substrate``, one step: the
+    two update orders round differently, and Adam turns a near-zero
+    gradient's rounding into a step of up to lr, which training then
+    carries), the rows no batch has touched bitwise after every step, the
+    gaps of the later steps printed."""
+    from repro_torch.configs.deepfm_criteo import CONFIG
+    from repro_torch.core.tree import flatten_with_paths, tree_map
+    from repro_torch.data import iterate_batches
+    from repro_torch.data.prefetch import chunk_epoch
+    from repro_torch.embed import store_for
+    from repro_torch.kernels.embedding import embedding_backward
+    from repro_torch.models import ctr
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.train import engine as engine_lib
+    from repro_torch.train import metrics, train_ctr
+
+    tag = "substrate"
+    params0 = ctr.init(CONFIG, seed=7, device="cuda")
+
+    def run(placement, engine):
+        cfg = dataclasses.replace(CONFIG, placement=placement, emb_sigma=1e-2)
+        bundle = store_for(cfg).make_bundle(
+            cfg, hp, warmup_steps=max(1, len(tr) // BATCH))
+        params = tree_map(torch.clone, params0)
+        res = train_ctr(cfg, None, tr, None, batch_size=BATCH, seed=3,
+                        step_bundle=bundle, max_steps=SUBSTRATE_STEPS,
+                        engine=engine, scan_steps=SCAN_STEPS,
+                        init_state=(params, bundle.init(params)),
+                        device="cuda")
+        check(res.steps == SUBSTRATE_STEPS, f"{placement} {engine}: "
+              f"{res.steps} steps")
+        return cfg, bundle, res
+
+    # substrate and fused in lockstep over the same batches: every param
+    # after each step; the bar after the first (the JAX package's own
+    # comparison is one step); later steps' gaps printed
+    bundles = {p: store_for(c).make_bundle(
+        c, hp, warmup_steps=max(1, len(tr) // BATCH)) for p, c in (
+        (p, dataclasses.replace(CONFIG, placement=p, emb_sigma=1e-2))
+        for p in ("substrate", "fused"))}
+    live = {}
+    for p, b in bundles.items():
+        prm = tree_map(torch.clone, params0)
+        live[p] = (prm, b.init(prm))
+    touched = [torch.zeros(v, dtype=torch.bool, device="cuda")
+               for v in CONFIG.vocab_sizes]
+    gaps = []
+    for i, hb in enumerate(iterate_batches(tr, BATCH, seed=3)):
+        if i == SUBSTRATE_STEPS:
+            break
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in hb.items()}
+        for f, t in enumerate(touched):
+            t[batch["ids"][:, f].to(torch.int64)] = True
+        for p, b in bundles.items():
+            live[p] = b.step(*live[p], batch)[:2]
+        sub = flatten_with_paths(live["substrate"][0])
+        fus = flatten_with_paths(live["fused"][0])
+        worst, used, absent_rows, absent_ok = 0.0, 0.0, 0, True
+        for k, x in sub.items():
+            y = fus[k]
+            err = (x - y).abs()
+            worst = max(worst, float(err.max()))
+            used = max(used, float((err / (1e-8 + 1e-5 * y.abs())).max()))
+            if k.startswith("embed/"):
+                absent = ~touched[int(k.rsplit("_", 1)[1])]
+                absent_rows += int(absent.sum())
+                absent_ok &= torch.equal(x[absent], y[absent])
+        gaps.append((worst, used, absent_rows, absent_ok))
+        print(f"[{tag}] substrate against fused after step {i + 1} from the "
+              f"same params: max_abs {worst:.3e}, worst |err|/(atol + "
+              f"rtol*|fused|) {used:.3f} (rtol 1e-5, atol 1e-8); "
+              f"{absent_rows} embedding rows no batch touched yet: "
+              f"{'bitwise equal' if absent_ok else 'DIFFER'}", flush=True)
+        del sub, fus, batch
+    check(gaps[0][1] <= 1.0, "substrate and fused disagree after a step at "
+          "full width")
+    check(all(g[3] and g[2] > 0 for g in gaps),
+          "substrate and fused differ on the untouched rows")
+    del live, bundles, touched
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    embedding_backward.launches = 0
+    cfg, bundle, eager = run("substrate", "eager")
+    torch.cuda.synchronize()
+    runs = embedding_backward.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    scan = run("substrate", "scan")[2]
+    diff = tree_diff((eager.params, eager.opt_state),
+                     (scan.params, scan.opt_state))
+    print(f"[{tag}] deepfm-criteo substrate, batch {BATCH}, "
+          f"{SUBSTRATE_STEPS} steps eager: embedding backward runs {runs} "
+          f"(expected 2 a step), losses "
+          f"{[round(x, 6) for x in eager.losses]}, peak device memory "
+          f"{peak:.2f} GiB; against the scan engine ({SCAN_STEPS} steps a "
+          f"graph): params and state "
+          f"{'bitwise equal' if not diff else f'DIFFER at {diff[:6]}'}, "
+          f"losses {'bitwise equal' if eager.losses == scan.losses else 'DIFFER'}"
+          f"; train_ctr's ms/step (CUDA events) eager "
+          f"{[round(1e3 * x, 2) for x in eager.step_seconds]}, graph "
+          f"(its capture included) "
+          f"{[round(1e3 * x, 2) for x in scan.step_seconds]}", flush=True)
+    check(runs == 2 * SUBSTRATE_STEPS,
+          f"embedding backward ran {runs} times on the substrate path")
+    check(not diff and eager.losses == scan.losses,
+          "substrate: the graph replays differ from the eager steps")
+    del scan
+    torch.cuda.empty_cache()
+
+    params, state = eager.params, eager.opt_state
+    logits_fn = serve_engine.make_logits_fn(cfg)
+    scores = serve_engine.padded_score_loop(logits_fn, params, te.ids,
+                                            te.dense, 8192)
+    on_card = float(metrics.auc(torch.as_tensor(scores, device="cuda"),
+                                torch.as_tensor(te.labels, device="cuda")))
+    host = metrics.auc_numpy(scores, te.labels)
+    print(f"[{tag}] eval AUC over {len(te)} rows: metrics.auc on the card "
+          f"{on_card:.9f}, auc_numpy {host:.9f} (|diff| "
+          f"{abs(on_card - host):.2e}, bar 1e-6)", flush=True)
+    check(abs(on_card - host) <= 1e-6, "metrics.auc disagrees with "
+          "auc_numpy")
+
+    chunk = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(chunk_epoch(tr, BATCH, SCAN_STEPS, seed=4)).items()}
+    runner = engine_lib.make_chunk_runner(bundle.step.scan_step)
+    runner(params, state, chunk)          # the capture and a first replay
+    torch.cuda.synchronize()
+    wall_ms, prof = profiled(lambda: runner(params, state, chunk))
+    kernels = by_kernel(prof)
+    print_trace(tag, f"one replay of {SCAN_STEPS} steps", wall_ms, kernels,
+                groups=(EMBED_GROUP,), steps=SCAN_STEPS)
+    reads = sum(e.name == HOST_READ for e in prof.events())
+    levels = sum(c for _, c, k in kernels if EMBED_KERNELS[0] in k)
+    theirs = torch_embedding_backward(kernels)
+    print(f"[{tag}] one replay: {levels / SCAN_STEPS:g} embedding backward "
+          f"level launches a step (2 runs); PyTorch's embedding backward "
+          f"kernels {theirs}; host reads of a scalar {reads}", flush=True)
+    check(reads == 0, f"substrate: {reads} host reads in a replay")
+    check(levels >= 2 * SCAN_STEPS and not theirs,
+          f"substrate: embedding backward kernels {levels}, PyTorch's "
+          f"{theirs}")
+    del prof
+    eager_ms, graph_ms = steady_ms(bundle, runner, params, state, chunk,
+                                   rounds=SUBSTRATE_CHUNKS)
+    print(f"[{tag}] steady ms/step (CUDA events around each chunk of "
+          f"{SCAN_STEPS} steps on batches already on the card, eager and "
+          f"graph in turns): eager {spread(eager_ms)}, graph "
+          f"{spread(graph_ms)}, {kind} at {power}", flush=True)
+    check(all(math.isfinite(x) and x > 0 for x in eager_ms + graph_ms),
+          "substrate: a steady chunk time is not positive")
+    del runner, chunk, params, state, eager, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def clip_phase():
+    """Phase 26: the substrate with each Table-7 clip kind at phase 6's
+    small size, 3 steps on the card against the same steps on the CPU
+    (rtol 1e-5 / atol 1e-5)."""
+    from repro_torch.core.cowclip import CLIP_KINDS
+    from repro_torch.core.scaling import scale_hyperparams
+    from repro_torch.data import make_ctr_dataset
+    from repro_torch.models import ctr
+
+    small = ctr.CTRConfig(name="deepfm", vocab_sizes=(2000, 700, 120, 30, 5),
+                          n_dense=4, emb_dim=8, mlp_dims=(32, 32, 32),
+                          emb_sigma=1e-2, placement="substrate")
+    sds = make_ctr_dataset(3 * 512, small.vocab_sizes, n_dense=4, seed=1)
+    shp = scale_hyperparams("cowclip", base_lr=1e-3, base_l2=1e-5,
+                            base_batch=256, batch_size=512,
+                            base_dense_lr=2e-3)
+    params0 = ctr.init(small, seed=1, device="cpu")
+    for clip in CLIP_KINDS:
+        runs = {dev: run_small(small, shp, "substrate", dev, params0, sds,
+                               clip_kind=clip, clip_t=0.5)
+                for dev in ("cpu", "cuda")}
+        worst = max((a - c).abs().max().item()
+                    for a, c in zip(runs["cuda"], runs["cpu"]))
+        agree = all(torch.allclose(a, c, rtol=1e-5, atol=1e-5)
+                    for a, c in zip(runs["cuda"], runs["cpu"]))
+        print(f"[clips] substrate, clip {clip!r}, 3 steps, card vs CPU: "
+              f"max_abs {worst:.3e} (rtol 1e-5, atol 1e-5) "
+              f"{'ok' if agree else 'FAIL'}", flush=True)
+        check(agree, f"substrate with clip {clip}: card and CPU disagree")
+
+
 def graph_phases(smi, kind):
-    """Phases 19-22: the scan engine at deepfm-criteo width on both
-    placements, the guard under a graph, and CTR serving. Every tensor is
-    freed on return."""
+    """Phases 19-22, 25 and 26: the scan engine at deepfm-criteo width on
+    the fused and sparse placements, the guard under a graph, CTR serving,
+    the substrate at full width and its clips at a small size. Every
+    tensor is freed on return."""
     power = smi.strip().split(", ")[-1]
     t0 = time.perf_counter()
     tr, te = criteo_data(steps=GRAPH_STEPS, seed=1)
@@ -1485,6 +1830,8 @@ def graph_phases(smi, kind):
     del fused
     gc.collect()
     torch.cuda.empty_cache()
+    substrate_phase(tr, te, hp, power, kind)
+    clip_phase()
 
 
 def wkv_inputs(gen, bh, seq, n, zero_frac=0.0):
@@ -1765,7 +2112,7 @@ def lm_phases(smi, kind):
     # -- 16. where a full-width prefill's and a decode step's time goes --
     print_trace("lm-trace", f"prefill {list(LM_PREFILL)}",
                 *device_time_by_kernel(lambda: prefill(LM_PREFILL)),
-                group=("the wkv6 scan's kernels", WKV6_KERNELS))
+                groups=(("the wkv6 scan's kernels", WKV6_KERNELS),))
     with torch.inference_mode():
         first, cache, cur = lm.prefill_with_cache(params, cfg, gen_prompt,
                                                   GEN_PROMPT + 1)
@@ -1882,14 +2229,17 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # -- 2. build: the four kernels, one extension -----------------------
+    # -- 2. build: the five kernels, one extension -----------------------
     t0 = time.perf_counter()
     build()
     print(f"[build] cowclip_adam.cu + sparse_catchup.cu + sparse_update.cu "
-          f"+ wkv6.cu + binding.cpp for sm_90a, one extension, in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"+ wkv6.cu + embedding_backward.cu + binding.cpp for sm_90a, one "
+          f"extension, in {time.perf_counter() - t0:.1f} s", flush=True)
 
     lines = ctr_phases(smi, kind)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines.append(embed_phase(smi, kind))
     gc.collect()
     torch.cuda.empty_cache()
     graph_phases(smi, kind)

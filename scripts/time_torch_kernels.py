@@ -1,7 +1,7 @@
-"""Time the port's CowClip update kernels and chunked WKV6 on one card.
+"""Time the port's kernels and its graph train steps on one card.
 
     python scripts/time_torch_kernels.py [--src DIR]
-                                         [--kernels update,sparse,wkv6]
+                                         [--kernels update,sparse,wkv6,embed,steps]
                                          [--quick]
 
 Times with ``chip_smoke.py``'s own timer, inputs and bounds (imported from
@@ -26,7 +26,19 @@ covered. It prints each kernel's registers, shared memory and stack
   through the single-table wrappers, three timings each;
 * ``wkv6``: ``chunked_wkv6`` at [256, 4096, 64] and [64, 32768, 64] (the
   main path's prefill shapes) for several segment lengths, the card's own
-  choice first.
+  choice first;
+* ``embed``: the embedding backward of one batch's 26 deepfm-criteo fields
+  (``chip_smoke.py`` phase 4's first batch of 131072, D = 10 and 1):
+  PyTorch's ``embedding_dense_backward`` a field at a time (the form the
+  lookups' backward took before the port had its own) and in one call over
+  all the fields' rows, and, where the timed port has it, its kernel
+  (``kernels.embedding.embedding_backward``: the sort, zero fill and
+  levels), each beside the byte bound;
+* ``steps``: the steady ms/step of the fused and the sparse placement at
+  deepfm-criteo width and batch 131072, eager and from the scan engine's
+  graph (4 steps a chunk) in turns over 25 chunks, batches on the card
+  (``chip_smoke.steady_ms``), from the timed port's own bundles, under
+  PyTorch's default algorithms.
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that another commit's kernels, unpacked
@@ -169,6 +181,92 @@ def time_wkv6(gen, scratch, card, quick):
         del r, k, v, w, u
 
 
+def _grouped_keys(ids, vocabs):
+    """Each field's ids at its own start in one row space (starts aligned
+    to 64 rows, as the port's layout): ([B * F] int32 keys, rows)."""
+    starts, end = [], 0
+    for v in vocabs:
+        starts.append(-(-end // 64) * 64)
+        end = starts[-1] + v
+    off = torch.tensor(starts, dtype=torch.int64, device=ids.device)
+    keys = (ids.to(torch.int64) + off).to(torch.int32).reshape(-1)
+    return keys, end
+
+
+def time_embed(gen, scratch, card):
+    from repro_torch.configs.deepfm_criteo import CRITEO_VOCABS
+    from repro_torch.data import iterate_batches
+
+    tr, _ = smoke.criteo_data()
+    ids = torch.as_tensor(next(iterate_batches(tr, smoke.BATCH, seed=0))["ids"],
+                          device="cuda")
+    del tr
+    keys, rows = _grouped_keys(ids, CRITEO_VOCABS)
+    try:
+        from repro_torch.kernels.embedding import embedding_backward
+    except ImportError:
+        embedding_backward = None
+    cols = [ids[:, f].contiguous() for f in range(ids.shape[1])]
+    for dim in (10, 1):
+        cot = 1e-3 * torch.randn(keys.numel(), dim, generator=gen,
+                                 device="cuda")
+        per_field = cot.view(ids.shape[0], ids.shape[1], dim)
+        per_field = [per_field[:, f].contiguous() for f in range(len(cols))]
+        runs = {
+            "PyTorch's embedding_dense_backward, a call a field": lambda: [
+                torch.ops.aten.embedding_dense_backward(g, c, v, -1, False)
+                for g, c, v in zip(per_field, cols, CRITEO_VOCABS)],
+            "PyTorch's embedding_dense_backward, one call": lambda: (
+                torch.ops.aten.embedding_dense_backward(cot, keys, rows, -1,
+                                                        False)),
+        }
+        if embedding_backward is not None:
+            runs["the port's embedding_backward, one call"] = (
+                lambda: embedding_backward(keys, cot, rows))
+        b_ms, b_by, nbytes = smoke.embed_bound(keys.numel(), dim, rows)
+        for name, fn in runs.items():
+            times = [smoke.cuda_time_cold_ms(fn, 20, scratch)
+                     for _ in range(3)]
+            print(f"[time] {name}, one batch's {len(cols)} fields "
+                  f"({keys.numel()} rows into [{rows}, {dim}]): "
+                  f"{', '.join(f'{t:.4f}' for t in times)} ms (L2 flushed, "
+                  f"host covered; 3 x 20 calls), bound {b_ms:.4f} ms by "
+                  f"{b_by} ({nbytes} B), {card}", flush=True)
+        del cot, per_field
+
+
+def time_steps(card):
+    import dataclasses
+
+    from repro_torch.configs.deepfm_criteo import CONFIG
+    from repro_torch.data.prefetch import chunk_epoch
+    from repro_torch.embed import store_for
+    from repro_torch.models import ctr
+    from repro_torch.train import engine as engine_lib
+
+    tr, _ = smoke.criteo_data(steps=smoke.GRAPH_STEPS, seed=1)
+    hp = smoke.criteo_hypers()
+    chunk = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(chunk_epoch(tr, smoke.BATCH, smoke.SCAN_STEPS,
+                              seed=4)).items()}
+    for placement in ("fused", "sparse"):
+        cfg = dataclasses.replace(CONFIG, placement=placement,
+                                  emb_sigma=1e-2)
+        bundle = store_for(cfg).make_bundle(
+            cfg, hp, warmup_steps=max(1, len(tr) // smoke.BATCH))
+        params = ctr.init(cfg, seed=7, device="cuda")
+        state = bundle.init(params)
+        runner = engine_lib.make_chunk_runner(bundle.step.scan_step)
+        runner(params, state, chunk)          # the capture
+        eager, graph = smoke.steady_ms(bundle, runner, params, state, chunk)
+        print(f"[time] {placement} step, batch {smoke.BATCH}, steady ms/step "
+              f"over {len(graph)} chunks of {smoke.SCAN_STEPS} in turns: "
+              f"graph {smoke.spread(graph)}, eager {smoke.spread(eager)}, "
+              f"{card}", flush=True)
+        del bundle, params, state, runner
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", type=Path, default=ROOT / "src")
@@ -197,6 +295,10 @@ def main() -> int:
         time_sparse(gen, scratch, card)
     if "wkv6" in kernels:
         time_wkv6(gen, scratch, card, args.quick)
+    if "embed" in kernels:
+        time_embed(gen, scratch, card)
+    if "steps" in kernels:
+        time_steps(card)
     return 0
 
 

@@ -1,19 +1,23 @@
-"""Train-step bundles, the dense tower's optimizer chain, and the
-non-finite guard.
+"""Assemble the paper's two-group optimizer and the train-step bundles.
 
-A port of the parts of ``repro.core.builders`` that the fused and sparse
-placements run. Parameter trees split at the top level::
+A port of ``repro.core.builders``. Parameter trees split at the top level::
 
     params = {"embed": {<field tables, [vocab, dim]>},
               "dense": {<everything else>}}
 
-The embedding group is updated by the fused CowClip + coupled-L2 + Adam
-kernel (``repro_torch.kernels.cowclip``); the dense tower by the chain
-``dense_tower_tx`` builds (optional coupled L2 -> Adam -> -lr with linear
-warmup).
+and the optimizer runs two groups (paper Alg. 1):
 
-Not ported yet: ``build_optimizer``, ``two_group``, ``label_params`` and
-``build_train_step`` (the substrate placement, ROADMAP queue 1 item 4).
+  embed : [CowClip | ablation clip] -> count-aware coupled-L2 Adam
+          (touched rows: +lambda_e * w -> Adam -> -eta_e; absent rows:
+          w *= 1 - eta_e * lambda_e, Adam moments held)
+  dense : Adam (+ optional L2) -> -eta(t) with linear warmup
+
+``build_optimizer`` builds that as one ``GradientTransformation``, the
+substrate placement's optimizer (the exactness oracle). The fused and
+sparse placements run the embedding group through the CowClip kernels
+(``repro_torch.kernels.cowclip``) and the dense tower through the same
+chain, ``dense_tower_tx``. ``build_train_step`` routes a config to its
+placement's bundle (``repro_torch.embed.store``).
 """
 
 from __future__ import annotations
@@ -22,9 +26,47 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from . import cowclip as cc
 from . import optim, schedules
 from .scaling import Hyperparams
 from .tree import tree_map
+
+
+def label_params(params):
+    """Label each leaf 'embed' or 'dense' from the top-level split."""
+    def label_subtree(name, subtree):
+        return tree_map(lambda _: name, subtree)
+
+    return {k: label_subtree("embed" if k == "embed" else "dense", v)
+            for k, v in params.items()}
+
+
+class TwoGroupState(tuple):
+    """(embed_state, dense_state), a plain tuple tree."""
+
+
+def two_group(
+    embed_tx: optim.GradientTransformation,
+    dense_tx: optim.GradientTransformation,
+) -> optim.GradientTransformation:
+    """Compose embed/dense transforms over the top-level split. Unlike
+    ``optim.partition`` it dispatches on the top-level keys, so the
+    tree-shaped ``counts`` (shaped like ``params["embed"]``) go to the
+    embed group only."""
+
+    def init_fn(params):
+        return (embed_tx.init(params["embed"]), dense_tx.init(params["dense"]))
+
+    def update_fn(updates, state, params=None, *, counts=None, **extras):
+        e_params = None if params is None else params["embed"]
+        d_params = None if params is None else params["dense"]
+        e_up, e_st = embed_tx.update(updates["embed"], state[0], e_params,
+                                     counts=counts, **extras)
+        d_up, d_st = dense_tx.update(updates["dense"], state[1], d_params,
+                                     **extras)
+        return {"embed": e_up, "dense": d_up}, (e_st, d_st)
+
+    return optim.GradientTransformation(init_fn, update_fn)
 
 
 def dense_tower_tx(
@@ -48,6 +90,35 @@ def dense_tower_tx(
     )
     steps.append(optim.scale_by_neg_lr(dense_lr))
     return optim.chain(*steps)
+
+
+def build_optimizer(
+    hp: Hyperparams,
+    *,
+    clip_kind: str = "adaptive_column",
+    r: float = 1.0,
+    zeta: float = 1e-5,
+    clip_t: float = 1.0,
+    warmup_steps: int = 0,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> optim.GradientTransformation:
+    """The paper's two-group optimizer as one GradientTransformation.
+    ``update`` takes the extra ``counts``: a tree shaped like
+    ``params["embed"]``, a ``[vocab]`` leaf of per-id batch counts for each
+    ``[vocab, dim]`` table."""
+    embed_steps = []
+    if clip_kind != "none":
+        embed_steps.append(
+            cc.make_clip_transform(clip_kind, r=r, zeta=zeta, clip_t=clip_t))
+    # count-aware tail: coupled-L2 Adam on touched rows, one geometric
+    # decay step on absent rows (the sparse path's lazy catch-up, dense)
+    embed_steps.append(
+        optim.lazy_coupled_adam(hp.emb_lr, hp.emb_l2, b1=b1, b2=b2, eps=eps))
+    dense_tx = dense_tower_tx(hp, warmup_steps=warmup_steps, b1=b1, b2=b2,
+                              eps=eps)
+    return two_group(optim.chain(*embed_steps), dense_tx)
 
 
 class StepFn:
@@ -142,3 +213,32 @@ class TrainStepBundle(NamedTuple):
 
 TRAIN_PATHS = ("substrate", "fused", "sparse", "sharded", "sharded_sparse",
                "hotcold")
+
+
+def build_train_step(
+    cfg,
+    hp: Hyperparams,
+    *,
+    path: Optional[str] = None,
+    clip_kind: str = "adaptive_column",
+    r: float = 1.0,
+    zeta: float = 1e-5,
+    clip_t: float = 1.0,
+    warmup_steps: int = 0,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    nonfinite_guard: bool = False,
+) -> TrainStepBundle:
+    """Route a CTR train step to one of the placements of
+    ``repro_torch.embed.EmbeddingStore``: ``substrate`` (this module's
+    composable chain, the oracle), ``fused``, ``sparse``; the others raise
+    naming their ROADMAP item. ``path=None`` honors the config:
+    ``cfg.placement`` if set, else ``cfg.sparse`` selects "sparse",
+    otherwise "substrate"."""
+    from ..embed.store import store_for  # deferred: embed imports core
+
+    return store_for(cfg, path=path).make_bundle(
+        cfg, hp, clip_kind=clip_kind, r=r, zeta=zeta, clip_t=clip_t,
+        warmup_steps=warmup_steps, b1=b1, b2=b2, eps=eps,
+        nonfinite_guard=nonfinite_guard)

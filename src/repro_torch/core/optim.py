@@ -105,6 +105,18 @@ class EmptyState(NamedTuple):
     pass
 
 
+def identity() -> GradientTransformation:
+    def init_fn(params):
+        del params
+        return EmptyState()
+
+    def update_fn(updates, state, params=None, **extras):
+        del params, extras
+        return updates, state
+
+    return GradientTransformation(init_fn, update_fn)
+
+
 class ScaleState(NamedTuple):
     pass
 
@@ -308,6 +320,102 @@ def sparse_adam_rows(g_rows, w_rows, m_rows, v_rows, step, *, lr, l2,
     return w, m, v
 
 
+def lazy_coupled_adam(
+    lr: ScalarOrSchedule,
+    l2: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> GradientTransformation:
+    """Count-aware embedding optimizer tail: coupled-L2 Adam on the rows the
+    batch touched, one geometric decay step on the rows it did not.
+
+    Replaces ``add_decayed_weights -> scale_by_adam -> scale_by_neg_lr`` in
+    the embedding group. Touched rows (``counts > 0``) run that chain's
+    math; absent rows take ``w <- w * (1 - lr*l2)`` with m, v held, the
+    dense counterpart of the sparse placement's lazy catch-up. The absent
+    row's update is emitted as ``w*factor - w``, two ops (exact for factors
+    near 1), so ``apply_updates``' ``w + u`` lands on fl(w * factor): the
+    value the fused kernel writes directly.
+
+    The step counter is a 0-dim int32 tensor on the params' device; the
+    bias corrections are ``bias_corrections``' (the host's rounding, no
+    host read); a constant lr's factor is the host's f32 ``decay_factor``,
+    a scheduled one's is computed on the device in f32. Requires the per-id
+    batch ``counts=`` extra (one ``[vocab]`` leaf per table).
+    """
+
+    def init_fn(params):
+        mu = tree_map(torch.zeros_like, params)
+        nu = tree_map(torch.zeros_like, params)
+        return ScaleByAdamState(count=counter(params), mu=mu, nu=nu)
+
+    def update_fn(updates, state, params=None, *, counts=None, **extras):
+        del extras
+        if params is None:
+            raise ValueError("lazy_coupled_adam requires params")
+        if counts is None:
+            raise ValueError(
+                "lazy_coupled_adam requires counts= (per-id batch "
+                "occurrence counts, one [vocab] tensor per table)")
+        count = state.count + 1
+        lr_t = lr(count) if callable(lr) else lr
+        mu_hat_scale, nu_hat_scale = bias_corrections(count, b1, b2)
+        if callable(lr):    # in f32 on the device: 1 - fl32(lr_t * l2)
+            factor = 1.0 - lr_t * l2
+        else:
+            factor = decay_factor(lr, l2)
+
+        def leaf(g, w, m, v, cnt):
+            g = g + l2 * w
+            m2 = b1 * m + (1.0 - b1) * g
+            v2 = b2 * v + (1.0 - b2) * torch.square(g)
+            adam_u = (-lr_t) * (m2 * mu_hat_scale) / (
+                torch.sqrt(v2 * nu_hat_scale) + eps)
+            touched = (cnt > 0.0)[:, None]
+            u = torch.where(touched, adam_u, w * factor - w)
+            return u, torch.where(touched, m2, m), torch.where(touched, v2, v)
+
+        # each leaf's (u, m, v), flattened in tree order, then unzipped
+        flat = tree_leaves(tree_map(leaf, updates, params, state.mu,
+                                    state.nu, counts))
+        new_updates, mu, nu = (_like(updates, flat[i::3]) for i in range(3))
+        return new_updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def _like(tree: PyTree, leaves: list) -> PyTree:
+    """``leaves`` (in ``tree_leaves`` order) in the structure of ``tree``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """The f32 L2 norm over every leaf of ``tree`` (0 for an empty tree),
+    a 0-dim tensor on the leaves' device."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.sqrt(
+        sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    def init_fn(params):
+        del params
+        return EmptyState()
+
+    def update_fn(updates, state, params=None, **extras):
+        del params, extras
+        gnorm = global_norm(updates)
+        scale_factor = torch.clamp_max(max_norm / (gnorm + 1e-12), 1.0)
+        updates = tree_map(lambda g: g * scale_factor, updates)
+        return updates, state
+
+    return GradientTransformation(init_fn, update_fn)
+
+
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
     def init_fn(params):
         return tuple(t.init(params) for t in transforms)
@@ -322,5 +430,82 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init_fn, update_fn)
 
 
+class PartitionState(NamedTuple):
+    inner_states: dict
+
+
+def partition(
+    transforms: dict,
+    label_fn: Callable[[PyTree], PyTree],
+) -> GradientTransformation:
+    """Apply a different transformation per labelled parameter group.
+
+    ``label_fn(params)`` returns a tree of string labels shaped like
+    ``params``. Each group sees the tree with the other groups' leaves as
+    ``None``. Extras go to every group; tree-shaped extras are passed
+    already split, as ``partitioned_extras={label: extras}``.
+    """
+    group_names = tuple(sorted(transforms))
+
+    def _masked(tree, labels, name):
+        return tree_map(lambda x, lbl: x if lbl == name else None, tree,
+                        labels)
+
+    def _merge(trees, labels):
+        def pick(lbl, *vals):
+            return vals[group_names.index(lbl)]
+
+        return tree_map(pick, labels, *trees)
+
+    def init_fn(params):
+        labels = label_fn(params)
+        return PartitionState(inner_states={
+            name: transforms[name].init(_masked(params, labels, name))
+            for name in group_names})
+
+    def update_fn(updates, state, params=None, *, partitioned_extras=None,
+                  **extras):
+        labels = label_fn(updates)
+        new_states, outs = {}, []
+        for name in group_names:
+            sub_params = (None if params is None
+                          else _masked(params, labels, name))
+            group_extras = dict(extras)
+            if partitioned_extras and name in partitioned_extras:
+                group_extras.update(partitioned_extras[name])
+            out, new_states[name] = transforms[name].update(
+                _masked(updates, labels, name), state.inner_states[name],
+                sub_params, **group_extras)
+            outs.append(out)
+        return _merge(outs, labels), PartitionState(inner_states=new_states)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def sgd(lr: ScalarOrSchedule, l2: float = 0.0) -> GradientTransformation:
+    steps = []
+    if l2:
+        steps.append(add_decayed_weights(l2))
+    steps.append(scale_by_neg_lr(lr))
+    return chain(*steps)
+
+
+def adam(
+    lr: ScalarOrSchedule,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    l2: float = 0.0,
+) -> GradientTransformation:
+    steps = []
+    if l2:
+        steps.append(add_decayed_weights(l2))
+    steps.append(scale_by_adam(b1=b1, b2=b2, eps=eps))
+    steps.append(scale_by_neg_lr(lr))
+    return chain(*steps)
+
+
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
-    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+    """``params + updates`` leafwise (a ``None`` update keeps its param)."""
+    return tree_map(lambda p, u: p if u is None else p + u.to(p.dtype),
+                    params, updates)

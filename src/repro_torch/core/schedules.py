@@ -5,6 +5,8 @@ read."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -26,5 +28,22 @@ def linear_warmup(base: float, warmup_steps: int):
         frac = torch.clamp_max((count.to(torch.float32) + 1.0)
                                / warmup_steps, 1.0)
         return base * frac
+
+    return schedule
+
+
+def cosine_decay(base: float, total_steps: int, warmup_steps: int = 0,
+                 floor: float = 0.0):
+    """Linear warmup over ``warmup_steps``, then cosine decay from ``base``
+    to ``floor * base`` at ``total_steps``; in f32 from the counter on its
+    device."""
+
+    def schedule(count):
+        c = count.to(torch.float32)
+        warm = torch.clamp_max((c + 1.0) / max(1.0, warmup_steps), 1.0)
+        t = torch.clamp((c - warmup_steps)
+                        / max(1.0, total_steps - warmup_steps), 0.0, 1.0)
+        cos = floor + (1.0 - floor) * 0.5 * (1.0 + torch.cos(math.pi * t))
+        return base * warm * cos
 
     return schedule

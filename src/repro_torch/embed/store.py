@@ -1,8 +1,10 @@
 """EmbeddingStore: one facade over the embedding placements.
 
-A port of ``repro.embed.store``. Two placements are built: ``dense``
-tables updated by the fused CowClip + coupled-L2 + Adam kernel
-(``kernel="fused"``, the ``fused`` train path) and ``sparse``, the
+A port of ``repro.embed.store``. Three placements are built: ``dense``
+tables updated through the composable optimizer chain
+(``kernel="substrate"``, the exactness oracle: ``core.builders
+.build_optimizer`` with any Table-7 clip) or by the fused CowClip +
+coupled-L2 + Adam kernel (``kernel="fused"``), and ``sparse``, the
 unique-id placement whose update runs on a batch's unique rows through the
 two sparse kernels, with lazy decay settled by ``flush``. Every other
 placement is named here so the CLI and the routing stay those of the
@@ -41,7 +43,6 @@ _PATH_TO_STORE = {
 
 # where each placement that is not ported yet stands in ROADMAP.md
 NOT_PORTED = {
-    "substrate": "ROADMAP queue 1 item 4 (the substrate placement)",
     "hotcold": "ROADMAP queue 1 item 5 (streaming and hot/cold tiers)",
     "sharded": "ROADMAP queue 1 item 7 (multi-GPU placements)",
     "sharded_sparse": "ROADMAP queue 1 item 7 (multi-GPU placements)",
@@ -51,7 +52,8 @@ NOT_PORTED = {
 def not_ported(path: str) -> NotImplementedError:
     return NotImplementedError(
         f"placement {path!r} is not ported to repro_torch yet: "
-        f"{NOT_PORTED[path]}; use the 'fused' or 'sparse' placement")
+        f"{NOT_PORTED[path]}; use the 'substrate', 'fused' or 'sparse' "
+        "placement")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,23 +86,35 @@ class EmbeddingStore:
         clip_kind: str = "adaptive_column",
         r: float = 1.0,
         zeta: float = 1e-5,
+        clip_t: float = 1.0,
         warmup_steps: int = 0,
         b1: float = 0.9,
         b2: float = 0.999,
         eps: float = 1e-8,
         nonfinite_guard: bool = False,
     ) -> TrainStepBundle:
-        """Build this placement's bundle (``fused`` and ``sparse`` only).
+        """Build this placement's bundle (``substrate``, ``fused`` and
+        ``sparse``; the others raise naming their ROADMAP item).
 
-        The fused kernel always applies CowClip, as the reference's fused
-        path does; ``sparse`` takes ``clip_kind`` "adaptive_column"
+        The substrate takes any ``clip_kind`` of
+        ``core.cowclip.CLIP_KINDS`` (``clip_t`` the constant clips'
+        threshold); the fused kernel always applies CowClip, as the
+        reference's fused path does; ``sparse`` takes "adaptive_column"
         (CowClip) or "none" (the ablation clips are substrate-only).
         ``nonfinite_guard`` skips any update whose batch loss is NaN/Inf,
         counted in ``aux["skipped_steps"]``.
         """
-        if self.path not in ("fused", "sparse"):
+        if self.path not in ("substrate", "fused", "sparse"):
             raise not_ported(self.path)
         from ..train import loop as loop_lib  # deferred: train imports core
+
+        if self.path == "substrate":
+            tx = builders.build_optimizer(
+                hp, clip_kind=clip_kind, r=r, zeta=zeta, clip_t=clip_t,
+                warmup_steps=warmup_steps, b1=b1, b2=b2, eps=eps)
+            step = loop_lib.make_train_step(cfg, tx,
+                                            nonfinite_guard=nonfinite_guard)
+            return TrainStepBundle(step, tx.init, builders.identity_flush)
 
         dense_tx = builders.dense_tower_tx(
             hp, warmup_steps=warmup_steps, b1=b1, b2=b2, eps=eps)

@@ -1,6 +1,7 @@
 // PyTorch binding of the port's CUDA kernels: the CowClip + coupled-L2 +
 // Adam kernels (the fused dense update and the two sparse unique-id
-// kernels) and the chunked WKV6 scan. The one translation unit that
+// kernels), the chunked WKV6 scan and the deterministic embedding
+// backward. The one translation unit that
 // includes torch/extension.h; the host compiler builds it, nvcc builds only
 // the .cu files.
 #include <torch/extension.h>
@@ -10,6 +11,7 @@
 #include <c10/cuda/CUDAGuard.h>
 
 #include "cowclip_adam.h"
+#include "embedding_backward.h"
 #include "sparse_cowclip.h"
 #include "wkv6.h"
 
@@ -293,6 +295,54 @@ void wkv6_chunked(torch::Tensor r, torch::Tensor k, torch::Tensor v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// grad [rows, D] f32 (zeroed by the caller) = the sorted segmented sum of
+// grad_out's rows ([*, D] f32): sorted_keys [n] int32 ascending (>= rows
+// dropped), perm [n] int64 the grad_out row of each sorted position; the
+// scratch two levels of embedding_backward_next(n) entries each:
+// scratch_keys [2, cap] int32, scratch_vals [2, cap, D] f32.
+void embedding_backward(torch::Tensor sorted_keys, torch::Tensor perm,
+                        torch::Tensor grad_out, torch::Tensor grad,
+                        torch::Tensor scratch_keys,
+                        torch::Tensor scratch_vals) {
+  TORCH_CHECK(grad.dim() == 2, "grad must be [rows, D]");
+  check_table(grad, "grad", grad);
+  TORCH_CHECK(grad.size(0) <= INT32_MAX, "grad has too many rows");
+  const int64_t n = sorted_keys.numel();
+  const int64_t dim = grad.size(1);
+  const int64_t cap = embedding_backward_next(n);
+  check_vec(sorted_keys, "sorted_keys", torch::kInt32, n, grad);
+  check_vec(perm, "perm", torch::kInt64, n, grad);
+  TORCH_CHECK(grad_out.is_cuda() && grad_out.device() == grad.device() &&
+                  grad_out.scalar_type() == torch::kFloat32 &&
+                  grad_out.is_contiguous() && grad_out.dim() == 2 &&
+                  grad_out.size(1) == dim,
+              "grad_out must be a contiguous float32 [*, D] tensor on "
+              "grad's device");
+  TORCH_CHECK(dim >= 1 && dim <= INT32_MAX, "D must be >= 1");
+  const std::vector<int64_t> keys_shape{2, cap}, vals_shape{2, cap, dim};
+  TORCH_CHECK(scratch_keys.is_cuda() &&
+                  scratch_keys.device() == grad.device() &&
+                  scratch_keys.scalar_type() == torch::kInt32 &&
+                  scratch_keys.is_contiguous() &&
+                  scratch_keys.sizes() == c10::IntArrayRef(keys_shape),
+              "scratch_keys must be contiguous int32 [2, ", cap, "]");
+  TORCH_CHECK(scratch_vals.is_cuda() &&
+                  scratch_vals.device() == grad.device() &&
+                  scratch_vals.scalar_type() == torch::kFloat32 &&
+                  scratch_vals.is_contiguous() &&
+                  scratch_vals.sizes() == c10::IntArrayRef(vals_shape),
+              "scratch_vals must be contiguous float32 [2, ", cap, ", ", dim,
+              "]");
+  const c10::cuda::CUDAGuard guard(grad.device());
+  C10_CUDA_CHECK(embedding_backward_launch(
+      sorted_keys.data_ptr<int>(),
+      reinterpret_cast<const long long*>(perm.data_ptr<int64_t>()),
+      grad_out.data_ptr<float>(), n, static_cast<int>(dim),
+      static_cast<int>(grad.size(0)), grad.data_ptr<float>(),
+      scratch_keys.data_ptr<int>(), scratch_vals.data_ptr<float>(),
+      at::cuda::getCurrentCUDAStream().stream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
@@ -307,4 +357,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("wkv6_chunked", &wkv6_chunked,
           "chunked RWKV-6 WKV scan: y and the final state, written into "
           "the given outputs");
+  mod.def("embedding_backward", &embedding_backward,
+          "the gradient of a gather as a sorted segmented sum in a fixed "
+          "order, into the given zeroed grad");
 }

@@ -2,8 +2,10 @@
 
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``; without a CUDA device the run stops rather than train on the
-CPU). The port trains ``--placement fused`` (the default here) and
-``--placement sparse``, with ``--engine scan`` (the default, as in the
+CPU). The port trains ``--placement fused`` (the default here),
+``--placement sparse`` and ``--placement substrate`` (the composable
+optimizer chain, the reference's exactness oracle; with ``--rule`` other
+than cowclip, no clip), with ``--engine scan`` (the default, as in the
 reference: ``--scan-steps`` steps captured as one CUDA graph on the card,
 run in turn on the CPU) or ``--engine eager``; the flags of paths not
 ported yet exit with a message that names their ROADMAP item.
@@ -15,6 +17,8 @@ Usage:
       --placement sparse --batch 8192 --epochs 2 --rule cowclip
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
       --placement sparse --device cpu --samples 4096 --batch 512 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
+      --placement substrate --device cpu --samples 4096 --batch 512 --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
       --engine scan --scan-steps 4 --batch 8192 --epochs 1
 """
@@ -114,8 +118,10 @@ def run_ctr(args) -> None:
         base_batch=args.base_batch, batch_size=args.batch,
         base_dense_lr=2 * args.base_lr,
     )
+    clip = "adaptive_column" if args.rule == "cowclip" else "none"
     warmup = max(1, len(tr) // args.batch)
-    bundle = store.make_bundle(cfg, hp, zeta=args.zeta, warmup_steps=warmup,
+    bundle = store.make_bundle(cfg, hp, clip_kind=clip, zeta=args.zeta,
+                               warmup_steps=warmup,
                                nonfinite_guard=args.nonfinite_guard)
     params0 = bundle.prepare(params0)
 
@@ -178,7 +184,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--zeta", type=float, default=1e-5)
     ap.add_argument("--placement", default=None, choices=PLACEMENT_CHOICES,
                     help="embedding store placement; 'fused' (the default "
-                         "here) and 'sparse' are ported so far")
+                         "here), 'sparse' and 'substrate' are ported so far")
     ap.add_argument("--mode", default="epochs", choices=("epochs", "stream"),
                     help="'stream' is not ported yet")
     ap.add_argument("--hot-capacity", type=int, default=4096,

@@ -1,13 +1,15 @@
 """Embedding substrate: per-field tables, lookup, and batch id counts.
 
 A port of ``repro.models.embedding``. One table per categorical field,
-``[vocab_f, dim]``: an id's vector is a *row* (the paper's "column"). The
-lookup is ``F.embedding``, whose backward builds the dense ``[vocab, dim]``
-gradient by a sorted segment reduction on CUDA. Under PyTorch's default
-algorithms that backward is not deterministic run to run at large batches
-on fields whose ids repeat heavily (131,072 rows of deepfm-criteo: the
-fields of 306 ids or fewer; ROADMAP queue 3); under
-``torch.use_deterministic_algorithms`` it is.
+``[vocab_f, dim]``: an id's vector is a *row* (the paper's "column"). Every
+lookup goes through ``kernels.embedding.gather_fields``, all fields at once:
+its forward gathers, and its backward builds the tables' dense ``[vocab,
+dim]`` gradients in one call of the port's own embedding backward (a
+stable sort of the batch's rows, then a segmented sum in a fixed order: a
+CUDA kernel on the card, its plain version on the CPU), so a step's
+gradients repeat bit for bit under PyTorch's default algorithms. PyTorch's
+CUDA ``embedding_dense_backward`` did not, at large batches on fields whose
+ids repeat heavily.
 
 Sparse unique-id layer
 ----------------------
@@ -29,11 +31,11 @@ field's batch column into a **static padded capacity**:
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Sequence
 
 import torch
-import torch.nn.functional as F
+
+from ..kernels.embedding import field_layout, gather_fields
 
 
 def init_field_tables(
@@ -57,38 +59,11 @@ def init_field_tables(
 def lookup(tables: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
     """Gather per-field embeddings: ``{"field_i": [vocab_i, dim]}`` and
     ``[batch, n_fields]`` ids -> ``[batch, n_fields, dim]``. ``dtype`` casts
-    each gathered column (mixed precision: the f32 master tables stay put)."""
-    cols = [F.embedding(ids[:, i], tables[f"field_{i}"])
-            for i in range(ids.shape[1])]
-    if dtype is not None:
-        cols = [c.to(dtype) for c in cols]
-    return torch.stack(cols, dim=1)
-
-
-_COUNT_ALIGN = 64        # floats: each field's counts start 256-B aligned
-
-
-@functools.cache
-def _count_layout(vocab_sizes: tuple, device: torch.device):
-    """Where each field's counts live in the one bin buffer of
-    ``field_counts``: field i's id 0 at ``starts[i]``, a multiple of
-    _COUNT_ALIGN (so the fused kernel's aligned path takes every field),
-    with a drop bin just below it (ids < 0) and one at ``starts[i] +
-    vocab_i`` (ids >= vocab_i). Returns the starts as a list, then as
-    int64 tensors on ``device`` the clamp bounds ``-1`` and ``vocab_i`` and
-    the starts (made once per layout, so a step copies nothing to the
-    card), and the buffer's length."""
-    starts, end = [], 0
-    for v in vocab_sizes:
-        start = -(-(end + 1) // _COUNT_ALIGN) * _COUNT_ALIGN
-        starts.append(start)
-        end = start + v + 1
-
-    def on_device(values):
-        return torch.tensor(values, dtype=torch.int64, device=device)
-
-    return (starts, on_device([-1] * len(starts)),
-            on_device(list(vocab_sizes)), on_device(starts), end)
+    the gathered rows after the gather (mixed precision: the f32 master
+    tables stay put and their gradients come back f32)."""
+    out = gather_fields([tables[f"field_{i}"] for i in range(ids.shape[1])],
+                        ids)
+    return out if dtype is None else out.to(dtype)
 
 
 def field_counts(ids: torch.Tensor, vocab_sizes: Sequence[int]) -> dict:
@@ -96,18 +71,18 @@ def field_counts(ids: torch.Tensor, vocab_sizes: Sequence[int]) -> dict:
     ``{"field_i": [vocab_i] float32}``, the ``cnt`` the fused kernel
     reads. Ids outside ``[0, vocab_i)`` are dropped, as the reference's
     ``segment_sum`` drops them. All fields go through one ``index_add_`` of
-    ones into a static-size buffer, so nothing is read back to the host;
-    sums of ones are exact in f32 below 2**24 in any order, so the counts
-    are deterministic on the card too."""
-    starts, lows, highs, offsets, size = _count_layout(
-        tuple(vocab_sizes), ids.device)
-    bins = torch.clamp(ids, lows, highs) + offsets
-    counts = torch.zeros(size, dtype=torch.float32, device=ids.device)
-    counts.index_add_(0, bins.reshape(-1),
-                      torch.ones(bins.numel(), dtype=torch.float32,
-                                 device=ids.device))
-    return {f"field_{i}": counts[s:s + v]
-            for i, (s, v) in enumerate(zip(starts, vocab_sizes))}
+    ones into a static-size buffer laid out as the lookup's gradient
+    (``kernels.embedding.field_layout``, with one drop bin past its end),
+    so nothing is read back to the host; sums of ones are exact in f32
+    below 2**24 in any order, so the counts are deterministic on the card
+    too."""
+    layout = field_layout(tuple(vocab_sizes), ids.device)
+    keys = layout.keys(ids)
+    counts = torch.zeros(layout.rows + 1, dtype=torch.float32,
+                         device=ids.device)
+    counts.index_add_(0, keys, torch.ones(keys.numel(), dtype=torch.float32,
+                                          device=ids.device))
+    return {f"field_{i}": c for i, c in enumerate(layout.split(counts))}
 
 
 class UniqueField(NamedTuple):
@@ -171,16 +146,12 @@ def batch_unique(ids: torch.Tensor, vocab_sizes: Sequence[int],
     }
 
 
-def _clamped(uids: torch.Tensor, rows: int) -> torch.Tensor:
-    """Slot uids as in-range row indices: a pad (``vocab``) reads the last
-    row, as the reference's clamping gather does."""
-    return torch.clamp_max(uids.to(torch.int64), rows - 1)
-
-
 def gather_rows(tables: dict, uniq: dict) -> dict:
     """Each field's unique rows, ``{"field_i": [capacity_i, dim]}``. Pad
-    slots read the last row: values nothing reads back or scatters."""
-    return {f: tables[f][_clamped(u.uids, tables[f].shape[0])]
+    slots read the last row: values nothing reads back or scatters (and
+    whose gradient, if any, is dropped). Differentiable through the port's
+    embedding backward, a field at a time."""
+    return {f: gather_fields([tables[f]], u.uids[:, None])[:, 0]
             for f, u in uniq.items()}
 
 
@@ -196,26 +167,15 @@ def scatter_rows(tables: dict, uniq: dict, rows: dict) -> dict:
     return out
 
 
-def _lookup_slots(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    """``rows[inv]`` with the reference's overflow semantics: a slot index
-    past the last row reads the last row in the forward and passes no
-    gradient back. The gradient reaches ``rows`` through ``F.embedding``'s
-    sorted segment sum, which on CUDA is bitwise repeatable only under
-    ``torch.use_deterministic_algorithms`` (the module note says when)."""
-    cap = rows.shape[0]
-    # int32 indices: the backward's sort then runs on 32-bit keys
-    out = F.embedding(torch.clamp_max(inv, cap - 1), rows)
-    if inv.shape[0] <= cap:      # every slot index is in range
-        return out
-    return torch.where((inv < cap)[:, None], out, out.detach())
-
-
 def lookup_rows(rows: dict, uniq: dict, dtype=None) -> torch.Tensor:
     """Forward lookup from gathered unique rows -> ``[batch, n_fields,
-    dim]``. ``dtype`` casts each column after the lookup, so the row
-    gradients (what CowClip clips and Adam reads) stay f32."""
-    cols = [_lookup_slots(rows[f"field_{i}"], uniq[f"field_{i}"].inv)
-            for i in range(len(uniq))]
-    if dtype is not None:
-        cols = [c.to(dtype) for c in cols]
-    return torch.stack(cols, dim=1)
+    dim]``, every field at once: batch row b of field f reads slot
+    ``inv[b]`` of ``rows["field_f"]``. A slot index past the capacity (an
+    id dropped on overflow) reads the last slot and passes no gradient
+    back, as the reference's clamping gather and dropping scatter do: the
+    embedding backward drops it. ``dtype`` casts after the lookup, so the
+    row gradients (what CowClip clips and Adam reads) stay f32."""
+    n = len(uniq)
+    inv = torch.stack([uniq[f"field_{i}"].inv for i in range(n)], dim=1)
+    out = gather_fields([rows[f"field_{i}"] for i in range(n)], inv)
+    return out if dtype is None else out.to(dtype)

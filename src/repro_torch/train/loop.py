@@ -1,11 +1,11 @@
-"""CTR training loop: the fused and sparse train steps, epochs, eval.
+"""CTR training loop: the substrate, fused and sparse train steps, epochs,
+eval.
 
-A port of the fused and sparse placements of ``repro.train.loop``. Each
+A port of ``repro.train.loop`` for its single-device placements. Each
 step reads nothing on the host and writes its params and state in place,
 so it runs eagerly (``engine="eager"``) or as K steps captured into one
 CUDA graph (``engine="scan"``, ``train.engine``). Not ported yet:
-``mode="stream"`` (ROADMAP queue 1 item 5) and training through a bare
-optimizer, the substrate placement (item 4).
+``mode="stream"`` (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -31,14 +31,56 @@ from . import metrics
 def _loss_and_grads(params, cfg, batch):
     """Task loss and its gradient w.r.t. every param leaf, as a tree.
 
-    The params themselves never require grad (the kernel updates them in
-    place); the graph is built over detached aliases of them."""
+    The params themselves never require grad (the kernels update them in
+    place); the graph is built over detached aliases of them. With
+    ``cfg.sparse`` the forward runs through the unique-id gather (the
+    table gradients then come back through the gather of the unique rows),
+    else through the per-field lookup; both end in the port's embedding
+    backward."""
     view = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        logits = ctr.apply(view, cfg, batch["ids"], batch["dense"])
+        if cfg.sparse:
+            uniq = ctr.unique_batch(cfg, batch["ids"])
+            rows = ctr.gather_embed_rows(view, uniq)
+            logits = ctr.apply_rows(rows, view["dense"], cfg, uniq,
+                                    batch["dense"])
+        else:
+            logits = ctr.apply(view, cfg, batch["ids"], batch["dense"])
         loss = metrics.logloss(logits, batch["labels"])
     grads = iter(torch.autograd.grad(loss, tree_leaves(view)))
     return loss.detach(), tree_map(lambda _: next(grads), view)
+
+
+def make_train_step(cfg: ctr.CTRConfig, tx, *,
+                    nonfinite_guard: bool = False) -> StepFn:
+    """The substrate train step: the task loss's gradient (the dense
+    forward, or with ``cfg.sparse`` the unique-id gather's) through the
+    composable optimizer ``tx`` (``core.builders.build_optimizer``), with
+    CowClip's per-id batch counts as its ``counts`` extra, then
+    ``apply_updates``. Returns a ``StepFn`` over ``(params, opt_state,
+    batch)`` with ``opt_state = tx.init(params)``.
+
+    The new params and state are written back into the old tensors
+    (``core.builders.write_back``), and nothing is read on the host, so the
+    step is its own ``scan_step``. ``nonfinite_guard`` keeps the old values
+    of every leaf when the batch loss is NaN/Inf (``torch.where`` on the
+    device, as the reference's where-select), reported as
+    ``aux["skipped_steps"]``."""
+
+    def step_impl(params, opt_state, batch):
+        loss, grads = _loss_and_grads(params, cfg, batch)
+        ok = builders.nonfinite_guard(loss) if nonfinite_guard else None
+        counts = ctr.batch_counts(cfg, batch["ids"], params)
+        updates, new_state = tx.update(grads, opt_state, params,
+                                       counts=counts)
+        write_back(params, apply_updates(params, updates), ok)
+        write_back(opt_state, new_state, ok)
+        aux = {"loss": loss}
+        if nonfinite_guard:
+            aux["skipped_steps"] = skipped(ok)
+        return params, opt_state, aux
+
+    return StepFn(step_impl)
 
 
 def _update_dense(params, state, grads, dense_tx, t, ok):
@@ -370,8 +412,9 @@ def train_ctr(
     chunk's steps in turn. Both consume the same batches
     and run the same kernels, so they give the same params bit for bit.
 
-    Not ported yet: the composable-optimizer path (``tx`` without a
-    bundle, ROADMAP queue 1 item 4) and ``mode="stream"`` (item 5).
+    Without a bundle the step is ``make_train_step(cfg, tx)``, the
+    substrate placement, with ``tx.init`` its state and no flush. Not
+    ported yet: ``mode="stream"`` (ROADMAP queue 1 item 5).
     """
     from . import engine as engine_lib
 
@@ -385,10 +428,8 @@ def train_ctr(
     if mode != "epochs":
         raise ValueError(f"unknown mode {mode!r}")
     if step_bundle is None:
-        raise NotImplementedError(
-            f"training through a bare optimizer ({tx!r}) is the substrate "
-            "placement, not ported yet (ROADMAP queue 1 item 4); pass a "
-            "step_bundle from embed.store_for(cfg, path='fused')")
+        step_bundle = builders.TrainStepBundle(
+            make_train_step(cfg, tx), tx.init, builders.identity_flush)
 
     if init_state is not None:
         params, opt_state = init_state

@@ -1,4 +1,5 @@
-"""Evaluation metrics: LogLoss (torch) and host-side AUC (NumPy)."""
+"""Evaluation metrics: LogLoss and AUC on the device (torch), and a
+host-side AUC (NumPy)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,38 @@ def logloss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     ``F.softplus`` turns linear above a threshold)."""
     return torch.mean(torch.logaddexp(logits, torch.zeros_like(logits))
                       - labels * logits)
+
+
+def auc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Area under the ROC curve by the rank-sum (Mann-Whitney U)
+    statistic, on the scores' device, in float64, with midranks for ties
+    (as sklearn's ``roc_auc_score``): a 0-dim tensor, no host read."""
+    scores = scores.to(torch.float64)
+    n = scores.shape[0]
+    order = torch.argsort(scores, stable=True)
+    sorted_scores = scores[order]
+    ranks_sorted = torch.arange(1, n + 1, dtype=torch.float64,
+                                device=scores.device)
+    # midranks for ties: the mean rank of each run of equal scores (sums
+    # of integers, exact in float64 in any order of addition)
+    is_new = torch.ones(n, dtype=torch.int64, device=scores.device)
+    is_new[1:] = sorted_scores[1:] != sorted_scores[:-1]
+    group_id = torch.cumsum(is_new, 0) - 1
+    group_sum = torch.zeros(n, dtype=torch.float64,
+                            device=scores.device).index_add_(
+        0, group_id, ranks_sorted)
+    group_cnt = torch.zeros(n, dtype=torch.float64,
+                            device=scores.device).index_add_(
+        0, group_id, torch.ones_like(ranks_sorted))
+    midrank_sorted = (group_sum / torch.clamp_min(group_cnt, 1.0))[group_id]
+    ranks = torch.zeros(n, dtype=torch.float64,
+                        device=scores.device).index_copy_(
+        0, order, midrank_sorted)
+    labels = labels.to(torch.float64)
+    n_pos = labels.sum()
+    n_neg = n - n_pos
+    u = (ranks * labels).sum() - n_pos * (n_pos + 1.0) / 2.0
+    return u / torch.clamp_min(n_pos * n_neg, 1.0)
 
 
 def auc_numpy(scores, labels) -> float:

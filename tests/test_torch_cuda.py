@@ -1,6 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, the fused and sparse train steps on the card against the CPU
-path, the RWKV-6 LM's forward, prefill and decode on the card against
+version, the substrate, fused and sparse train steps on the card against
+the CPU path, the RWKV-6 LM's forward, prefill and decode on the card against
 the CPU path, and the CUDA graphs (the scan engine's chunks, the guard's
 skip under them, serving and the decode step) against the eager runs.
 
@@ -31,6 +31,8 @@ from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
                                          step_scalars)
 from repro_torch.kernels.cowclip import ref as cc_ref
 from repro_torch.kernels.cowclip.sparse import MAX_TABLES, launches_for
+from repro_torch.kernels.embedding import embedding_backward
+from repro_torch.kernels.embedding import reference as embed_reference
 from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
                                       clipped_chunks,
                                       segmented_wkv6_reference, wkv6,
@@ -548,7 +550,7 @@ def _flat(tree):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("placement", ["fused", "sparse"])
+@pytest.mark.parametrize("placement", ["fused", "sparse", "substrate"])
 def test_torch_scan_engine_cuda_graph_equals_eager(placement):
     """train_ctr on the card over 2 epochs of 10 batches, scan_steps 4 (a
     tail chunk of 2) and a max_steps cut at 13: the graph replays' params,
@@ -587,7 +589,7 @@ def test_torch_scan_engine_cuda_graph_equals_eager(placement):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("placement", ["fused", "sparse"])
+@pytest.mark.parametrize("placement", ["fused", "sparse", "substrate"])
 def test_torch_scan_engine_cuda_guard_skips_inside_a_graph(placement):
     """A chunk of 4 with a NaN dense feature in its second batch, replayed
     from a graph under nonfinite_guard: the same params and state as the
@@ -622,7 +624,10 @@ def test_torch_scan_engine_cuda_guard_skips_inside_a_graph(placement):
     s = bundle.init(p)
     runner = engine_lib.make_chunk_runner(engine_lib.resolve_scan_step(bundle))
     p, s, aux = runner(p, s, chunk)
-    assert int(aux["skipped_steps"].sum()) == 1 and int(s["step"]) == 3
+    counters = ([s["step"]] if isinstance(s, dict) else
+                [v for k, v in _flat(s).items() if k.endswith("count")])
+    assert int(aux["skipped_steps"].sum()) == 1
+    assert counters and all(int(c) == 3 for c in counters)
     graph = _flat({"p": p, "s": s})
     for k in eager:
         assert torch.equal(eager[k], graph[k]), k
@@ -820,3 +825,111 @@ def test_torch_prefetch_cuda_stages_items_in_order():
     first = next(it)
     it.close()
     np.testing.assert_array_equal(first["a"].cpu().numpy(), items[0]["a"])
+
+
+def _embed_case(n, vocab, dim, seed, kind):
+    rng = np.random.default_rng(seed)
+    if kind == "zipf":
+        ids = np.minimum(rng.zipf(1.1, n) - 1, vocab - 1)
+    else:
+        ids = rng.integers(0, vocab, n)
+    if kind == "drops":
+        ids[::5] = vocab + rng.integers(0, 3, ids[::5].shape)
+    cot = (0.1 * rng.standard_normal((n, dim))).astype(np.float32)
+    return (torch.from_numpy(ids.astype(np.int32)).cuda(),
+            torch.from_numpy(cot).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 10, 16, 17, 64])
+@pytest.mark.parametrize("n,vocab,kind", [
+    (1, 5, "uniform"), (33, 5, "uniform"), (5000, 40, "zipf"),
+    (70000, 3000, "zipf"), (20000, 100, "drops"), (4096, 1000000, "uniform")])
+def test_torch_embedding_backward_cuda_matches_plain(dim, n, vocab, kind):
+    """The kernel against its plain version (the same order of additions),
+    rtol 1e-5 / atol 1e-7; one kernel run a call; ids past the table
+    pass nothing."""
+    _need_cuda()
+    ids, cot = _embed_case(n, vocab, dim, seed=n + dim, kind=kind)
+    want = embed_reference(ids, cot, vocab)
+    before = embedding_backward.launches
+    got = embedding_backward(ids, cot, vocab)
+    torch.cuda.synchronize()
+    assert embedding_backward.launches == before + 1
+    assert got.shape == (vocab, dim) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_torch_embedding_backward_cuda_repeats_bitwise():
+    """A 131,072-row field of 3 Zipf ids (two segments of tens of
+    thousands of rows) at D = 10, twice: bitwise equal, and equal to the
+    plain version; where PyTorch's own backward differed run to run."""
+    _need_cuda()
+    rng = np.random.default_rng(0)
+    ids = np.minimum(rng.zipf(1.5, 131072) - 1, 2).astype(np.int32)
+    cot = (1e-3 * rng.standard_normal((131072, 10))).astype(np.float32)
+    ids_t, cot_t = torch.from_numpy(ids).cuda(), torch.from_numpy(cot).cuda()
+    first = embedding_backward(ids_t, cot_t, 3)
+    second = embedding_backward(ids_t, cot_t, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, embed_reference(ids_t, cot_t, 3),
+                               rtol=1e-5, atol=1e-7)
+    assert np.bincount(ids, minlength=3).min() > 1000
+
+
+@pytest.mark.cuda
+def test_torch_fused_grads_cuda_deterministic_by_default():
+    """One fused step's gradients at batch 4096, twice from the same params
+    and batch, under PyTorch's default algorithms: bitwise equal (the
+    port's embedding backward; ROADMAP queue 3, closed)."""
+    _need_cuda()
+    from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.train.loop import _loss_and_grads
+
+    cfg = ctr.CTRConfig(name="deepfm", vocab_sizes=(20000, 300, 40, 3),
+                        n_dense=4, emb_dim=10, mlp_dims=(64, 64),
+                        emb_sigma=1e-2)
+    ds = make_ctr_dataset(4096, cfg.vocab_sizes, n_dense=4, zipf_a=1.1,
+                          seed=2)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(iterate_batches(ds, 4096, seed=0)).items()}
+    params = ctr.init(cfg, seed=1, device="cuda")
+    assert not torch.are_deterministic_algorithms_enabled()
+    before = embedding_backward.launches
+    grads = [flatten_with_paths(_loss_and_grads(params, cfg, batch)[1])
+             for _ in range(2)]
+    assert embedding_backward.launches == before + 4     # fm + lin, twice
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", ["adaptive_column", "global",
+                                  "adaptive_field", "none"])
+def test_torch_substrate_step_cuda_matches_cpu(clip):
+    """Three substrate steps on the card against the CPU path (which the
+    CPU tests hold to the JAX package), rtol 1e-5 / atol 1e-5; the
+    embedding backward runs twice a step (fm, lin) on the card."""
+    _need_cuda()
+    from repro_torch.core import build_train_step
+
+    cfg, hp, ds = _small_ctr("substrate")
+    params0 = ctr.init(cfg, seed=1, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bundle = build_train_step(cfg, hp, clip_kind=clip, clip_t=0.5,
+                                  warmup_steps=2)
+        params = tree_map(lambda t: t.clone().to(dev), params0)
+        state = bundle.init(params)
+        before = embedding_backward.launches
+        for b in list(iterate_batches(ds, 512, seed=0))[:3]:
+            params, state, _ = bundle.step(
+                params, state,
+                {k: torch.as_tensor(x, device=dev) for k, x in b.items()})
+        assert embedding_backward.launches - before == (
+            0 if dev == "cpu" else 3 * 2)
+        out[dev] = [t.cpu() for t in tree_leaves(params)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -162,7 +162,7 @@ def test_torch_cli_sparse_alias_conflicts_with_other_placement():
 
 @pytest.mark.parametrize("flags,item", [
     (["--placement", "sharded_sparse"], "queue 1 item 7"),
-    (["--placement", "substrate"], "queue 1 item 4"),
+    (["--placement", "hotcold"], "queue 1 item 5"),
     (["--placement", "sharded"], "queue 1 item 7"),
     (["--host-devices", "8"], "queue 1 item 7"),
     (["--mode", "stream"], "queue 1 item 5"),
