@@ -17,8 +17,8 @@ Phases, each fatal on failure:
      MLP 3x400, 13 dense) on synthetic Zipf data, batch 131072 (base 1024),
      4 steps of the fused placement plus one eval through train_ctr; the
      kernel must launch exactly 52 times per step, the embedding backward
-     run twice (the fm and the LR lookup), and the loss stay finite;
-     ms/step from train_ctr's CUDA events
+     run once (the fm and the LR lookup in one call, after one sort), and
+     the loss stay finite; ms/step from train_ctr's CUDA events
   5. trace: 2 more fused steps through train_ctr under torch.profiler,
      device time by kernel, the fused update's kernels a step, and every
      host read of a scalar (aten::_local_scalar_dense) per step, whether
@@ -44,7 +44,8 @@ Phases, each fatal on failure:
      placement, 4 steps, flush and one eval through train_ctr; each sparse
      kernel must launch exactly once per step over all 52 tables, the
      single-table wrappers and the fused kernel never, the embedding
-     backward twice a step (into the fm and the LR slot rows)
+     backward once a step (into the fm and the LR slot rows in one call,
+     in the dedups' order: no sort of its own)
  10. sparse trace: 2 more sparse steps, as phase 5, with the sparse pair's
      device time a step
  11. sparse agreement at phase 6's small size: 3 sparse steps on the card
@@ -79,13 +80,15 @@ Phases, each fatal on failure:
      scan engine (4 steps a captured CUDA graph), from the same params
      over the same batches, under PyTorch's default algorithms: one
      step's gradients computed twice, then params, moments, counters and
-     losses of the three runs, all bitwise equal; one replay traced: 52
-     fused-update launches a step, the embedding backward's level
-     launches, none of PyTorch's embedding backward, no host read of a
-     scalar, the idle share; the steady ms/step over 25 chunks each way
+     losses of the three runs, all bitwise equal, the embedding backward
+     run once a step (its sorts counted: one a step); one replay traced:
+     52 fused-update launches a step, the embedding backward's 4 level
+     launches a step, none of PyTorch's embedding backward, no host read
+     of a scalar, the idle share; the steady ms/step over 25 chunks each
+     way
  20. scan engine, sparse: as 19 through the sparse placement; one launch
      of each sparse kernel a step, the fused kernel and the single-table
-     wrappers none
+     wrappers none, and no sort for the embedding backward
  21. guard: at phase 6's small size, a chunk of 4 batches whose second
      holds a NaN under nonfinite_guard, both placements: the poisoned
      step leaves params, moments, last_step and step bitwise unchanged,
@@ -99,19 +102,25 @@ Phases, each fatal on failure:
      batch 4; 4 x 64-token prompts, 32 new tokens: the eager tokens,
      logits within 1e-4; ms per decoded token eager and graph, and a
      traced replay beside phase 16's eager step
- 24. embedding backward vs its plain version (rtol 1e-5 / atol 1e-7, and
-     whether bitwise): one Zipf batch's 26 fields at 131,072 rows in one
-     call, D = 10 and 1, each run twice (bitwise); D = 16, 17, 64; a
-     field of one id; ids past their tables; the sparse step's slot rows;
-     its time at D = 10 and 1 beside its byte bound, the plain version
-     and PyTorch's embedding_dense_backward on the same inputs
+ 24. embedding backward vs its plain version, bitwise (and the max abs
+     error printed): one Zipf batch's 26 fields at 131,072 rows, the fm
+     (D = 10) and LR (D = 1) groups in one call, run twice (bitwise) and
+     against a single call a group (bitwise); 3 groups (10, 1, 16); D =
+     17, 64; a field of one id; ids past their tables; the sparse step's
+     slot rows in the dedups' plan (equal to the stable sort of the slot
+     keys) and under overflow; the step's one call (sort, fill, levels)
+     timed beside the combined byte bound, the parent's form (a call a
+     lookup), the call on a plan (no sort), the sort and the fill alone,
+     the plain version and PyTorch's embedding_dense_backward on the
+     same inputs
  25. substrate: the composable optimizer chain at phase 19's width,
      params and batches: in lockstep with the fused placement, every
      param within rtol 1e-5 / atol 1e-8 after the first step and the
      untouched embedding rows bitwise after each of 4 (the later steps'
-     gaps printed); 4 steps eager (the embedding backward twice a step)
-     and through the scan engine: bitwise equal; a traced replay (0 host
-     reads, the embedding backward's launches); steady ms/step over 10
+     gaps printed); 4 steps eager (the embedding backward once a step,
+     one sort) and through the scan engine: bitwise equal; a traced replay
+     (0 host reads, the embedding backward's 4 level launches a step);
+     steady ms/step over 10
      chunks each way; metrics.auc on the card against auc_numpy on its
      eval (1e-6)
  26. Table-7 clips: the substrate with each of the six clip kinds at
@@ -622,7 +631,8 @@ def ctr_phases(smi, kind):
                                              sparse_update_scatter_tables,
                                              step_scalars)
     from repro_torch.kernels.cowclip import ref as cc_ref
-    from repro_torch.kernels.embedding import embedding_backward
+    from repro_torch.kernels.embedding import (embedding_backward_groups,
+                                               sort_plan)
     from repro_torch.models import ctr
     from repro_torch.train import train_ctr
 
@@ -674,18 +684,21 @@ def ctr_phases(smi, kind):
         cfg, hp, warmup_steps=max(1, len(tr) // BATCH))
     n_tables = 2 * cfg.n_fields
     torch.cuda.reset_peak_memory_stats()
-    fused_cowclip_adam.launches = embedding_backward.launches = 0
+    fused_cowclip_adam.launches = embedding_backward_groups.launches = 0
+    sort_plan.sorts = 0
     res = train_ctr(cfg, None, tr, te, batch_size=BATCH, epochs=1, seed=0,
                     step_bundle=bundle, max_steps=TRAIN_STEPS, device="cuda")
     torch.cuda.synchronize()
     launches = fused_cowclip_adam.launches
-    MAIN_PATH_LAUNCHES["embedding_backward"] = embedding_backward.launches
+    embed_runs = embedding_backward_groups.launches
+    MAIN_PATH_LAUNCHES["embedding_backward"] = embed_runs
     n_ids = sum(CRITEO_VOCABS)
     print(f"[train] deepfm-criteo fused: {n_ids} ids x (10 + 1), batch "
           f"{BATCH}, {res.steps} steps, kernel launches {launches} "
           f"(expected {n_tables} x {TRAIN_STEPS}); embedding backward runs "
-          f"{embedding_backward.launches} (expected 2 x {TRAIN_STEPS}: the "
-          f"fm and the LR lookup)")
+          f"{embed_runs} (expected 1 x {TRAIN_STEPS}: the fm and the LR "
+          f"lookup in one call), its sorts {sort_plan.sorts} (expected "
+          f"{TRAIN_STEPS})")
     for i, (loss, sec) in enumerate(zip(res.losses, res.step_seconds)):
         print(f"[train] step {i + 1}: loss {loss:.6f} {sec * 1e3:.1f} ms")
     steady = res.step_seconds[1:]
@@ -700,8 +713,9 @@ def ctr_phases(smi, kind):
     check(launches == n_tables * TRAIN_STEPS,
           f"kernel launched {launches} times, expected "
           f"{n_tables * TRAIN_STEPS}")
-    check(embedding_backward.launches == 2 * TRAIN_STEPS,
-          f"embedding backward ran {embedding_backward.launches} times")
+    check(embed_runs == TRAIN_STEPS and sort_plan.sorts == TRAIN_STEPS,
+          f"embedding backward ran {embed_runs} times with "
+          f"{sort_plan.sorts} sorts")
     check(all(math.isfinite(x) for x in res.losses), "non-finite loss")
     auc = res.final_eval["auc"]
     check(math.isfinite(auc) and 0.0 <= auc <= 1.0, f"AUC {auc}")
@@ -935,8 +949,9 @@ def ctr_phases(smi, kind):
     counters = (sparse_gather_catchup_tables, sparse_update_scatter_tables,
                 sparse_gather_catchup, sparse_update_scatter,
                 fused_cowclip_adam)
-    for wrapper in counters + (embedding_backward,):
+    for wrapper in counters + (embedding_backward_groups,):
         wrapper.launches = 0
+    sort_plan.sorts = 0
     sres = train_ctr(cfg_s, None, tr, te, batch_size=BATCH, epochs=1,
                      seed=0, step_bundle=sbundle._replace(step=recorded_step),
                      max_steps=TRAIN_STEPS, device="cuda")
@@ -970,11 +985,13 @@ def ctr_phases(smi, kind):
           f"single-table sparse and fused launches {other_launches} on the "
           f"sparse path")
     print(f"[sparse-train] embedding backward runs "
-          f"{embedding_backward.launches} (expected 2 x {TRAIN_STEPS}: the "
-          f"fm and the LR slot rows)")
-    check(embedding_backward.launches == 2 * TRAIN_STEPS,
-          f"embedding backward ran {embedding_backward.launches} times on "
-          f"the sparse path")
+          f"{embedding_backward_groups.launches} (expected 1 x {TRAIN_STEPS}:"
+          f" the fm and the LR slot rows in one call), its sorts "
+          f"{sort_plan.sorts} (expected 0: the dedups' order)")
+    check(embedding_backward_groups.launches == TRAIN_STEPS
+          and sort_plan.sorts == 0,
+          f"embedding backward ran {embedding_backward_groups.launches} times "
+          f"with {sort_plan.sorts} sorts on the sparse path")
     check(all(math.isfinite(x) for x in sres.losses), "non-finite sparse loss")
     auc = sres.final_eval["auc"]
     check(math.isfinite(auc) and 0.0 <= auc <= 1.0, f"sparse AUC {auc}")
@@ -1168,6 +1185,8 @@ def graph_engine_phase(placement, tr, hp, power, kind):
     from repro_torch.data.prefetch import chunk_epoch
     from repro_torch.embed import store_for
     from repro_torch.kernels import cowclip as cc
+    from repro_torch.kernels.embedding import (embedding_backward_groups,
+                                               ref, sort_plan)
     from repro_torch.models import ctr
     from repro_torch.train import engine as engine_lib
     from repro_torch.train import train_ctr
@@ -1202,7 +1221,10 @@ def graph_engine_phase(placement, tr, hp, power, kind):
               f"(vocab of each field: {list(cfg.vocab_sizes)})", flush=True)
         check(not differ, "one step's gradients differ run to run")
         del batch, grads
-    eager, again = run("eager"), run("eager")
+    embedding_backward_groups.launches = sort_plan.sorts = 0
+    eager = run("eager")
+    embed_runs, embed_sorts = embedding_backward_groups.launches, sort_plan.sorts
+    again = run("eager")
     leaves = lambda r: (r.params, r.opt_state)  # noqa: E731
     runs_differ = tree_diff(leaves(eager), leaves(again))
     same_losses = eager.losses == again.losses
@@ -1231,6 +1253,13 @@ def graph_engine_phase(placement, tr, hp, power, kind):
           f"{graph_ms:.2f} (its one chunk after the first; the first, its "
           f"capture included, {first_ms:.1f} ms a step), {kind} at {power}",
           flush=True)
+    want_sorts = GRAPH_STEPS if placement == "fused" else 0
+    print(f"[{tag}] eager run: embedding backward runs {embed_runs} "
+          f"(expected {GRAPH_STEPS}, one a step), its sorts {embed_sorts} "
+          f"(expected {want_sorts})", flush=True)
+    check(embed_runs == GRAPH_STEPS and embed_sorts == want_sorts,
+          f"{placement}: embedding backward runs {embed_runs}, sorts "
+          f"{embed_sorts}")
     check(not runs_differ and same_losses,
           f"{placement}: two eager runs differ under the default algorithms")
     check(not graph_differ and eager.losses == scan.losses,
@@ -1268,9 +1297,11 @@ def graph_engine_phase(placement, tr, hp, power, kind):
              "sparse_update_kernel": SCAN_STEPS} if placement == "sparse"
             else {"sparse_catchup_kernel": 0, "sparse_update_kernel": 0})
     fused = sum(counts[n] for n in FUSED_KERNELS)
+    levels = ref.levels(BATCH * cfg.n_fields)
     print(f"[{tag}] kernels of one replay (CUPTI sees a graph's kernels): "
           f"{counts} ({counts[EMBED_KERNELS[0]] / SCAN_STEPS:g} embedding "
-          f"backward level launches a step, 2 runs a step); PyTorch's "
+          f"backward level launches a step, expected {levels}: one run a "
+          f"step); PyTorch's "
           f"embedding backward kernels {theirs}; host reads of a scalar in "
           f"the replay {reads}; wrapper calls for the warm-up step and the "
           f"capture (fused, single-table catch-up and update, grouped "
@@ -1278,8 +1309,9 @@ def graph_engine_phase(placement, tr, hp, power, kind):
     check(reads == 0, f"{placement}: {reads} host reads in a replay")
     check(not theirs, f"{placement}: PyTorch's embedding backward in a "
           f"replay: {theirs}")
-    check(counts[EMBED_KERNELS[0]] >= 2 * SCAN_STEPS,
-          f"{placement}: no embedding backward in a replay")
+    check(counts[EMBED_KERNELS[0]] == levels * SCAN_STEPS,
+          f"{placement}: {counts[EMBED_KERNELS[0]]} embedding backward "
+          f"level launches in a replay, expected {levels} a step")
     check(all(counts[n] == v for n, v in want.items()),
           f"{placement}: kernels a replay {counts}, expected {want}")
     if placement == "fused":
@@ -1491,31 +1523,38 @@ def serving_phase(cfg, bundle, params, state, tr, te, power, kind):
     del eng, cache, ids_all, dense_all
 
 
-def embed_bound(n, dim, rows):
-    """Least time for the embedding backward of ``n`` cotangent rows into
-    a ``[rows, dim]`` gradient: the cotangent and the keys read once, the
-    whole gradient written once (its zero fill included); one add per
-    cotangent element. Returns (ms, by, bytes)."""
-    nbytes = n * dim * 4 + n * 4 + rows * dim * 4
-    return (*_bound(nbytes, n * dim), nbytes)
+def embed_bound(n, dims, rows):
+    """Least time for one embedding backward call over ``n`` keys and a
+    group of ``n`` cotangent rows of each D in ``dims`` into ``[rows, D]``
+    gradients: the keys and each cotangent read once, each whole gradient
+    written once (its zero fill included); one add per cotangent element.
+    Returns (ms, by, bytes)."""
+    nbytes = n * 4 + sum(n * d * 4 + rows * d * 4 for d in dims)
+    return (*_bound(nbytes, n * sum(dims)), nbytes)
 
 
 def embed_phase(smi, kind):
-    """Phase 24: the embedding backward against its plain version (rtol
-    1e-5 / atol 1e-7, and whether bitwise) on one Zipf batch's 26
-    deepfm-criteo fields at 131,072 rows (one launch over all of them, as
-    the fused step's lookups make it), D = 10 and 1, run twice there
-    (bitwise); at D = 16, 17 and 64; a field of one id; ids past their
-    tables (dropped); the sparse step's use over the batch's [capacity, D]
-    slot rows. Times at D = 10 and 1 (L2 flushed, host work covered)
-    beside the byte bound, the plain version and PyTorch's
-    ``embedding_dense_backward`` on the same inputs. Returns its JSON
-    line."""
+    """Phase 24: the embedding backward against its plain version, bitwise
+    (the max abs error printed), on one Zipf batch's 26 deepfm-criteo
+    fields at 131,072 rows: the fm (D = 10) and LR (D = 1) groups in one
+    call, as the fused step's lookup makes it, run twice (bitwise) and
+    against a single call a group (bitwise); 3 groups; D = 17 and 64; a
+    field of one id; ids past their tables (dropped); the sparse step's
+    slot rows in the plan its dedups give (equal to the stable sort of
+    the slot keys) and in an overflowing one. Times (L2 flushed, host
+    work covered) of the step's one call (the sort, the zero fill and the
+    levels over both groups) beside the combined byte bound, the parent's
+    form (a call with its own sort for each lookup), the call on a plan
+    (the sparse step's form), the sort and the fill alone, the plain
+    version and PyTorch's ``embedding_dense_backward`` on the same inputs
+    (both groups' columns side by side). Returns its JSON line."""
     from repro_torch.configs.deepfm_criteo import CRITEO_VOCABS
     from repro_torch.data import iterate_batches
     from repro_torch.kernels.embedding import (embedding_backward,
-                                               field_layout, reference)
-    from repro_torch.models.embedding import batch_unique
+                                               embedding_backward_groups,
+                                               field_layout, ref,
+                                               reference_groups, sort_plan)
+    from repro_torch.models.embedding import batch_unique, slot_plan
 
     power = smi.strip().split(", ")[-1]
     gen = torch.Generator(device="cuda").manual_seed(24)
@@ -1526,74 +1565,115 @@ def embed_phase(smi, kind):
     dev = torch.device("cuda")
     layout = field_layout(tuple(CRITEO_VOCABS), dev)
     keys, rows = layout.keys(ids), layout.rows
+    n = keys.numel()
     err = [0.0]
 
-    def case(tag, keys, rows, dim, twice=False):
-        cot = 1e-3 * torch.randn(keys.numel(), dim, generator=gen,
-                                 device="cuda")
-        got = embedding_backward(keys, cot, rows)
-        want = reference(keys, cot, rows)
+    def cotangents(dims):
+        return [1e-3 * torch.randn(n, d, generator=gen, device="cuda")
+                for d in dims]
+
+    def case(tag, plan, rows, dims, twice=False, single_keys=None):
+        cots = cotangents(dims)
+        got = embedding_backward_groups(plan, cots, rows)
+        want = reference_groups(plan, cots, rows)
         torch.cuda.synchronize()
-        compare("embed-kernel", f"{tag} ({keys.numel()} rows into "
-                f"[{rows}, {dim}]; bitwise "
-                f"{'equal' if torch.equal(got, want) else 'different'})",
-                got, want, err)
+        for d, a, b in zip(dims, got, want):
+            what = f"{tag}, D = {d} ({n} rows into [{rows}, {d}])"
+            same = torch.equal(a, b)
+            compare("embed-kernel", f"{what}; bitwise "
+                    f"{'equal' if same else 'different'}", a, b, err)
+            check(same, f"the embedding backward is not bitwise its plain "
+                  f"version: {what}")
         if twice:
-            again = embedding_backward(keys, cot, rows)
-            same = torch.equal(got, again)
+            again = embedding_backward_groups(plan, cots, rows)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             print(f"[embed-kernel] {tag}, run twice: "
                   f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
             check(same, f"the embedding backward differs run to run: {tag}")
+        if single_keys is not None:
+            alone = [embedding_backward(single_keys, c, rows) for c in cots]
+            same = all(torch.equal(a, b) for a, b in zip(got, alone))
+            print(f"[embed-kernel] {tag}: one call over {len(dims)} groups "
+                  f"against a call a group: "
+                  f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+            check(same, f"the grouped call differs from a call a group: {tag}")
+        del got, want, cots
 
-    for dim in (10, 1):
-        case(f"one batch's 26 fields, D = {dim}", keys, rows, dim, twice=True)
-    for dim in (16, 17, 64):
-        case(f"one batch's 26 fields, D = {dim}", keys, rows, dim)
+    batch_plan = sort_plan(keys)
+    case("one batch's 26 fields, fm and LR in one call", batch_plan, rows,
+         (10, 1), twice=True, single_keys=keys)
+    case("one batch's 26 fields, 3 groups", batch_plan, rows, (10, 1, 16),
+         single_keys=keys)
+    for dim in (17, 64):
+        case("one batch's 26 fields, one group", batch_plan, rows, (dim,))
         torch.cuda.empty_cache()
-    case("a field of one id, D = 10", torch.zeros(BATCH, dtype=torch.int32,
-                                                  device="cuda"), 1, 10,
-         twice=True)
+    one = torch.zeros(n, dtype=torch.int32, device="cuda")
+    case("a field of one id", sort_plan(one), 1, (10, 1), twice=True)
     past = ids.clone()
     past[::5] = layout.vocab_t.to(past.dtype)          # id V_f: dropped
     past[1::7] += layout.vocab_t.to(past.dtype)
     dropped = layout.keys(past)
-    case(f"ids past their tables ({int((dropped == rows).sum())} dropped), "
-         f"D = 10", dropped, rows, 10)
-    uniq = batch_unique(ids, CRITEO_VOCABS)
-    inv = torch.stack([uniq[f"field_{i}"].inv
-                       for i in range(len(CRITEO_VOCABS))], dim=1)
-    slots = field_layout(tuple(u.capacity for u in uniq.values()), dev)
-    for dim in (10, 1):
-        case(f"the sparse step's slot rows, D = {dim}", slots.keys(inv),
-             slots.rows, dim)
-    del uniq, inv, past, dropped
+    case(f"ids past their tables ({int((dropped == rows).sum())} dropped)",
+         sort_plan(dropped), rows, (10, 1))
+    for cap in (0, 4096):
+        uniq = batch_unique(ids, CRITEO_VOCABS, cap)
+        fields = [uniq[f"field_{i}"] for i in range(len(CRITEO_VOCABS))]
+        slots = field_layout(tuple(u.capacity for u in fields), dev)
+        plan = slot_plan(fields, slots)
+        inv = torch.stack([u.inv for u in fields], dim=1)
+        over = int((plan.keys == slots.rows).sum())
+        if not cap:
+            k_sorted, perm = torch.sort(slots.keys(inv), stable=True)
+            same = torch.equal(plan.keys, k_sorted) and torch.equal(
+                plan.perm, perm)
+            print(f"[embed-kernel] the sparse step's plan from its 26 "
+                  f"dedups against torch.sort(stable=True) of the slot "
+                  f"keys: {'equal' if same else 'DIFFERENT'}", flush=True)
+            check(same, "the sparse step's plan is not the stable sort")
+            del k_sorted, perm
+        case(f"the sparse step's slot rows, capacity "
+             f"{cap or 'min(batch, vocab)'} ({over} dropped)", plan,
+             slots.rows, (10, 1))
+        del uniq, fields, plan, inv
+    del past, dropped, one, batch_plan
     torch.cuda.empty_cache()
 
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    times = {}
-    for dim in (10, 1):
-        cot = 1e-3 * torch.randn(keys.numel(), dim, generator=gen,
-                                 device="cuda")
-        k_ms = cuda_time_cold_ms(lambda: embedding_backward(keys, cot, rows),
-                                 20, scratch)
-        p_ms = cuda_time_cold_ms(lambda: reference(keys, cot, rows), 3,
-                                 scratch)
-        lib_ms = cuda_time_cold_ms(
-            lambda: torch.ops.aten.embedding_dense_backward(
-                cot, keys, rows, -1, False), 20, scratch)
-        b_ms, b_by, nbytes = embed_bound(keys.numel(), dim, rows)
-        times[dim] = (k_ms, p_ms, b_ms, b_by, lib_ms)
-        print(f"[time] embedding_backward, one batch's 26 fields ({keys.numel()}"
-              f" rows into [{rows}, {dim}]; L2 flushed, host work covered; "
-              f"the sort, zero fill and levels): kernel {k_ms:.4f} ms, "
-              f"PyTorch's embedding_dense_backward {lib_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B at "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s), {kind} at {power}",
-              flush=True)
-        del cot
-    del scratch, keys
+    c10, c1 = cotangents((10, 1))
+    plan = sort_plan(keys)
+    both = torch.cat([c10, c1], dim=1)
+    fill = 64 * (-(-rows * 10 // 64) - (-rows // 64))
+    runs = {
+        "the step's one call (sort, fill, levels; fm and LR)":
+            (lambda: embedding_backward_groups(sort_plan(keys), [c10, c1],
+                                               rows), 20),
+        "the parent's form: a call a lookup, each with its sort":
+            (lambda: (embedding_backward(keys, c10, rows),
+                      embedding_backward(keys, c1, rows)), 20),
+        "one call on a plan (fill, levels: the sparse step's form)":
+            (lambda: embedding_backward_groups(plan, [c10, c1], rows), 20),
+        "the sort alone": (lambda: sort_plan(keys), 20),
+        "the zero fill alone": (lambda: torch.zeros(fill, device="cuda"), 20),
+        "plain version": (lambda: reference_groups(sort_plan(keys), [c10, c1],
+                                                   rows), 3),
+        "PyTorch's embedding_dense_backward, [N, 11]":
+            (lambda: torch.ops.aten.embedding_dense_backward(
+                both, keys, rows, -1, False), 20),
+    }
+    times = {name: cuda_time_cold_ms(fn, iters, scratch)
+             for name, (fn, iters) in runs.items()}
+    b_ms, b_by, nbytes = embed_bound(n, (10, 1), rows)
+    for name, ms in times.items():
+        print(f"[time] embedding backward, one batch's 26 fields ({n} rows "
+              f"into [{rows}, 10] and [{rows}, 1]; L2 flushed, host work "
+              f"covered), {name}: {ms:.4f} ms", flush=True)
+    k_ms = times["the step's one call (sort, fill, levels; fm and LR)"]
+    print(f"[time] embedding backward, the step's one call {k_ms:.4f} ms "
+          f"against the bound {b_ms:.4f} ms by {b_by} ({nbytes} B at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s: {100 * b_ms / k_ms:.1f}% of it), "
+          f"{ref.levels(n)} level launches; {kind} at {power}", flush=True)
+    del scratch, keys, c10, c1, both, plan
     torch.cuda.empty_cache()
-    k_ms, p_ms, b_ms, b_by, lib_ms = times[10]
     return {
         "name": "embedding_backward",
         "route": "cuda",
@@ -1604,10 +1684,10 @@ def embed_phase(smi, kind):
         "launches": MAIN_PATH_LAUNCHES["embedding_backward"],
         "max_abs_err": err[0],
         "ms": k_ms,
-        "plain_ms": p_ms,
+        "plain_ms": times["plain version"],
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": lib_ms,
+        "library_ms": times["PyTorch's embedding_dense_backward, [N, 11]"],
     }
 
 
@@ -1632,7 +1712,8 @@ def substrate_phase(tr, te, hp, power, kind):
     from repro_torch.data import iterate_batches
     from repro_torch.data.prefetch import chunk_epoch
     from repro_torch.embed import store_for
-    from repro_torch.kernels.embedding import embedding_backward
+    from repro_torch.kernels.embedding import (embedding_backward_groups,
+                                               ref, sort_plan)
     from repro_torch.models import ctr
     from repro_torch.serve import engine as serve_engine
     from repro_torch.train import engine as engine_lib
@@ -1704,17 +1785,17 @@ def substrate_phase(tr, te, hp, power, kind):
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    embedding_backward.launches = 0
+    embedding_backward_groups.launches = sort_plan.sorts = 0
     cfg, bundle, eager = run("substrate", "eager")
     torch.cuda.synchronize()
-    runs = embedding_backward.launches
+    runs, sorts = embedding_backward_groups.launches, sort_plan.sorts
     peak = torch.cuda.max_memory_allocated() / 2**30
     scan = run("substrate", "scan")[2]
     diff = tree_diff((eager.params, eager.opt_state),
                      (scan.params, scan.opt_state))
     print(f"[{tag}] deepfm-criteo substrate, batch {BATCH}, "
           f"{SUBSTRATE_STEPS} steps eager: embedding backward runs {runs} "
-          f"(expected 2 a step), losses "
+          f"with {sorts} sorts (expected 1 a step each), losses "
           f"{[round(x, 6) for x in eager.losses]}, peak device memory "
           f"{peak:.2f} GiB; against the scan engine ({SCAN_STEPS} steps a "
           f"graph): params and state "
@@ -1724,8 +1805,9 @@ def substrate_phase(tr, te, hp, power, kind):
           f"{[round(1e3 * x, 2) for x in eager.step_seconds]}, graph "
           f"(its capture included) "
           f"{[round(1e3 * x, 2) for x in scan.step_seconds]}", flush=True)
-    check(runs == 2 * SUBSTRATE_STEPS,
-          f"embedding backward ran {runs} times on the substrate path")
+    check(runs == sorts == SUBSTRATE_STEPS,
+          f"embedding backward ran {runs} times with {sorts} sorts on the "
+          f"substrate path")
     check(not diff and eager.losses == scan.losses,
           "substrate: the graph replays differ from the eager steps")
     del scan
@@ -1756,11 +1838,13 @@ def substrate_phase(tr, te, hp, power, kind):
     reads = sum(e.name == HOST_READ for e in prof.events())
     levels = sum(c for _, c, k in kernels if EMBED_KERNELS[0] in k)
     theirs = torch_embedding_backward(kernels)
+    want_levels = ref.levels(BATCH * cfg.n_fields)
     print(f"[{tag}] one replay: {levels / SCAN_STEPS:g} embedding backward "
-          f"level launches a step (2 runs); PyTorch's embedding backward "
+          f"level launches a step (expected {want_levels}: one run); "
+          f"PyTorch's embedding backward "
           f"kernels {theirs}; host reads of a scalar {reads}", flush=True)
     check(reads == 0, f"substrate: {reads} host reads in a replay")
-    check(levels >= 2 * SCAN_STEPS and not theirs,
+    check(levels == want_levels * SCAN_STEPS and not theirs,
           f"substrate: embedding backward kernels {levels}, PyTorch's "
           f"{theirs}")
     del prof

@@ -27,13 +27,14 @@ covered. It prints each kernel's registers, shared memory and stack
 * ``wkv6``: ``chunked_wkv6`` at [256, 4096, 64] and [64, 32768, 64] (the
   main path's prefill shapes) for several segment lengths, the card's own
   choice first;
-* ``embed``: the embedding backward of one batch's 26 deepfm-criteo fields
-  (``chip_smoke.py`` phase 4's first batch of 131072, D = 10 and 1):
-  PyTorch's ``embedding_dense_backward`` a field at a time (the form the
-  lookups' backward took before the port had its own) and in one call over
-  all the fields' rows, and, where the timed port has it, its kernel
-  (``kernels.embedding.embedding_backward``: the sort, zero fill and
-  levels), each beside the byte bound;
+* ``embed``: a step's embedding backward over one batch's 26
+  deepfm-criteo fields (``chip_smoke.py`` phase 4's first batch of
+  131072; the fm lookup at D = 10 and the LR one at D = 1), in the timed
+  port's own form: one call over both (``embedding_backward_groups`` on
+  the keys' ``sort_plan``) where it has one, else a call a lookup
+  (``embedding_backward``, each with its sort); then each lookup alone
+  through ``embedding_backward`` and PyTorch's ``embedding_dense_backward``
+  in one call over both lookups' columns, each beside its byte bound;
 * ``steps``: the steady ms/step of the fused and the sparse placement at
   deepfm-criteo width and batch 131072, eager and from the scan engine's
   graph (4 steps a chunk) in turns over 25 chunks, batches on the card
@@ -196,43 +197,45 @@ def _grouped_keys(ids, vocabs):
 def time_embed(gen, scratch, card):
     from repro_torch.configs.deepfm_criteo import CRITEO_VOCABS
     from repro_torch.data import iterate_batches
+    from repro_torch.kernels import embedding
 
     tr, _ = smoke.criteo_data()
     ids = torch.as_tensor(next(iterate_batches(tr, smoke.BATCH, seed=0))["ids"],
                           device="cuda")
     del tr
     keys, rows = _grouped_keys(ids, CRITEO_VOCABS)
-    try:
-        from repro_torch.kernels.embedding import embedding_backward
-    except ImportError:
-        embedding_backward = None
-    cols = [ids[:, f].contiguous() for f in range(ids.shape[1])]
-    for dim in (10, 1):
-        cot = 1e-3 * torch.randn(keys.numel(), dim, generator=gen,
-                                 device="cuda")
-        per_field = cot.view(ids.shape[0], ids.shape[1], dim)
-        per_field = [per_field[:, f].contiguous() for f in range(len(cols))]
-        runs = {
-            "PyTorch's embedding_dense_backward, a call a field": lambda: [
-                torch.ops.aten.embedding_dense_backward(g, c, v, -1, False)
-                for g, c, v in zip(per_field, cols, CRITEO_VOCABS)],
-            "PyTorch's embedding_dense_backward, one call": lambda: (
-                torch.ops.aten.embedding_dense_backward(cot, keys, rows, -1,
-                                                        False)),
-        }
-        if embedding_backward is not None:
-            runs["the port's embedding_backward, one call"] = (
-                lambda: embedding_backward(keys, cot, rows))
-        b_ms, b_by, nbytes = smoke.embed_bound(keys.numel(), dim, rows)
-        for name, fn in runs.items():
-            times = [smoke.cuda_time_cold_ms(fn, 20, scratch)
-                     for _ in range(3)]
-            print(f"[time] {name}, one batch's {len(cols)} fields "
-                  f"({keys.numel()} rows into [{rows}, {dim}]): "
-                  f"{', '.join(f'{t:.4f}' for t in times)} ms (L2 flushed, "
-                  f"host covered; 3 x 20 calls), bound {b_ms:.4f} ms by "
-                  f"{b_by} ({nbytes} B), {card}", flush=True)
-        del cot, per_field
+    n = keys.numel()
+    c10, c1 = (1e-3 * torch.randn(n, d, generator=gen, device="cuda")
+               for d in (10, 1))
+    both = torch.cat([c10, c1], dim=1)
+    if hasattr(embedding, "embedding_backward_groups"):
+        step = ("one call over both lookups",
+                lambda: embedding.embedding_backward_groups(
+                    embedding.sort_plan(keys), [c10, c1], rows))
+    else:
+        step = ("a call a lookup",
+                lambda: (embedding.embedding_backward(keys, c10, rows),
+                         embedding.embedding_backward(keys, c1, rows)))
+    runs = [
+        (f"a step's embedding backward, the port's form: {step[0]}", step[1],
+         (10, 1)),
+        ("the port's embedding_backward, the fm lookup alone",
+         lambda: embedding.embedding_backward(keys, c10, rows), (10,)),
+        ("the port's embedding_backward, the LR lookup alone",
+         lambda: embedding.embedding_backward(keys, c1, rows), (1,)),
+        ("PyTorch's embedding_dense_backward, both lookups' columns in one "
+         "call", lambda: torch.ops.aten.embedding_dense_backward(
+             both, keys, rows, -1, False), (10, 1)),
+    ]
+    for name, fn, dims in runs:
+        b_ms, b_by, nbytes = smoke.embed_bound(n, dims, rows)
+        times = [smoke.cuda_time_cold_ms(fn, 20, scratch) for _ in range(3)]
+        print(f"[time] {name}, one batch's {ids.shape[1]} fields ({n} rows "
+              f"into [{rows}, D], D in {dims}): "
+              f"{', '.join(f'{t:.4f}' for t in times)} ms (L2 flushed, "
+              f"host covered; 3 x 20 calls), bound {b_ms:.4f} ms by "
+              f"{b_by} ({nbytes} B), {card}", flush=True)
+    del c10, c1, both, keys
 
 
 def time_steps(card):

@@ -295,51 +295,73 @@ void wkv6_chunked(torch::Tensor r, torch::Tensor k, torch::Tensor v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// grad [rows, D] f32 (zeroed by the caller) = the sorted segmented sum of
-// grad_out's rows ([*, D] f32): sorted_keys [n] int32 ascending (>= rows
-// dropped), perm [n] int64 the grad_out row of each sorted position; the
-// scratch two levels of embedding_backward_next(n) entries each:
-// scratch_keys [2, cap] int32, scratch_vals [2, cap, D] f32.
+// For each group i, grads[i] [rows, D_i] f32 (zeroed by the caller) = the
+// segmented sum of grad_outs[i]'s rows ([n, D_i] f32) in sorted order:
+// sorted_keys [n] int32 (each key's positions contiguous; outside [0,
+// rows) dropped), perm [n] int64 the grad_out row of each sorted
+// position; the scratch two levels of embedding_backward_next(n) entries
+// each: scratch_keys [2, cap] int32, scratch_vals [2, cap * sum(D_i)] f32.
 void embedding_backward(torch::Tensor sorted_keys, torch::Tensor perm,
-                        torch::Tensor grad_out, torch::Tensor grad,
+                        std::vector<torch::Tensor> grad_outs,
+                        std::vector<torch::Tensor> grads,
                         torch::Tensor scratch_keys,
                         torch::Tensor scratch_vals) {
-  TORCH_CHECK(grad.dim() == 2, "grad must be [rows, D]");
-  check_table(grad, "grad", grad);
-  TORCH_CHECK(grad.size(0) <= INT32_MAX, "grad has too many rows");
+  TORCH_CHECK(!grads.empty() && grads.size() == grad_outs.size() &&
+                  grads.size() <= kEmbedBwdMaxGroups,
+              "one to ", kEmbedBwdMaxGroups,
+              " groups, a grad_out and a grad each");
+  const torch::Tensor& like = grads[0];
+  TORCH_CHECK(like.dim() == 2, "grad must be [rows, D]");
+  TORCH_CHECK(like.size(0) <= INT32_MAX, "grad has too many rows");
   const int64_t n = sorted_keys.numel();
-  const int64_t dim = grad.size(1);
+  TORCH_CHECK(n <= INT32_MAX, "too many keys");
   const int64_t cap = embedding_backward_next(n);
-  check_vec(sorted_keys, "sorted_keys", torch::kInt32, n, grad);
-  check_vec(perm, "perm", torch::kInt64, n, grad);
-  TORCH_CHECK(grad_out.is_cuda() && grad_out.device() == grad.device() &&
-                  grad_out.scalar_type() == torch::kFloat32 &&
-                  grad_out.is_contiguous() && grad_out.dim() == 2 &&
-                  grad_out.size(1) == dim,
-              "grad_out must be a contiguous float32 [*, D] tensor on "
-              "grad's device");
-  TORCH_CHECK(dim >= 1 && dim <= INT32_MAX, "D must be >= 1");
-  const std::vector<int64_t> keys_shape{2, cap}, vals_shape{2, cap, dim};
+  check_vec(sorted_keys, "sorted_keys", torch::kInt32, n, like);
+  check_vec(perm, "perm", torch::kInt64, n, like);
+  std::vector<EmbedBwdGroup> groups;
+  int64_t width = 0;
+  for (size_t i = 0; i < grads.size(); ++i) {
+    const torch::Tensor& grad = grads[i];
+    const torch::Tensor& grad_out = grad_outs[i];
+    TORCH_CHECK(grad.is_cuda() && grad.device() == like.device() &&
+                    grad.scalar_type() == torch::kFloat32 &&
+                    grad.is_contiguous() && grad.dim() == 2 &&
+                    grad.size(0) == like.size(0),
+                "each grad must be a contiguous float32 [rows, D] tensor on "
+                "the first one's device");
+    const int64_t dim = grad.size(1);
+    TORCH_CHECK(dim >= 1 && dim <= INT32_MAX, "D must be >= 1");
+    TORCH_CHECK(grad_out.is_cuda() && grad_out.device() == like.device() &&
+                    grad_out.scalar_type() == torch::kFloat32 &&
+                    grad_out.is_contiguous() && grad_out.dim() == 2 &&
+                    grad_out.size(0) == n && grad_out.size(1) == dim,
+                "grad_out must be a contiguous float32 [n, D] tensor on "
+                "grad's device, D its grad's");
+    groups.push_back({grad_out.data_ptr<float>(), grad.data_ptr<float>(),
+                      static_cast<int>(dim)});
+    width += dim;
+  }
+  const std::vector<int64_t> keys_shape{2, cap}, vals_shape{2, cap * width};
   TORCH_CHECK(scratch_keys.is_cuda() &&
-                  scratch_keys.device() == grad.device() &&
+                  scratch_keys.device() == like.device() &&
                   scratch_keys.scalar_type() == torch::kInt32 &&
                   scratch_keys.is_contiguous() &&
                   scratch_keys.sizes() == c10::IntArrayRef(keys_shape),
               "scratch_keys must be contiguous int32 [2, ", cap, "]");
   TORCH_CHECK(scratch_vals.is_cuda() &&
-                  scratch_vals.device() == grad.device() &&
+                  scratch_vals.device() == like.device() &&
                   scratch_vals.scalar_type() == torch::kFloat32 &&
                   scratch_vals.is_contiguous() &&
                   scratch_vals.sizes() == c10::IntArrayRef(vals_shape),
-              "scratch_vals must be contiguous float32 [2, ", cap, ", ", dim,
+              "scratch_vals must be contiguous float32 [2, ", cap * width,
               "]");
-  const c10::cuda::CUDAGuard guard(grad.device());
+  const c10::cuda::CUDAGuard guard(like.device());
   C10_CUDA_CHECK(embedding_backward_launch(
       sorted_keys.data_ptr<int>(),
-      reinterpret_cast<const long long*>(perm.data_ptr<int64_t>()),
-      grad_out.data_ptr<float>(), n, static_cast<int>(dim),
-      static_cast<int>(grad.size(0)), grad.data_ptr<float>(),
-      scratch_keys.data_ptr<int>(), scratch_vals.data_ptr<float>(),
+      reinterpret_cast<const long long*>(perm.data_ptr<int64_t>()), n,
+      static_cast<int>(like.size(0)), groups.data(),
+      static_cast<int>(groups.size()), scratch_keys.data_ptr<int>(),
+      scratch_vals.data_ptr<float>(),
       at::cuda::getCurrentCUDAStream().stream()));
 }
 
@@ -358,6 +380,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "chunked RWKV-6 WKV scan: y and the final state, written into "
           "the given outputs");
   mod.def("embedding_backward", &embedding_backward,
-          "the gradient of a gather as a sorted segmented sum in a fixed "
-          "order, into the given zeroed grad");
+          "the gradients of gathers of one or more groups at the same keys, "
+          "as a sorted segmented sum in a fixed order, into the given "
+          "zeroed grads, one call");
 }

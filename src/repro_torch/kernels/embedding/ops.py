@@ -1,20 +1,28 @@
 """The port's embedding backward and the gather built on it.
 
-``embedding_backward(keys, grad_out, rows)`` is the gradient of a gather:
-``grad[r]`` sums the rows of ``grad_out`` whose key is ``r``, keys ``>=
-rows`` dropped. It sorts the keys (``torch.sort``, stable), then sums each
-key's segment in a fixed order: on a CUDA tensor by the kernel of
-``csrc/embedding_backward.cu`` (or the call raises), on a CPU tensor by
-its plain version (``ref.py``), which sums in the same order. So its
-result repeats bit for bit, where PyTorch's CUDA ``embedding_dense_backward``
-does not. ``.launches`` counts the kernel's runs (a run is one call of
-its launcher: a launch per level of the sum).
+``embedding_backward_groups(plan, grad_outs, rows)`` is the gradient of a
+gather for one or more groups of tables read at the same keys (a CTR
+model's fm and LR tables): for each group ``grad[r]`` sums the rows of its
+``grad_out`` whose key is ``r``, keys outside ``[0, rows)`` dropped. The
+keys come sorted (``plan``, a ``SortPlan``: ``sort_plan(keys)``, a stable
+``torch.sort``, or one built from sorts the caller already made), and each
+key's segment is summed in a fixed order that depends on the sorted keys
+alone: on a CUDA tensor by the kernel of ``csrc/embedding_backward.cu``
+(or the call raises), every group in one call, on a CPU tensor by its
+plain version (``ref.py``), which sums in the same order. So its result
+repeats bit for bit, where PyTorch's CUDA ``embedding_dense_backward``
+does not, and a group's gradient is the same bits whatever groups run
+beside it. ``.launches`` counts the kernel's runs (a run is one call of
+its launcher: a launch per level of the sum); ``sort_plan.sorts`` counts
+the sorts made for it. ``embedding_backward(keys, grad_out, rows)`` is
+the one-group form, with its own sort.
 
-``gather_fields(tables, ids)`` is the forward that uses it: ``out[b, f] =
-tables[f][min(ids[b, f], V_f - 1)]``, ``[B, F, D]``, whose backward passes
-nothing for an id ``>= V_f`` (the reference's clamping gather and
-dropping scatter) and computes every table's gradient in one call over
-all ``B * F`` rows: the tables' rows laid end to end in one buffer
+``gather_fields(groups, ids, plan=None)`` is the forward that uses it:
+for each group of ``F`` tables, ``out[b, f] = tables[f][min(ids[b, f],
+V_f - 1)]``, ``[B, F, D_g]``, whose backward passes nothing for an id
+``>= V_f`` (the reference's clamping gather and dropping scatter) and
+computes every group's and every table's gradient in one call over all
+``B * F`` rows: the tables' rows laid end to end in one buffer a group
 (``FieldLayout``, which also lays out ``models.embedding.field_counts``),
 each table's gradient a view of it.
 """
@@ -22,58 +30,103 @@ each table's gradient a view of it.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ..extension import build
 from . import ref
+from .ref import MAX_GROUPS
+from .ref import embedding_backward_groups_reference as reference_groups
 from .ref import embedding_backward_reference as reference
 
 ALIGN_ROWS = 64
+
+
+class SortPlan(NamedTuple):
+    """The order the backward sums in: ``keys`` [N] int32, each key's
+    positions contiguous (ascending but for dropped keys, which may end
+    each field's block); ``perm`` [N] int64, the cotangent row of each
+    sorted position."""
+
+    keys: torch.Tensor
+    perm: torch.Tensor
+
+
+def sort_plan(keys: torch.Tensor) -> SortPlan:
+    """The stable sort of ``[N]`` int32 ``keys`` (deterministic)."""
+    if not isinstance(keys, torch.Tensor) or keys.dim() != 1 \
+            or keys.dtype != torch.int32:
+        raise TypeError("keys must be a 1-D int32 torch.Tensor")
+    sort_plan.sorts += 1
+    return SortPlan(*torch.sort(keys, stable=True))
+
+
+sort_plan.sorts = 0
+
+
+def embedding_backward_groups(plan: SortPlan, grad_outs: Sequence[torch.Tensor],
+                              rows: int) -> list:
+    """Each group's ``[rows, D_g]`` gradient of a gather whose output row
+    ``i`` read row ``keys[i]``, from the keys' ``plan`` and each group's
+    ``[N, D_g]`` cotangent (float32 on the card), in one call.
+    Deterministic: the same inputs give the same bits."""
+    keys, perm = plan
+    if not isinstance(keys, torch.Tensor) or keys.dim() != 1 \
+            or keys.dtype != torch.int32:
+        raise TypeError("the plan's keys must be a 1-D int32 torch.Tensor")
+    n = keys.shape[0]
+    if not isinstance(perm, torch.Tensor) or perm.dtype != torch.int64 \
+            or tuple(perm.shape) != (n,):
+        raise TypeError(f"the plan's perm must be an int64 [{n}] tensor")
+    grad_outs = list(grad_outs)
+    if not 1 <= len(grad_outs) <= MAX_GROUPS:
+        raise ValueError(f"1 to {MAX_GROUPS} groups, got {len(grad_outs)}")
+    for g in grad_outs:
+        if not isinstance(g, torch.Tensor) or g.dim() != 2 \
+                or g.shape[0] != n:
+            raise ValueError(f"each grad_out must be [{n}, D], got "
+                             f"{tuple(getattr(g, 'shape', ()))}")
+        if g.device != keys.device or perm.device != keys.device:
+            raise ValueError(f"a grad_out or perm is on another device than "
+                             f"the keys ({keys.device})")
+    if not 0 <= rows < 2**31:
+        raise ValueError(f"rows {rows} outside [0, 2**31)")
+    dev = keys.device
+    if dev.type == "cpu":
+        return reference_groups(plan, grad_outs, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"no embedding backward kernel for device {dev}")
+    if any(g.dtype != torch.float32 for g in grad_outs):
+        raise TypeError("the kernel takes float32 grad_outs")
+    grad_outs = [g.contiguous() for g in grad_outs]
+    dims = [g.shape[1] for g in grad_outs]
+    # one zero fill for every group; each group's block starts 256 bytes
+    # aligned, as an allocation of its own would
+    sizes = [-(-rows * d // ALIGN_ROWS) * ALIGN_ROWS for d in dims]
+    buf = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+    grads = [b[:rows * d].view(rows, d)
+             for b, d in zip(torch.split(buf, sizes), dims)]
+    cap = ref.next_entries(n)
+    scratch_keys = torch.empty((2, cap), dtype=torch.int32, device=dev)
+    scratch_vals = torch.empty((2, cap * sum(dims)), dtype=torch.float32,
+                               device=dev)
+    build().embedding_backward(keys, perm, grad_outs, grads, scratch_keys,
+                               scratch_vals)
+    embedding_backward_groups.launches += 1
+    return grads
+
+
+embedding_backward_groups.launches = 0
 
 
 def embedding_backward(keys: torch.Tensor, grad_out: torch.Tensor,
                        rows: int) -> torch.Tensor:
     """``[rows, D]`` gradient of a gather whose output row i read row
     ``keys[i]``: ``keys`` [N] int32, ``grad_out`` [N, D] float (float32
-    on the card). Deterministic: the same inputs give the same bits."""
-    if not isinstance(keys, torch.Tensor) or keys.dim() != 1 \
-            or keys.dtype != torch.int32:
-        raise TypeError("keys must be a 1-D int32 torch.Tensor")
-    if not isinstance(grad_out, torch.Tensor) or grad_out.dim() != 2 \
-            or grad_out.shape[0] != keys.shape[0]:
-        raise ValueError(f"grad_out must be [{keys.shape[0]}, D], got "
-                         f"{tuple(getattr(grad_out, 'shape', ()))}")
-    if grad_out.device != keys.device:
-        raise ValueError(f"grad_out is on {grad_out.device}, keys on "
-                         f"{keys.device}")
-    if not 0 <= rows < 2**31:
-        raise ValueError(f"rows {rows} outside [0, 2**31)")
-    dev = keys.device
-    if dev.type == "cpu":
-        return reference(keys, grad_out, rows)
-    if dev.type != "cuda":
-        raise ValueError(f"no embedding backward kernel for device {dev}")
-    if grad_out.dtype != torch.float32:
-        raise TypeError(f"the kernel takes a float32 grad_out, got "
-                        f"{grad_out.dtype}")
-    grad_out = grad_out.contiguous()
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    dim = grad_out.shape[1]
-    grad = torch.zeros((rows, dim), dtype=torch.float32, device=dev)
-    cap = ref.next_entries(keys.shape[0])
-    scratch_keys = torch.empty((2, cap), dtype=torch.int32, device=dev)
-    scratch_vals = torch.empty((2, cap, dim), dtype=torch.float32,
-                               device=dev)
-    build().embedding_backward(sorted_keys, perm, grad_out, grad,
-                               scratch_keys, scratch_vals)
-    embedding_backward.launches += 1
-    return grad
-
-
-embedding_backward.launches = 0
+    on the card); one group, its own sort."""
+    return embedding_backward_groups(sort_plan(keys), [grad_out], rows)[0]
 
 
 class FieldLayout(NamedTuple):
@@ -116,35 +169,52 @@ def field_layout(vocabs: tuple, device: torch.device) -> FieldLayout:
 
 
 class _GatherFields(torch.autograd.Function):
-    """``out[b, f] = tables[f][min(ids[b, f], V_f - 1)]``; the backward is
-    ``embedding_backward`` over all the fields at once."""
+    """For each group, ``out[b, f] = tables[f][min(ids[b, f], V_f - 1)]``;
+    the backward is one ``embedding_backward_groups`` call over all the
+    groups and fields, with ``plan`` or else a sort of its own."""
 
     @staticmethod
-    def forward(ctx, ids, *tables):
-        cols = [F.embedding(torch.clamp_max(ids[:, f], t.shape[0] - 1), t)
-                for f, t in enumerate(tables)]
+    def forward(ctx, ids, plan, *tables):
+        n = ids.shape[1]
+        cols = [torch.clamp_max(ids[:, f], t.shape[0] - 1)
+                for f, t in enumerate(tables[:n])]
         ctx.save_for_backward(ids)
-        ctx.vocabs = tuple(t.shape[0] for t in tables)
-        return torch.stack(cols, dim=1)
+        ctx.plan = plan
+        ctx.vocabs = tuple(t.shape[0] for t in tables[:n])
+        return tuple(
+            torch.stack([F.embedding(c, t)
+                         for c, t in zip(cols, tables[i:i + n])], dim=1)
+            for i in range(0, len(tables), n))
 
     @staticmethod
-    def backward(ctx, grad):
-        if not any(ctx.needs_input_grad[1:]):
-            return (None,) * (1 + len(ctx.vocabs))
+    def backward(ctx, *grads):
+        if not any(ctx.needs_input_grad[2:]):
+            return (None,) * len(ctx.needs_input_grad)
         ids, = ctx.saved_tensors
         layout = field_layout(ctx.vocabs, ids.device)
-        g = embedding_backward(layout.keys(ids),
-                               grad.reshape(-1, grad.shape[-1]), layout.rows)
-        return (None, *layout.split(g))
+        plan = ctx.plan if ctx.plan is not None else sort_plan(
+            layout.keys(ids))
+        gs = embedding_backward_groups(
+            plan, [g.reshape(-1, g.shape[-1]) for g in grads], layout.rows)
+        return (None, None, *[t for g in gs for t in layout.split(g)])
 
 
-def gather_fields(tables: Sequence[torch.Tensor],
-                  ids: torch.Tensor) -> torch.Tensor:
-    """``[B, F, D]`` rows of ``F`` tables (``[V_f, D]`` each, one dtype
-    and D) at ``[B, F]`` ids, column f from table f: an id ``>= V_f``
-    reads the last row and passes no gradient back. The tables' gradients
-    come from one ``embedding_backward`` call."""
-    if ids.dim() != 2 or ids.shape[1] != len(tables):
-        raise ValueError(f"ids must be [B, {len(tables)}], got "
-                         f"{tuple(ids.shape)}")
-    return _GatherFields.apply(ids, *tables)
+def gather_fields(groups: Sequence[Sequence[torch.Tensor]], ids: torch.Tensor,
+                  plan: Optional[SortPlan] = None) -> tuple:
+    """One ``[B, F, D_g]`` output a group: ``F`` tables (``[V_f, D_g]``
+    each, one dtype and D a group; field f's V_f the same in every group)
+    at ``[B, F]`` ids, column f from table f: an id ``>= V_f`` reads the
+    last row and passes no gradient back. Every group's tables get their
+    gradients from one ``embedding_backward_groups`` call, which sums in
+    ``plan``'s order: it must sort ``field_layout(vocabs).keys(ids)`` as
+    a stable sort would, up to the place of dropped keys; None sorts."""
+    groups = [list(g) for g in groups]
+    if not 1 <= len(groups) <= MAX_GROUPS:
+        raise ValueError(f"1 to {MAX_GROUPS} groups, got {len(groups)}")
+    if any(len(g) != ids.shape[1] for g in groups) or ids.dim() != 2:
+        raise ValueError(f"ids must be [B, F] with F tables a group, got "
+                         f"{tuple(ids.shape)} and {[len(g) for g in groups]}")
+    vocabs = [[t.shape[0] for t in g] for g in groups]
+    if any(v != vocabs[0] for v in vocabs):
+        raise ValueError(f"the groups' tables differ in rows: {vocabs}")
+    return _GatherFields.apply(ids, plan, *[t for g in groups for t in g])

@@ -1,20 +1,31 @@
 """Plain PyTorch version of the deterministic embedding backward.
 
 The same function as ``csrc/embedding_backward.cu``, summed in the same
-order: a stable sort of the keys, then a segmented sum over the sorted
-positions in chunks of ``CHUNK``, each chunk's runs of equal keys summed
-in ascending position, a run inside a chunk written, and each chunk's
-first and last runs carried to the next level (the last level writes
-every run). Keys ``>= rows`` pass no gradient. It is the CPU path of
-``ops.embedding_backward`` and the kernel's oracle on the card (any float
-dtype; the kernel takes float32).
+order, for one or more groups of ``[N, D_g]`` cotangents read at the same
+keys: the keys in a sorted order (each key's positions contiguous; a
+stable sort, or a plan built from sorts already made), then a segmented
+sum over the sorted positions in chunks of ``CHUNK``, each a sub-chunk of
+``LANES`` at a time. Within a sub-chunk every run of equal keys is summed
+by the same tree, an inclusive scan whose step ``o`` (1, 2, 4, 8, 16)
+adds position ``i - o`` to position ``i`` where both lie in the run; the
+sub-chunk's first run then adds the sum so far of the run it goes on from
+(``carry + part``). A run inside a chunk is written; each chunk's first
+and last runs go on to the next level (a chunk of one run passes ``-0.0``
+as its last, which adds nothing), and the last level writes every run.
+Keys outside ``[0, rows)`` pass no gradient. The order depends on the
+sorted keys alone, not on D nor on the groups beside a column. It is the
+CPU path of ``ops.embedding_backward_groups`` and the kernel's oracle on
+the card (any float dtype; the kernel takes float32).
 """
 
 from __future__ import annotations
 
 import torch
 
-CHUNK = 32        # csrc/embedding_backward.h: kEmbedBwdChunk
+CHUNK = 128       # csrc/embedding_backward.h: kEmbedBwdChunk
+LANES = 32        # a sub-chunk: one warp's lanes
+SUBS = CHUNK // LANES
+MAX_GROUPS = 4    # csrc/embedding_backward.h: kEmbedBwdMaxGroups
 
 
 def next_entries(n: int) -> int:
@@ -22,77 +33,112 @@ def next_entries(n: int) -> int:
     return 2 * (-(-n // CHUNK))
 
 
-def _level(keys, empty, vals, rows, grad, last):
-    """One level over ``n`` entries (int64 ``keys``, bool ``empty``,
-    ``[n, D]`` ``vals``): writes the runs it closes into ``grad`` and
-    returns the next level's ``(keys, empty, vals)``, or None at the
-    last level."""
-    n, dim = vals.shape
+def levels(n: int) -> int:
+    """Level launches of one call over ``n`` sorted positions."""
+    count = 0
+    while n > 0:
+        count += 1
+        if n <= CHUNK:
+            break
+        n = next_entries(n)
+    return count
+
+
+def _scan(v, first, cont):
+    """The kernel's sums of ``v`` ([chunks, SUBS, LANES, D]): each run's
+    running sum at each of its positions, carried across sub-chunks."""
+    lane = torch.arange(LANES, device=v.device)
+    for o in (1, 2, 4, 8, 16):
+        t = torch.zeros_like(v)
+        t[:, :, o:] = v[:, :, :-o]
+        v = torch.where((lane - o >= first)[..., None], v + t, v)
+    lead = (first == 0) & cont[..., None]        # runs carried into a sub
+    for s in range(1, SUBS):
+        carry = v[:, s - 1, LANES - 1]
+        v[:, s] = torch.where(lead[:, s, :, None], carry[:, None] + v[:, s],
+                              v[:, s])
+    return v.reshape(v.shape[0], CHUNK, -1)
+
+
+def _level(keys, vals, rows, grads, last):
+    """One level over ``n`` entries (int64 ``keys``; each group's ``[n,
+    D_g]`` ``vals``): writes the runs it closes into ``grads`` and returns
+    the next level's ``(keys, vals)``, or None at the last level."""
+    n = keys.numel()
     chunks = -(-n // CHUNK)
     pad = chunks * CHUNK - n
-    dev = vals.device
+    dev = keys.device
     valid = (torch.arange(chunks * CHUNK, device=dev) < n).view(chunks, CHUNK)
-    k = torch.cat([keys, keys.new_full((pad,), -1)]).view(chunks, CHUNK)
-    e = torch.cat([empty, empty.new_zeros(pad)]).view(chunks, CHUNK)
-    v = torch.cat([vals, vals.new_zeros(pad, dim)]).view(chunks, CHUNK, dim)
-    start = valid.clone()
-    start[:, 1:] &= k[:, 1:] != k[:, :-1]
+    k = torch.cat([keys, keys.new_zeros(pad)]).view(chunks, CHUNK)
+    ks = k.view(chunks, SUBS, LANES)
+    starts = torch.ones_like(ks, dtype=torch.bool)
+    starts[..., 1:] = ks[..., 1:] != ks[..., :-1]
+    lane = torch.arange(LANES, device=dev)
+    first = torch.cummax(torch.where(starts, lane, 0), dim=-1).values
+    cont = torch.zeros((chunks, SUBS), dtype=torch.bool, device=dev)
+    cont[:, 1:] = (ks[:, 1:, 0] == ks[:, :-1, -1]) & valid.view(
+        chunks, SUBS, LANES)[:, 1:, 0]
     end = valid.clone()
-    end[:, :-1] &= k[:, :-1] != k[:, 1:]
-    # each run summed from its first entry in ascending position; an empty
-    # entry adds nothing
-    acc = torch.empty_like(v)
-    run_sum = v[:, 0]
-    for j in range(CHUNK):
-        if j:
-            run_sum = torch.where(e[:, j, None], run_sum, run_sum + v[:, j])
-            run_sum = torch.where(start[:, j, None], v[:, j], run_sum)
-        acc[:, j] = run_sum
-    run = torch.cumsum(start.to(torch.int64), 1) - 1
-    runs = start.sum(1, keepdim=True)
-    write = end if last else end & (run != 0) & (run != runs - 1)
-    write &= k < rows
-    grad[k[write]] = acc[write]
+    end[:, :-1] &= (k[:, :-1] != k[:, 1:]) | ~valid[:, 1:]
+    ar = torch.arange(chunks, device=dev)
+    pos = torch.arange(CHUNK, device=dev)
+    head_end = torch.argmax(end.to(torch.int8), 1)      # the head run's end
+    tail_end = valid.sum(1) - 1                          # the last position
+    write = end.clone()
+    if not last:
+        write &= (pos != head_end[:, None]) & (pos != tail_end[:, None])
+    write &= (k >= 0) & (k < rows)
+    out = []
+    for vals_g, grad in zip(vals, grads):
+        dim = vals_g.shape[1]
+        v = torch.cat([vals_g, vals_g.new_zeros(pad, dim)]).view(
+            chunks, SUBS, LANES, dim)
+        acc = _scan(v, first, cont)
+        grad[k[write]] = acc[write]
+        if not last:
+            tail = torch.where((head_end == tail_end)[:, None],
+                               torch.full_like(acc[:, 0], -0.0),
+                               acc[ar, tail_end])
+            out.append(torch.stack([acc[ar, head_end], tail], 1)
+                       .reshape(-1, dim))
     if last:
         return None
-    ar = torch.arange(chunks, device=dev)
-    head_end = torch.argmax(end.to(torch.int8), 1)       # run 0's end
-    tail_end = valid.sum(1) - 1                           # the last run's
-    one = runs[:, 0] == 1
-    nkeys = torch.stack([k[ar, 0], k[ar, tail_end]], 1).reshape(-1)
-    nempty = torch.stack([torch.zeros_like(one), one], 1).reshape(-1)
-    tail = torch.where(one[:, None], torch.zeros_like(acc[:, 0]),
-                       acc[ar, tail_end])
-    nvals = torch.stack([acc[ar, head_end], tail], 1).reshape(-1, dim)
-    return nkeys, nempty, nvals
+    return torch.stack([k[:, 0], k[ar, tail_end]], 1).reshape(-1), out
 
 
-def segment_sum_sorted(sorted_keys, perm, grad_out, grad):
-    """Fill ``grad`` ([rows, D], zeros) with the segmented sum of
-    ``grad_out``'s rows ``perm`` under ``sorted_keys`` (ascending), level
-    by level as the kernel sums them. Returns ``grad``."""
-    rows = grad.shape[0]
+def segment_sum_sorted(sorted_keys, perm, grad_outs, grads):
+    """Fill each of ``grads`` ([rows, D_g], zeros) with the segmented sum
+    of its ``grad_outs``' rows ``perm`` under ``sorted_keys``, level by
+    level as the kernel sums them. Returns ``grads``."""
+    rows = grads[0].shape[0]
     n = sorted_keys.numel()
-    if n == 0:
-        return grad
     keys = sorted_keys.to(torch.int64)
-    empty = torch.zeros(n, dtype=torch.bool, device=grad.device)
-    vals = grad_out[perm]
-    while True:
+    vals = [g[perm] for g in grad_outs]
+    while n:
         last = n <= CHUNK
-        out = _level(keys, empty, vals, rows, grad, last)
+        out = _level(keys, vals, rows, grads, last)
         if last:
-            return grad
-        keys, empty, vals = out
+            break
+        keys, vals = out
         n = keys.numel()
+    return grads
+
+
+def embedding_backward_groups_reference(plan, grad_outs, rows: int) -> list:
+    """Each group's ``[rows, D_g]`` gradient of a gather whose output row
+    ``i`` read row ``keys[i]``, given the keys' sort ``plan`` (sorted keys,
+    and the output row of each sorted position) and each group's ``[N,
+    D_g]`` cotangent: the kernel's segmented sum; keys outside ``[0,
+    rows)`` dropped."""
+    grads = [torch.zeros((rows, g.shape[1]), dtype=g.dtype, device=g.device)
+             for g in grad_outs]
+    return segment_sum_sorted(plan[0], plan[1], grad_outs, grads)
 
 
 def embedding_backward_reference(keys: torch.Tensor, grad_out: torch.Tensor,
                                  rows: int) -> torch.Tensor:
     """``[rows, D]`` gradient of a gather whose output row i read row
     ``keys[i]`` (``keys`` [N] int, ``grad_out`` [N, D]): the stable sort and
-    the kernel's segmented sum; keys ``>= rows`` dropped."""
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    grad = torch.zeros((rows, grad_out.shape[1]), dtype=grad_out.dtype,
-                       device=grad_out.device)
-    return segment_sum_sorted(sorted_keys, perm, grad_out, grad)
+    the kernel's segmented sum; keys outside ``[0, rows)`` dropped."""
+    return embedding_backward_groups_reference(
+        torch.sort(keys, stable=True), [grad_out], rows)[0]

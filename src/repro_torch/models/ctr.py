@@ -196,12 +196,15 @@ def apply(
 ) -> torch.Tensor:
     """Forward pass -> logits [B] (sigmoid applied in the loss)."""
     dt = getattr(torch, cfg.compute_dtype)
-    emb = embedding.lookup(params["embed"]["fm"], ids, dtype=dt)  # [B, F, D]
-    lin_emb = (
-        embedding.lookup(params["embed"]["lin"], ids, dtype=dt)
-        if "lin" in params["embed"] else None
-    )
-    return _forward_from_emb(params["dense"], cfg, emb, lin_emb, dense_feats)
+    # the fm and LR tables read the same ids: one lookup, one backward call
+    emb, *lin = embedding.lookup(_groups(params["embed"]), ids, dtype=dt)
+    return _forward_from_emb(params["dense"], cfg, emb,
+                             lin[0] if lin else None, dense_feats)
+
+
+def _groups(embed: dict) -> list:
+    """The embedding groups in lookup order: fm, then lin if present."""
+    return [embed["fm"]] + ([embed["lin"]] if "lin" in embed else [])
 
 
 def unique_batch(cfg: CTRConfig, ids: torch.Tensor) -> dict:
@@ -230,10 +233,9 @@ def apply_rows(
     ``apply``; the gradient w.r.t. ``rows`` comes out ``[n_unique, dim]``
     per field instead of a full-table one)."""
     dt = getattr(torch, cfg.compute_dtype)
-    emb = embedding.lookup_rows(rows["fm"], uniq, dtype=dt)    # [B, F, D]
-    lin_emb = (embedding.lookup_rows(rows["lin"], uniq, dtype=dt)
-               if "lin" in rows else None)
-    return _forward_from_emb(dense_params, cfg, emb, lin_emb, dense_feats)
+    emb, *lin = embedding.lookup_rows(_groups(rows), uniq, dtype=dt)
+    return _forward_from_emb(dense_params, cfg, emb,
+                             lin[0] if lin else None, dense_feats)
 
 
 def batch_counts(cfg: CTRConfig, ids: torch.Tensor, params: dict) -> dict:

@@ -2,14 +2,15 @@
 
 A port of ``repro.models.embedding``. One table per categorical field,
 ``[vocab_f, dim]``: an id's vector is a *row* (the paper's "column"). Every
-lookup goes through ``kernels.embedding.gather_fields``, all fields at once:
-its forward gathers, and its backward builds the tables' dense ``[vocab,
-dim]`` gradients in one call of the port's own embedding backward (a
-stable sort of the batch's rows, then a segmented sum in a fixed order: a
-CUDA kernel on the card, its plain version on the CPU), so a step's
-gradients repeat bit for bit under PyTorch's default algorithms. PyTorch's
-CUDA ``embedding_dense_backward`` did not, at large batches on fields whose
-ids repeat heavily.
+lookup goes through ``kernels.embedding.gather_fields``, all fields and
+every group of tables read at the same ids (a CTR model's fm and LR
+tables) at once: its forward gathers, and its backward builds every
+table's dense ``[vocab, dim]`` gradient in one call of the port's own
+embedding backward (a stable sort of the batch's rows, then a segmented
+sum in a fixed order: a CUDA kernel on the card, its plain version on the
+CPU), so a step's gradients repeat bit for bit under PyTorch's default
+algorithms. PyTorch's CUDA ``embedding_dense_backward`` did not, at large
+batches on fields whose ids repeat heavily.
 
 Sparse unique-id layer
 ----------------------
@@ -19,9 +20,11 @@ field's batch column into a **static padded capacity**:
 
 * slots ``[0, n_unique)`` hold the batch's distinct ids ascending; pad
   slots hold ``vocab`` (one past the last row) and count 0;
-* the dedup is a sort, a run-length rank and scatters, with no host sync
-  (``torch.unique`` would read its output size on the host, 26 times a
-  step at Criteo width);
+* the dedup is a stable sort, a run-length rank and scatters, with no host
+  sync (``torch.unique`` would read its output size on the host, 26 times
+  a step at Criteo width); it keeps its sort (``order``, ``rank``), so
+  ``lookup_rows`` hands the embedding backward its order without a sort
+  of its own (``slot_plan``);
 * **overflow** (more distinct ids than ``capacity``): the ``capacity``
   smallest ids are kept and ``inv`` keeps the true rank, ``>= capacity``
   for a dropped id. ``lookup_rows`` then reads the last kept slot for it in
@@ -35,7 +38,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from ..kernels.embedding import field_layout, gather_fields
+from ..kernels.embedding import (FieldLayout, SortPlan, field_layout,
+                                 gather_fields)
 
 
 def init_field_tables(
@@ -56,14 +60,19 @@ def init_field_tables(
     }
 
 
-def lookup(tables: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
-    """Gather per-field embeddings: ``{"field_i": [vocab_i, dim]}`` and
-    ``[batch, n_fields]`` ids -> ``[batch, n_fields, dim]``. ``dtype`` casts
-    the gathered rows after the gather (mixed precision: the f32 master
-    tables stay put and their gradients come back f32)."""
-    out = gather_fields([tables[f"field_{i}"] for i in range(ids.shape[1])],
-                        ids)
-    return out if dtype is None else out.to(dtype)
+def _fields(group: dict, n: int) -> list:
+    return [group[f"field_{i}"] for i in range(n)]
+
+
+def lookup(groups: Sequence[dict], ids: torch.Tensor, dtype=None) -> list:
+    """Gather per-field embeddings of each group of tables read at the same
+    ids: ``{"field_i": [vocab_i, dim_g]}`` a group and ``[batch, n_fields]``
+    ids -> a ``[batch, n_fields, dim_g]`` output a group; every group's
+    gradients come from one backward call. ``dtype`` casts the gathered
+    rows after the gather (mixed precision: the f32 master tables stay put
+    and their gradients come back f32)."""
+    outs = gather_fields([_fields(g, ids.shape[1]) for g in groups], ids)
+    return [o if dtype is None else o.to(dtype) for o in outs]
 
 
 def field_counts(ids: torch.Tensor, vocab_sizes: Sequence[int]) -> dict:
@@ -93,11 +102,17 @@ class UniqueField(NamedTuple):
     inv:    [batch] int32, slot of each batch element's id; ``>= capacity``
             for an id dropped on overflow.
     counts: [capacity] float32 batch occurrence count per slot (0 on pads).
+    order:  [batch] int64, the batch elements by id, ties in batch order
+            (the dedup's stable sort).
+    rank:   [batch] int64, the slot of each element of ``order``
+            (``inv[order]``, ascending).
     """
 
     uids: torch.Tensor
     inv: torch.Tensor
     counts: torch.Tensor
+    order: torch.Tensor
+    rank: torch.Tensor
 
     @property
     def capacity(self) -> int:
@@ -113,7 +128,7 @@ def unique_ids(ids_col: torch.Tensor, vocab: int,
     """Deduplicate one field's batch column into a padded-capacity slot
     set, on the column's device and without a host sync."""
     n = ids_col.shape[0]
-    sorted_ids, perm = torch.sort(ids_col)
+    sorted_ids, perm = torch.sort(ids_col, stable=True)
     first = torch.ones(n, dtype=torch.int64, device=ids_col.device)
     first[1:] = sorted_ids[1:] != sorted_ids[:-1]
     rank = torch.cumsum(first, 0) - 1              # slot of each sorted id
@@ -128,7 +143,8 @@ def unique_ids(ids_col: torch.Tensor, vocab: int,
         0, rank, torch.ones(n, dtype=torch.int32, device=ids_col.device))
     return UniqueField(uids=uids[:capacity].to(torch.int32),
                        inv=inv.to(torch.int32),
-                       counts=counts[:capacity].to(torch.float32))
+                       counts=counts[:capacity].to(torch.float32),
+                       order=perm, rank=rank)
 
 
 def batch_unique(ids: torch.Tensor, vocab_sizes: Sequence[int],
@@ -151,7 +167,7 @@ def gather_rows(tables: dict, uniq: dict) -> dict:
     slots read the last row: values nothing reads back or scatters (and
     whose gradient, if any, is dropped). Differentiable through the port's
     embedding backward, a field at a time."""
-    return {f: gather_fields([tables[f]], u.uids[:, None])[:, 0]
+    return {f: gather_fields([[tables[f]]], u.uids[:, None])[0][:, 0]
             for f, u in uniq.items()}
 
 
@@ -167,15 +183,36 @@ def scatter_rows(tables: dict, uniq: dict, rows: dict) -> dict:
     return out
 
 
-def lookup_rows(rows: dict, uniq: dict, dtype=None) -> torch.Tensor:
-    """Forward lookup from gathered unique rows -> ``[batch, n_fields,
-    dim]``, every field at once: batch row b of field f reads slot
-    ``inv[b]`` of ``rows["field_f"]``. A slot index past the capacity (an
-    id dropped on overflow) reads the last slot and passes no gradient
-    back, as the reference's clamping gather and dropping scatter do: the
-    embedding backward drops it. ``dtype`` casts after the lookup, so the
-    row gradients (what CowClip clips and Adam reads) stay f32."""
-    n = len(uniq)
-    inv = torch.stack([uniq[f"field_{i}"].inv for i in range(n)], dim=1)
-    out = gather_fields([rows[f"field_{i}"] for i in range(n)], inv)
-    return out if dtype is None else out.to(dtype)
+def slot_plan(fields: Sequence[UniqueField], layout: FieldLayout) -> SortPlan:
+    """The order in which the embedding backward sums the slot rows'
+    gradient of ``lookup_rows``, from the fields' dedups alone (no sort):
+    field f's elements in its dedup's ``order``, keyed ``rank +
+    layout.starts[f]``, at row-major position ``order * F + f``. With no
+    overflow it equals the stable sort of ``layout.keys(inv)`` element for
+    element; a dropped element (``rank >= capacity``, keyed past the
+    buffer) ends its field's block instead of the whole list."""
+    n = len(fields)
+    rank = torch.stack([u.rank for u in fields])               # [F, B]
+    keys = torch.where(rank < layout.vocab_t[:, None],
+                       rank + layout.start_t[:, None], layout.rows)
+    field = torch.arange(n, device=rank.device)[:, None]
+    perm = torch.stack([u.order for u in fields]) * n + field
+    return SortPlan(keys.to(torch.int32).reshape(-1), perm.reshape(-1))
+
+
+def lookup_rows(groups: Sequence[dict], uniq: dict, dtype=None) -> list:
+    """Forward lookup from each group's gathered unique rows -> a
+    ``[batch, n_fields, dim_g]`` output a group, every field and group at
+    once: batch row b of field f reads slot ``inv[b]`` of
+    ``rows["field_f"]``. A slot index past the capacity (an id dropped on
+    overflow) reads the last slot and passes no gradient back, as the
+    reference's clamping gather and dropping scatter do: the embedding
+    backward drops it. The backward sums in ``slot_plan``'s order, with
+    no sort. ``dtype`` casts after the lookup, so the row gradients (what
+    CowClip clips and Adam reads) stay f32."""
+    fields = [uniq[f"field_{i}"] for i in range(len(uniq))]
+    inv = torch.stack([u.inv for u in fields], dim=1)
+    layout = field_layout(tuple(u.capacity for u in fields), inv.device)
+    outs = gather_fields([_fields(g, len(fields)) for g in groups], inv,
+                         plan=slot_plan(fields, layout))
+    return [o if dtype is None else o.to(dtype) for o in outs]

@@ -31,7 +31,10 @@ from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
                                          step_scalars)
 from repro_torch.kernels.cowclip import ref as cc_ref
 from repro_torch.kernels.cowclip.sparse import MAX_TABLES, launches_for
-from repro_torch.kernels.embedding import embedding_backward
+from repro_torch.kernels.embedding import (embedding_backward,
+                                           embedding_backward_groups,
+                                           field_layout, reference_groups,
+                                           sort_plan)
 from repro_torch.kernels.embedding import reference as embed_reference
 from repro_torch.kernels.wkv6 import (chunked_wkv6_reference,
                                       clipped_chunks,
@@ -846,18 +849,18 @@ def _embed_case(n, vocab, dim, seed, kind):
     (1, 5, "uniform"), (33, 5, "uniform"), (5000, 40, "zipf"),
     (70000, 3000, "zipf"), (20000, 100, "drops"), (4096, 1000000, "uniform")])
 def test_torch_embedding_backward_cuda_matches_plain(dim, n, vocab, kind):
-    """The kernel against its plain version (the same order of additions),
-    rtol 1e-5 / atol 1e-7; one kernel run a call; ids past the table
-    pass nothing."""
+    """The kernel against its plain version (the same order of additions):
+    bitwise equal; one kernel run a call; ids past the table pass
+    nothing."""
     _need_cuda()
     ids, cot = _embed_case(n, vocab, dim, seed=n + dim, kind=kind)
     want = embed_reference(ids, cot, vocab)
-    before = embedding_backward.launches
+    before = embedding_backward_groups.launches
     got = embedding_backward(ids, cot, vocab)
     torch.cuda.synchronize()
-    assert embedding_backward.launches == before + 1
+    assert embedding_backward_groups.launches == before + 1
     assert got.shape == (vocab, dim) and got.dtype == torch.float32
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -880,6 +883,71 @@ def test_torch_embedding_backward_cuda_repeats_bitwise():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(10, 1), (10, 1, 16), (3, 64, 1, 17)])
+def test_torch_embedding_backward_cuda_groups_match_plain(dims):
+    """One call over groups read at the same keys (the fm and LR lookups'
+    D = 10 and 1; 3 and 4 groups, a D past 32 among them) on 8 Zipf
+    fields of 20,000 rows (runs across chunks, dropped ids): each group
+    equals the plain version on the same plan and the kernel's single
+    call for that group, bitwise; twice, bitwise."""
+    _need_cuda()
+    rng = np.random.default_rng(sum(dims))
+    vocabs = (3, 40, 1000, 7, 100000, 2, 500, 30000)
+    ids = np.stack([np.minimum(rng.zipf(1.2, 20000) - 1, v - 1)
+                    for v in vocabs], axis=1).astype(np.int32)
+    ids[::11, 3] = 7                                 # past its table
+    layout = field_layout(vocabs, torch.device("cuda"))
+    keys = layout.keys(torch.from_numpy(ids).cuda())
+    cots = [torch.from_numpy((0.1 * rng.standard_normal(
+        (keys.numel(), d))).astype(np.float32)).cuda() for d in dims]
+    plan = sort_plan(keys)
+    got = embedding_backward_groups(plan, cots, layout.rows)
+    again = embedding_backward_groups(plan, cots, layout.rows)
+    want = reference_groups(plan, cots, layout.rows)
+    torch.cuda.synchronize()
+    for g, a, w, cot in zip(got, again, want, cots):
+        assert torch.equal(g, w) and torch.equal(g, a)
+        assert torch.equal(g, embedding_backward(keys, cot, layout.rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [0, 64])
+def test_torch_embedding_backward_cuda_slot_plan(cap):
+    """The sparse step's backward through ``lookup_rows`` (fm D = 10 and
+    LR D = 1 slot rows, no sort: the dedups' plan), with and without
+    overflow: the kernel equals the plain version on the same plan,
+    bitwise, and the card equals the CPU."""
+    _need_cuda()
+    from repro_torch.models import embedding as emb
+
+    rng = np.random.default_rng(cap)
+    vocabs = (3, 40, 1000, 100000)
+    ids = np.stack([np.minimum(rng.zipf(1.2, 8192) - 1, v - 1)
+                    for v in vocabs], axis=1).astype(np.int32)
+    caps = [u.capacity for u in emb.batch_unique(
+        torch.from_numpy(ids), vocabs, cap).values()]
+    rows_np = [[(0.1 * rng.standard_normal((c, d))).astype(np.float32)
+                for c in caps] for d in (10, 1)]
+    cots_np = [(0.1 * rng.standard_normal((8192, len(vocabs), d))).astype(
+        np.float32) for d in (10, 1)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        uniq = emb.batch_unique(torch.from_numpy(ids).to(dev), vocabs, cap)
+        rows = [{f"field_{i}": torch.from_numpy(r).to(dev).requires_grad_()
+                 for i, r in enumerate(g)} for g in rows_np]
+        before = sort_plan.sorts
+        outs = emb.lookup_rows(rows, uniq)
+        out[dev] = torch.autograd.grad(
+            outs, [t for g in rows for t in g.values()],
+            [torch.from_numpy(c).to(dev) for c in cots_np])
+        assert sort_plan.sorts == before
+    assert (cap == 0) != any(u.inv.max() >= c for u, c in zip(
+        uniq.values(), caps))                      # overflow iff capped
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
 def test_torch_fused_grads_cuda_deterministic_by_default():
     """One fused step's gradients at batch 4096, twice from the same params
     and batch, under PyTorch's default algorithms: bitwise equal (the
@@ -897,10 +965,12 @@ def test_torch_fused_grads_cuda_deterministic_by_default():
              for k, v in next(iterate_batches(ds, 4096, seed=0)).items()}
     params = ctr.init(cfg, seed=1, device="cuda")
     assert not torch.are_deterministic_algorithms_enabled()
-    before = embedding_backward.launches
+    before = (embedding_backward_groups.launches, sort_plan.sorts)
     grads = [flatten_with_paths(_loss_and_grads(params, cfg, batch)[1])
              for _ in range(2)]
-    assert embedding_backward.launches == before + 4     # fm + lin, twice
+    # fm and lin in one call and one sort, twice
+    assert (embedding_backward_groups.launches, sort_plan.sorts) == (
+        before[0] + 2, before[1] + 2)
     for k in grads[0]:
         assert torch.equal(grads[0][k], grads[1][k]), k
 
@@ -911,7 +981,8 @@ def test_torch_fused_grads_cuda_deterministic_by_default():
 def test_torch_substrate_step_cuda_matches_cpu(clip):
     """Three substrate steps on the card against the CPU path (which the
     CPU tests hold to the JAX package), rtol 1e-5 / atol 1e-5; the
-    embedding backward runs twice a step (fm, lin) on the card."""
+    embedding backward runs once a step (fm and lin in one call) on the
+    card."""
     _need_cuda()
     from repro_torch.core import build_train_step
 
@@ -923,13 +994,13 @@ def test_torch_substrate_step_cuda_matches_cpu(clip):
                                   warmup_steps=2)
         params = tree_map(lambda t: t.clone().to(dev), params0)
         state = bundle.init(params)
-        before = embedding_backward.launches
+        before = embedding_backward_groups.launches
         for b in list(iterate_batches(ds, 512, seed=0))[:3]:
             params, state, _ = bundle.step(
                 params, state,
                 {k: torch.as_tensor(x, device=dev) for k, x in b.items()})
-        assert embedding_backward.launches - before == (
-            0 if dev == "cpu" else 3 * 2)
+        assert embedding_backward_groups.launches - before == (
+            0 if dev == "cpu" else 3)
         out[dev] = [t.cpu() for t in tree_leaves(params)]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -2,8 +2,10 @@
 against JAX's gather gradient and PyTorch's CPU ``F.embedding`` backward.
 
 On the CPU ``embedding_backward`` is its plain version: a stable sort and
-a segmented sum in the CUDA kernel's order (chunks of 32 sorted positions,
-then the chunks' edge runs level by level). Inputs come from numpy with a
+a segmented sum in the CUDA kernel's order (chunks of 128 sorted
+positions, each run of a sub-chunk of 32 summed by one scan tree, then the
+chunks' edge runs level by level), for one or more groups of tables read
+at the same keys in one call. Inputs come from numpy with a
 seed. Two kinds of values: dyadic ones (multiples of 1/64, every partial
 sum exact in f32, so every order of addition gives the same bits and the
 results must be equal) and normal ones, held at rtol 1e-6 with an atol
@@ -21,7 +23,9 @@ import torch.nn.functional as F
 
 from repro.models import embedding as jax_embedding
 from repro_torch.kernels.embedding import (embedding_backward,
-                                           gather_fields, field_layout)
+                                           embedding_backward_groups,
+                                           field_layout, gather_fields,
+                                           reference_groups, sort_plan)
 from repro_torch.kernels.embedding import ref
 from repro_torch.models import embedding
 
@@ -120,32 +124,49 @@ def test_torch_embedding_backward_drops_ids_past_the_table():
     assert not got[np.setdiff1d(np.arange(vocab), ids[keep])].any()
 
 
+def _tree(rows):
+    """The kernel's sum of one run of a sub-chunk: an inclusive scan whose
+    step o (1, 2, 4, 8, 16) adds element i - o to element i, read at the
+    run's last element."""
+    xs = list(rows)
+    for o in (1, 2, 4, 8, 16):
+        xs = [x + xs[i - o] if i >= o else x for i, x in enumerate(xs)]
+    return xs[-1]
+
+
 def test_torch_embedding_backward_levels_sum_in_the_kernel_order():
-    """The plain version's order, written out: a segment of 70 rows in
-    one chunk's tail, two whole chunks and a third's head is summed chunk
-    by chunk in ascending position (32-row runs: 6, 32, 32 rows) and the
-    three partials combined in chunk order at the next level; other
-    segments are interior runs written at level 0."""
+    """The plain version's order, written out: 320 sorted positions,
+    chunks of 128 in sub-chunks of 32. Key 20's segment (positions 20 to
+    300) is chunk 0's tail run: each sub-chunk's part summed by the scan
+    tree, then carried left to right (carry + part); it fills chunk 1,
+    a chunk of one run, whose tail entry is -0.0 under the same key; it
+    is chunk 2's head run. Level 1 (6 entries, one chunk) sums its 4
+    entries by the same tree. Other keys are runs of one row."""
     rng = np.random.default_rng(5)
-    keys = np.concatenate([np.arange(26), np.full(70, 26), [27]]).astype(
-        np.int32)
+    keys = np.concatenate([np.arange(20), np.full(281, 20),
+                           np.arange(21, 40)]).astype(np.int32)
     cot = _values(rng, (keys.size, 2), "normal")
     got = embedding_backward(torch.from_numpy(keys), torch.from_numpy(cot),
-                             28).numpy()
+                             40).numpy()
     t = torch.from_numpy(cot)
 
-    def seq(rows):
-        acc = rows[0]
-        for r in rows[1:]:
-            acc = acc + r
+    def run(lo, hi):          # a run's parts a sub-chunk each, carried
+        edges = [lo, *range(-(-lo // 32) * 32, hi, 32)][lo % 32 == 0:]
+        acc = None
+        for a, e in zip(edges, edges[1:] + [hi]):
+            part = _tree(t[a:e])
+            acc = part if acc is None else acc + part
         return acc
 
-    parts = [seq(t[26:32]), seq(t[32:64]), seq(t[64:96])]
-    np.testing.assert_array_equal(got[26], (parts[0] + parts[1]
-                                            + parts[2]).numpy())
-    np.testing.assert_array_equal(got[:26], cot[:26])
-    np.testing.assert_array_equal(got[27], cot[96])
-    assert ref.next_entries(97) == 8
+    tail0 = run(20, 128)      # chunk 0: lanes 20-31 of sub 0, subs 1-3
+    head1 = run(128, 256)     # chunk 1: one run
+    head2 = run(256, 301)     # chunk 2: sub 0, lanes 0-12 of sub 1
+    want = _tree([tail0, head1, torch.full((2,), -0.0), head2])
+    np.testing.assert_array_equal(got[20], want.numpy())
+    np.testing.assert_array_equal(got[:20], cot[:20])
+    np.testing.assert_array_equal(got[21:], cot[301:])
+    assert ref.next_entries(320) == 6 and ref.levels(320) == 2
+    assert ref.levels(131072 * 26) == 4
 
 
 def test_torch_embedding_backward_contract():
@@ -159,9 +180,9 @@ def test_torch_embedding_backward_contract():
     with pytest.raises(ValueError, match="no embedding backward kernel"):
         embedding_backward(torch.zeros(4, dtype=torch.int32, device="meta"),
                            torch.ones(4, 2, device="meta"), 3)
-    before = embedding_backward.launches
+    before = embedding_backward_groups.launches
     embedding_backward(torch.zeros(4, dtype=torch.int32), cot, 3)
-    assert embedding_backward.launches == before
+    assert embedding_backward_groups.launches == before
 
 
 def test_torch_gather_fields_gradcheck_float64():
@@ -174,7 +195,8 @@ def test_torch_gather_fields_gradcheck_float64():
                    .requires_grad_() for v in vocabs)
     ids = torch.from_numpy(np.stack([rng.integers(0, v, 40) for v in vocabs],
                                     axis=1).astype(np.int32))
-    assert torch.autograd.gradcheck(lambda *t: gather_fields(t, ids), tables)
+    assert torch.autograd.gradcheck(lambda *t: gather_fields([t], ids)[0],
+                                    tables)
 
 
 def test_torch_gather_fields_layout_views():
@@ -200,7 +222,7 @@ def test_torch_lookup_matches_jax_and_bf16_cotangent_is_f32():
     cot = _values(rng, (b, len(vocabs), dim), "dyadic")
     for dt_t, dt_j in ((None, None), (torch.bfloat16, jnp.bfloat16)):
         tt = {k: torch.from_numpy(v).requires_grad_() for k, v in tabs.items()}
-        out = embedding.lookup(tt, torch.from_numpy(ids), dtype=dt_t)
+        out, = embedding.lookup([tt], torch.from_numpy(ids), dtype=dt_t)
         grads = torch.autograd.grad(out, list(tt.values()),
                                     torch.from_numpy(cot).to(out.dtype))
         out_j, vjp = jax.vjp(
@@ -230,7 +252,7 @@ def test_torch_lookup_rows_overflow_matches_jax_clamping_gather():
     assert [u.capacity for u in uniq.values()] == [8, 8, 8]
     cot = _values(rng, (b, len(vocabs), 3), "dyadic")
     rt = {f: torch.from_numpy(r).requires_grad_() for f, r in rows.items()}
-    out = embedding.lookup_rows(rt, uniq)
+    out, = embedding.lookup_rows([rt], uniq)
     grads = torch.autograd.grad(out, list(rt.values()), torch.from_numpy(cot))
     out_j, vjp = jax.vjp(lambda r: jax_embedding.lookup_rows(r, uniq_j),
                          {f: jnp.asarray(r) for f, r in rows.items()})
@@ -239,3 +261,141 @@ def test_torch_lookup_rows_overflow_matches_jax_clamping_gather():
     for f, g in zip(rt, grads):
         np.testing.assert_array_equal(g.numpy(), np.asarray(grads_j[f]))
     assert (uniq["field_0"].inv >= cap).any()      # some ids were dropped
+
+
+def _field_ids(rng, b, vocabs):
+    return np.stack([_zipf_ids(rng, b, v) for v in vocabs],
+                    axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("dims", [(10, 1), (10, 1, 16), (3, 64, 1, 17)])
+def test_torch_embedding_backward_groups_equal_single_calls(dims):
+    """One call over groups of tables read at the same keys (the fm and LR
+    lookups: D = 10 and 1; then 3 and 4 groups, a D past 32 among them)
+    gives each group the bits of its own single call: a column's order of
+    additions depends on the sorted keys alone. Zipf fields (runs of
+    hundreds of rows over chunk edges), normal values, dropped keys."""
+    rng = np.random.default_rng(len(dims))
+    vocabs, b = (300, 7, 2000), 1500
+    layout = field_layout(vocabs, torch.device("cpu"))
+    ids = _field_ids(rng, b, vocabs)
+    ids[::9, 1] = 7                                    # past its table
+    keys = layout.keys(torch.from_numpy(ids))
+    cots = [torch.from_numpy(_values(rng, (keys.numel(), d), "normal"))
+            for d in dims]
+    before = sort_plan.sorts
+    grouped = embedding_backward_groups(sort_plan(keys), cots, layout.rows)
+    assert sort_plan.sorts == before + 1
+    for d, g, cot in zip(dims, grouped, cots):
+        assert g.shape == (layout.rows, d)
+        single = embedding_backward(keys, cot, layout.rows)
+        assert torch.equal(g, single), d
+
+
+def test_torch_slot_plan_is_the_stable_sort_without_overflow():
+    """The sparse step's plan, built from the 26-style per-field dedups by
+    elementwise ops, equals ``torch.sort(stable=True)`` of the slot keys
+    element for element when no field overflows (keys and permutation),
+    so the gradient is the same bits as with a sort of its own; the
+    lookup's backward then makes no sort."""
+    rng = np.random.default_rng(17)
+    vocabs, b = (40, 3, 900, 1), 3000
+    ids = torch.from_numpy(_field_ids(rng, b, vocabs))
+    uniq = embedding.batch_unique(ids, vocabs)
+    fields = [uniq[f"field_{i}"] for i in range(len(vocabs))]
+    layout = field_layout(tuple(u.capacity for u in fields),
+                          torch.device("cpu"))
+    inv = torch.stack([u.inv for u in fields], dim=1)
+    plan = embedding.slot_plan(fields, layout)
+    keys, perm = torch.sort(layout.keys(inv), stable=True)
+    assert torch.equal(plan.keys, keys) and torch.equal(plan.perm, perm)
+    rows = [{f"field_{i}": torch.from_numpy(_values(
+        rng, (u.capacity, d), "normal")).requires_grad_()
+        for i, u in enumerate(fields)} for d in (10, 1)]
+    before = sort_plan.sorts
+    outs = embedding.lookup_rows(rows, uniq)
+    cots = [torch.from_numpy(_values(rng, tuple(o.shape), "normal"))
+            for o in outs]
+    grads = torch.autograd.grad(outs, [t for g in rows for t in g.values()],
+                                cots)
+    assert sort_plan.sorts == before
+    want = reference_groups((keys, perm), [c.reshape(-1, c.shape[-1])
+                                           for c in cots], layout.rows)
+    for g, d in enumerate((10, 1)):
+        for f, start in enumerate(layout.starts):
+            got = grads[g * len(vocabs) + f]
+            assert torch.equal(got, want[g][start:start + fields[f].capacity])
+
+
+def test_torch_slot_plan_overflow_matches_plain_and_jax():
+    """Under overflow the plan puts each field's dropped elements (keyed
+    past the buffer) at the end of its own block; the fm and LR slot rows'
+    gradients through ``lookup_rows`` equal the plain version on that plan
+    bitwise and JAX's ``lookup_rows`` gradients within 1e-5."""
+    rng = np.random.default_rng(19)
+    vocabs, b, cap = (60, 6, 400), 700, 8
+    ids = np.stack([rng.integers(0, v, b) for v in vocabs],
+                   axis=1).astype(np.int32)
+    uniq = embedding.batch_unique(torch.from_numpy(ids), vocabs, cap)
+    uniq_j = jax_embedding.batch_unique(jnp.asarray(ids), vocabs, cap)
+    fields = [uniq[f"field_{i}"] for i in range(len(vocabs))]
+    layout = field_layout(tuple(u.capacity for u in fields),
+                          torch.device("cpu"))
+    plan = embedding.slot_plan(fields, layout)
+    blocks = plan.keys.view(len(vocabs), b)
+    dropped = blocks == layout.rows
+    assert dropped[0].any() and dropped[2].any() and not dropped[1].any()
+    for blk, drop in zip(blocks, dropped):       # dropped end each block
+        n_keep = int((~drop).sum())
+        assert not drop[:n_keep].any() and drop[n_keep:].all()
+        assert torch.equal(blk[:n_keep], torch.sort(blk[:n_keep]).values)
+    rows = [{f: (0.1 * rng.standard_normal((u.capacity, d))).astype(
+        np.float32) for f, u in uniq.items()} for d in (10, 1)]
+    rt = [{f: torch.from_numpy(r).requires_grad_() for f, r in g.items()}
+          for g in rows]
+    outs = embedding.lookup_rows(rt, uniq)
+    cots = [_values(rng, tuple(o.shape), "normal") for o in outs]
+    grads = torch.autograd.grad(outs, [t for g in rt for t in g.values()],
+                                [torch.from_numpy(c) for c in cots])
+    want = reference_groups(plan, [torch.from_numpy(c).reshape(-1, c.shape[-1])
+                                   for c in cots], layout.rows)
+    for g in range(2):
+        for f, (name, start) in enumerate(zip(rows[g], layout.starts)):
+            got = grads[g * len(vocabs) + f]
+            assert torch.equal(got, want[g][start:start + fields[f].capacity]
+                               ), (g, name)
+            _, vjp = jax.vjp(
+                lambda r: jax_embedding.lookup_rows(r, uniq_j),
+                {k: jnp.asarray(v) for k, v in rows[g].items()})
+            grad_j = vjp(jnp.asarray(cots[g]))[0][name]
+            np.testing.assert_allclose(got.numpy(), np.asarray(grad_j),
+                                       rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("planned", [False, True])
+def test_torch_gather_fields_grouped_gradcheck_float64(planned):
+    """The grouped autograd Function in float64 (groups of D = 3 and 1,
+    and a third of D = 2), with its own sort and with a plan given (the
+    sparse step's, from the dedups): every table's gradient from one
+    backward call, against finite differences."""
+    rng = np.random.default_rng(23)
+    vocabs, b = (5, 3, 8), 40
+    ids = np.stack([rng.integers(0, v, b) for v in vocabs],
+                   axis=1).astype(np.int32)
+    plan = None
+    if planned:
+        uniq = embedding.batch_unique(torch.from_numpy(ids), vocabs)
+        fields = [uniq[f"field_{i}"] for i in range(len(vocabs))]
+        ids = torch.stack([u.inv for u in fields], dim=1).numpy()
+        vocabs = tuple(u.capacity for u in fields)
+        plan = embedding.slot_plan(fields, field_layout(vocabs,
+                                                        torch.device("cpu")))
+    tables = tuple(torch.from_numpy(rng.standard_normal((v, d)))
+                   .requires_grad_() for d in (3, 1, 2) for v in vocabs)
+    n = len(vocabs)
+
+    def fn(*t):
+        return gather_fields([t[:n], t[n:2 * n], t[2 * n:]],
+                             torch.from_numpy(ids), plan=plan)
+
+    assert torch.autograd.gradcheck(fn, tables)

@@ -541,7 +541,7 @@ def test_torch_lookup_rows_overflow_forward_clamps_backward_drops():
 
     u = embedding.unique_ids(_t(col), 60, 3)
     rows_t = _t(rows).requires_grad_()
-    emb = embedding.lookup_rows({"field_0": rows_t}, {"field_0": u})
+    emb, = embedding.lookup_rows([{"field_0": rows_t}], {"field_0": u})
     (emb[:, 0] * _t(weights)).sum().backward()
 
     u_j = jax_embedding.unique_ids(_j(col), 60, 3)
