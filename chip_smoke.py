@@ -125,7 +125,34 @@ Phases, each fatal on failure:
      eval (1e-6)
  26. Table-7 clips: the substrate with each of the six clip kinds at
      phase 6's small size, 3 steps on the card against the CPU
-Phase 24 runs after 12; phases 19-22, 25 and 26 between 24 and 13.
+ 27. hot/cold, sync: 8 online steps of train_ctr(mode="stream") at phase
+     19's width, batch and initial params, capacity 4096 a field,
+     cumulative admission, over a synthetic event stream: eager, eager
+     again and the scan engine (4 steps a graph) bitwise equal (params,
+     moments, last_step, hot tier, slot maps, frequencies, losses); one
+     launch of each grouped sparse kernel and one embedding backward run
+     (no sort) a step, nothing of the fused kernel or the single-table
+     wrappers; flushed, against the sparse placement over the same
+     batches (max abs <= 1e-7); a traced replay (its kernels, device time
+     by kind, 0 host reads, no PyTorch embedding backward, the idle
+     share); hit rate, evictions and catch-up depth a step, the hot tier's
+     and residency maps' bytes, peak memory, ms/step of both engines
+ 28. hot/cold capacities 4096 and 65536 over phase 27's batches: flushed
+     params bitwise equal, the hit rate no lower at 65536
+ 29. the async mem cold store at capacity 4096 over phase 27's batches
+     (the planner on the stream's worker, chunks of 1): exported params
+     bitwise equal to phase 27's; plan and stall seconds a step, the
+     overlap fraction, bytes copied to and from the card a step, ms a
+     step; one more plan under cProfile; one dispatch traced on the
+     consumer's thread, 0 host reads
+ 30. at phase 6's small size (capacity 64): the sync hot/cold step over
+     3 steps, both admission policies, against the sparse placement on
+     the card and on the CPU (max abs <= 1e-7) and card against CPU (rtol
+     1e-5 / atol 1e-5, phase 11's bar, beside the sparse placement's own
+     card-vs-CPU gap; resident ids and frequencies equal); the async mmap
+     store flushed, closed, reopened and run on, bitwise equal to an
+     uninterrupted run
+Phase 24 runs after 12; phases 19-22 and 25-30 between 24 and 13.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's src/ beside this file.
@@ -194,6 +221,11 @@ SERVE_TIMED = 1000             # requests timed one at a time, phase 22
 SERVE_FULL_TIMED = 64          # SERVE_BATCH-row requests timed, phase 22
 SERVE_CLIENTS, SERVE_REQUESTS = 8, 125  # micro-batcher clients x requests
 HOT_CAPACITY = 65536           # hot rows a field on the card, phase 22
+HOT_STEPS = 8                  # steps of each hot/cold run, phases 27-29
+HOT_CAP = 4096                 # hot rows a field, phases 27 and 29
+HOT_CAP_BIG = 65536            # the second capacity, phase 28
+HOT_TIMED = 10                 # chunks timed each way, phase 27
+HOT_AGREE = 1e-7               # max abs, hotcold vs sparse, phase 30
 
 
 # each port kernel's wrapper calls on its main path's run (phase 4 for
@@ -1892,6 +1924,444 @@ def clip_phase():
         check(agree, f"substrate with clip {clip}: card and CPU disagree")
 
 
+# the hot/cold step's device time by kind of kernel: (label, name parts),
+# a kernel counted under the first label one of whose parts it contains
+HOT_KINDS = (
+    ("the port's kernels", SPARSE_KERNELS + EMBED_KERNELS),
+    ("GEMMs", ("gemm", "xmma")),
+    ("top-C selection (topk)", ("topk", "Topk", "TopK")),
+    ("sorts (the dedups)", ("RadixSort", "radix_sort", "Sort")),
+    ("gathers (index ops)", ("gpu_index_kernel", "indexSelect",
+                             "index_select")),
+    ("write-backs (index_copy_)", ("index_copy",)),
+    ("index_add_ (frequencies, counts)", ("indexFuncLargeIndex",)),
+    ("cumsum compactions and scatters", ("Scan", "scan", "scatter")),
+    ("copies", ("copy", "Copy")),
+    ("elementwise and reductions", ("elementwise", "reduce", "Reduce")),
+)
+
+
+def print_kinds(prefix, kernels, steps):
+    """A trace's device time by kind of kernel (``HOT_KINDS``, the rest
+    last), ms a step and launches a step."""
+    sums = {label: [0.0, 0] for label, _ in HOT_KINDS + (("other", ()),)}
+    for ms_k, n, name in kernels:
+        label = next((lb for lb, parts in HOT_KINDS
+                      if any(x in name for x in parts)), "other")
+        sums[label][0] += ms_k
+        sums[label][1] += n
+    print(f"[{prefix}] device time a step by kind: " + "; ".join(
+        f"{label} {ms_k / steps:.3f} ms ({n / steps:g} launches)"
+        for label, (ms_k, n) in sums.items()), flush=True)
+
+
+def hot_stream(tr, bundle, engine, steps=HOT_STEPS):
+    """Phases 27-29's batches: the train split replayed as an event stream
+    (half a batch an event, seed 5), re-batched on a worker thread into
+    chunks of SCAN_STEPS (scan engine), of 1 (eager), or of 1 planned on
+    the worker (the async cold store's transform, ``steps`` its budget)."""
+    from repro_torch.data import stream as stream_lib
+
+    events = stream_lib.synthetic_event_stream(
+        tr, rows_per_event=BATCH // 2, seed=5)
+    if bundle.stream_transform is not None:
+        return stream_lib.stream_chunks(
+            events, BATCH, 1, buffer_size=4,
+            transform=bundle.stream_transform(max_steps=steps))
+    return stream_lib.stream_chunks(
+        events, BATCH, SCAN_STEPS if engine == "scan" else 1)
+
+
+def hot_run(cfg, hp, tr, params0, engine, *, steps=HOT_STEPS,
+            placement="hotcold", auxes=None, **store_kw):
+    """``steps`` online steps through ``train_ctr(mode="stream")`` from
+    ``params0`` over ``hot_stream``'s batches, then its flush. ``auxes``,
+    when a list, gets each eager step's aux (kept on the card). Returns
+    (bundle, result)."""
+    from repro_torch.core.builders import StepFn
+    from repro_torch.core.tree import tree_map
+    from repro_torch.embed import store_for
+    from repro_torch.train import train_ctr
+
+    cfg = dataclasses.replace(cfg, placement=placement)
+    bundle = store_for(cfg, **store_kw).make_bundle(
+        cfg, hp, warmup_steps=max(1, len(tr) // BATCH))
+    if auxes is not None:
+        step = bundle.step
+
+        def recorded(p, s, b):
+            p, s, aux = step(p, s, b)
+            auxes.append(aux)
+            return p, s, aux
+
+        bundle = bundle._replace(step=StepFn(recorded))
+    params = bundle.prepare(tree_map(torch.clone, params0))
+    res = train_ctr(cfg, None, tr, None, batch_size=BATCH,
+                    step_bundle=bundle, max_steps=steps, engine=engine,
+                    mode="stream", stream=hot_stream(tr, bundle, engine,
+                                                     steps),
+                    init_state=(params, bundle.init(params)), device="cuda")
+    return bundle, res
+
+
+def aux_sums(auxes):
+    """Per-step hot/cold counters of recorded eager steps, read once:
+    {name: [per step]}."""
+    names = ("hot_hit_rows", "hot_lookup_rows", "evictions",
+             "catchup_depth_max")
+    rows = torch.stack([torch.stack([a[n].double() for n in names])
+                        for a in auxes]).tolist()
+    return {n: [r[i] for r in rows] for i, n in enumerate(names)}
+
+
+def max_abs(a, b):
+    """The largest absolute difference between two trees of tensors of
+    one structure, on any devices."""
+    from repro_torch.core.tree import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    check(fa.keys() == fb.keys(), "the trees differ in structure")
+    return max(float((fa[k].double().cpu() - fb[k].double().cpu()).abs()
+                     .max()) for k in fa)
+
+
+def hotcold_phases(tr, hp, power, kind):
+    """Phases 27-30: online training on the hot/cold tiers at
+    deepfm-criteo width and batch BATCH from phase 19's initial params,
+    synchronous (27: eager, eager again and graphs bitwise; against the
+    sparse placement; launches a step; a traced replay; the steady state),
+    at two capacities (28), with the async host cold store (29), and at
+    phase 6's small size against the CPU (30). Returns the wrappers' calls
+    on phase 27's eager run, for the kernels' JSON line."""
+    from repro_torch.configs.deepfm_criteo import CONFIG
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.prefetch import chunk_epoch
+    from repro_torch.embed.hotcold import hot_tier_bytes, residency_map_bytes
+    from repro_torch.kernels import cowclip as cc
+    from repro_torch.kernels.embedding import (embedding_backward_groups,
+                                               ref, sort_plan)
+    from repro_torch.models import ctr
+    from repro_torch.train import engine as engine_lib
+
+    # -- 27. sync hot/cold stream, full width ---------------------------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG, emb_sigma=1e-2)
+    params0 = ctr.init(cfg, seed=7, device="cuda")
+    wrappers = {"fused_cowclip_adam": cc.fused_cowclip_adam,
+                "sparse_gather_catchup (one table)":
+                    cc.sparse_gather_catchup,
+                "sparse_update_scatter (one table)":
+                    cc.sparse_update_scatter,
+                "sparse_gather_catchup": cc.sparse_gather_catchup_tables,
+                "sparse_update_scatter": cc.sparse_update_scatter_tables,
+                "embedding_backward": embedding_backward_groups}
+    for w in wrappers.values():
+        w.launches = 0
+    sort_plan.sorts = 0
+    torch.cuda.reset_peak_memory_stats()
+    auxes = []
+    b_eager, eager = hot_run(cfg, hp, tr, params0, "eager",
+                             hot_capacity=HOT_CAP, auxes=auxes)
+    calls = {name: w.launches for name, w in wrappers.items()}
+    sorts = sort_plan.sorts
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {"sparse_gather_catchup": 1, "sparse_update_scatter": 1,
+                "embedding_backward": 1}
+    print(f"[hotcold] deepfm-criteo hotcold, capacity {HOT_CAP} a field, "
+          f"cumulative admission, batch {BATCH}, {HOT_STEPS} steps of "
+          f"train_ctr(mode='stream'), eager: wrapper calls {calls} "
+          f"(expected a step: one of each grouped sparse kernel, one "
+          f"embedding backward run, nothing else), the embedding backward's "
+          f"sorts {sorts} (expected 0)", flush=True)
+    check(all(calls[n] == HOT_STEPS * per_step.get(n, 0) for n in calls)
+          and sorts == 0, f"hotcold launches {calls}, sorts {sorts}")
+    sums = aux_sums(auxes)
+    del auxes
+    leaves = lambda r: (r.params, r.opt_state)  # noqa: E731
+    again = hot_run(cfg, hp, tr, params0, "eager", hot_capacity=HOT_CAP)[1]
+    runs_differ = tree_diff(leaves(eager), leaves(again))
+    same_losses = eager.losses == again.losses
+    del again
+    b_scan, scan = hot_run(cfg, hp, tr, params0, "scan",
+                           hot_capacity=HOT_CAP)
+    graph_differ = tree_diff(leaves(eager), leaves(scan))
+    print(f"[hotcold] eager against eager: "
+          f"{'bitwise equal' if not runs_differ else f'DIFFER at {runs_differ[:6]}'}"
+          f", losses {'equal' if same_losses else 'DIFFER'}; eager against "
+          f"the scan engine ({SCAN_STEPS} steps a graph): params, moments, "
+          f"last_step, hot tier, slot maps and frequencies "
+          f"{'bitwise equal' if not graph_differ else f'DIFFER at {graph_differ[:6]}'}"
+          f", losses "
+          f"{'bitwise equal' if eager.losses == scan.losses else 'DIFFER'} "
+          f"(last {scan.losses[-1]:.6f})", flush=True)
+    check(not runs_differ and same_losses, "hotcold: two eager runs differ")
+    check(not graph_differ and eager.losses == scan.losses,
+          "hotcold: the graph replays differ from the eager steps")
+    sparse = hot_run(cfg, hp, tr, params0, "eager", placement="sparse")[1]
+    worst = max_abs(eager.params, sparse.params)
+    bitwise = not tree_diff(eager.params, sparse.params)
+    print(f"[hotcold] flushed hotcold against the flushed sparse placement "
+          f"over the same batches: max_abs {worst:.3e} (bar 1e-7), "
+          f"{'bitwise equal' if bitwise else 'not bitwise'}", flush=True)
+    check(worst <= 1e-7, f"hotcold against sparse: max_abs {worst}")
+    del sparse
+    eager_ms = 1e3 * sum(eager.step_seconds[1:]) / (HOT_STEPS - 1)
+    graph_ms = 1e3 * sum(scan.step_seconds[SCAN_STEPS:]) / (
+        HOT_STEPS - SCAN_STEPS)
+    hits, looks = sum(sums["hot_hit_rows"]), sum(sums["hot_lookup_rows"])
+    state = scan.opt_state
+    table_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        (scan.params["embed"], state["m"], state["v"], state["last_step"])))
+    print(f"[hotcold] train_ctr's ms/step (CUDA events): eager "
+          f"{eager_ms:.2f} (steps 2-{HOT_STEPS}), graph {graph_ms:.2f} (its "
+          f"second chunk); hit rate {hits / looks:.4f} ({hits:.0f} of "
+          f"{looks:.0f} looked-up rows; a step: "
+          f"{[round(h / n, 4) for h, n in zip(sums['hot_hit_rows'], sums['hot_lookup_rows'])]}"
+          f"), evictions a step {[int(e) for e in sums['evictions']]}, "
+          f"catchup_depth_max a step "
+          f"{[int(d) for d in sums['catchup_depth_max']]}; hot_tier_bytes "
+          f"{hot_tier_bytes(state)}, residency_map_bytes "
+          f"{residency_map_bytes(state)}, cold tables (w, m, v, last_step) "
+          f"{table_bytes} B; peak device memory of the eager run "
+          f"{peak_gb:.2f} GB; {kind} at {power}", flush=True)
+    del eager, b_eager
+    torch.cuda.empty_cache()
+
+    chunk = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(chunk_epoch(tr, BATCH, SCAN_STEPS, seed=4)).items()}
+    params, state = scan.params, scan.opt_state
+    del scan
+    runner = engine_lib.make_chunk_runner(b_scan.step.scan_step)
+    runner(params, state, chunk)          # the capture and a first replay
+    torch.cuda.synchronize()
+    wall_ms, prof = profiled(lambda: runner(params, state, chunk))
+    kernels = by_kernel(prof)
+    print_trace("hotcold", f"one replay of {SCAN_STEPS} steps", wall_ms,
+                kernels, groups=(("the sparse kernels", SPARSE_KERNELS),
+                                 EMBED_GROUP), steps=SCAN_STEPS)
+    print_kinds("hotcold", kernels, SCAN_STEPS)
+    counts = {n: sum(c for _, c, k in kernels if n in k)
+              for n in FUSED_KERNELS + SPARSE_KERNELS + EMBED_KERNELS}
+    theirs = torch_embedding_backward(kernels)
+    reads = sum(e.name == HOST_READ for e in prof.events())
+    levels = ref.levels(BATCH * cfg.n_fields)
+    print(f"[hotcold] kernels of one replay: {counts} (a step: one of each "
+          f"sparse kernel, the embedding backward's {levels} level "
+          f"launches); PyTorch's embedding backward kernels {theirs}; host "
+          f"reads of a scalar in the replay {reads}", flush=True)
+    check(reads == 0, f"hotcold: {reads} host reads in a replay")
+    check(not theirs, f"hotcold: PyTorch's embedding backward: {theirs}")
+    check(counts["sparse_catchup_kernel"] == SCAN_STEPS
+          and counts["sparse_update_kernel"] == SCAN_STEPS
+          and sum(counts[n] for n in FUSED_KERNELS) == 0
+          and counts[EMBED_KERNELS[0]] == levels * SCAN_STEPS,
+          f"hotcold: kernels of a replay {counts}")
+    del prof
+    e_ms, g_ms = steady_ms(b_scan, runner, params, state, chunk,
+                           rounds=HOT_TIMED)
+    print(f"[hotcold] steady ms/step (CUDA events around each chunk of "
+          f"{SCAN_STEPS} steps on batches already on the card, eager and "
+          f"graph in turns): eager {spread(e_ms)}, graph {spread(g_ms)}, "
+          f"{kind} at {power}", flush=True)
+    check(all(math.isfinite(x) and x > 0 for x in e_ms + g_ms),
+          "hotcold: a steady chunk time is not positive")
+    del runner, chunk, params, state, b_scan
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[hotcold] phase 27 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- 28. capacity independence, full width ---------------------------
+    t0 = time.perf_counter()
+    ref_run = {}
+    for cap in (HOT_CAP, HOT_CAP_BIG):
+        auxes = []
+        bundle, res = hot_run(cfg, hp, tr, params0, "eager",
+                              hot_capacity=cap, auxes=auxes)
+        s = aux_sums(auxes)
+        ref_run[cap] = (res.params, sum(s["hot_hit_rows"])
+                        / sum(s["hot_lookup_rows"]),
+                        hot_tier_bytes(res.opt_state))
+        del bundle, res, auxes
+        torch.cuda.empty_cache()
+    cap_differ = tree_diff(ref_run[HOT_CAP][0], ref_run[HOT_CAP_BIG][0])
+    (_, rate_s, bytes_s), (_, rate_b, bytes_b) = (ref_run[HOT_CAP],
+                                                  ref_run[HOT_CAP_BIG])
+    print(f"[hotcold-capacity] capacities {HOT_CAP} and {HOT_CAP_BIG} over "
+          f"phase 27's batches, flushed: params "
+          f"{'bitwise equal' if not cap_differ else f'DIFFER at {cap_differ[:6]}'}"
+          f"; hit rate {rate_s:.4f} and {rate_b:.4f}; hot_tier_bytes "
+          f"{bytes_s} and {bytes_b}; in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(not cap_differ, "hotcold: capacities give different params")
+    check(rate_b >= rate_s, "hotcold: the hit rate fell with capacity")
+    sync_params = ref_run[HOT_CAP][0]
+    del ref_run
+    torch.cuda.empty_cache()
+
+    # -- 29. async cold store, full width ---------------------------------
+    t0 = time.perf_counter()
+    bundle, res = hot_run(cfg, hp, tr, params0, "scan",
+                          hot_capacity=HOT_CAP, cold_store="mem")
+    ctrl = bundle.stream_driver.__self__
+    st = ctrl.last_stream_stats
+    exported = bundle.export(res.params)
+    async_differ = tree_diff(exported, sync_params)
+    n = st["steps"]
+    print(f"[hotcold-async] --cold-store mem, capacity {HOT_CAP}, "
+          f"{n} steps (phase 27's batches), the planner on the stream's worker, "
+          f"chunks of 1, 4 deep: exported params against the synchronous "
+          f"run's "
+          f"{'bitwise equal' if not async_differ else f'DIFFER at {async_differ[:6]}'}"
+          f"; plan {st['plan_seconds'] / n:.3f} s a step, the consumer's "
+          f"stall {st['stall_seconds'] / n:.3f} s a step, overlap "
+          f"{st['migration_overlap_fraction']:.3f}; plan bytes to the card "
+          f"{st['plan_bytes_to_device'] // n} a step, eviction bytes back "
+          f"{st['evict_bytes_from_device'] // n} a step, cold-store gather "
+          f"{st['cold_gather_bytes'] // n} B a step; "
+          f"{1e3 * res.seconds / n:.1f} ms a step (host clock, the whole "
+          f"drive); hit rate "
+          f"{st['hot_hit_rows'] / st['hot_lookup_rows']:.4f}; {kind} at "
+          f"{power}", flush=True)
+    check(n == HOT_STEPS, f"async: {n} steps")
+    check(not async_differ, "async cold store differs from the sync step")
+    del sync_params, exported
+    # one more planned step, its dispatch on this thread traced
+    from repro_torch.data import stream as stream_lib
+
+    batch = next(stream_lib.batches_from_events(
+        stream_lib.synthetic_event_stream(tr, rows_per_event=BATCH,
+                                          seed=6), BATCH))
+    # the planner's host time by function, over one more step
+    import cProfile
+    import pstats
+
+    profile = cProfile.Profile()
+    plan = profile.runcall(ctrl.planner.plan_batch, batch["ids"])
+    rows = sorted(pstats.Stats(profile).stats.items(),
+                  key=lambda kv: -kv[1][2])[:10]
+    total = sum(v[2] for v in pstats.Stats(profile).stats.values())
+    print(f"[hotcold-async] one more plan_batch under cProfile, "
+          f"{total:.3f} s of its own time; the 10 largest (own s, calls, "
+          f"function): " + "; ".join(
+              f"{v[2]:.3f} x{v[1]} {k[2]} ({Path(k[0]).name}:{k[1]})"
+              for k, v in rows), flush=True)
+    chunk = {k: v[None] for k, v in batch.items()}
+    _, prof = profiled(lambda: ctrl._dispatch(res.params["dense"],
+                                              res.opt_state, plan, chunk))
+    reads = sum(e.name == HOST_READ for e in prof.events())
+    kernels = by_kernel(prof)
+    print(f"[hotcold-async] one dispatch traced on the consumer's thread: "
+          f"host reads of a scalar {reads}; the sparse kernels "
+          f"{[(name, c) for _, c, name in kernels if any(s in name for s in SPARSE_KERNELS)]}",
+          flush=True)
+    check(reads == 0, f"async: {reads} host reads in a dispatch")
+    plan.handle.rows("field_0")
+    del prof, plan, ctrl, bundle, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[hotcold-async] phase 29 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- 30. small-size agreement, card against CPU ----------------------
+    del params0
+    t0 = time.perf_counter()
+    hotcold_small_phase()
+    print(f"[hotcold-agree] phase 30 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return calls
+
+
+def hotcold_small_phase():
+    """Phase 30 at phase 6's small size: the sync hot/cold step (capacity
+    64, both admission policies) over 3 steps against the sparse
+    placement on each device (max abs <= HOT_AGREE, the JAX package's
+    bar) and card against CPU (phase 11's bar, residency exactly equal),
+    beside the sparse placement's own card-against-CPU gap on the same
+    batches; then the async mmap store flushed, closed, reopened and run
+    on, against an uninterrupted run on the card, bitwise."""
+    import tempfile
+
+    from repro_torch.core.scaling import scale_hyperparams
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import make_ctr_dataset
+    from repro_torch.embed import store_for
+    from repro_torch.embed.hotcold import resident_ids
+    from repro_torch.models import ctr
+
+    small = ctr.CTRConfig(name="deepfm", vocab_sizes=(2000, 700, 120, 30, 5),
+                          n_dense=4, emb_dim=8, mlp_dims=(32, 32, 32),
+                          emb_sigma=1e-2, placement="hotcold")
+    sds = make_ctr_dataset(6 * 512, small.vocab_sizes, n_dense=4, seed=1)
+    shp = scale_hyperparams("cowclip", base_lr=1e-3, base_l2=1e-3,
+                            base_batch=256, batch_size=512,
+                            base_dense_lr=2e-3)
+    params0 = ctr.init(small, seed=1, device="cpu")
+
+    def batch(i, dev):
+        sl = slice(i * 512, (i + 1) * 512)
+        return {"ids": torch.as_tensor(sds.ids[sl], device=dev),
+                "dense": torch.as_tensor(sds.dense[sl], device=dev),
+                "labels": torch.as_tensor(sds.labels[sl], device=dev)}
+
+    def run(dev, steps, flush_at=(), path="hotcold", **kw):
+        b = store_for(small, path=path, hot_capacity=64, **kw).make_bundle(
+            small, shp, warmup_steps=2)
+        p = b.prepare(tree_map(lambda t: t.clone().to(dev), params0))
+        s = b.init(p)
+        for i in steps:
+            p, s, _ = b.step(p, s, batch(i, dev))
+            if i in flush_at:
+                p, s = b.flush(p, s)
+        p, s = b.flush(p, s)
+        return b, p, s
+
+    devices = {"card": "cuda", "cpu": "cpu"}
+    sparse = {k: run(dev, range(3), path="sparse")[1]
+              for k, dev in devices.items()}
+    sparse_gap = max_abs(sparse["card"], sparse["cpu"])
+    for adm in ("cumulative", "decayed"):
+        out = {k: run(dev, range(3), admission=adm, half_life=2)
+               for k, dev in devices.items()}
+        vs_sparse = {k: max_abs(out[k][1], sparse[k]) for k in out}
+        worst = max_abs(out["card"][1], out["cpu"][1])
+        agree = all(torch.allclose(a.cpu(), c, rtol=1e-5, atol=1e-5)
+                    for a, c in zip(tree_leaves(out["card"][1]),
+                                    tree_leaves(out["cpu"][1])))
+        res_c = resident_ids(out["card"][2])
+        res_h = resident_ids(out["cpu"][2])
+        same_res = all(np.array_equal(np.sort(res_c[f]), np.sort(res_h[f]))
+                       and torch.equal(out["card"][2]["hot"]["freq"][f].cpu(),
+                                       out["cpu"][2]["hot"]["freq"][f])
+                       for f in res_c)
+        print(f"[hotcold-agree] 3 sync hot/cold steps + flush, {adm} "
+              f"admission, capacity 64: against the sparse placement on "
+              f"the card max_abs {vs_sparse['card']:.3e}, on the CPU "
+              f"{vs_sparse['cpu']:.3e} (bar {HOT_AGREE:g}); card vs CPU "
+              f"max_abs {worst:.3e} (rtol 1e-5, atol 1e-5; the sparse "
+              f"placement's own card vs CPU on these batches "
+              f"{sparse_gap:.3e}); resident ids and frequencies "
+              f"{'equal' if same_res else 'DIFFER'}", flush=True)
+        check(max(vs_sparse.values()) <= HOT_AGREE and agree and same_res,
+              f"hotcold {adm}: card and CPU disagree")
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        b1, p1, _ = run("cuda", range(6), flush_at=(2,), cold_store="mmap",
+                        cold_dir=d1)
+        whole = [t.cpu() for t in tree_leaves(b1.export(p1))]
+        b2, _, _ = run("cuda", range(3), cold_store="mmap", cold_dir=d2)
+        b2.stream_driver.__self__.store.close()
+        b3, p3, _ = run("cuda", range(3, 6), cold_store="mmap", cold_dir=d2)
+        steps = b3.stream_driver.__self__.planner.t
+        parts = [t.cpu() for t in tree_leaves(b3.export(p3))]
+    same = all(torch.equal(a, b) for a, b in zip(whole, parts))
+    print(f"[hotcold-agree] async mmap on the card: 3 steps, flush, close, "
+          f"reopen, 3 more (the planner at step {steps}) against 6 "
+          f"uninterrupted, flushed after step 3: "
+          f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+    check(same and steps == 6, "async mmap: the reopened run differs")
+
+
 def graph_phases(smi, kind):
     """Phases 19-22, 25 and 26: the scan engine at deepfm-criteo width on
     the fused and sparse placements, the guard under a graph, CTR serving,
@@ -1916,6 +2386,9 @@ def graph_phases(smi, kind):
     torch.cuda.empty_cache()
     substrate_phase(tr, te, hp, power, kind)
     clip_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hotcold_phases(tr, hp, power, kind)
 
 
 def wkv_inputs(gen, bh, seq, n, zero_frac=0.0):
@@ -2326,7 +2799,11 @@ def main() -> int:
     lines.append(embed_phase(smi, kind))
     gc.collect()
     torch.cuda.empty_cache()
-    graph_phases(smi, kind)
+    hot_calls = graph_phases(smi, kind)
+    for line in lines:
+        if line["name"] in hot_calls:
+            # calls on phase 27's eager run of the hot/cold placement
+            line["launches_hotcold"] = hot_calls[line["name"]]
     lines.append(lm_phases(smi, kind))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -200,8 +200,20 @@ class TrainStepBundle(NamedTuple):
     init:    params -> state
     flush:   (params, state) -> (params, state); settles deferred work,
              idempotent (identity for the fused placement)
-    prepare: params -> params; placement-specific layout (identity here)
+    prepare: params -> params; placement-specific layout (the async
+             hotcold placement moves the tables into its cold store;
+             identity elsewhere)
     export:  params -> params; inverse of ``prepare``
+    stream_transform: optional factory ``(max_steps=None) -> transform``
+             for ``data.stream.ChunkStream``: runs on the stream's worker
+             thread so host-side planning (the async hotcold migration
+             planner) overlaps the device step; returning None from the
+             transform ends the stream at the step budget.
+    stream_driver: optional ``(params, state, stream, *, max_steps) ->
+             (params, state, steps, stats)`` replacing the generic stream
+             loop in ``train_ctr(mode="stream")`` -- bundles that must
+             interleave host work with each dispatch (filling eviction
+             handles) own their consume loop.
     """
 
     step: Callable
@@ -209,6 +221,8 @@ class TrainStepBundle(NamedTuple):
     flush: Callable
     prepare: Callable = identity_prepare
     export: Callable = identity_prepare
+    stream_transform: Optional[Callable] = None
+    stream_driver: Optional[Callable] = None
 
 
 TRAIN_PATHS = ("substrate", "fused", "sparse", "sharded", "sharded_sparse",
@@ -229,16 +243,18 @@ def build_train_step(
     b2: float = 0.999,
     eps: float = 1e-8,
     nonfinite_guard: bool = False,
+    **store_kw,
 ) -> TrainStepBundle:
     """Route a CTR train step to one of the placements of
     ``repro_torch.embed.EmbeddingStore``: ``substrate`` (this module's
-    composable chain, the oracle), ``fused``, ``sparse``; the others raise
-    naming their ROADMAP item. ``path=None`` honors the config:
-    ``cfg.placement`` if set, else ``cfg.sparse`` selects "sparse",
-    otherwise "substrate"."""
+    composable chain, the oracle), ``fused``, ``sparse``, ``hotcold``
+    (``store_kw``: ``hot_capacity``, ``cold_store``, ``cold_dir``,
+    ``admission``, ``half_life``); the sharded ones raise naming their
+    ROADMAP item. ``path=None`` honors the config: ``cfg.placement`` if
+    set, else ``cfg.sparse`` selects "sparse", otherwise "substrate"."""
     from ..embed.store import store_for  # deferred: embed imports core
 
-    return store_for(cfg, path=path).make_bundle(
+    return store_for(cfg, path=path, **store_kw).make_bundle(
         cfg, hp, clip_kind=clip_kind, r=r, zeta=zeta, clip_t=clip_t,
         warmup_steps=warmup_steps, b1=b1, b2=b2, eps=eps,
         nonfinite_guard=nonfinite_guard)

@@ -20,6 +20,8 @@ field, and one CUDA graph replay covers K optimizer steps:
   by PyTorch's pinned allocator until its copy is done). Without a device
   it yields the host items as they come, the CPU path.
 * ``prefetch_chunks``: the composition the scan engine uses.
+* ``stage``: the card's half of ``prefetch`` alone, for a source that has
+  its worker thread already (``data.stream.ChunkStream``).
 
 Closing the generator early (``max_steps``, errors) stops the worker;
 worker exceptions re-raise in the consumer.
@@ -157,27 +159,33 @@ class _Staged:
         return self.tensors
 
 
+def stage(items, device: torch.device):
+    """Yield ``items`` (dicts of NumPy arrays) as dicts of tensors on the
+    CUDA ``device``, each pinned and copied on a side stream one item
+    ahead of the consumer, on the consumer's thread."""
+    stream = torch.cuda.Stream(device)
+    pending = None
+    for item in items:
+        staged = _Staged(item, device, stream)
+        if pending is not None:
+            yield pending.ready()
+        pending = staged
+    if pending is not None:
+        yield pending.ready()
+
+
 def prefetch(host_iter, *, buffer_size: int = 2,
              device: Optional[torch.device] = None):
     """Drive ``host_iter`` (items: dicts of NumPy arrays when ``device`` is
     a CUDA device) on a worker thread, yielding its items in order; on a
     CUDA ``device``, as dicts of tensors on it, each pinned and copied on a
-    side stream one item ahead of the consumer."""
+    side stream one item ahead of the consumer (``stage``)."""
     if device is None or torch.device(device).type != "cuda":
         yield from _Worker(host_iter, buffer_size).items()
         return
-    device = torch.device(device)
-    stream = torch.cuda.Stream(device)
     items = _Worker(host_iter, buffer_size).items()
-    pending = None
     try:
-        for item in items:
-            staged = _Staged(item, device, stream)
-            if pending is not None:
-                yield pending.ready()
-            pending = staged
-        if pending is not None:
-            yield pending.ready()
+        yield from stage(items, torch.device(device))
     finally:
         items.close()
 

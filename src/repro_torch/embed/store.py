@@ -1,15 +1,19 @@
 """EmbeddingStore: one facade over the embedding placements.
 
-A port of ``repro.embed.store``. Three placements are built: ``dense``
+A port of ``repro.embed.store``. Four placements are built: ``dense``
 tables updated through the composable optimizer chain
 (``kernel="substrate"``, the exactness oracle: ``core.builders
 .build_optimizer`` with any Table-7 clip) or by the fused CowClip +
-coupled-L2 + Adam kernel (``kernel="fused"``), and ``sparse``, the
-unique-id placement whose update runs on a batch's unique rows through the
-two sparse kernels, with lazy decay settled by ``flush``. Every other
-placement is named here so the CLI and the routing stay those of the
-reference, and raises ``NotImplementedError`` naming its ROADMAP item when
-a bundle is asked for::
+coupled-L2 + Adam kernel (``kernel="fused"``); ``sparse``, the unique-id
+placement whose update runs on a batch's unique rows through the two
+sparse kernels, with lazy decay settled by ``flush``; and ``hotcold``, a
+fixed-capacity hot tier a field beside the full tables, for streaming
+training (``embed.hotcold``), with the cold tier on the card
+(``cold_store="none"``) or in an out-of-core host store planned one step
+ahead (``"mem"``/``"mmap"``, ``embed.migrate``). The sharded placements
+are named here so the CLI and the routing stay those of the reference,
+and raise ``NotImplementedError`` naming their ROADMAP item when a bundle
+is asked for::
 
     bundle = store_for(cfg, path="sparse").make_bundle(cfg, hp, ...)
     params = bundle.prepare(params)
@@ -43,7 +47,6 @@ _PATH_TO_STORE = {
 
 # where each placement that is not ported yet stands in ROADMAP.md
 NOT_PORTED = {
-    "hotcold": "ROADMAP queue 1 item 5 (streaming and hot/cold tiers)",
     "sharded": "ROADMAP queue 1 item 7 (multi-GPU placements)",
     "sharded_sparse": "ROADMAP queue 1 item 7 (multi-GPU placements)",
 }
@@ -52,8 +55,8 @@ NOT_PORTED = {
 def not_ported(path: str) -> NotImplementedError:
     return NotImplementedError(
         f"placement {path!r} is not ported to repro_torch yet: "
-        f"{NOT_PORTED[path]}; use the 'substrate', 'fused' or 'sparse' "
-        "placement")
+        f"{NOT_PORTED[path]}; use the 'substrate', 'fused', 'sparse' or "
+        "'hotcold' placement")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +65,28 @@ class EmbeddingStore:
 
     placement: str = "dense"
     kernel: str = "substrate"     # dense only: "substrate" | "fused"
+    hot_capacity: int = 4096      # hotcold only: hot rows per field
+    cold_store: str = "none"      # hotcold only: "none" (cold tier on the
+                                  # device, in the step) | "mem" | "mmap"
+                                  # (out-of-core ColdStore + async
+                                  # migration planner)
+    cold_dir: Optional[str] = None  # hotcold/mmap only: table directory
+    admission: str = "cumulative"   # hotcold only: "cumulative" | "decayed"
+    half_life: int = 0              # hotcold/decayed only: steps per halving
 
     def __post_init__(self):
         if self.placement not in PLACEMENTS:
             raise ValueError(f"unknown placement {self.placement!r}; "
                              f"expected one of {PLACEMENTS}")
+        if self.cold_store not in ("none", "mem", "mmap"):
+            raise ValueError(f"unknown cold_store {self.cold_store!r}; "
+                             "expected 'none', 'mem', or 'mmap'")
+        if self.cold_store != "none" and self.placement != "hotcold":
+            raise ValueError("cold_store applies to the hotcold placement "
+                             f"only (placement={self.placement!r})")
+        if self.cold_store == "mmap" and not self.cold_dir:
+            raise ValueError("cold_store='mmap' needs cold_dir "
+                             "(the on-disk table directory)")
 
     @property
     def path(self) -> str:
@@ -76,6 +96,15 @@ class EmbeddingStore:
     def describe(self) -> str:
         if self.placement == "dense":
             return f"dense({self.kernel})"
+        if self.placement == "hotcold":
+            adm = (f"{self.admission}(half_life={self.half_life})"
+                   if self.admission == "decayed" else self.admission)
+            if self.cold_store != "none":
+                return (f"hotcold({self.hot_capacity} hot rows/field, "
+                        f"{adm} admission, async {self.cold_store} cold "
+                        f"store)")
+            return (f"hotcold({self.hot_capacity} hot rows/field, "
+                    f"{adm} freq-ranked admission, cold host tier)")
         return self.placement
 
     def make_bundle(
@@ -93,18 +122,20 @@ class EmbeddingStore:
         eps: float = 1e-8,
         nonfinite_guard: bool = False,
     ) -> TrainStepBundle:
-        """Build this placement's bundle (``substrate``, ``fused`` and
-        ``sparse``; the others raise naming their ROADMAP item).
+        """Build this placement's bundle (``substrate``, ``fused``,
+        ``sparse`` and ``hotcold``; the sharded ones raise naming their
+        ROADMAP item).
 
         The substrate takes any ``clip_kind`` of
         ``core.cowclip.CLIP_KINDS`` (``clip_t`` the constant clips'
         threshold); the fused kernel always applies CowClip, as the
-        reference's fused path does; ``sparse`` takes "adaptive_column"
-        (CowClip) or "none" (the ablation clips are substrate-only).
-        ``nonfinite_guard`` skips any update whose batch loss is NaN/Inf,
-        counted in ``aux["skipped_steps"]``.
+        reference's fused path does; ``sparse`` and ``hotcold`` take
+        "adaptive_column" (CowClip) or "none" (the ablation clips are
+        substrate-only). ``nonfinite_guard`` skips any update whose batch
+        loss is NaN/Inf, counted in ``aux["skipped_steps"]``; the hotcold
+        placement does not take it.
         """
-        if self.path not in ("substrate", "fused", "sparse"):
+        if self.path in NOT_PORTED:
             raise not_ported(self.path)
         from ..train import loop as loop_lib  # deferred: train imports core
 
@@ -129,10 +160,31 @@ class EmbeddingStore:
                 f"{self.placement} placement supports clip_kind "
                 f"'adaptive_column' or 'none', got {clip_kind!r} "
                 f"(ablation clips are substrate-only)")
-        step, init, flush = loop_lib.make_sparse_train_step(
-            cfg, hp, r=r, zeta=zeta, dense_tx=dense_tx,
-            clip=clip_kind == "adaptive_column", b1=b1, b2=b2, eps=eps,
-            nonfinite_guard=nonfinite_guard)
+        clip = clip_kind == "adaptive_column"
+        if self.placement == "sparse":
+            step, init, flush = loop_lib.make_sparse_train_step(
+                cfg, hp, r=r, zeta=zeta, dense_tx=dense_tx, clip=clip,
+                b1=b1, b2=b2, eps=eps, nonfinite_guard=nonfinite_guard)
+            return TrainStepBundle(step, init, flush)
+
+        if nonfinite_guard:
+            raise ValueError(
+                "nonfinite_guard is not ported for the hotcold placement "
+                "(its step rewrites residency, frequencies and the cold "
+                "tier, which the guard would have to hold back too)")
+        kw = dict(r=r, zeta=zeta, dense_tx=dense_tx, clip=clip, b1=b1,
+                  b2=b2, eps=eps, admission=self.admission,
+                  half_life=self.half_life)
+        if self.cold_store != "none":
+            from .migrate import make_async_hotcold_bundle
+
+            return make_async_hotcold_bundle(
+                cfg, hp, backend=self.cold_store, directory=self.cold_dir,
+                capacity=self.hot_capacity, **kw)
+        from .hotcold import make_hotcold_train_step
+
+        step, init, flush = make_hotcold_train_step(
+            cfg, hp, capacity=self.hot_capacity, **kw)
         return TrainStepBundle(step, init, flush)
 
 
@@ -168,8 +220,15 @@ def resolve_path(cfg, path: Optional[str] = None) -> str:
     return path
 
 
-def store_for(cfg, *, path: Optional[str] = None) -> EmbeddingStore:
+def store_for(cfg, *, path: Optional[str] = None,
+              hot_capacity: int = 4096, cold_store: str = "none",
+              cold_dir: Optional[str] = None, admission: str = "cumulative",
+              half_life: int = 0) -> EmbeddingStore:
     """The store for a config: routes the train-path names and the
-    config's ``placement`` onto one of the placements."""
+    config's ``placement`` onto one of the placements; the hotcold knobs
+    are carried along (and validated) whatever the placement."""
     placement, kernel = _PATH_TO_STORE[resolve_path(cfg, path)]
-    return EmbeddingStore(placement=placement, kernel=kernel)
+    return EmbeddingStore(placement=placement, kernel=kernel,
+                          hot_capacity=hot_capacity, cold_store=cold_store,
+                          cold_dir=cold_dir, admission=admission,
+                          half_life=half_life)

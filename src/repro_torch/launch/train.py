@@ -3,12 +3,17 @@
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``; without a CUDA device the run stops rather than train on the
 CPU). The port trains ``--placement fused`` (the default here),
-``--placement sparse`` and ``--placement substrate`` (the composable
+``--placement sparse``, ``--placement substrate`` (the composable
 optimizer chain, the reference's exactness oracle; with ``--rule`` other
-than cowclip, no clip), with ``--engine scan`` (the default, as in the
-reference: ``--scan-steps`` steps captured as one CUDA graph on the card,
-run in turn on the CPU) or ``--engine eager``; the flags of paths not
-ported yet exit with a message that names their ROADMAP item.
+than cowclip, no clip) and ``--placement hotcold`` (a hot tier of
+``--hot-capacity`` rows a field beside the full tables, with the cold
+tier on the card, or with ``--cold-store mem|mmap`` in host memory or
+files, planned one step ahead on the stream's worker thread), with
+``--engine scan`` (the default, as in the reference: ``--scan-steps``
+steps captured as one CUDA graph on the card, run in turn on the CPU) or
+``--engine eager``, over epochs or online (``--mode stream --steps N``,
+the train split replayed as an endless event stream); the flags of paths
+not ported yet exit with a message that names their ROADMAP item.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
@@ -21,6 +26,9 @@ Usage:
       --placement substrate --device cpu --samples 4096 --batch 512 --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
       --engine scan --scan-steps 4 --batch 8192 --epochs 1
+  PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
+      --device cpu --mode stream --placement hotcold --hot-capacity 512 \
+      --samples 4096 --batch 256 --steps 16 [--cold-store mem]
 """
 
 from __future__ import annotations
@@ -67,9 +75,6 @@ def _unported_flags(args, placement) -> list:
     out = []
     if placement in NOT_PORTED:
         out.append((f"--placement {placement}", NOT_PORTED[placement]))
-    if args.mode == "stream" or args.cold_store != "none":
-        out.append(("--mode stream / --cold-store",
-                    "ROADMAP queue 1 item 5 (streaming and hot/cold tiers)"))
     if args.snapshot_dir or args.resume:
         out.append(("--snapshot-dir / --resume",
                     "ROADMAP queue 1 item 6 (durability)"))
@@ -79,12 +84,52 @@ def _unported_flags(args, placement) -> list:
     return out
 
 
+def _check_stream_flags(args, placement) -> None:
+    """The reference CLI's refusals of streaming and cold-store flag
+    combinations, with its messages."""
+    if args.mode == "stream" and args.steps is None:
+        raise SystemExit("[train] --mode stream has no epoch boundary; pass "
+                         "--steps to bound the run")
+    if args.cold_store != "none":
+        if placement != "hotcold":
+            raise SystemExit("[train] --cold-store needs --placement hotcold "
+                             "(the out-of-core tier backs the hot/cold "
+                             "placement)")
+        if args.mode != "stream":
+            raise SystemExit("[train] --cold-store trains online only; add "
+                             "--mode stream (the migration planner runs on "
+                             "the stream's worker thread)")
+        if args.cold_store == "mmap" and not args.cold_dir:
+            raise SystemExit("[train] --cold-store mmap needs --cold-dir "
+                             "(the on-disk table directory)")
+
+
+def _make_stream(args, bundle, tr):
+    """Online training's source: the train split replayed as an endless
+    event stream (a stand-in for a production log tail), re-batched and
+    chunk-stacked on a worker thread. With the async cold store, chunks of
+    one step planned on that thread (4 deep), the step budget enforced at
+    the source."""
+    from ..data import stream as stream_lib
+
+    events = stream_lib.synthetic_event_stream(
+        tr, rows_per_event=max(1, args.batch // 2), seed=args.seed)
+    if bundle.stream_transform is not None:
+        return stream_lib.stream_chunks(
+            events, args.batch, 1, buffer_size=4,
+            transform=bundle.stream_transform(max_steps=args.steps))
+    return stream_lib.stream_chunks(
+        events, args.batch,
+        args.scan_steps if args.engine == "scan" else 1)
+
+
 def run_ctr(args) -> None:
     placement = resolve_placement(args.placement, args.sparse)
     missing = _unported_flags(args, placement)
     if missing:
         raise SystemExit("[train] not ported to repro_torch yet: " + "; ".join(
             f"{flag} -> {item}" for flag, item in missing))
+    _check_stream_flags(args, placement)
     device = resolve_device(args.device)
 
     if args.criteo:
@@ -102,16 +147,19 @@ def run_ctr(args) -> None:
         sparse=placement == "sparse", unique_capacity=args.unique_capacity,
         placement=placement, compute_dtype=args.compute_dtype,
     )
-    store = store_for(cfg)
+    store = store_for(cfg, hot_capacity=args.hot_capacity,
+                      cold_store=args.cold_store, cold_dir=args.cold_dir,
+                      admission=args.admission, half_life=args.half_life)
     params0 = ctr_lib.init(cfg, seed=args.seed, device=device)
     n_params = sum(int(x.numel()) for x in tree_leaves(params0))
     engine = (f"scan ({args.scan_steps} steps a graph)"
               if args.engine == "scan" else "eager")
+    mode = ("stream (online, no epochs)" if args.mode == "stream"
+            else "epochs")
     print(f"[train] {args.model}: {n_params/1e6:.1f}M params "
           f"({len(tr)} train rows, batch {args.batch}, rule {args.rule}, "
           f"embedding store {store.describe()}, engine {engine}, mode "
-          f"epochs, "
-          f"compute {args.compute_dtype}, device {device})")
+          f"{mode}, compute {args.compute_dtype}, device {device})")
 
     hp = scale_hyperparams(
         args.rule, base_lr=args.base_lr, base_l2=args.base_l2,
@@ -124,6 +172,7 @@ def run_ctr(args) -> None:
                                warmup_steps=warmup,
                                nonfinite_guard=args.nonfinite_guard)
     params0 = bundle.prepare(params0)
+    stream = _make_stream(args, bundle, tr) if args.mode == "stream" else None
 
     trace_ctx = contextlib.nullcontext()
     if args.profile_trace:
@@ -137,6 +186,7 @@ def run_ctr(args) -> None:
                         epochs=args.epochs, seed=args.seed, log_fn=print,
                         step_bundle=bundle, max_steps=args.steps,
                         engine=args.engine, scan_steps=args.scan_steps,
+                        mode=args.mode, stream=stream,
                         init_state=(params0, bundle.init(params0)))
     if args.profile_trace:
         os.makedirs(args.profile_trace, exist_ok=True)
@@ -184,21 +234,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--zeta", type=float, default=1e-5)
     ap.add_argument("--placement", default=None, choices=PLACEMENT_CHOICES,
                     help="embedding store placement; 'fused' (the default "
-                         "here), 'sparse' and 'substrate' are ported so far")
+                         "here), 'sparse', 'substrate' and 'hotcold' are "
+                         "ported so far")
     ap.add_argument("--mode", default="epochs", choices=("epochs", "stream"),
-                    help="'stream' is not ported yet")
+                    help="'stream' trains online from an endless event stream "
+                         "(no epochs; needs --steps)")
     ap.add_argument("--hot-capacity", type=int, default=4096,
-                    help="hotcold placement only (not ported yet)")
+                    help="hotcold placement: hot rows per field")
     ap.add_argument("--cold-store", default="none",
                     choices=("none", "mem", "mmap"),
-                    help="hotcold placement only (not ported yet)")
+                    help="hotcold placement: 'none' keeps the cold tier on "
+                         "the device, in the step; 'mem'/'mmap' move it to "
+                         "host memory / files under --cold-dir, planned one "
+                         "step ahead (needs --mode stream)")
     ap.add_argument("--cold-dir", default=None, metavar="DIR",
-                    help="hotcold placement only (not ported yet)")
+                    help="--cold-store mmap: the table directory (reopening "
+                         "it resumes)")
     ap.add_argument("--admission", default="cumulative",
                     choices=("cumulative", "decayed"),
-                    help="hotcold placement only (not ported yet)")
+                    help="hotcold placement: admission by cumulative or "
+                         "decayed batch frequencies")
     ap.add_argument("--half-life", type=int, default=0,
-                    help="hotcold placement only (not ported yet)")
+                    help="--admission decayed: steps per halving")
     ap.add_argument("--sparse", action="store_true",
                     help="DEPRECATED alias for --placement sparse; errors "
                          "combined with another --placement")

@@ -14,12 +14,12 @@ decode cache; ``params_to_numpy`` is the reverse.
 from __future__ import annotations
 
 import os
-import tempfile
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..core import durable
 from ..core.tree import flatten_with_paths, tree_map, unflatten_dict
 
 PyTree = Any
@@ -31,34 +31,11 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _atomic_write(path: str, write) -> None:
-    path = os.path.abspath(path)
-    d = os.path.dirname(path)
-    os.makedirs(d, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            write(f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
-    dfd = os.open(d, os.O_RDONLY)
-    try:
-        os.fsync(dfd)
-    except OSError:   # some filesystems refuse a directory fsync
-        pass
-    finally:
-        os.close(dfd)
-
-
 def save(path: str, tree: PyTree) -> None:
     """Atomic, durable save of a tree of tensors / arrays / numbers."""
     flat = {k: _to_numpy(v) for k, v in flatten_with_paths(tree).items()}
-    _atomic_write(path, lambda f: np.savez(f, **flat))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    durable.atomic_write_via(path, lambda f: np.savez(f, **flat))
 
 
 def _fill_like(template: PyTree, flat: dict, origin: str,

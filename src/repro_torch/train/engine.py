@@ -25,12 +25,15 @@ counterpart of one compiled dispatch is one captured CUDA graph:
 Equivalence: ``chunk_epoch`` replays ``iterate_batches``'s shuffle order
 and a replay runs the kernels the eager step launches, in the same order,
 on the same tensors, so the scan engine equals the eager one bit for bit
-(params, state and per-step aux). Not ported yet: ``drive_planned_stream``
-(streaming with the hot/cold tiers, ROADMAP queue 1 item 5).
+(params, state and per-step aux).
+
+``drive_planned_stream`` is the consume loop of a stream whose items may
+carry migration plans (the async hot/cold placement, ``embed.migrate``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -39,6 +42,68 @@ from ..core.tree import tree_leaves, tree_map
 from ..data import prefetch as prefetch_lib
 
 ENGINES = ("eager", "scan")
+
+_STREAM_END = object()
+
+
+class StreamDriveStats(NamedTuple):
+    """What ``drive_planned_stream`` measured: steps dispatched, consumer
+    time spent blocked waiting on the stream (the un-hidden migration and
+    data-staging cost), and whether every chunk arrived pre-planned (the
+    overlap-on path) or had to be planned inline."""
+
+    steps: int
+    stall_seconds: float
+    planned_ahead: bool
+
+
+def drive_planned_stream(stream, *, plan: Callable, dispatch: Callable,
+                         max_steps: Optional[int] = None) -> StreamDriveStats:
+    """Consume a chunk stream whose items may carry migration plans.
+
+    The async hot/cold placement's transform wraps each chunk as a
+    ``PlannedChunk`` (``.chunk`` + ``.plans``) on the stream's worker
+    thread -- planning overlaps the device step of the previous chunk, and
+    the consumer's only host work is ``dispatch(plan, batch)`` per step.
+    Raw chunks (no transform attached) are planned inline via
+    ``plan(batch)`` -- the overlap-off reference path, bitwise identical
+    because planning order is unchanged.
+
+    ``max_steps`` may cut only *unplanned* chunks: a pre-planned step has
+    already advanced the planner and registered write-backs, so dropping
+    it would leave eviction handles unfillable -- the transform must carry
+    the same budget (it ends the stream at the boundary instead).
+    """
+    n = 0
+    stall = 0.0
+    inline = False
+    saw = False
+    it = iter(stream)
+    while max_steps is None or n < max_steps:
+        t0 = time.perf_counter()
+        item = next(it, _STREAM_END)
+        stall += time.perf_counter() - t0
+        if item is _STREAM_END:
+            break
+        plans = getattr(item, "plans", None)
+        chunk = item.chunk if plans is not None else item
+        k = chunk["labels"].shape[0]
+        if max_steps is not None and n + k > max_steps:
+            if plans is not None:
+                raise ValueError(
+                    f"stream planned {k} step(s) past max_steps={max_steps};"
+                    " build the stream transform with the same step budget")
+            k = max_steps - n
+            chunk = {kk: v[:k] for kk, v in chunk.items()}
+        if plans is None:
+            inline = True
+            plans = [plan({kk: v[i] for kk, v in chunk.items()})
+                     for i in range(k)]
+        saw = True
+        for i in range(k):
+            dispatch(plans[i], {kk: v[i] for kk, v in chunk.items()})
+            n += 1
+    return StreamDriveStats(n, stall, saw and not inline)
 
 
 def _stack_aux(auxes: list) -> dict:

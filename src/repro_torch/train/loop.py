@@ -4,8 +4,9 @@ eval.
 A port of ``repro.train.loop`` for its single-device placements. Each
 step reads nothing on the host and writes its params and state in place,
 so it runs eagerly (``engine="eager"``) or as K steps captured into one
-CUDA graph (``engine="scan"``, ``train.engine``). Not ported yet:
-``mode="stream"`` (ROADMAP queue 1 item 5).
+CUDA graph (``engine="scan"``, ``train.engine``). ``train_ctr`` trains
+over epochs of a dataset or online from a stream of chunks
+(``mode="stream"``, ``data.stream``).
 """
 
 from __future__ import annotations
@@ -367,6 +368,50 @@ class _StepClock:
         return out
 
 
+def _stream_device_chunks(stream, device):
+    """A stream's chunks on the device: on the card pinned and copied one
+    chunk ahead on a side stream (``data.prefetch.stage``; the stream has
+    its own worker thread), on the CPU wrapped as they come."""
+    if device.type == "cuda":
+        return prefetch_lib.stage(stream, device)
+    return ({k: torch.as_tensor(v) for k, v in c.items()} for c in stream)
+
+
+def _run_stream(stream, params, opt_state, *, step_fn, runner, max_steps,
+                device):
+    """Train on ``stream``'s chunks until it ends or ``max_steps``: the
+    scan engine replays each whole chunk, the eager one unstacks it.
+    Returns ``(params, opt_state, steps, losses, step_seconds)``, the
+    losses read once at the end."""
+    clock = _StepClock(device)
+    losses, n_steps = [], 0
+    for chunk in _stream_device_chunks(stream, device):
+        k = chunk["labels"].shape[0]
+        if max_steps is not None and n_steps + k > max_steps:
+            k = max_steps - n_steps
+            if k <= 0:
+                break
+            chunk = {name: v[:k] for name, v in chunk.items()}
+        if runner is not None:
+            clock.start()
+            params, opt_state, aux = runner(params, opt_state, chunk)
+            clock.stop(k)
+            losses.append(aux["loss"])
+        else:
+            for i in range(k):
+                clock.start()
+                params, opt_state, aux = step_fn(
+                    params, opt_state, {name: v[i]
+                                        for name, v in chunk.items()})
+                clock.stop()
+                losses.append(aux["loss"].reshape(1))
+        n_steps += k
+        if max_steps is not None and n_steps >= max_steps:
+            break
+    losses = torch.cat(losses).tolist() if losses else []
+    return params, opt_state, n_steps, losses, clock.seconds()
+
+
 def _epoch_batches(ds, batch_size: int, seed: int, device):
     """One epoch of device batches in ``iterate_batches``'s order: on the
     card staged through pinned memory and copied one batch ahead on a side
@@ -393,6 +438,7 @@ def train_ctr(
     engine: str = "eager",
     scan_steps: int = 8,
     mode: str = "epochs",
+    stream=None,
     init_state=None,
     device="cuda",
 ) -> TrainResult:
@@ -413,20 +459,29 @@ def train_ctr(
     and run the same kernels, so they give the same params bit for bit.
 
     Without a bundle the step is ``make_train_step(cfg, tx)``, the
-    substrate placement, with ``tx.init`` its state and no flush. Not
-    ported yet: ``mode="stream"`` (ROADMAP queue 1 item 5).
+    substrate placement, with ``tx.init`` its state and no flush.
+
+    ``mode="stream"`` trains online from ``stream``, an iterable of
+    ``[k, batch, ...]`` host chunks (``data.stream.stream_chunks``): no
+    epochs, steps until the stream ends or ``max_steps``, then one flush
+    and a final eval. Both engines work: the eager one unstacks each
+    chunk, the scan engine replays the chunk's graph. The chunk geometry
+    is the stream's (``batch_size``, ``scan_steps`` and ``epochs`` are
+    ignored), and the stream is closed on exit. A bundle with a
+    ``stream_driver`` (the async hotcold placement) consumes the stream
+    itself (stream mode only); its final eval reads ``bundle.export``.
     """
     from . import engine as engine_lib
 
     if engine not in engine_lib.ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{engine_lib.ENGINES}")
-    if mode == "stream":
-        raise NotImplementedError(
-            "mode='stream' is not ported yet: streaming training is ROADMAP "
-            "queue 1 item 5")
-    if mode != "epochs":
-        raise ValueError(f"unknown mode {mode!r}")
+    if mode not in ("epochs", "stream"):
+        raise ValueError(f"unknown mode {mode!r}; expected 'epochs' or "
+                         "'stream'")
+    if (mode == "stream") != (stream is not None):
+        raise ValueError("mode='stream' requires a chunk stream (and a "
+                         "stream requires mode='stream')")
     if step_bundle is None:
         step_bundle = builders.TrainStepBundle(
             make_train_step(cfg, tx), tx.init, builders.identity_flush)
@@ -437,16 +492,53 @@ def train_ctr(
         params = step_bundle.prepare(
             ctr.init(cfg, seed=seed, device=resolve_device(device)))
         opt_state = step_bundle.init(params)
-    dev = tree_leaves(params)[0].device
+    dev = tree_leaves(params["dense"])[0].device
     step_fn, flush = step_bundle.step, step_bundle.flush
+    driver = step_bundle.stream_driver
+    if driver is not None and engine == "scan" and mode != "stream":
+        raise ValueError(
+            "this bundle drives its own host-side consume loop "
+            "(stream_driver); it supports mode='stream' only")
     runner = (engine_lib.make_chunk_runner(
-        engine_lib.resolve_scan_step(step_bundle)) if engine == "scan"
-        else None)
+        engine_lib.resolve_scan_step(step_bundle))
+        if engine == "scan" and driver is None else None)
     eval_fn = make_eval_fn(cfg)
 
     history, losses, step_seconds = [], [], []
     n_steps = 0
     t0 = time.perf_counter()
+    if mode == "stream":
+        try:
+            if driver is not None:
+                params, opt_state, n_steps, stats = driver(
+                    params, opt_state, stream, max_steps=max_steps)
+                losses = stats["losses"]
+            else:
+                params, opt_state, n_steps, losses, step_seconds = (
+                    _run_stream(stream, params, opt_state, step_fn=step_fn,
+                                runner=runner, max_steps=max_steps,
+                                device=dev))
+        finally:
+            close = getattr(stream, "close", None)
+            if close is not None:
+                close()
+        seconds = time.perf_counter() - t0
+        params, opt_state = flush(params, opt_state)
+        final = {}
+        if test_ds is not None:
+            final = eval_fn(step_bundle.export(params) if driver is not None
+                            else params, test_ds)
+        if log_fn:
+            log_fn(f"stream: {n_steps} steps"
+                   + (f", migration overlap "
+                      f"{stats['migration_overlap_fraction']:.2f}"
+                      if driver is not None else "")
+                   + (f", auc={final['auc']:.4f} "
+                      f"logloss={final['logloss']:.4f}" if final else ""))
+        return TrainResult(history=history, final_eval=dict(final),
+                           seconds=seconds, steps=n_steps, params=params,
+                           opt_state=opt_state, losses=losses,
+                           step_seconds=step_seconds)
     for epoch in range(epochs):
         if max_steps is not None and n_steps >= max_steps:
             break

@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version, the substrate, fused and sparse train steps on the card against
-the CPU path, the RWKV-6 LM's forward, prefill and decode on the card against
+the CPU path, the hot/cold step's graphs against its eager steps and its
+async cold store against it, the RWKV-6 LM's forward, prefill and decode on the card against
 the CPU path, and the CUDA graphs (the scan engine's chunks, the guard's
 skip under them, serving and the decode step) against the eager runs.
 
@@ -1004,3 +1005,103 @@ def test_torch_substrate_step_cuda_matches_cpu(clip):
         out[dev] = [t.cpu() for t in tree_leaves(params)]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _hotcold_stream(cfg, hp, tr, bundle, engine, steps, params0):
+    """``steps`` online steps of ``bundle`` through train_ctr on the card,
+    from ``params0`` (on the CPU), over a fixed event stream: chunks of 4
+    (of 1, planned on the stream's worker, for an async bundle)."""
+    from repro_torch.data import stream as stream_lib
+
+    params = bundle.prepare(tree_map(lambda t: t.clone().cuda(), params0))
+    events = stream_lib.synthetic_event_stream(tr, rows_per_event=300,
+                                               seed=2)
+    if bundle.stream_transform is not None:
+        source = stream_lib.stream_chunks(
+            events, 512, 1, buffer_size=4,
+            transform=bundle.stream_transform(max_steps=steps))
+    else:
+        source = stream_lib.stream_chunks(events, 512, 4)
+    return train_ctr(cfg, None, tr, None, batch_size=512,
+                     step_bundle=bundle, max_steps=steps, engine=engine,
+                     mode="stream", stream=source,
+                     init_state=(params, bundle.init(params)))
+
+
+def _tensors(tree):
+    from repro_torch.core.tree import flatten_with_paths
+
+    return {k: v.cpu() for k, v in flatten_with_paths(tree).items()
+            if isinstance(v, torch.Tensor)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admission", ["cumulative", "decayed"])
+def test_torch_hotcold_cuda_graph_equals_eager(admission):
+    """The synchronous hot/cold step on the card, online over 10 steps at
+    capacity 64 (evicting): eager, eager again and the scan engine's
+    graphs (chunks of 4, a budget cut to 2) give the same params, state
+    (hot tier, slot maps, frequencies) and losses bit for bit, and the
+    CPU path's params within 1e-5; one launch of each grouped sparse
+    kernel a step, none of the fused kernel."""
+    _need_cuda()
+    cfg, hp, ds = _small_ctr("hotcold")
+    tr, _ = ds.split(0.95)
+    params0 = ctr.init(cfg, seed=4, device="cpu")
+    store = store_for(cfg, hot_capacity=64, admission=admission,
+                      half_life=3)
+    runs = {}
+    for name, eng in (("eager", "eager"), ("again", "eager"),
+                      ("scan", "scan")):
+        for w in (sparse_gather_catchup_tables, sparse_update_scatter_tables,
+                  fused_cowclip_adam):
+            w.launches = 0
+        runs[name] = _hotcold_stream(cfg, hp, tr, store.make_bundle(cfg, hp),
+                                     eng, 10, params0)
+        if name == "eager":
+            assert sparse_gather_catchup_tables.launches == 10
+            assert sparse_update_scatter_tables.launches == 10
+            assert fused_cowclip_adam.launches == 0
+    a = runs["eager"]
+    for b in (runs["again"], runs["scan"]):
+        assert a.steps == b.steps == 10 and a.losses == b.losses
+        fa = _tensors({"p": a.params, "s": a.opt_state})
+        fb = _tensors({"p": b.params, "s": b.opt_state})
+        for k in fa:
+            assert torch.equal(fa[k], fb[k]), k
+    bundle = store.make_bundle(cfg, hp)
+    params = bundle.prepare(tree_map(torch.clone, params0))
+    state = bundle.init(params)
+    from repro_torch.data import stream as stream_lib
+
+    events = stream_lib.synthetic_event_stream(tr, rows_per_event=300,
+                                               seed=2)
+    cpu = train_ctr(cfg, None, tr, None, batch_size=512, step_bundle=bundle,
+                    max_steps=10, engine="eager", mode="stream",
+                    stream=stream_lib.stream_chunks(events, 512, 4),
+                    init_state=(params, state), device="cpu")
+    fa, fc = _tensors(a.params), _tensors(cpu.params)
+    for k in fa:
+        np.testing.assert_allclose(fa[k].numpy(), fc[k].numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_torch_hotcold_cuda_async_matches_sync():
+    """The async cold store on the card (the planner on the stream's
+    worker, plans copied from pinned memory, evictions copied back with an
+    event) exports the synchronous step's params bit for bit, losses
+    included, at capacity 64 over 10 steps."""
+    _need_cuda()
+    cfg, hp, ds = _small_ctr("hotcold")
+    tr, _ = ds.split(0.95)
+    params0 = ctr.init(cfg, seed=4, device="cpu")
+    out = {}
+    for cold in ("none", "mem"):
+        bundle = store_for(cfg, hot_capacity=64, cold_store=cold
+                           ).make_bundle(cfg, hp)
+        res = _hotcold_stream(cfg, hp, tr, bundle, "scan", 10, params0)
+        out[cold] = (res, _tensors(bundle.export(res.params)))
+    assert out["none"][0].losses == out["mem"][0].losses
+    for k, v in out["none"][1].items():
+        assert torch.equal(v, out["mem"][1][k]), k

@@ -5,8 +5,9 @@
 * The port's CLI imports with JAX made unimportable.
 * Without CUDA the default device raises instead of training on the CPU,
   and no public function of the port defaults ``device`` to ``"cpu"``.
-* The CLI trains on the CPU when asked to (fused and sparse), and names the
-  ROADMAP item of a path that is not ported yet.
+* The CLI trains on the CPU when asked to (fused, sparse, and hotcold
+  online from a stream), refuses the reference's bad streaming flag
+  combinations, and names the ROADMAP item of a path not ported yet.
 * The LM serving CLI decodes on the CPU with JAX unimportable, and refuses
   to start without a card when no device is named.
 """
@@ -161,18 +162,56 @@ def test_torch_cli_sparse_alias_conflicts_with_other_placement():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--placement", "sharded_sparse"], "queue 1 item 7"),
-    (["--placement", "hotcold"], "queue 1 item 5"),
-    (["--placement", "sharded"], "queue 1 item 7"),
-    (["--host-devices", "8"], "queue 1 item 7"),
-    (["--mode", "stream"], "queue 1 item 5"),
-    (["--snapshot-dir", "snaps"], "queue 1 item 6"),
-    (["--task", "lm"], "queue 1 item 8"),
+    pytest.param(["--placement", "sharded_sparse"], "queue 1 item 7",
+                 id="flags0-queue 1 item 7"),
+    pytest.param(["--placement", "sharded"], "queue 1 item 7",
+                 id="flags2-queue 1 item 7"),
+    pytest.param(["--host-devices", "8"], "queue 1 item 7",
+                 id="flags3-queue 1 item 7"),
+    pytest.param(["--snapshot-dir", "snaps"], "queue 1 item 6",
+                 id="flags5-queue 1 item 6"),
+    pytest.param(["--task", "lm"], "queue 1 item 8",
+                 id="flags6-queue 1 item 8"),
 ])
 def test_torch_cli_names_roadmap_for_unported(flags, item):
     from repro_torch.launch import train as launch
 
     with pytest.raises(SystemExit, match=item):
+        launch.main(["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("cold_store", ["none", "mem"])
+def test_torch_cli_trains_stream_hotcold_on_cpu(cold_store):
+    """``--mode stream --placement hotcold`` trains online on the CPU, with
+    the cold tier in the step and with the async host cold store (these
+    flags once exited naming ROADMAP queue 1 item 5)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--task", "ctr",
+         "--device", "cpu", "--samples", "4096", "--batch", "256",
+         "--mode", "stream", "--placement", "hotcold", "--hot-capacity",
+         "64", "--steps", "2", "--cold-store", cold_store],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert "mode stream (online, no epochs)" in out.stdout
+    assert ("async mem cold store" in out.stdout) == (cold_store == "mem")
+    assert "[train] done: 2 steps" in out.stdout
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--mode", "stream", "--placement", "hotcold"],
+     "--mode stream has no epoch boundary; pass --steps to bound the run"),
+    (["--cold-store", "mem", "--mode", "stream", "--steps", "2"],
+     "--cold-store needs --placement hotcold"),
+    (["--cold-store", "mem", "--placement", "hotcold", "--steps", "2"],
+     "--cold-store trains online only; add --mode stream"),
+    (["--cold-store", "mmap", "--placement", "hotcold", "--mode", "stream",
+      "--steps", "2"], "--cold-store mmap needs --cold-dir"),
+])
+def test_torch_cli_refuses_bad_stream_flags(flags, message):
+    """The reference CLI's refusals, with its messages."""
+    from repro_torch.launch import train as launch
+
+    with pytest.raises(SystemExit, match=message):
         launch.main(["--device", "cpu"] + flags)
 
 
