@@ -152,7 +152,28 @@ Phases, each fatal on failure:
      card-vs-CPU gap; resident ids and frequencies equal); the async mmap
      store flushed, closed, reopened and run on, bitwise equal to an
      uninterrupted run
-Phase 24 runs after 12; phases 19-22 and 25-30 between 24 and 13.
+ 31. durability at deepfm-criteo width: the sync hot/cold step at
+     capacity 4096, the scan engine with 4 steps a graph, under the
+     non-finite guard: guarded against unguarded over 8 clean steps,
+     bitwise; a NaN batch inside a replayed chunk against the eager
+     guarded steps (the poisoned step leaves every leaf bitwise
+     unchanged; skipped_steps 1; one launch of each sparse kernel and one
+     embedding backward a step, as unguarded); a traced guarded replay (0
+     host reads); the guard's ms a graph step beside the unguarded one,
+     in turns; snapshots every 4 steps (each one's seconds: flush, export
+     to the host, write with fsync, sha256, manifest with rename and
+     rotation; its bytes), the stream's ms a step with and without them,
+     the resume's seconds, and the run resumed from step 4 against the
+     uninterrupted one with the same cadence, bitwise
+ 32. durability at phase 6's small size: the sparse placement stopped
+     at pending decay depth 2 and resumed; the async mem and mmap stores
+     snapshotted and resumed in a fresh bundle; a fused snapshot resumed
+     under sparse (params only, warned); the CLI killed by a FaultPlan in
+     a child process inside its step-8 snapshot write, then --resume:
+     each bitwise equal to its uninterrupted run
+Phase 24 runs after 12; phases 19-22 and 25-32 between 24 and 13. Each
+phase starts with a flushed "[phase N] start" line, and faulthandler
+prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, without a CUDA device or without the
 repository's src/ beside this file.
@@ -161,11 +182,13 @@ repository's src/ beside this file.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -226,11 +249,29 @@ HOT_CAP = 4096                 # hot rows a field, phases 27 and 29
 HOT_CAP_BIG = 65536            # the second capacity, phase 28
 HOT_TIMED = 10                 # chunks timed each way, phase 27
 HOT_AGREE = 1e-7               # max abs, hotcold vs sparse, phase 30
+DUR_STEPS = 8                  # steps of each run, phase 31
+SNAP_EVERY = 4                 # steps between snapshots, phase 31
+DUR_TIMED = 10                 # replays timed each way (the guard), 31
 
 
 # each port kernel's wrapper calls on its main path's run (phase 4 for
 # the embedding backward), for the kernels' JSON line
 MAIN_PATH_LAUNCHES: dict = {}
+
+
+def phase_start(n):
+    """The flushed line each phase starts with, so a crash names the
+    phase it happened in (with faulthandler's stacks on stderr)."""
+    print(f"[phase {n}] start", flush=True)
+    sys.stderr.flush()
+
+
+def phase_end():
+    """After a phase: every tensor it made that is unreferenced freed
+    (captured graphs and their pools with them) and the card idle."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def check(cond, msg):
@@ -669,6 +710,7 @@ def ctr_phases(smi, kind):
     from repro_torch.train import train_ctr
 
     # -- 3. kernel vs plain version -------------------------------------
+    phase_start(3)
     gen = torch.Generator(device="cuda").manual_seed(0)
     kw = dict(r=1.0, zeta=1e-5, lr=1e-4, l2=1e-5)
     max_abs_err = [0.0]
@@ -703,6 +745,7 @@ def ctr_phases(smi, kind):
     torch.cuda.empty_cache()
 
     # -- 4. train through the fused placement ---------------------------
+    phase_start(4)
     cfg = dataclasses.replace(CONFIG, placement="fused", emb_sigma=1e-2)
     check(cfg.vocab_sizes == CRITEO_VOCABS and cfg.n_dense == 13
           and cfg.emb_dim == 10 and cfg.mlp_dims == (400, 400, 400),
@@ -759,6 +802,7 @@ def ctr_phases(smi, kind):
         minlength=CRITEO_VOCABS[big_field]).to(torch.float32)
 
     # -- 5. where a step's device time goes (2 more steps, profiled) -----
+    phase_start(5)
     # after the launch count was read, so these launches are not counted
     trace_steps(cfg, bundle, res.params, res.opt_state, tr, "fused",
                 ("the fused update's kernels", FUSED_KERNELS))
@@ -766,6 +810,7 @@ def ctr_phases(smi, kind):
     torch.cuda.empty_cache()
 
     # -- 6. agreement with the CPU path on a small input -----------------
+    phase_start(6)
     small = ctr.CTRConfig(name="deepfm", vocab_sizes=(2000, 700, 120, 30, 5),
                           n_dense=4, emb_dim=8, mlp_dims=(32, 32, 32),
                           emb_sigma=1e-2, placement="fused")
@@ -785,6 +830,7 @@ def ctr_phases(smi, kind):
     check(agree, "card and CPU paths disagree on a small input")
 
     # -- 7. kernel time on the largest table ----------------------------
+    phase_start(7)
     rows, dim = CRITEO_VOCABS[big_field], CONFIG.emb_dim
     step_kw = dict(r=1.0, zeta=1e-5, lr=hp.emb_lr, l2=hp.emb_l2)
     # L2 flushed before each launch, the host's work covered: at D = 1 a
@@ -836,6 +882,7 @@ def ctr_phases(smi, kind):
     torch.cuda.empty_cache()
 
     # -- 8. sparse kernels vs their plain versions ----------------------
+    phase_start(8)
     vocab = CRITEO_VOCABS[big_field]
     cap = min(BATCH, vocab)
     col = torch.as_tensor(tr.ids[:BATCH, big_field], device="cuda")
@@ -967,6 +1014,7 @@ def ctr_phases(smi, kind):
         torch.cuda.empty_cache()
 
     # -- 9. train through the sparse placement ---------------------------
+    phase_start(9)
     cfg_s = dataclasses.replace(CONFIG, placement="sparse", emb_sigma=1e-2)
     sbundle = store_for(cfg_s).make_bundle(
         cfg_s, hp, warmup_steps=max(1, len(tr) // BATCH))
@@ -1031,12 +1079,14 @@ def ctr_phases(smi, kind):
         check(bool(torch.isfinite(leaf).all()), "non-finite sparse params")
 
     # -- 10. where a sparse step's device time goes ----------------------
+    phase_start(10)
     trace_steps(cfg_s, sbundle, sres.params, sres.opt_state, tr, "sparse",
                 ("the sparse pair's kernels", SPARSE_KERNELS))
     del sres, sbundle, tr, te
     torch.cuda.empty_cache()
 
     # -- 11. sparse agreement on a small input ---------------------------
+    phase_start(11)
     # l2 large enough that the per-step decay factor is not 1.0 in f32,
     # so the catch-up has work
     shp_s = scale_hyperparams("cowclip", base_lr=1e-3, base_l2=1e-3,
@@ -1063,6 +1113,7 @@ def ctr_phases(smi, kind):
     check(same, "two identical sparse runs on the card differ")
 
     # -- 12. sparse kernel times on the largest table --------------------
+    phase_start(12)
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     sparse_times = {}
     block1000 = step_scalars(1000, device="cuda")
@@ -1955,21 +2006,26 @@ def print_kinds(prefix, kernels, steps):
         for label, (ms_k, n) in sums.items()), flush=True)
 
 
-def hot_stream(tr, bundle, engine, steps=HOT_STEPS):
-    """Phases 27-29's batches: the train split replayed as an event stream
-    (half a batch an event, seed 5), re-batched on a worker thread into
-    chunks of SCAN_STEPS (scan engine), of 1 (eager), or of 1 planned on
-    the worker (the async cold store's transform, ``steps`` its budget)."""
+def hot_stream(tr, bundle, engine, steps=HOT_STEPS, start=0):
+    """Phases 27-29's and 31's batches: the train split replayed as an
+    event stream (half a batch an event, seed 5), from step ``start``'s
+    first row, re-batched on a worker thread into chunks of SCAN_STEPS
+    (scan engine), of 1 (eager), or of 1 planned on the worker (the async
+    cold store's transform, ``steps`` its budget)."""
     from repro_torch.data import stream as stream_lib
 
     events = stream_lib.synthetic_event_stream(
         tr, rows_per_event=BATCH // 2, seed=5)
+    if start:
+        events = stream_lib.skip_rows(events, start * BATCH)
     if bundle.stream_transform is not None:
         return stream_lib.stream_chunks(
             events, BATCH, 1, buffer_size=4,
-            transform=bundle.stream_transform(max_steps=steps))
+            transform=bundle.stream_transform(max_steps=steps),
+            start_rows=start * BATCH)
     return stream_lib.stream_chunks(
-        events, BATCH, SCAN_STEPS if engine == "scan" else 1)
+        events, BATCH, SCAN_STEPS if engine == "scan" else 1,
+        start_rows=start * BATCH)
 
 
 def hot_run(cfg, hp, tr, params0, engine, *, steps=HOT_STEPS,
@@ -2044,6 +2100,7 @@ def hotcold_phases(tr, hp, power, kind):
     from repro_torch.train import engine as engine_lib
 
     # -- 27. sync hot/cold stream, full width ---------------------------
+    phase_start(27)
     t0 = time.perf_counter()
     cfg = dataclasses.replace(CONFIG, emb_sigma=1e-2)
     params0 = ctr.init(cfg, seed=7, device="cuda")
@@ -2172,6 +2229,7 @@ def hotcold_phases(tr, hp, power, kind):
           flush=True)
 
     # -- 28. capacity independence, full width ---------------------------
+    phase_start(28)
     t0 = time.perf_counter()
     ref_run = {}
     for cap in (HOT_CAP, HOT_CAP_BIG):
@@ -2200,6 +2258,7 @@ def hotcold_phases(tr, hp, power, kind):
     torch.cuda.empty_cache()
 
     # -- 29. async cold store, full width ---------------------------------
+    phase_start(29)
     t0 = time.perf_counter()
     bundle, res = hot_run(cfg, hp, tr, params0, "scan",
                           hot_capacity=HOT_CAP, cold_store="mem")
@@ -2264,6 +2323,7 @@ def hotcold_phases(tr, hp, power, kind):
           flush=True)
 
     # -- 30. small-size agreement, card against CPU ----------------------
+    phase_start(30)
     del params0
     t0 = time.perf_counter()
     hotcold_small_phase()
@@ -2362,6 +2422,571 @@ def hotcold_small_phase():
     check(same and steps == 6, "async mmap: the reopened run differs")
 
 
+def host_memory():
+    """(MemAvailable bytes of the host, this process's peak RSS bytes)."""
+    import resource
+
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    return avail, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def snap_dir():
+    """A fresh directory for phase 31-32's snapshots under the checkout's
+    build/ (gitignored); the caller removes it."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix="chip_smoke_snapshots_", dir=root)
+
+
+def dur_run(cfg, hp, tr, params0, *, steps, guard=False, cb=None,
+            init_state=None, start=0, bundle=None, eager=False):
+    """``steps`` (total) online steps of the sync hot/cold placement at
+    capacity HOT_CAP through ``train_ctr(mode="stream")``, from
+    ``params0`` or ``init_state`` at step ``start``, over hot_stream's
+    batches, with ``snapshot_cb=cb``; the scan engine unless ``eager``.
+    Returns (bundle, result)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.embed import store_for
+    from repro_torch.train import train_ctr
+
+    cfg = dataclasses.replace(cfg, placement="hotcold")
+    if bundle is None:
+        bundle = store_for(cfg, hot_capacity=HOT_CAP).make_bundle(
+            cfg, hp, warmup_steps=max(1, len(tr) // BATCH),
+            nonfinite_guard=guard)
+    if init_state is None:
+        params = bundle.prepare(tree_map(torch.clone, params0))
+        init_state = (params, bundle.init(params))
+    engine = "eager" if eager else "scan"
+    res = train_ctr(cfg, None, tr, None, batch_size=BATCH,
+                    step_bundle=bundle, max_steps=steps, engine=engine,
+                    mode="stream",
+                    stream=hot_stream(tr, bundle, engine, steps, start),
+                    init_state=init_state, start_step=start,
+                    snapshot_cb=cb, device="cuda")
+    return bundle, res
+
+
+def state_of(res):
+    return (res.params, res.opt_state)
+
+
+def durability_phase(tr, hp, power, kind):
+    """Phase 31 at deepfm-criteo width, batch BATCH, the sync hot/cold
+    placement at capacity HOT_CAP, the scan engine with SCAN_STEPS steps
+    a graph: the guard (guarded against unguarded over DUR_STEPS clean
+    steps, bitwise; a poisoned batch inside a replayed chunk against the
+    eager guarded steps, which leave every leaf bitwise unchanged; a
+    traced guarded replay; the guard's ms a graph step beside the
+    unguarded one, in turns), snapshots every SNAP_EVERY steps (each
+    one's wall seconds by part, its bytes; the stream's ms a step with
+    and without), the resume's seconds, and the resumed run against the
+    uninterrupted one with the same cadence, bitwise. Returns the
+    wrappers' calls on the eager guarded steps."""
+    import shutil
+
+    root = snap_dir()
+    avail, rss = host_memory()
+    print(f"[durability] at the start: host memory available {avail} B, "
+          f"free space under {root} {shutil.disk_usage(root).free} B, "
+          f"peak RSS so far {rss} B", flush=True)
+    try:
+        return _durability_phase(tr, hp, power, kind, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _durability_phase(tr, hp, power, kind, root):
+    """Phase 31's body; its snapshots go under ``root``."""
+    import shutil
+
+    from repro_torch.configs.deepfm_criteo import CONFIG
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.prefetch import chunk_epoch
+    from repro_torch.embed import store_for
+    from repro_torch.kernels import cowclip as cc
+    from repro_torch.kernels.embedding import embedding_backward_groups, ref
+    from repro_torch.models import ctr
+    from repro_torch.train import engine as engine_lib
+    from repro_torch.train import snapshot as snap_lib
+
+    cfg = dataclasses.replace(CONFIG, emb_sigma=1e-2)
+    params0 = ctr.init(cfg, seed=7, device="cuda")
+    leaves = state_of
+
+    # -- the guard under the graph ----------------------------------------
+    b_u, unguarded = dur_run(cfg, hp, tr, params0, steps=DUR_STEPS)
+    b_g, guarded = dur_run(cfg, hp, tr, params0, steps=DUR_STEPS,
+                           guard=True)
+    differ = tree_diff(leaves(unguarded), leaves(guarded))
+    skips = sum(1 for x in guarded.losses if not math.isfinite(x))
+    print(f"[durability] guarded against unguarded sync hot/cold, "
+          f"{DUR_STEPS} clean steps, {SCAN_STEPS} a graph: params, moments, "
+          f"last_step, hot tier, slot maps, frequencies and the step "
+          f"{'bitwise equal' if not differ else f'DIFFER at {differ[:6]}'}"
+          f", losses "
+          f"{'bitwise equal' if guarded.losses == unguarded.losses else 'DIFFER'}",
+          flush=True)
+    check(not differ and guarded.losses == unguarded.losses and skips == 0,
+          "the guarded hot/cold step differs from the unguarded one on "
+          "clean batches")
+    chunk = next(chunk_epoch(tr, BATCH, SCAN_STEPS, seed=4))
+    chunk["dense"][1, 0, 0] = np.nan
+    chunk = {k: torch.as_tensor(v, device="cuda") for k, v in chunk.items()}
+    wrappers = {"sparse_gather_catchup": cc.sparse_gather_catchup_tables,
+                "sparse_update_scatter": cc.sparse_update_scatter_tables,
+                "embedding_backward": embedding_backward_groups,
+                "fused_cowclip_adam": cc.fused_cowclip_adam}
+    for w in wrappers.values():
+        w.launches = 0
+    p, s = tree_map(torch.clone, leaves(guarded))
+    skipped, unchanged = [], None
+    for i in range(SCAN_STEPS):
+        before = tree_map(torch.clone, (p, s)) if i == 1 else None
+        p, s, aux = b_g.step(p, s, {k: v[i] for k, v in chunk.items()})
+        skipped.append(aux["skipped_steps"])
+        if before is not None:
+            unchanged = tree_diff(before, (p, s))
+            del before
+    calls = {name: w.launches for name, w in wrappers.items()}
+    skipped = [int(x) for x in skipped]
+    eager = (p, s)
+    p, s = tree_map(torch.clone, leaves(guarded))
+    runner_g = engine_lib.make_chunk_runner(b_g.step.scan_step)
+    p, s, aux = runner_g(p, s, chunk)
+    replay_differ = tree_diff(eager, (p, s))
+    n_skipped = int(aux["skipped_steps"].sum())
+    print(f"[durability] a NaN batch 2nd of a chunk of {SCAN_STEPS}: eager "
+          f"guarded steps skipped {skipped}, the poisoned step left every "
+          f"leaf (params, moments, last_step, hot tier, slot maps, "
+          f"frequencies, the step) "
+          f"{'bitwise unchanged' if not unchanged else f'CHANGED at {unchanged[:6]}'}"
+          f"; the graph's replay skipped {n_skipped}, the step "
+          f"{int(s['step'])}, "
+          f"{'bitwise equal to' if not replay_differ else 'DIFFERS from'} "
+          f"the eager steps; wrapper calls of the {SCAN_STEPS} eager steps "
+          f"{calls}", flush=True)
+    check(skipped == [0, 1, 0, 0][:SCAN_STEPS] and not unchanged
+          and n_skipped == 1 and not replay_differ
+          and int(s["step"]) == DUR_STEPS + SCAN_STEPS - 1,
+          f"the guard under a graph at full width ({replay_differ[:4]})")
+    check(calls["sparse_gather_catchup"] == SCAN_STEPS
+          and calls["sparse_update_scatter"] == SCAN_STEPS
+          and calls["embedding_backward"] == SCAN_STEPS
+          and calls["fused_cowclip_adam"] == 0,
+          f"guarded hot/cold launches {calls}")
+    del eager, aux
+    # one more replay (the same chunk, poisoned), traced
+    wall_ms, prof = profiled(lambda: runner_g(p, s, chunk))
+    kernels = by_kernel(prof)
+    counts = {n: sum(c for _, c, k in kernels if n in k)
+              for n in FUSED_KERNELS + SPARSE_KERNELS + EMBED_KERNELS}
+    reads = sum(e.name == HOST_READ for e in prof.events())
+    theirs = torch_embedding_backward(kernels)
+    levels = ref.levels(BATCH * cfg.n_fields)
+    print(f"[durability] one guarded replay traced ({wall_ms:.1f} ms wall "
+          f"for {SCAN_STEPS} steps): kernels {counts} (a step: one of each "
+          f"sparse kernel and the embedding backward's {levels} level "
+          f"launches, as unguarded); PyTorch's embedding backward kernels "
+          f"{theirs}; host reads of a scalar {reads}", flush=True)
+    check(reads == 0 and not theirs
+          and counts["sparse_catchup_kernel"] == SCAN_STEPS
+          and counts["sparse_update_kernel"] == SCAN_STEPS
+          and sum(counts[n] for n in FUSED_KERNELS) == 0
+          and counts[EMBED_KERNELS[0]] == levels * SCAN_STEPS,
+          f"guarded replay: kernels {counts}, host reads {reads}")
+    del prof
+    clean = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(chunk_epoch(tr, BATCH, SCAN_STEPS, seed=6)).items()}
+    pu, su = leaves(unguarded)
+    runner_u = engine_lib.make_chunk_runner(b_u.step.scan_step)
+    runner_u(pu, su, clean)
+    runner_g(p, s, clean)
+    torch.cuda.synchronize()
+    spans = {"unguarded": [], "guarded": []}
+    for _ in range(DUR_TIMED):
+        for name, fn in (("unguarded", lambda: runner_u(pu, su, clean)),
+                         ("guarded", lambda: runner_g(p, s, clean))):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            spans[name].append((a, b))
+    torch.cuda.synchronize()
+    ms = {n: [a.elapsed_time(b) / SCAN_STEPS for a, b in v]
+          for n, v in spans.items()}
+    print(f"[durability] ms a graph step (CUDA events around each replay "
+          f"of {SCAN_STEPS} steps, in turns): unguarded "
+          f"{spread(ms['unguarded'])}, guarded {spread(ms['guarded'])}; "
+          f"{kind} at {power}", flush=True)
+    check(all(math.isfinite(x) and x > 0 for v in ms.values() for x in v),
+          "guard timing")
+    del runner_g, runner_u, p, s, pu, su, chunk, clean, b_g, guarded
+    phase_end()
+
+    # -- snapshots every SNAP_EVERY steps, and the resume -----------------
+    avail, rss = host_memory()
+    print(f"[durability] before the snapshots: host memory available "
+          f"{avail} B, free space under {root} "
+          f"{shutil.disk_usage(root).free} B, peak RSS so far {rss} B",
+          flush=True)
+    store = store_for(dataclasses.replace(cfg, placement="hotcold"),
+                      hot_capacity=HOT_CAP)
+    token = snap_lib.placement_token(store)
+    mgr = snap_lib.SnapshotManager(root, retain=2)
+    taken = []
+
+    def cb(params, state, n):
+        if n % SNAP_EVERY == 0:
+            t0 = time.perf_counter()
+            params, state = snap_lib.capture(
+                mgr, b_s, params, state, step=n,
+                cursor={"rows_consumed": n * BATCH},
+                meta={"placement": token,
+                      "snapshot_every": SNAP_EVERY})
+            taken.append((n, time.perf_counter() - t0,
+                          dict(mgr.last_timings)))
+        return params, state
+
+    b_s = store.make_bundle(dataclasses.replace(cfg, placement="hotcold"),
+                            hp, warmup_steps=max(1, len(tr) // BATCH))
+    _, snapped = dur_run(cfg, hp, tr, params0, steps=DUR_STEPS, cb=cb,
+                         bundle=b_s)
+    for n, wall, t in taken:
+        print(f"[durability] snapshot at step {n}: {wall:.2f} s of "
+              f"stall (flush {t['flush']:.2f}, export to host "
+              f"{t['export']:.2f}, write with fsync {t['write']:.2f}, "
+              f"sha256 {t['sha256']:.2f}, manifest with rename and "
+              f"rotation {t['manifest']:.2f}), payload {t['bytes']} B",
+              flush=True)
+    check([n for n, _, _ in taken] == list(range(
+        SNAP_EVERY, DUR_STEPS + 1, SNAP_EVERY)), f"snapshots {taken}")
+    print(f"[durability] the stream's ms a step (host clock over "
+          f"train_ctr's {DUR_STEPS} steps, the graphs' captures "
+          f"included): with snapshots every {SNAP_EVERY} "
+          f"{1e3 * snapped.seconds / DUR_STEPS:.1f}, without "
+          f"{1e3 * unguarded.seconds / DUR_STEPS:.1f}; the steps alone "
+          f"(CUDA events, second chunk) "
+          f"{1e3 * np.mean(snapped.step_seconds[SCAN_STEPS:]):.2f} and "
+          f"{1e3 * np.mean(unguarded.step_seconds[SCAN_STEPS:]):.2f}",
+          flush=True)
+    del unguarded, b_u
+    phase_end()
+
+    # the run killed after its step-SNAP_EVERY snapshot: resume from it
+    shutil.rmtree(Path(root) / f"snap-{DUR_STEPS:08d}")
+    b_r = store.make_bundle(dataclasses.replace(cfg, placement="hotcold"),
+                            hp, warmup_steps=max(1, len(tr) // BATCH))
+    t0 = time.perf_counter()
+    restored = snap_lib.resume(mgr, b_r, ctr.init(cfg, seed=8,
+                                                  device="cuda"),
+                               token=token)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    check(restored is not None, "no valid snapshot to resume from")
+    rp, rs, start, cursor = restored
+    print(f"[durability] resumed from step {start} (cursor {cursor}) in "
+          f"{resume_s:.2f} s (validate the checksums, load, overlay on "
+          f"the card)", flush=True)
+    check(start == SNAP_EVERY and int(rs["step"]) == SNAP_EVERY,
+          f"resumed at {start}")
+    # the uninterrupted run flushes at step DUR_STEPS (its snapshot)
+    # and at the stream's end: the resumed run's end-of-stream flush
+    # at DUR_STEPS is the same flush, so the cadence is the same
+    _, resumed = dur_run(cfg, hp, tr, None, steps=DUR_STEPS,
+                         init_state=(rp, rs), start=start, bundle=b_r)
+    del rp, rs, restored
+    differ = tree_diff(leaves(snapped), leaves(resumed))
+    same_losses = snapped.losses[SNAP_EVERY:] == resumed.losses
+    print(f"[durability] resumed at step {start}, run to {DUR_STEPS}, "
+          f"against the uninterrupted run with the same cadence: params, "
+          f"moments, last_step, hot tier, slot maps, frequencies and the "
+          f"step "
+          f"{'bitwise equal' if not differ else f'DIFFER at {differ[:6]}'}"
+          f", losses of steps {start + 1}-{DUR_STEPS} "
+          f"{'bitwise equal' if same_losses else 'DIFFER'}", flush=True)
+    check(not differ and same_losses, "the resumed run differs")
+    del snapped, resumed, b_s, b_r
+    return calls
+
+
+def small_setup(placement):
+    """Phase 6's small size (the guard's and phase 30's): config,
+    hyperparameters and a dataset."""
+    from repro_torch.core.scaling import scale_hyperparams
+    from repro_torch.data import make_ctr_dataset
+    from repro_torch.models import ctr
+
+    cfg = ctr.CTRConfig(name="deepfm", vocab_sizes=(2000, 700, 120, 30, 5),
+                        n_dense=4, emb_dim=8, mlp_dims=(32, 32, 32),
+                        emb_sigma=1e-2, sparse=placement == "sparse",
+                        placement=placement)
+    hp = scale_hyperparams("cowclip", base_lr=1e-3, base_l2=1e-3,
+                           base_batch=256, batch_size=512,
+                           base_dense_lr=2e-3)
+    ds = make_ctr_dataset(16 * 512, cfg.vocab_sizes, n_dense=4, seed=1)
+    return cfg, hp, ds
+
+
+def durability_small_phase():
+    """Phase 32 at phase 6's small size, on the card: the sparse
+    placement killed with pending decay depth 2 and resumed; the async
+    mem and mmap stores snapshotted and resumed in a fresh bundle; a
+    fused snapshot resumed under sparse (params only, warned); the CLI
+    killed inside its step-8 snapshot write by a FaultPlan in a child
+    process, then --resume: each bitwise against its uninterrupted run;
+    then the CLI's --nonfinite-guard on the sync hot/cold placement."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import iterate_batches
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.embed import EmbeddingStore, store_for
+    from repro_torch.embed.store import max_pending_depth
+    from repro_torch.launch import train as launch
+    from repro_torch.models import ctr
+    from repro_torch.testing import FaultPlan
+    from repro_torch.train import snapshot as snap_lib
+    from repro_torch.train import train_ctr
+
+    root = snap_dir()
+    try:
+        # sparse, killed at pending depth 2, resumed
+        cfg, hp, ds = small_setup("sparse")
+        store = store_for(cfg)
+        token = snap_lib.placement_token(store)
+        params0 = ctr.init(cfg, seed=1, device="cuda")
+
+        def run(d, *, max_steps, start=0, init_state=None, bundle=None,
+                depth=None):
+            bundle = bundle or store.make_bundle(cfg, hp, warmup_steps=2)
+            mgr = snap_lib.SnapshotManager(d)
+            last = [start]
+
+            def cb(p, s, n):
+                if depth is not None:
+                    depth.append(max_pending_depth(s))
+                if n - last[0] >= 4:
+                    p, s = snap_lib.capture(mgr, bundle, p, s, step=n,
+                                            cursor={"rows_consumed":
+                                                    n * 512},
+                                            meta={"placement": token})
+                    last[0] = n
+                return p, s
+
+            if init_state is None:
+                p = bundle.prepare(tree_map(torch.clone, params0))
+                init_state = (p, bundle.init(p))
+            events = stream_lib.synthetic_event_stream(ds, rows_per_event=256,
+                                                       seed=1)
+            if start:
+                events = stream_lib.skip_rows(events, start * 512)
+            res = train_ctr(cfg, None, ds, None, batch_size=512,
+                            step_bundle=bundle, max_steps=max_steps,
+                            engine="scan", mode="stream",
+                            stream=stream_lib.stream_chunks(
+                                events, 512, 2, start_rows=start * 512),
+                            init_state=init_state, start_step=start,
+                            snapshot_cb=cb, device="cuda")
+            return bundle, res
+
+        b_a, whole = run(os.path.join(root, "a"), max_steps=12)
+        depth = []
+        run(os.path.join(root, "b"), max_steps=6, depth=depth)
+        b_b = store.make_bundle(cfg, hp, warmup_steps=2)
+        p, s, start, _ = snap_lib.resume(
+            snap_lib.SnapshotManager(os.path.join(root, "b")), b_b,
+            ctr.init(cfg, seed=2, device="cuda"), token=token)
+        _, resumed = run(os.path.join(root, "b"), max_steps=12, start=start,
+                         init_state=(p, s), bundle=b_b)
+        differ = tree_diff(state_of(whole), state_of(resumed))
+        print(f"[durability-small] sparse: the run stopped at step 6 with "
+              f"pending decay depth {depth[-1]}, resumed from step {start} "
+              f"in a fresh bundle and run to 12, against 12 uninterrupted "
+              f"steps with the same cadence (snapshots every 4, chunks of "
+              f"2, graphs): "
+              f"{'bitwise equal' if not differ else f'DIFFER at {differ[:6]}'}",
+              flush=True)
+        check(depth[-1] == 2 and start == 4 and not differ,
+              "sparse resume differs")
+        del b_a, whole, b_b, p, s, resumed
+
+        # the async stores: a snapshot resumed in a fresh bundle
+        hcfg, hp, ds = small_setup("hotcold")
+        batches = [{k: torch.as_tensor(v, device="cuda")
+                    for k, v in b.items()}
+                   for _, b in zip(range(8), iterate_batches(ds, 512,
+                                                             seed=2))]
+        hparams0 = ctr.init(hcfg, seed=1, device="cuda")
+        for backend in ("mem", "mmap"):
+            def make(d):
+                st = EmbeddingStore(placement="hotcold", hot_capacity=64,
+                                    cold_store=backend, cold_dir=d)
+                return st, st.make_bundle(hcfg, hp, warmup_steps=2)
+
+            def steps(bundle, p, s, bs):
+                for b in bs:
+                    p, s, _ = bundle.step(p, s, b)
+                return bundle.flush(p, s)
+
+            st, bundle = make(os.path.join(root, f"{backend}_live"))
+            p = bundle.prepare(tree_map(torch.clone, hparams0))
+            s = bundle.init(p)
+            p, s = steps(bundle, p, s, batches[:4])
+            mgr = snap_lib.SnapshotManager(os.path.join(root,
+                                                        f"{backend}_snaps"))
+            p, s = snap_lib.capture(mgr, bundle, p, s, step=4,
+                                    cursor={"rows_consumed": 4 * 512},
+                                    meta={"placement":
+                                          snap_lib.placement_token(st)})
+            p, s = steps(bundle, p, s, batches[4:])
+            want = [t.cpu() for t in tree_leaves(bundle.export(p))]
+            st2, bundle2 = make(os.path.join(root, f"{backend}_resumed"))
+            p2, s2, start, _ = snap_lib.resume(
+                mgr, bundle2, tree_map(torch.clone, hparams0),
+                token=snap_lib.placement_token(st2),
+                cold_dir=os.path.join(root, f"{backend}_resumed"))
+            p2, s2 = steps(bundle2, p2, s2, batches[4:])
+            got = [t.cpu() for t in tree_leaves(bundle2.export(p2))]
+            same = all(torch.equal(a, b) for a, b in zip(want, got))
+            print(f"[durability-small] async {backend}: snapshot at step 4, "
+                  f"resumed at step {start} in a fresh bundle, 4 more steps: "
+                  f"{'bitwise equal' if same else 'DIFFER'} to the bundle "
+                  f"that wrote it", flush=True)
+            check(same and start == 4 and s2["step"] == 8,
+                  f"async {backend} resume differs")
+            # no view of a store outlives its close
+            del p, s, p2, s2, want, got
+            for b in (bundle, bundle2):
+                snap_lib.controller_of(b).store.close()
+            del st, bundle, st2, bundle2
+
+        # a fused snapshot resumed under sparse: params only, warned
+        fcfg, hp, ds = small_setup("fused")
+        fstore = store_for(fcfg)
+        fb = fstore.make_bundle(fcfg, hp, warmup_steps=2)
+        p = fb.prepare(ctr.init(fcfg, seed=1, device="cuda"))
+        s = fb.init(p)
+        for b in batches[:2]:
+            p, s, _ = fb.step(p, s, b)
+        mgr = snap_lib.SnapshotManager(os.path.join(root, "fused"))
+        p, s = snap_lib.capture(mgr, fb, p, s, step=2,
+                                cursor={"rows_consumed": 1024},
+                                meta={"placement":
+                                      snap_lib.placement_token(fstore)})
+        scfg, _, _ = small_setup("sparse")
+        sb = store_for(scfg).make_bundle(scfg, hp, warmup_steps=2)
+        warned = []
+        sp, ss, start, _ = snap_lib.resume(
+            mgr, sb, ctr.init(scfg, seed=3, device="cuda"),
+            token="sparse:auto:none", warn=warned.append)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(fb.export(p)), tree_leaves(sb.export(sp))))
+        fresh = int(ss["step"]) == 0 and all(
+            int(t.abs().max()) == 0 for t in tree_leaves(ss["m"]))
+        print(f"[durability-small] a fused snapshot resumed under sparse: "
+              f"params {'bitwise equal' if same else 'DIFFER'}, optimizer "
+              f"state {'fresh' if fresh else 'NOT FRESH'}; warned: "
+              f"{warned[0][-90:] if warned else 'NOTHING'}", flush=True)
+        check(same and fresh and warned and "params-only" in warned[0],
+              "the cross-placement resume")
+        del fb, sb, p, s, sp, ss
+
+        # the CLI: killed inside its step-8 snapshot, then --resume
+        src = Path(__file__).resolve().parent / "src"
+        args = ["--task", "ctr", "--mode", "stream", "--steps", "12",
+                "--samples", "4096", "--batch", "256", "--base-batch", "256",
+                "--snapshot-every", "4", "--placement", "sparse", "--engine",
+                "scan", "--scan-steps", "2"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launch.main(args + ["--snapshot-dir", os.path.join(root, "ref"),
+                                "--checkpoint",
+                                os.path.join(root, "ref.npz")])
+        plan = FaultPlan(kill_at_step=8, kill_in_snapshot=True)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(src) + (os.pathsep + env["PYTHONPATH"]
+                                        if env.get("PYTHONPATH") else "")
+        env.update(plan.to_env())
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train"] + args
+            + ["--snapshot-dir", os.path.join(root, "cli")], env=env,
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        listing = sorted(os.listdir(os.path.join(root, "cli")))
+        with contextlib.redirect_stdout(out):
+            launch.main(args + ["--snapshot-dir", os.path.join(root, "cli"),
+                                "--resume", "--checkpoint",
+                                os.path.join(root, "resumed.npz")])
+        with np.load(os.path.join(root, "ref.npz")) as a, \
+                np.load(os.path.join(root, "resumed.npz")) as b:
+            keys = [k for k in a.files if k.startswith("params/")]
+            same = (keys and set(keys) == {k for k in b.files
+                                           if k.startswith("params/")}
+                    and all(np.array_equal(a[k], b[k]) for k in keys))
+        resumed_at = [ln for ln in out.getvalue().splitlines()
+                      if "resumed from snapshot step" in ln]
+        print(f"[durability-small] the CLI on the card under "
+              f"FaultPlan(kill_at_step=8, kill_in_snapshot=True): the child "
+              f"exited {child.returncode} in {child_s:.1f} s leaving "
+              f"{listing}; --resume: {resumed_at}; params "
+              f"{'bitwise equal' if same else 'DIFFER'} to the uninterrupted "
+              f"run's", flush=True)
+        check(child.returncode == -9, "the child was not killed: "
+              + child.stderr[-2000:])
+        check("snap-00000008.tmp" in listing
+              and "snap-00000008" not in listing, f"snapshots {listing}")
+        check(resumed_at and "step 4" in resumed_at[0] and same,
+              "the CLI's resumed run differs")
+
+        # the CLI's guard on the sync hot/cold placement, on the card
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launch.main(["--task", "ctr", "--mode", "stream", "--steps", "4",
+                         "--samples", "4096", "--batch", "256",
+                         "--base-batch", "256", "--placement", "hotcold",
+                         "--hot-capacity", "64", "--scan-steps", "2",
+                         "--nonfinite-guard"])
+        done = [ln for ln in out.getvalue().splitlines()
+                if ln.startswith("[train] done")]
+        print(f"[durability-small] the CLI with --placement hotcold "
+              f"--nonfinite-guard on the card: {done}", flush=True)
+        check(done and "4 steps" in done[0], "the CLI's guarded hot/cold run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def durability_phases(tr, hp, power, kind):
+    """Phases 31-32; returns phase 31's wrapper calls on the eager
+    guarded hot/cold steps, for the kernels' JSON line."""
+    phase_start(31)
+    t0 = time.perf_counter()
+    calls = durability_phase(tr, hp, power, kind)
+    phase_end()
+    print(f"[durability] phase 31 in {time.perf_counter() - t0:.1f} s; "
+          f"peak host RSS so far {host_memory()[1]} B", flush=True)
+    phase_start(32)
+    t0 = time.perf_counter()
+    durability_small_phase()
+    phase_end()
+    print(f"[durability-small] phase 32 in {time.perf_counter() - t0:.1f} "
+          f"s; peak host RSS so far {host_memory()[1]} B", flush=True)
+    return calls
+
+
 def graph_phases(smi, kind):
     """Phases 19-22, 25 and 26: the scan engine at deepfm-criteo width on
     the fused and sparse placements, the guard under a graph, CTR serving,
@@ -2373,22 +2998,27 @@ def graph_phases(smi, kind):
     print(f"[graph] synthetic Zipf data: {len(tr)} train / {len(te)} test "
           f"rows in {time.perf_counter() - t0:.1f} s", flush=True)
     hp = criteo_hypers()
+    phase_start(19)
     fused = graph_engine_phase("fused", tr, hp, power, kind)
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_end()
+    phase_start(20)
     graph_engine_phase("sparse", tr, hp, power, kind)
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_end()
+    phase_start(21)
     guard_phase(power, kind)
+    phase_end()
+    phase_start(22)
     serving_phase(*fused, tr, te, power, kind)
     del fused
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_end()
+    phase_start(25)
     substrate_phase(tr, te, hp, power, kind)
+    phase_end()
+    phase_start(26)
     clip_phase()
-    gc.collect()
-    torch.cuda.empty_cache()
-    return hotcold_phases(tr, hp, power, kind)
+    phase_end()
+    calls = hotcold_phases(tr, hp, power, kind)
+    return calls, durability_phases(tr, hp, power, kind)
 
 
 def wkv_inputs(gen, bh, seq, n, zero_frac=0.0):
@@ -2465,6 +3095,7 @@ def lm_phases(smi, kind):
     err = [0.0]
 
     # -- 13. wkv6 kernel vs its plain versions ---------------------------
+    phase_start(13)
     cases = [(f"[{bh}, {seq}, {n}] chunk {chunk}{' zeros' if z else ''}",
               bh, seq, n, chunk, z)
              for bh, seq, n, chunk, z in (
@@ -2531,6 +3162,7 @@ def lm_phases(smi, kind):
     torch.cuda.empty_cache()
 
     # -- 14. rwkv6-7b at full width: score-only prefill (the main path) --
+    phase_start(14)
     cfg = dataclasses.replace(RWKV6_7B, wkv_backend="chunked")
     n_params = lm.param_counts(cfg)["total"]
     check(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 64
@@ -2593,10 +3225,12 @@ def lm_phases(smi, kind):
           f"GiB (params {4 * n_params / 2**30:.2f} GiB)", flush=True)
 
     # -- 15. greedy generation, and layer 0's real streams ---------------
+    phase_start(15)
     gen_prompt = torch.as_tensor(make_lm_tokens(
         GEN_BATCH * GEN_PROMPT, cfg.vocab_size, seed=2).reshape(
             GEN_BATCH, GEN_PROMPT), device="cuda")
     # phase 23 beside it: the decode step as a replayed CUDA graph
+    phase_start(23)
     t0 = time.perf_counter()
     decoder = GraphDecoder(params, cfg)
     decoder.graph(GEN_BATCH)
@@ -2667,6 +3301,7 @@ def lm_phases(smi, kind):
     del p0, x, h, streams, r, k, v, w, u, got, want, res
 
     # -- 16. where a full-width prefill's and a decode step's time goes --
+    phase_start(16)
     print_trace("lm-trace", f"prefill {list(LM_PREFILL)}",
                 *device_time_by_kernel(lambda: prefill(LM_PREFILL)),
                 groups=(("the wkv6 scan's kernels", WKV6_KERNELS),))
@@ -2690,6 +3325,7 @@ def lm_phases(smi, kind):
     torch.cuda.empty_cache()
 
     # -- 17. agreement with the CPU path at the reduced f32 size ---------
+    phase_start(17)
     small = dataclasses.replace(reduce_config(RWKV6_7B), wkv_backend="chunked")
     params0 = lm.init(small, seed=0, device="cpu")
     feed = torch.as_tensor(make_lm_tokens(4 * 2, small.vocab_size,
@@ -2728,6 +3364,7 @@ def lm_phases(smi, kind):
         check(gap <= LM_AGREE, "card and CPU disagree on decode logits")
 
     # -- 18. kernel times: L2 flushed before each launch -----------------
+    phase_start(18)
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     times = {}
     for shape in (WKV_FULL, WKV_LONG):
@@ -2764,6 +3401,9 @@ def lm_phases(smi, kind):
 
 
 def main() -> int:
+    # a SIGSEGV (or SIGBUS, SIGFPE, SIGABRT) prints every thread's Python
+    # stack to stderr before the process dies of it, with its exit code
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
@@ -2773,6 +3413,7 @@ def main() -> int:
     from repro_torch.kernels.extension import build
 
     # -- 1. card ---------------------------------------------------------
+    phase_start(1)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2787,6 +3428,7 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
     # -- 2. build: the five kernels, one extension -----------------------
+    phase_start(2)
     t0 = time.perf_counter()
     build()
     print(f"[build] cowclip_adam.cu + sparse_catchup.cu + sparse_update.cu "
@@ -2794,17 +3436,23 @@ def main() -> int:
           f"extension, in {time.perf_counter() - t0:.1f} s", flush=True)
 
     lines = ctr_phases(smi, kind)
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_end()
+    phase_start(24)
     lines.append(embed_phase(smi, kind))
-    gc.collect()
-    torch.cuda.empty_cache()
-    hot_calls = graph_phases(smi, kind)
+    phase_end()
+    hot_calls, guarded_calls = graph_phases(smi, kind)
     for line in lines:
         if line["name"] in hot_calls:
             # calls on phase 27's eager run of the hot/cold placement
             line["launches_hotcold"] = hot_calls[line["name"]]
+        if line["name"] in guarded_calls:
+            # calls on phase 31's eager guarded hot/cold steps
+            line["launches_hotcold_guarded"] = guarded_calls[line["name"]]
     lines.append(lm_phases(smi, kind))
+    phase_end()
+    print(f"[exit] threads alive: "
+          f"{[(t.name, t.daemon) for t in threading.enumerate()]}",
+          flush=True)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

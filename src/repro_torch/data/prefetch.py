@@ -103,8 +103,9 @@ class _Worker:
             finally:
                 self.put(_DONE)
 
-        threading.Thread(target=work, daemon=True,
-                         name="repro-torch-prefetch").start()
+        self.thread = threading.Thread(target=work, daemon=True,
+                                       name="repro-torch-prefetch")
+        self.thread.start()
 
     def put(self, item) -> bool:
         while not self.stop.is_set():
@@ -126,28 +127,40 @@ class _Worker:
                 raise self.failure[0]
         finally:
             self.stop.set()
-            # unblock a worker stuck on a full queue
-            while True:
-                try:
-                    self.queue.get_nowait()
-                except queue.Empty:
-                    break
+            # unblock a worker stuck on a full queue, then wait for it: no
+            # thread of a closed prefetch runs on (it stops within its
+            # 0.1 s put timeout once its current item is made)
+            self._drain()
+            self.thread.join(timeout=10.0)
+            self._drain()
+
+    def _drain(self):
+        while True:
+            try:
+                self.queue.get_nowait()
+            except queue.Empty:
+                break
 
 
 class _Staged:
     """One item pinned and copied to the card on ``copy_stream``, and the
-    event its copy ends with."""
+    event its copy ends with. The pinned buffers stay referenced here
+    until that event has completed (``done``)."""
 
-    __slots__ = ("tensors", "event")
+    __slots__ = ("tensors", "event", "pinned")
 
     def __init__(self, item: dict, device, copy_stream):
-        pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                  for k, v in item.items()}
+        self.pinned = [torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                       for v in item.values()]
         with torch.cuda.stream(copy_stream):
             self.tensors = {k: p.to(device, non_blocking=True)
-                            for k, p in pinned.items()}
+                            for k, p in zip(item, self.pinned)}
             self.event = torch.cuda.Event()
             self.event.record(copy_stream)
+
+    def done(self) -> bool:
+        """The copy has finished (its pinned buffers may go)."""
+        return self.event.query()
 
     def ready(self) -> dict:
         """The tensors, once the current stream has waited for the copy;
@@ -165,8 +178,10 @@ def stage(items, device: torch.device):
     ahead of the consumer, on the consumer's thread."""
     stream = torch.cuda.Stream(device)
     pending = None
+    in_flight = []        # staged items whose copies may still run
     for item in items:
         staged = _Staged(item, device, stream)
+        in_flight = [s for s in in_flight if not s.done()] + [staged]
         if pending is not None:
             yield pending.ready()
         pending = staged

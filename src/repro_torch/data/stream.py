@@ -237,16 +237,25 @@ class ChunkStream:
             self.close()
 
     def close(self):
-        """Stop the worker and drain staged chunks (idempotent). The
-        source's generator is closed with the worker, so a file-tail
-        source releases its handle."""
+        """Stop the worker, drain staged chunks and join the worker
+        (idempotent), so no thread of a closed stream runs on. The
+        source's generator is closed after the join, when the worker no
+        longer runs it, so a file-tail source releases its handle. A
+        worker still blocked after 10 s (a transform that waits on work
+        no one will do) is left to the daemon flag."""
         self._stop.set()
+        self._drain()
+        if threading.current_thread() is not self._worker:
+            self._worker.join(10.0)
+            self._drain()
         close = getattr(self._events, "close", None)
         if close is not None:
             try:
                 close()
             except Exception:
                 pass
+
+    def _drain(self):
         while True:
             try:
                 self._q.get_nowait()

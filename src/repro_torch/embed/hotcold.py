@@ -50,6 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import builders
 from ..core.builders import StepFn, dense_tower_tx, write_back
 from ..core.optim import apply_updates, counter, decay_catchup_rows
 from ..core.tree import tree_leaves, tree_map
@@ -109,13 +110,16 @@ def _compact(mask, size: int):
     return out[:size]
 
 
-def _put_rows(table, idx, rows, limit: int):
+def _put_rows(table, idx, rows, limit: int, ok=None):
     """``table[idx[j]] = rows[j]`` for every ``idx[j] < limit``, the
     reference's drop-mode scatter, with ``idx`` a compacted list (its
     entries below ``limit`` first). Each pad is pointed at a real write of
     the same value, the first entry's, or with no real entry at row 0
     rewritten with its own value, so the duplicates ``index_copy_`` sees
-    carry equal values and the result is deterministic."""
+    carry equal values and the result is deterministic. Under a guard's
+    flag ``ok`` (a 0-dim bool tensor) each row written is
+    ``torch.where(ok, row, table's own row)``: a skipped step rewrites
+    every row it touches with its own value."""
     idx = idx.to(torch.int64)
     valid = idx < limit
     first = valid[:1]
@@ -123,8 +127,10 @@ def _put_rows(table, idx, rows, limit: int):
     shape = (-1,) + (1,) * (rows.dim() - 1)
     safe_rows = torch.where(valid.reshape(shape), rows,
                             torch.where(first.reshape(shape), rows[:1],
-                                        table[:1]))
-    table.index_copy_(0, safe_idx, safe_rows.to(table.dtype))
+                                        table[:1])).to(table.dtype)
+    if ok is not None:
+        safe_rows = torch.where(ok, safe_rows, table[safe_idx])
+    table.index_copy_(0, safe_idx, safe_rows)
 
 
 def _field_caps(vocab_sizes, capacity: int) -> dict:
@@ -176,7 +182,7 @@ def _identity_slots(uniq: dict) -> dict:
 
 
 def _row_math(cfg, uniq, assembled, dense_params, batch, scalars, banks, *,
-              adam_kw, r, zeta, clip):
+              adam_kw, r, zeta, clip, guard=False):
     """Steps 4-6 of the module docstring, shared by the synchronous step
     and the async device step. ``assembled[g][f] = (w, m, v, ls)`` holds
     each field's ``[U, d]`` rows and ``[U]`` last steps, ``banks[g][f] =
@@ -185,9 +191,13 @@ def _row_math(cfg, uniq, assembled, dense_params, batch, scalars, banks, *,
     on the caught-up rows (the embedding backward on the dedups' plan),
     one grouped update launch writing ``w, m, v`` and ``last_step = t`` of
     every real slot into its row of the bank's fresh half (its last ``U``
-    rows). Returns ``(loss, dense grads, catch-up depth)``."""
+    rows). With ``guard`` the update reads the non-finite guard's flag
+    (the loss is finite) from its step block and writes nothing when it
+    is False. Returns ``(loss, dense grads, catch-up depth, flag)``, the
+    flag None unguarded."""
     from ..kernels.cowclip import (sparse_gather_catchup_tables,
-                                   sparse_update_scatter_tables)
+                                   sparse_update_scatter_tables,
+                                   step_scalars)
     from ..train import metrics
 
     ident = _identity_slots(uniq)
@@ -204,6 +214,11 @@ def _row_math(cfg, uniq, assembled, dense_params, batch, scalars, banks, *,
     with torch.enable_grad():
         logits = ctr.apply_rows(rows, dense_view, cfg, uniq, batch["dense"])
         loss = metrics.logloss(logits, batch["labels"])
+    ok = None
+    if guard:
+        ok = builders.nonfinite_guard(loss.detach())
+        scalars = step_scalars(scalars.step, b1=adam_kw["b1"],
+                               b2=adam_kw["b2"], ok=ok)
     w_rows = [c[0] for c in caught]
     leaves = w_rows + tree_leaves(dense_view)
     grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
@@ -215,7 +230,7 @@ def _row_math(cfg, uniq, assembled, dense_params, batch, scalars, banks, *,
         [c[1] for c in caught], [c[2] for c in caught], scalars, r=r,
         zeta=zeta, clip=clip, **adam_kw)
     g_dense = tree_map(lambda p: grads[id(p)], dense_view)
-    return loss.detach(), g_dense, depth
+    return loss.detach(), g_dense, depth, ok
 
 
 def _fresh(bank, n: int):
@@ -233,10 +248,10 @@ def _bank(hot_rows, fresh: int):
     return bank
 
 
-def _update_dense(dense_params, dense_opt, g_dense, dense_tx):
+def _update_dense(dense_params, dense_opt, g_dense, dense_tx, ok=None):
     d_updates, d_state = dense_tx.update(g_dense, dense_opt, dense_params)
-    write_back(dense_params, apply_updates(dense_params, d_updates))
-    write_back(dense_opt, d_state)
+    write_back(dense_params, apply_updates(dense_params, d_updates), ok)
+    write_back(dense_opt, d_state, ok)
 
 
 def make_hotcold_train_step(cfg: ctr.CTRConfig, hp, *, capacity: int = 4096,
@@ -245,7 +260,8 @@ def make_hotcold_train_step(cfg: ctr.CTRConfig, hp, *, capacity: int = 4096,
                             b1: float = 0.9, b2: float = 0.999,
                             eps: float = 1e-8,
                             admission: str = "cumulative",
-                            half_life: int = 0):
+                            half_life: int = 0,
+                            nonfinite_guard: bool = False):
     """Build the hotcold placement's ``(step, init, flush)``.
 
     Per step, each field's batch ids are deduplicated once; every unique
@@ -260,6 +276,16 @@ def make_hotcold_train_step(cfg: ctr.CTRConfig, hp, *, capacity: int = 4096,
     place and nothing is read on the host. ``flush`` reconciles both tiers
     and settles all pending decay (idempotent); residency and frequencies
     survive it.
+
+    ``nonfinite_guard`` skips the whole update when the batch loss is
+    NaN/Inf, counted in ``aux["skipped_steps"]``, as the reference's
+    where-select of every leaf does: the update kernel reads the flag from
+    its step block and writes nothing, and every later write of the step
+    is selected on the flag on the card (the frequency update multiplies
+    by 1 and adds 0, the slot maps, the hot tier, the cold write-backs,
+    the dense tower and the step counter rewrite their own values), so a
+    skipped step leaves every leaf bitwise as it was, and a clean one
+    writes the unguarded step's values bit for bit, with no host read.
     """
     from ..kernels.cowclip import step_scalars
 
@@ -343,9 +369,10 @@ def make_hotcold_train_step(cfg: ctr.CTRConfig, hp, *, capacity: int = 4096,
                                   for k in ("w", "m", "v", "ls"))
                          for f, u in uniq.items()} for g in groups}
 
-        loss, g_dense, depth = _row_math(
+        loss, g_dense, depth, ok = _row_math(
             cfg, uniq, assembled, params["dense"], batch, scalars, banks,
-            adam_kw=adam_kw, r=r, zeta=zeta, clip=clip)
+            adam_kw=adam_kw, r=r, zeta=zeta, clip=clip,
+            guard=nonfinite_guard)
 
         hits_w = torch.zeros((), device=t.device)
         total_w = torch.zeros((), device=t.device)
@@ -359,8 +386,10 @@ def make_hotcold_train_step(cfg: ctr.CTRConfig, hp, *, capacity: int = 4096,
                 # 0.0 at row V - 1, which changes nothing)
                 freq = hot["freq"][f]
                 if alpha is not None:
-                    freq.mul_(float(alpha))
-                freq.index_add_(0, uid_c, u.counts)
+                    freq.mul_(float(alpha) if ok is None
+                              else torch.where(ok, float(alpha), 1.0))
+                freq.index_add_(0, uid_c, u.counts if ok is None
+                                else torch.where(ok, u.counts, 0.0))
                 hits_w += torch.where(hit, u.counts, 0.0).sum()
                 total_w += u.counts.sum()
 
@@ -391,11 +420,11 @@ def make_hotcold_train_step(cfg: ctr.CTRConfig, hp, *, capacity: int = 4096,
                 so = hot["slot_of"][f]
                 _put_rows(so, hot["slot_ids"][f],
                           torch.full((C,), -1, dtype=so.dtype,
-                                     device=so.device), V)
+                                     device=so.device), V, ok)
                 _put_rows(so, slot_ids2,
                           torch.arange(C, dtype=so.dtype, device=so.device),
-                          V)
-                hot["slot_ids"][f].copy_(slot_ids2)
+                          V, ok)
+                write_back(hot["slot_ids"][f], slot_ids2, ok)
 
                 for g in groups:
                     bank = dict(zip(("w", "m", "v", "ls"), banks[g][f]))
@@ -405,14 +434,17 @@ def make_hotcold_train_step(cfg: ctr.CTRConfig, hp, *, capacity: int = 4096,
                     for k in ("w", "m", "v", "ls"):
                         # the new hot tier: one gather of the bank; every
                         # dropped candidate back raw to the cold tier
-                        hot[k][g][f].copy_(bank[k][sel_c])
-                        _put_rows(cold[k], wb_loc, bank[k][wb_c], V)
+                        write_back(hot[k][g][f], bank[k][sel_c], ok)
+                        _put_rows(cold[k], wb_loc, bank[k][wb_c], V, ok)
 
-            _update_dense(params["dense"], state["dense"], g_dense, dense_tx)
-            state["step"].copy_(t)
+            _update_dense(params["dense"], state["dense"], g_dense,
+                          dense_tx, ok)
+            write_back(state["step"], t, ok)
         aux = {"loss": loss, "catchup_depth_max": depth,
                "hot_hit_rows": hits_w, "hot_lookup_rows": total_w,
                "evictions": evictions}
+        if nonfinite_guard:
+            aux["skipped_steps"] = builders.skipped(ok)
         return params, state, aux
 
     def flush(params, state):
@@ -495,7 +527,7 @@ def make_migrate_device_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
                                         device=u.uids.device),)
                          for f, u in uniq.items()} for g in groups}
 
-        loss, g_dense, _ = _row_math(
+        loss, g_dense, _, _ = _row_math(
             cfg, uniq, assembled, dense_params, batch, scalars, banks,
             adam_kw=adam_kw, r=r, zeta=zeta, clip=clip)
 

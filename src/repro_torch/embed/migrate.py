@@ -56,10 +56,6 @@ from .coldstore import ColdStore, EvictionHandle, StoreBuffer
 __all__ = ["MigrationPlanner", "StepPlan", "PlannedChunk",
            "make_async_hotcold_bundle", "AsyncHotCold"]
 
-_SNAPSHOTS = ("async hotcold snapshots are not ported to repro_torch yet: "
-              "ROADMAP queue 1 item 6 (durability)")
-
-
 class PlanLayout:
     """Where each field's plan arrays sit in a step's packed buffers: the
     int32 array holds ``t`` and then, a field at a time, ``hit``, ``src``,
@@ -392,6 +388,10 @@ class AsyncHotCold:
         self._prepared = threading.Event()
         self._sidecar = None
         self._copy_stream = None
+        # (event, host tensors) of asynchronous copies through pinned
+        # memory not yet known to have finished: each buffer stays
+        # referenced here until its copy's event has completed
+        self._in_flight: list = []
         self.last_stream_stats: Optional[dict] = None
         # rows a flush settles (and moves to and from the device) at once
         self.settle_chunk_rows = 1 << 21
@@ -486,11 +486,19 @@ class AsyncHotCold:
                 for k in ("w", "m", "v")}
         return {"step": pl.t, "hot": hot, "dense": dense_opt}
 
+    def _hold(self, event, tensors):
+        """Keep the host buffers of an asynchronous copy alive until the
+        copy's ``event`` has completed (dropping those of finished
+        copies)."""
+        self._in_flight = [(e, t) for e, t in self._in_flight
+                           if not e.query()]
+        self._in_flight.append((event, tensors))
+
     def _stage(self, plan: StepPlan, chunk: dict, i: int = 0):
         """The plan's packed buffers and batch ``i`` of ``chunk`` on the
         device: on the card copied from pinned memory on a side stream,
-        which the current stream then waits for. Returns ``(plan views,
-        batch)``."""
+        which the current stream then waits for; the pinned buffers are
+        held until that copy's event. Returns ``(plan views, batch)``."""
         batch = {k: torch.as_tensor(np.ascontiguousarray(v[i]))
                  for k, v in chunk.items()}
         if self.device.type != "cuda":
@@ -505,6 +513,7 @@ class AsyncHotCold:
                        for k, v in host.items()}
             event = torch.cuda.Event()
             event.record(self._copy_stream)
+        self._hold(event, list(host.values()))
         current = torch.cuda.current_stream(self.device)
         current.wait_event(event)
         for x in on_card.values():
@@ -534,6 +543,7 @@ class AsyncHotCold:
                     x.record_stream(self._copy_stream)
                 event = torch.cuda.Event()
                 event.record(self._copy_stream)
+            self._hold(event, list(host.values()))
         else:
             host, event = evict, None
         plan.fill({k: {g: {f: x.numpy()[i_k, lay.rows[f]]
@@ -688,11 +698,79 @@ class AsyncHotCold:
             for f in self.store.fields} for g in self.store.groups},
             "dense": params["dense"]}
 
-    def export_snapshot(self, params, state):
-        raise NotImplementedError(_SNAPSHOTS)
+    # -- crash-safe snapshots ----------------------------------------------
+
+    def export_snapshot(self, params, state) -> dict:
+        """Flat NumPy leaves capturing the complete *flushed* controller
+        state for the ``mem`` backend: the settled cold tables (w/m/v),
+        each field's ``ls`` vector, the planner's residency and frequency
+        maps, ``t``, and the dense tower's params and optimizer state
+        (copied to the host synchronously), under the reference's keys.
+        Call only right after ``flush`` (buffer drained, hot tier
+        scattered home, ``ls`` uniform at ``t``), which makes the hot tier
+        redundant: a resume regathers it from the tables, as ``flush``
+        did.
+
+        The ``mmap`` backend needs none of this: its snapshot is a copy
+        of the store directory itself, whose resume sidecar ``flush``
+        already persisted (``prepare``/``init`` replay it on open)."""
+        from ..train.checkpoint import _to_numpy
+
+        pl, store = self.planner, self.store
+        leaves = {"t": np.int64(pl.t)}
+        for f in pl.fields:
+            leaves[f"slot_ids/{f}"] = np.array(pl.slot_ids[f])
+            leaves[f"slot_of/{f}"] = np.array(pl.slot_of[f])
+            leaves[f"slot_ls/{f}"] = np.array(pl.slot_ls[f])
+            leaves[f"freq/{f}"] = np.array(pl.freq[f])
+            leaves[f"ls/{f}"] = np.array(store.ls[f])
+        for g in store.groups:
+            for f in store.fields:
+                leaves[f"cold_w/{g}/{f}"] = np.array(store.w[g][f])
+                leaves[f"cold_m/{g}/{f}"] = np.array(store.m[g][f])
+                leaves[f"cold_v/{g}/{f}"] = np.array(store.v[g][f])
+        for prefix, tree in (("dense_param", params["dense"]),
+                             ("dense_opt", state["dense"])):
+            for i, leaf in enumerate(tree_leaves(tree)):
+                leaves[f"{prefix}/{i}"] = np.array(_to_numpy(leaf))
+        return leaves
 
     def import_snapshot(self, leaves, params):
-        raise NotImplementedError(_SNAPSHOTS)
+        """Rebuild (params, state) from ``export_snapshot`` leaves.
+        ``params`` is the freshly *prepared* tree (it supplies the dense
+        tower's structure; its embed views point at this controller's
+        store, whose tables are overwritten here). Returns the (params,
+        state) pair the trainer resumes from: bitwise the post-flush
+        state the snapshot captured, the hot tier regathered on the
+        device."""
+        from ..train.checkpoint import _fill_like
+
+        pl, store = self.planner, self.store
+        pl.t = int(leaves["t"])
+        for f in pl.fields:
+            pl.slot_ids[f][...] = leaves[f"slot_ids/{f}"]
+            pl.slot_of[f][...] = leaves[f"slot_of/{f}"]
+            pl.slot_ls[f][...] = leaves[f"slot_ls/{f}"]
+            pl.freq[f][...] = leaves[f"freq/{f}"]
+            store.ls[f][...] = leaves[f"ls/{f}"]
+        for g in store.groups:
+            for f in store.fields:
+                store.w[g][f][...] = leaves[f"cold_w/{g}/{f}"]
+                store.m[g][f][...] = leaves[f"cold_m/{g}/{f}"]
+                store.v[g][f][...] = leaves[f"cold_v/{g}/{f}"]
+        store.populated = True
+
+        def from_leaves(prefix, template):
+            paths = flatten_with_paths(template)
+            return _fill_like(template, {
+                k: leaves[f"{prefix}/{i}"] for i, k in enumerate(paths)},
+                "the snapshot")
+
+        dense = from_leaves("dense_param", params["dense"])
+        dense_opt = from_leaves("dense_opt", self.dense_tx.init(dense))
+        return ({"embed": self._views(), "dense": dense},
+                {"step": pl.t, "hot": self._hot_from_store(),
+                 "dense": dense_opt})
 
     # -- internals ----------------------------------------------------------
 

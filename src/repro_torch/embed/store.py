@@ -132,8 +132,10 @@ class EmbeddingStore:
         reference's fused path does; ``sparse`` and ``hotcold`` take
         "adaptive_column" (CowClip) or "none" (the ablation clips are
         substrate-only). ``nonfinite_guard`` skips any update whose batch
-        loss is NaN/Inf, counted in ``aux["skipped_steps"]``; the hotcold
-        placement does not take it.
+        loss is NaN/Inf, counted in ``aux["skipped_steps"]``, value-exact
+        on clean data; the async hotcold placement (a cold store) refuses
+        it, as the reference does: its step fills host-side eviction
+        handles and cannot be skipped.
         """
         if self.path in NOT_PORTED:
             raise not_ported(self.path)
@@ -167,24 +169,25 @@ class EmbeddingStore:
                 b1=b1, b2=b2, eps=eps, nonfinite_guard=nonfinite_guard)
             return TrainStepBundle(step, init, flush)
 
-        if nonfinite_guard:
-            raise ValueError(
-                "nonfinite_guard is not ported for the hotcold placement "
-                "(its step rewrites residency, frequencies and the cold "
-                "tier, which the guard would have to hold back too)")
         kw = dict(r=r, zeta=zeta, dense_tx=dense_tx, clip=clip, b1=b1,
                   b2=b2, eps=eps, admission=self.admission,
                   half_life=self.half_life)
         if self.cold_store != "none":
             from .migrate import make_async_hotcold_bundle
 
+            if nonfinite_guard:
+                raise ValueError(
+                    "nonfinite_guard is not supported for the async hotcold "
+                    "placement (cold_store='mem'/'mmap'): its step fills "
+                    "host-side eviction handles and cannot be skipped")
             return make_async_hotcold_bundle(
                 cfg, hp, backend=self.cold_store, directory=self.cold_dir,
                 capacity=self.hot_capacity, **kw)
         from .hotcold import make_hotcold_train_step
 
         step, init, flush = make_hotcold_train_step(
-            cfg, hp, capacity=self.hot_capacity, **kw)
+            cfg, hp, capacity=self.hot_capacity,
+            nonfinite_guard=nonfinite_guard, **kw)
         return TrainStepBundle(step, init, flush)
 
 

@@ -12,8 +12,14 @@ files, planned one step ahead on the stream's worker thread), with
 ``--engine scan`` (the default, as in the reference: ``--scan-steps``
 steps captured as one CUDA graph on the card, run in turn on the CPU) or
 ``--engine eager``, over epochs or online (``--mode stream --steps N``,
-the train split replayed as an endless event stream); the flags of paths
-not ported yet exit with a message that names their ROADMAP item.
+the train split replayed as an endless event stream). Online training
+takes crash-safe snapshots (``--snapshot-dir DIR --snapshot-every N``,
+``train.snapshot``) and restarts from the latest valid one
+(``--resume``), bitwise equal to an uninterrupted run with the same
+cadence; a fault plan in ``REPRO_FAULT_PLAN`` (``testing.faults``) kills
+the trainer where it says. ``--nonfinite-guard`` skips a step whose loss
+is NaN/Inf on every placement but the async hot/cold one. The flags of
+paths not ported yet exit with a message that names their ROADMAP item.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
@@ -29,6 +35,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
       --device cpu --mode stream --placement hotcold --hot-capacity 512 \
       --samples 4096 --batch 256 --steps 16 [--cold-store mem]
+  PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
+      --device cpu --mode stream --placement sparse --samples 2048 \
+      --batch 128 --steps 12 --snapshot-dir DIR --snapshot-every 4 [--resume]
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -75,9 +85,6 @@ def _unported_flags(args, placement) -> list:
     out = []
     if placement in NOT_PORTED:
         out.append((f"--placement {placement}", NOT_PORTED[placement]))
-    if args.snapshot_dir or args.resume:
-        out.append(("--snapshot-dir / --resume",
-                    "ROADMAP queue 1 item 6 (durability)"))
     if args.host_devices:
         out.append(("--host-devices",
                     "ROADMAP queue 1 item 7 (multi-GPU placements)"))
@@ -102,25 +109,78 @@ def _check_stream_flags(args, placement) -> None:
         if args.cold_store == "mmap" and not args.cold_dir:
             raise SystemExit("[train] --cold-store mmap needs --cold-dir "
                              "(the on-disk table directory)")
+    if args.snapshot_dir:
+        if args.mode != "stream":
+            raise SystemExit("[train] --snapshot-dir rides the stream "
+                             "cursor; add --mode stream (docs/robustness.md)")
+        if args.snapshot_every <= 0:
+            raise SystemExit("[train] --snapshot-dir needs --snapshot-every "
+                             "N (steps between snapshots)")
+    elif args.resume:
+        raise SystemExit("[train] --resume needs --snapshot-dir (where the "
+                         "snapshots live)")
 
 
-def _make_stream(args, bundle, tr):
+def _make_stream(args, bundle, tr, start_step=0, max_steps=None):
     """Online training's source: the train split replayed as an endless
     event stream (a stand-in for a production log tail), re-batched and
-    chunk-stacked on a worker thread. With the async cold store, chunks of
-    one step planned on that thread (4 deep), the step budget enforced at
-    the source."""
+    chunk-stacked on a worker thread, from row ``start_step * batch`` (a
+    resume's cursor). With the async cold store, chunks of one step
+    planned on that thread (4 deep), the step budget (``max_steps``,
+    default ``--steps``) enforced at the source."""
     from ..data import stream as stream_lib
 
+    skip = start_step * args.batch
     events = stream_lib.synthetic_event_stream(
         tr, rows_per_event=max(1, args.batch // 2), seed=args.seed)
+    if skip:
+        events = stream_lib.skip_rows(events, skip)
     if bundle.stream_transform is not None:
         return stream_lib.stream_chunks(
             events, args.batch, 1, buffer_size=4,
-            transform=bundle.stream_transform(max_steps=args.steps))
+            transform=bundle.stream_transform(
+                max_steps=args.steps if max_steps is None else max_steps),
+            start_rows=skip)
     return stream_lib.stream_chunks(
         events, args.batch,
-        args.scan_steps if args.engine == "scan" else 1)
+        args.scan_steps if args.engine == "scan" else 1, start_rows=skip)
+
+
+def _run_async_segments(args, cfg, bundle, tr, te, params, state,
+                        start_step, snap_mgr, snap_meta, fault_plan):
+    """The async hot/cold placement under snapshots: the stream runs in
+    segments that end at each snapshot boundary (the transform's step
+    budget), so every planned step is dispatched and the planner drained
+    before the flush; the uninterrupted run takes the same boundaries, so
+    resumed and uninterrupted runs stay bitwise identical. Returns a
+    ``TrainResult``."""
+    from ..train import snapshot as snapshot_lib
+    from ..train.loop import TrainResult, make_eval_fn
+
+    n = start_step
+    t0 = time.perf_counter()
+    while n < args.steps:
+        target = min(n + args.snapshot_every, args.steps)
+        seg = _make_stream(args, bundle, tr, n, target)
+        try:
+            params, state, ran, _ = bundle.stream_driver(
+                params, state, seg, max_steps=None)
+        finally:
+            seg.close()
+        n += ran
+        params, state = snapshot_lib.capture(
+            snap_mgr, bundle, params, state, step=n,
+            cursor={"rows_consumed": n * args.batch}, meta=snap_meta)
+        if fault_plan is not None:
+            fault_plan.maybe_kill(n)
+        if ran == 0:
+            raise SystemExit("[train] stream ended before the segment "
+                             f"target {target}")
+    seconds = time.perf_counter() - t0
+    final = (make_eval_fn(cfg)(bundle.export(params), te)
+             if te is not None else {})
+    return TrainResult(history=[], final_eval=dict(final), seconds=seconds,
+                       steps=n, params=params, opt_state=state)
 
 
 def run_ctr(args) -> None:
@@ -171,8 +231,66 @@ def run_ctr(args) -> None:
     bundle = store.make_bundle(cfg, hp, clip_kind=clip, zeta=args.zeta,
                                warmup_steps=warmup,
                                nonfinite_guard=args.nonfinite_guard)
-    params0 = bundle.prepare(params0)
-    stream = _make_stream(args, bundle, tr) if args.mode == "stream" else None
+
+    # -- crash safety: snapshots, resume, deterministic fault injection --
+    from ..testing import FaultPlan
+    from ..train import snapshot as snapshot_lib
+
+    fault_plan = FaultPlan.from_env()
+    snap_mgr = None
+    token = snapshot_lib.placement_token(store)
+    start_step = 0
+    init_state = None
+    if args.snapshot_dir:
+        snap_mgr = snapshot_lib.SnapshotManager(
+            args.snapshot_dir, retain=args.snapshot_retain,
+            fault_plan=fault_plan)
+    if args.resume:
+        # before the bundle's prepare: the async mmap resume replaces
+        # --cold-dir with the snapshot's copy before the store opens it
+        restored = snapshot_lib.resume(snap_mgr, bundle, params0,
+                                       token=token, cold_dir=args.cold_dir,
+                                       warn=print)
+        if restored is None:
+            print(f"[train] --resume: no valid snapshot under "
+                  f"{args.snapshot_dir}; starting fresh")
+        else:
+            p0, s0, start_step, cursor = restored
+            init_state = (p0, s0)
+            print(f"[train] resumed from snapshot step {start_step} "
+                  f"(cursor {cursor})")
+    if init_state is None:
+        params0 = bundle.prepare(params0)
+        init_state = (params0, bundle.init(params0))
+    del params0
+    snap_meta = {"placement": token, "snapshot_every": args.snapshot_every,
+                 "seed": args.seed, "batch": args.batch}
+
+    snapshot_cb = None
+    if snap_mgr is not None or fault_plan is not None:
+        # one callback a chunk boundary: snapshot when the cadence says so
+        # (capture flushes; the pair it returns replaces the live one in
+        # both the original and the resumed run, keeping them bitwise
+        # aligned), then the fault plan's step-boundary kill window
+        last_snap = [start_step]
+
+        def snapshot_cb(params, state, n):
+            if (snap_mgr is not None
+                    and n - last_snap[0] >= args.snapshot_every):
+                params, state = snapshot_lib.capture(
+                    snap_mgr, bundle, params, state, step=n,
+                    cursor={"rows_consumed": n * args.batch},
+                    meta=snap_meta)
+                last_snap[0] = n
+            if fault_plan is not None:
+                fault_plan.maybe_kill(n)
+            return params, state
+
+    segments = (args.mode == "stream" and snap_mgr is not None
+                and bundle.stream_transform is not None)
+    stream = None
+    if args.mode == "stream" and not segments:
+        stream = _make_stream(args, bundle, tr, start_step)
 
     trace_ctx = contextlib.nullcontext()
     if args.profile_trace:
@@ -182,12 +300,18 @@ def run_ctr(args) -> None:
         trace_ctx = torch.profiler.profile(activities=activities)
         print(f"[train] profiling to {args.profile_trace} (chrome trace)")
     with trace_ctx as prof:
-        res = train_ctr(cfg, None, tr, te, batch_size=args.batch,
-                        epochs=args.epochs, seed=args.seed, log_fn=print,
-                        step_bundle=bundle, max_steps=args.steps,
-                        engine=args.engine, scan_steps=args.scan_steps,
-                        mode=args.mode, stream=stream,
-                        init_state=(params0, bundle.init(params0)))
+        if segments:
+            res = _run_async_segments(args, cfg, bundle, tr, te,
+                                      *init_state, start_step, snap_mgr,
+                                      snap_meta, fault_plan)
+        else:
+            res = train_ctr(cfg, None, tr, te, batch_size=args.batch,
+                            epochs=args.epochs, seed=args.seed, log_fn=print,
+                            step_bundle=bundle, max_steps=args.steps,
+                            engine=args.engine, scan_steps=args.scan_steps,
+                            mode=args.mode, stream=stream,
+                            init_state=init_state, start_step=start_step,
+                            snapshot_cb=snapshot_cb)
     if args.profile_trace:
         os.makedirs(args.profile_trace, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_trace,
@@ -279,15 +403,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="forward/backward activation dtype; masters, "
                          "CowClip stats and Adam moments stay float32")
     ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
-                    help="not ported yet")
+                    help="take periodic crash-safe snapshots into DIR "
+                         "(atomic write + checksummed manifest, retain "
+                         "--snapshot-retain); requires --mode stream and "
+                         "--snapshot-every")
     ap.add_argument("--snapshot-every", type=int, default=0, metavar="N",
-                    help="not ported yet")
+                    help="steps between snapshots; also the flush cadence, "
+                         "so a resumed run is bitwise identical to an "
+                         "uninterrupted run with the same value")
     ap.add_argument("--snapshot-retain", type=int, default=3,
-                    help="not ported yet")
-    ap.add_argument("--resume", action="store_true", help="not ported yet")
+                    help="keep the newest K snapshots (default 3)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restart from the latest *valid* snapshot in "
+                         "--snapshot-dir (corrupt/torn ones are skipped); "
+                         "falls back to a fresh start when none exists")
     ap.add_argument("--nonfinite-guard", action="store_true",
                     help="skip any update whose batch loss is NaN/Inf "
-                         "(counted in aux['skipped_steps'])")
+                         "(counted in aux['skipped_steps']); value-exact "
+                         "on clean data; not available with --cold-store "
+                         "mem/mmap")
     ap.add_argument("--host-devices", type=int, default=0,
                     help="not ported yet (multi-GPU placements)")
     ap.add_argument("--epochs", type=int, default=10)

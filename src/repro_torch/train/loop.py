@@ -378,13 +378,14 @@ def _stream_device_chunks(stream, device):
 
 
 def _run_stream(stream, params, opt_state, *, step_fn, runner, max_steps,
-                device):
-    """Train on ``stream``'s chunks until it ends or ``max_steps``: the
-    scan engine replays each whole chunk, the eager one unstacks it.
-    Returns ``(params, opt_state, steps, losses, step_seconds)``, the
-    losses read once at the end."""
+                device, start_step=0, snapshot_cb=None):
+    """Train on ``stream``'s chunks until it ends or ``max_steps`` (total
+    steps, counted from ``start_step``): the scan engine replays each
+    whole chunk, the eager one unstacks it; ``snapshot_cb`` runs at each
+    chunk boundary. Returns ``(params, opt_state, steps, losses,
+    step_seconds)``, the losses read once at the end."""
     clock = _StepClock(device)
-    losses, n_steps = [], 0
+    losses, n_steps = [], int(start_step)
     for chunk in _stream_device_chunks(stream, device):
         k = chunk["labels"].shape[0]
         if max_steps is not None and n_steps + k > max_steps:
@@ -406,6 +407,8 @@ def _run_stream(stream, params, opt_state, *, step_fn, runner, max_steps,
                 clock.stop()
                 losses.append(aux["loss"].reshape(1))
         n_steps += k
+        if snapshot_cb is not None:
+            params, opt_state = snapshot_cb(params, opt_state, n_steps)
         if max_steps is not None and n_steps >= max_steps:
             break
     losses = torch.cat(losses).tolist() if losses else []
@@ -440,6 +443,8 @@ def train_ctr(
     mode: str = "epochs",
     stream=None,
     init_state=None,
+    start_step: int = 0,
+    snapshot_cb=None,
     device="cuda",
 ) -> TrainResult:
     """Epoch driver over a ``core.builders.TrainStepBundle``.
@@ -470,6 +475,16 @@ def train_ctr(
     ignored), and the stream is closed on exit. A bundle with a
     ``stream_driver`` (the async hotcold placement) consumes the stream
     itself (stream mode only); its final eval reads ``bundle.export``.
+
+    Crash-safe resume hooks (``train.snapshot``): ``init_state`` may be a
+    snapshot's restore; ``start_step`` seeds the step counter, so
+    ``max_steps`` keeps meaning *total* steps across the original and the
+    resumed process. ``snapshot_cb(params, opt_state, n_steps) ->
+    (params, opt_state)`` runs at every chunk boundary in stream mode and
+    every step boundary in eager epoch mode; it owns the cadence and may
+    flush (the pair it returns replaces the live one, so a snapshot's
+    flush stays part of the trajectory). A bundle with a
+    ``stream_driver`` takes neither: the CLI runs it in segments.
     """
     from . import engine as engine_lib
 
@@ -505,7 +520,7 @@ def train_ctr(
     eval_fn = make_eval_fn(cfg)
 
     history, losses, step_seconds = [], [], []
-    n_steps = 0
+    n_steps = int(start_step)
     t0 = time.perf_counter()
     if mode == "stream":
         try:
@@ -517,7 +532,8 @@ def train_ctr(
                 params, opt_state, n_steps, losses, step_seconds = (
                     _run_stream(stream, params, opt_state, step_fn=step_fn,
                                 runner=runner, max_steps=max_steps,
-                                device=dev))
+                                device=dev, start_step=start_step,
+                                snapshot_cb=snapshot_cb))
         finally:
             close = getattr(stream, "close", None)
             if close is not None:
@@ -566,6 +582,9 @@ def train_ctr(
                 clock.stop()
                 epoch_losses.append(aux["loss"].reshape(1))
                 n_steps += 1
+                if snapshot_cb is not None:
+                    params, opt_state = snapshot_cb(params, opt_state,
+                                                    n_steps)
                 if max_steps is not None and n_steps >= max_steps:
                     break
             batches.close()

@@ -243,11 +243,31 @@ def test_torch_async_flush_is_bitwise_idempotent():
 
 
 def test_torch_snapshots_name_their_roadmap_item():
-    ctrl = _bundle(4, cold_store="mem").stream_driver.__self__
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ctrl.export_snapshot(None, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ctrl.import_snapshot(None, None)
+    """The controller's snapshots (once a refusal naming ROADMAP queue 1
+    item 6, now ported): the flushed state exported under the
+    reference's keys and imported into a fresh bundle continues bitwise
+    as the bundle that exported it."""
+    bs = _batches()
+    bundle = _bundle(4, cold_store="mem")
+    ctrl = bundle.stream_driver.__self__
+    p, s = _init(bundle)
+    p, s, _ = _steps(bundle, p, s, bs[:4])
+    p, s = bundle.flush(p, s)
+    leaves = ctrl.export_snapshot(p, s)
+    assert int(leaves["t"]) == 4
+    assert {k.split("/")[0] for k in leaves} == {
+        "t", "slot_ids", "slot_of", "slot_ls", "freq", "ls", "cold_w",
+        "cold_m", "cold_v", "dense_param", "dense_opt"}
+    p, s, _ = _steps(bundle, p, s, bs[4:])
+    p, s = bundle.flush(p, s)
+
+    fresh = _bundle(4, cold_store="mem")
+    p2, _ = _init(fresh)
+    p2, s2 = fresh.stream_driver.__self__.import_snapshot(leaves, p2)
+    assert s2["step"] == 4
+    p2, s2, _ = _steps(fresh, p2, s2, bs[4:])
+    p2, s2 = fresh.flush(p2, s2)
+    _assert_bitwise(_export(bundle, p), _export(fresh, p2))
 
 
 # ---------------------------------------------------------------------------

@@ -593,7 +593,8 @@ def test_torch_scan_engine_cuda_graph_equals_eager(placement):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("placement", ["fused", "sparse", "substrate"])
+@pytest.mark.parametrize("placement",
+                         ["fused", "sparse", "substrate", "hotcold"])
 def test_torch_scan_engine_cuda_guard_skips_inside_a_graph(placement):
     """A chunk of 4 with a NaN dense feature in its second batch, replayed
     from a graph under nonfinite_guard: the same params and state as the
@@ -1105,3 +1106,101 @@ def test_torch_hotcold_cuda_async_matches_sync():
     assert out["none"][0].losses == out["mem"][0].losses
     for k, v in out["none"][1].items():
         assert torch.equal(v, out["mem"][1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admission", ["cumulative", "decayed"])
+def test_torch_hotcold_cuda_guard_equals_unguarded(admission):
+    """The guarded synchronous hot/cold step on the card at capacity 64
+    (evicting) over 10 clean steps, eager and as graphs: the unguarded
+    step's params, state (hot tier, slot maps, frequencies) and losses
+    bit for bit, with the same launches a step (one of each grouped
+    sparse kernel, one embedding backward run, no fused update)."""
+    _need_cuda()
+    cfg, hp, ds = _small_ctr("hotcold")
+    tr, _ = ds.split(0.95)
+    params0 = ctr.init(cfg, seed=4, device="cpu")
+    store = store_for(cfg, hot_capacity=64, admission=admission,
+                      half_life=3)
+    runs = {}
+    for guard in (False, True):
+        for eng in ("eager", "scan"):
+            for w in (sparse_gather_catchup_tables,
+                      sparse_update_scatter_tables,
+                      embedding_backward_groups, fused_cowclip_adam):
+                w.launches = 0
+            bundle = store.make_bundle(cfg, hp, nonfinite_guard=guard)
+            runs[guard, eng] = _hotcold_stream(cfg, hp, tr, bundle, eng, 10,
+                                               params0)
+            if eng == "eager":
+                assert sparse_gather_catchup_tables.launches == 10
+                assert sparse_update_scatter_tables.launches == 10
+                assert embedding_backward_groups.launches == 10
+                assert fused_cowclip_adam.launches == 0
+    a = runs[False, "eager"]
+    for key in ((True, "eager"), (True, "scan"), (False, "scan")):
+        b = runs[key]
+        assert a.losses == b.losses, key
+        fa = _tensors({"p": a.params, "s": a.opt_state})
+        fb = _tensors({"p": b.params, "s": b.opt_state})
+        for k in fa:
+            assert torch.equal(fa[k], fb[k]), (key, k)
+
+
+@pytest.mark.cuda
+def test_torch_snapshot_cuda_resume_bitwise(tmp_path):
+    """Snapshots every 4 steps of the guarded synchronous hot/cold step
+    on the card (graphs of 2 steps): a fresh bundle resumed from step 4
+    (its step counter a 0-dim int32 tensor back on the card) and run to
+    12 equals the uninterrupted 12 steps bit for bit."""
+    _need_cuda()
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.train import snapshot as snap_lib
+
+    cfg, hp, ds = _small_ctr("hotcold")
+    tr, _ = ds.split(0.95)
+    store = store_for(cfg, hot_capacity=64)
+    token = snap_lib.placement_token(store)
+    params0 = ctr.init(cfg, seed=4, device="cuda")
+
+    def run(d, *, max_steps, start=0, init_state=None, bundle=None):
+        bundle = bundle or store.make_bundle(cfg, hp, nonfinite_guard=True)
+        mgr = snap_lib.SnapshotManager(str(d))
+        last = [start]
+
+        def cb(p, s, n):
+            if n - last[0] >= 4:
+                p, s = snap_lib.capture(mgr, bundle, p, s, step=n,
+                                        cursor={"rows_consumed": n * 512},
+                                        meta={"placement": token})
+                last[0] = n
+            return p, s
+
+        if init_state is None:
+            p = bundle.prepare(tree_map(torch.clone, params0))
+            init_state = (p, bundle.init(p))
+        events = stream_lib.skip_rows(stream_lib.synthetic_event_stream(
+            tr, rows_per_event=300, seed=2), start * 512)
+        return train_ctr(cfg, None, tr, None, batch_size=512,
+                         step_bundle=bundle, max_steps=max_steps,
+                         engine="scan", mode="stream",
+                         stream=stream_lib.stream_chunks(
+                             events, 512, 2, start_rows=start * 512),
+                         init_state=init_state, start_step=start,
+                         snapshot_cb=cb)
+
+    whole = run(tmp_path / "a", max_steps=12)
+    run(tmp_path / "b", max_steps=6)
+    bundle = store.make_bundle(cfg, hp, nonfinite_guard=True)
+    p, s, start, _ = snap_lib.resume(
+        snap_lib.SnapshotManager(str(tmp_path / "b")), bundle,
+        ctr.init(cfg, seed=5, device="cuda"), token=token)
+    assert start == 4 and s["step"].is_cuda and s["step"].dtype == \
+        torch.int32 and int(s["step"]) == 4
+    resumed = run(tmp_path / "b", max_steps=12, start=start,
+                  init_state=(p, s), bundle=bundle)
+    assert whole.losses[4:] == resumed.losses
+    fa = _tensors({"p": whole.params, "s": whole.opt_state})
+    fb = _tensors({"p": resumed.params, "s": resumed.opt_state})
+    for k in fa:
+        assert torch.equal(fa[k], fb[k]), k

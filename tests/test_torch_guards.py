@@ -168,8 +168,8 @@ def test_torch_cli_sparse_alias_conflicts_with_other_placement():
                  id="flags2-queue 1 item 7"),
     pytest.param(["--host-devices", "8"], "queue 1 item 7",
                  id="flags3-queue 1 item 7"),
-    pytest.param(["--snapshot-dir", "snaps"], "queue 1 item 6",
-                 id="flags5-queue 1 item 6"),
+    pytest.param(["--mesh", "2,4", "--host-devices", "8"], "queue 1 item 7",
+                 id="flags5-queue 1 item 7"),
     pytest.param(["--task", "lm"], "queue 1 item 8",
                  id="flags6-queue 1 item 8"),
 ])

@@ -216,7 +216,7 @@ def test_torch_nonfinite_guard_matches_jax(placement):
                     np.asarray(flatten_with_paths(state_j["last_step"])[k]))
 
 
-@pytest.mark.parametrize("placement", ["fused", "sparse"])
+@pytest.mark.parametrize("placement", ["fused", "sparse", "hotcold"])
 def test_torch_nonfinite_guard_is_exact_on_clean_data(placement):
     """Over 4 clean batches the guarded step equals the unguarded one bit
     for bit (params and the whole state); a NaN batch leaves every leaf
@@ -253,7 +253,7 @@ def test_torch_nonfinite_guard_is_exact_on_clean_data(placement):
         assert torch.equal(before[k], after[k]), k
 
 
-@pytest.mark.parametrize("placement", ["fused", "sparse"])
+@pytest.mark.parametrize("placement", ["fused", "sparse", "hotcold"])
 def test_torch_guarded_chunk_equals_guarded_eager_steps(placement):
     """A chunk of 4 batches, the second poisoned, through the scan
     engine's runner equals the same guarded steps one by one, bit for
