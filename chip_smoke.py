@@ -171,7 +171,26 @@ Phases, each fatal on failure:
      under sparse (params only, warned); the CLI killed by a FaultPlan in
      a child process inside its step-8 snapshot write, then --resume:
      each bitwise equal to its uninterrupted run
-Phase 24 runs after 12; phases 19-22 and 25-32 between 24 and 13. Each
+ 33. sharded (div) on an NCCL world of one rank (a 1x1 grid: every
+     collective issued at size 1), at phase 19's width, batch and initial
+     params: 4 steps eager (52 fused-update launches and one embedding
+     backward run, with its sort, a step) and through the scan engine (4
+     steps a graph, the NCCL calls captured), bitwise equal; one step
+     against the substrate at phase 25's bar (rtol 1e-5 / atol 1e-8) and,
+     printed, against fused; a traced replay (52 fused launches a step,
+     the embedding backward's level launches, NCCL's kernels with their
+     device time, 0 host reads); the collectives of 2 eager steps (6 a
+     step) and their host time; steady ms/step over 10 chunks each way;
+     the process group destroyed at the end
+ 34. sharded_sparse (div), as 33: one launch of each sparse kernel a
+     step, no fused launch, overflow_shards 0; one step against the
+     flushed sparse placement at the same bar; the forward's inline decay
+     against the catch-up kernel's rows, bitwise (after the run, and at
+     pending depths to 1000); 7 collectives a step; at phase 6's small
+     size a capped capacity (64) that overflows, eager and in a replayed
+     chunk (bitwise, the same count), against the substrate on the card
+     (rtol / atol 1e-5)
+Phase 24 runs after 12; phases 19-22 and 25-34 between 24 and 13. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
 prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
@@ -252,6 +271,18 @@ HOT_AGREE = 1e-7               # max abs, hotcold vs sparse, phase 30
 DUR_STEPS = 8                  # steps of each run, phase 31
 SNAP_EVERY = 4                 # steps between snapshots, phase 31
 DUR_TIMED = 10                 # replays timed each way (the guard), 31
+SHARD_STEPS = 4                # steps of each engine, phases 33-34
+SHARD_TIMED = 10               # chunks timed each way, phases 33-34
+SHARD_CAP = 64                 # the capped slot capacity at phase 6's
+                               # small size, phase 34
+# NCCL's kernels (ncclDevKernel_*, ncclKernel_*): the sharded steps'
+# collectives on the card
+NCCL_GROUP = ("NCCL's kernels", ("nccl",))
+# the collectives a step issues at the exact capacity: the lookups' SUM
+# over "model" (fm, lin), the loss and tower's SUM over "data", the row
+# gradients' SUM over "data" (fm, lin), and the counts' SUM over "data"
+# (sharded) or the overflow count's SUM and the depth's MAX over "model"
+COLLECTIVES = {"sharded": 6, "sharded_sparse": 7}
 
 
 # each port kernel's wrapper calls on its main path's run (phase 4 for
@@ -2986,12 +3017,329 @@ def durability_phases(tr, hp, power, kind):
           f"s; peak host RSS so far {host_memory()[1]} B", flush=True)
     return calls
 
+def shard_run(cfg, hp, tr, params0, engine, *, placement, grid=None,
+              steps=SHARD_STEPS, batch=None):
+    """``steps`` steps of ``placement`` through ``train_ctr`` from
+    ``params0`` over ``tr``'s batches of ``batch`` rows (default BATCH;
+    seed 3, phases 19-20's), on the grid ``grid`` for a sharded placement;
+    the scan engine takes SCAN_STEPS steps a graph. Returns (bundle,
+    result)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.embed import store_for
+    from repro_torch.train import train_ctr
+
+    batch = batch or BATCH
+
+    cfg = dataclasses.replace(cfg, placement=placement,
+                              sparse=placement == "sparse")
+    bundle = store_for(cfg, mesh=grid).make_bundle(
+        cfg, hp, warmup_steps=max(1, len(tr) // batch))
+    params = bundle.prepare(tree_map(torch.clone, params0))
+    res = train_ctr(cfg, None, tr, None, batch_size=batch, seed=3,
+                    step_bundle=bundle, max_steps=steps, engine=engine,
+                    scan_steps=SCAN_STEPS,
+                    init_state=(params, bundle.init(params)), device="cuda")
+    check(res.steps == steps, f"{placement} {engine}: {res.steps} steps")
+    return bundle, res
+
+
+def exported(bundle, res):
+    """A run's flushed params as whole tables (``export``), flat."""
+    from repro_torch.core.tree import flatten_with_paths
+
+    params, _ = bundle.flush(res.params, res.opt_state)
+    return flatten_with_paths(bundle.export(params))
+
+
+def held_to(tag, got, want, rtol, atol):
+    """Max abs difference of two flat param dicts and the share of the
+    bar ``atol + rtol*|want|`` the worst element uses (<= 1 holds)."""
+    worst, used = 0.0, 0.0
+    for k, y in want.items():
+        err = (got[k] - y).abs()
+        worst = max(worst, float(err.max()))
+        used = max(used, float((err / (atol + rtol * y.abs())).max()))
+    return worst, used
+
+
+def sharded_phase(placement, tr, hp, power, kind):
+    """Phase 33 (``sharded``) or 34 (``sharded_sparse``) on an NCCL world
+    of one rank (a 1x1 grid, every collective issued at size 1), at
+    deepfm-criteo width and batch BATCH from phase 19's initial params:
+    SHARD_STEPS steps eager (the wrappers' calls a step: 52 fused updates,
+    or one launch of each sparse kernel; one embedding backward run with
+    its one sort) and through the scan engine, bitwise equal; one step
+    against the port's substrate (sharded) or flushed sparse placement
+    (sharded_sparse) at phase 25's bar, rtol 1e-5 / atol 1e-8 (sharded
+    also against fused, printed); sharded_sparse: the forward's inline
+    decay against the catch-up kernel's rows, bitwise, and at phase 6's
+    small size a capped capacity that overflows, in a replayed chunk,
+    against the substrate and the eager steps; a traced replay (the
+    update's launches, the embedding backward's, NCCL's kernels and their
+    device time a step, 0 host reads); the steady ms/step each way. The
+    process group is destroyed on the way out. Returns the wrappers'
+    calls on the eager run."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    with mesh_lib.process_group("cuda"):
+        grid = mesh_lib.make_ctr_mesh(1, 1, device_type="cuda")
+        calls = _sharded_phase(placement, grid, tr, hp, power, kind)
+        del grid
+        phase_end()
+    return calls
+
+
+def _sharded_phase(placement, grid, tr, hp, power, kind):
+    from repro_torch.configs.deepfm_criteo import CONFIG
+    from repro_torch.data.prefetch import chunk_epoch
+    from repro_torch.kernels import cowclip as cc
+    from repro_torch.kernels.embedding import (embedding_backward_groups,
+                                               ref, sort_plan)
+    from repro_torch.models import ctr
+    from repro_torch.train import engine as engine_lib
+
+    tag = f"{placement}-1x1"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG, emb_sigma=1e-2)
+    params0 = ctr.init(cfg, seed=7, device="cuda")
+    wrappers = {"cowclip_adam_update": cc.fused_cowclip_adam,
+                "sparse_gather_catchup (one table)":
+                    cc.sparse_gather_catchup,
+                "sparse_update_scatter (one table)":
+                    cc.sparse_update_scatter,
+                "sparse_gather_catchup": cc.sparse_gather_catchup_tables,
+                "sparse_update_scatter": cc.sparse_update_scatter_tables,
+                "embedding_backward": embedding_backward_groups}
+    for w in wrappers.values():
+        w.launches = 0
+    sort_plan.sorts = 0
+    b_eager, eager = shard_run(cfg, hp, tr, params0, "eager",
+                               placement=placement, grid=grid)
+    torch.cuda.synchronize()
+    calls = {name: w.launches for name, w in wrappers.items()}
+    sorts = sort_plan.sorts
+    n_tables = 2 * cfg.n_fields
+    per_step = ({"cowclip_adam_update": n_tables, "embedding_backward": 1}
+                if placement == "sharded" else
+                {"sparse_gather_catchup": 1, "sparse_update_scatter": 1,
+                 "embedding_backward": 1})
+    print(f"[{tag}] deepfm-criteo {placement} on an NCCL world of one rank "
+          f"(div), batch {BATCH}, {SHARD_STEPS} steps eager: wrapper calls "
+          f"{calls} (expected a step {per_step}, nothing else), the "
+          f"embedding backward's sorts {sorts} (expected 1 a step)",
+          flush=True)
+    check(all(calls[n] == SHARD_STEPS * per_step.get(n, 0) for n in calls)
+          and sorts == SHARD_STEPS, f"{placement}: launches {calls}, sorts "
+          f"{sorts}")
+    b_scan, scan = shard_run(cfg, hp, tr, params0, "scan",
+                             placement=placement, grid=grid)
+    leaves = lambda r: (r.params, r.opt_state)  # noqa: E731
+    differ = tree_diff(leaves(eager), leaves(scan))
+    eager_ms = 1e3 * sum(eager.step_seconds[1:]) / (SHARD_STEPS - 1)
+    print(f"[{tag}] eager against the scan engine ({SCAN_STEPS} steps a "
+          f"graph, its NCCL calls captured): params and state "
+          f"{'bitwise equal' if not differ else f'DIFFER at {differ[:6]}'}"
+          f", losses "
+          f"{'bitwise equal' if eager.losses == scan.losses else 'DIFFER'}"
+          f" (last {scan.losses[-1]:.6f}), overflow_shards "
+          f"{eager.overflow_shards} / {scan.overflow_shards}; train_ctr's "
+          f"ms/step (CUDA events): eager {eager_ms:.2f} (steps 2-"
+          f"{SHARD_STEPS}), graph chunk with its capture "
+          f"{1e3 * scan.step_seconds[0]:.1f}", flush=True)
+    check(not differ and eager.losses == scan.losses,
+          f"{placement}: the graph replays differ from the eager steps")
+    check(eager.overflow_shards == scan.overflow_shards == 0,
+          f"{placement}: overflow at the exact capacity")
+    del eager, b_eager
+    torch.cuda.empty_cache()
+
+    # one step from the same params against the port's own placements
+    want = "substrate" if placement == "sharded" else "sparse"
+    others = (want, "fused") if placement == "sharded" else (want,)
+    one = {p: exported(*shard_run(cfg, hp, tr, params0, "eager",
+                                  placement=p, steps=1,
+                                  grid=grid if p == placement else None))
+           for p in (placement,) + others}
+    worst, used = held_to(tag, one[placement], one[want], 1e-5, 1e-8)
+    print(f"[{tag}] one step against the {want} placement from the same "
+          f"params{' (flushed)' if want == 'sparse' else ''}: max_abs "
+          f"{worst:.3e}, worst |err|/(atol + rtol*|{want}|) {used:.3f} "
+          f"(rtol 1e-5, atol 1e-8)", flush=True)
+    check(used <= 1.0, f"{placement} against {want} after a step")
+    if placement == "sharded":
+        f_worst, _ = held_to(tag, one[placement], one["fused"], 1e-5, 1e-8)
+        print(f"[{tag}] one step against the fused placement: max_abs "
+              f"{f_worst:.3e}", flush=True)
+    del one
+    torch.cuda.empty_cache()
+
+    params, state = scan.params, scan.opt_state
+    del scan
+    if placement == "sharded_sparse":
+        decay_check(tr, params, state, hp)
+    chunk = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(chunk_epoch(tr, BATCH, SCAN_STEPS, seed=4)).items()}
+    runner = engine_lib.make_chunk_runner(b_scan.step.scan_step)
+    runner(params, state, chunk)          # the capture and a first replay
+    torch.cuda.synchronize()
+    wall_ms, prof = profiled(lambda: runner(params, state, chunk))
+    kernels = by_kernel(prof)
+    group = FUSED_KERNELS if placement == "sharded" else SPARSE_KERNELS
+    print_trace(tag, f"one replay of {SCAN_STEPS} steps", wall_ms, kernels,
+                groups=(("the update's kernels", group), EMBED_GROUP,
+                        NCCL_GROUP), steps=SCAN_STEPS)
+    counts = {n: sum(c for _, c, k in kernels if n in k)
+              for n in FUSED_KERNELS + SPARSE_KERNELS + EMBED_KERNELS}
+    nccl = [(name, n, round(ms / SCAN_STEPS, 4)) for ms, n, name in kernels
+            if "nccl" in name.lower()]
+    theirs = torch_embedding_backward(kernels)
+    reads = sum(e.name == HOST_READ for e in prof.events())
+    levels = ref.levels(BATCH * cfg.n_fields)
+    print(f"[{tag}] kernels of one replay: {counts}; NCCL's kernels "
+          f"(name, launches in the replay, device ms a step) {nccl}; "
+          f"PyTorch's embedding backward kernels {theirs}; host reads of a "
+          f"scalar in the replay {reads}", flush=True)
+    fused = sum(counts[n] for n in FUSED_KERNELS)
+    want_counts = (fused == n_tables * SCAN_STEPS
+                   and counts["sparse_catchup_kernel"] == 0
+                   if placement == "sharded" else
+                   fused == 0
+                   and counts["sparse_catchup_kernel"] == SCAN_STEPS
+                   and counts["sparse_update_kernel"] == SCAN_STEPS)
+    check(reads == 0, f"{placement}: {reads} host reads in a replay")
+    check(not theirs, f"{placement}: PyTorch's embedding backward {theirs}")
+    check(want_counts and counts[EMBED_KERNELS[0]] == levels * SCAN_STEPS,
+          f"{placement}: kernels of a replay {counts}")
+    del prof
+
+    # the collectives an eager step issues (c10d's ops on the host; on
+    # one rank NCCL launches nothing for an in-place collective)
+    batches = [{k: v[i] for k, v in chunk.items()} for i in range(2)]
+
+    def two_steps():
+        for batch in batches:
+            b_scan.step(params, state, batch)
+
+    wall_ms, prof = profiled(two_steps)
+    coll = {e.key: (e.count, e.cpu_time_total / 1e3)
+            for e in prof.key_averages() if e.key.startswith("c10d::")}
+    n_coll = sum(c for c, _ in coll.values())
+    want_coll = COLLECTIVES[placement]
+    nccl_eager = [(name, n, round(ms, 4)) for ms, n, name in by_kernel(prof)
+                  if "nccl" in name.lower()]
+    print(f"[{tag}] 2 eager steps ({wall_ms:.1f} ms wall): collectives "
+          f"{coll} (op: calls, host ms), {n_coll / 2:g} a step (expected "
+          f"{want_coll}), their host time "
+          f"{sum(t for _, t in coll.values()) / 2:.3f} ms a step; NCCL's "
+          f"kernels {nccl_eager}", flush=True)
+    check(n_coll == 2 * want_coll, f"{placement}: {n_coll} collectives in "
+          f"2 eager steps, expected {want_coll} a step")
+    del prof
+    e_ms, g_ms = steady_ms(b_scan, runner, params, state, chunk,
+                           rounds=SHARD_TIMED)
+    print(f"[{tag}] steady ms/step (CUDA events around each chunk of "
+          f"{SCAN_STEPS} steps on batches already on the card, eager and "
+          f"graph in turns): eager {spread(e_ms)}, graph {spread(g_ms)}, "
+          f"{kind} at {power}", flush=True)
+    check(all(math.isfinite(x) and x > 0 for x in e_ms + g_ms),
+          f"{placement}: a steady chunk time is not positive")
+    del runner, chunk, params, state, b_scan, params0
+    if placement == "sharded_sparse":
+        overflow_small_phase(grid)
+    print(f"[{tag}] phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    return calls
+
+
+def decay_check(tr, params, state, hp):
+    """The sharded_sparse forward's inline decay
+    (``embed.sharded.decayed_lookup_partial``) against the catch-up
+    kernel's rows for the same ids, on the largest table after a run, and
+    with pending depths to 1000: bitwise."""
+    from repro_torch.core.optim import decay_factor
+    from repro_torch.embed import sharded as shard_lib
+    from repro_torch.kernels import cowclip as cc
+    from repro_torch.models.embedding import unique_ids
+
+    vocabs = [t.shape[0] for t in params["embed"]["fm"].values()]
+    f = int(np.argmax(vocabs))
+    name = f"field_{f}"
+    w, m, v = (t["fm"][name] for t in (params["embed"], state["m"],
+                                       state["v"]))
+    ls = state["last_step"]["fm"][name]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    deep = torch.randint(0, 1001, ls.shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    col = torch.as_tensor(tr.ids[:BATCH, f], device="cuda")
+    u = unique_ids(col, w.shape[0], BATCH)
+    real = u.counts > 0
+    factor = decay_factor(hp.emb_lr, hp.emb_l2)
+    plan = shard_lib.RowShardPlan(w.shape[0], 1)
+    for what, ls_, t in (("after the run", ls, int(state["step"]) + 1),
+                         ("depths 0-1000", deep, 1002)):
+        rows, _ = cc.sparse_gather_catchup_tables(
+            [w], [m], [v], [ls_], [u.uids], [u.counts],
+            cc.step_scalars(t, device="cuda"), lr=hp.emb_lr, l2=hp.emb_l2)
+        got = shard_lib.decayed_lookup_partial(
+            w, ls_, u.uids[real], plan, 0,
+            torch.tensor(t, dtype=torch.int32, device="cuda"), factor)
+        same = torch.equal(got, rows[0][0][real])
+        print(f"[sharded_sparse-1x1] the forward's inline decay against the "
+              f"catch-up kernel's rows, {what} ({int(real.sum())} rows of "
+              f"field {f}, step {t}): "
+              f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+        check(same, f"inline decay differs from the catch-up kernel, {what}")
+
+
+def overflow_small_phase(grid):
+    """Phase 34's small part: at phase 6's small size a capped slot
+    capacity (SHARD_CAP) that overflows, SCAN_STEPS steps eager and in a
+    replayed chunk (bitwise, the same overflow count, > 0), flushed and
+    exported against the substrate on the card (rtol / atol 1e-5)."""
+    from repro_torch.models import ctr
+
+    cfg, hp, ds = small_setup("sharded_sparse")
+    cfg = dataclasses.replace(cfg, unique_capacity=SHARD_CAP)
+    tr, _ = ds.split(0.95)
+    params0 = ctr.init(cfg, seed=2, device="cuda")
+    runs = {e: shard_run(cfg, hp, tr, params0, e, placement="sharded_sparse",
+                         grid=grid, batch=512) for e in ("eager", "scan")}
+    sub = exported(*shard_run(cfg, hp, tr, params0, "eager",
+                              placement="substrate", batch=512))
+    flat = {e: exported(*r) for e, r in runs.items()}
+    same = all(torch.equal(flat["eager"][k], flat["scan"][k]) for k in sub)
+    over = [r[1].overflow_shards for r in runs.values()]
+    worst, used = held_to("small", flat["scan"], sub, 1e-5, 1e-5)
+    print(f"[sharded_sparse-small] capacity {SHARD_CAP} at phase 6's size, "
+          f"{SCAN_STEPS} steps: overflow_shards eager / replayed chunk "
+          f"{over}; eager against the replay "
+          f"{'bitwise equal' if same else 'DIFFER'}; the replay's flushed "
+          f"params against the substrate on the card: max_abs {worst:.3e}, "
+          f"worst |err|/(atol + rtol*|substrate|) {used:.3f} (rtol 1e-5, "
+          f"atol 1e-5)", flush=True)
+    check(over[0] == over[1] > 0, f"overflow counts {over}")
+    check(same, "capped sharded_sparse: the replay differs from eager")
+    check(used <= 1.0, "capped sharded_sparse against the substrate")
+
+
+def sharded_phases(tr, hp, power, kind):
+    """Phases 33-34: the sharded placements at deepfm-criteo width on an
+    NCCL world of one rank. Returns the wrappers' calls on each eager
+    run, for the kernels' JSON line."""
+    phase_start(33)
+    sharded = sharded_phase("sharded", tr, hp, power, kind)
+    phase_end()
+    phase_start(34)
+    hybrid = sharded_phase("sharded_sparse", tr, hp, power, kind)
+    phase_end()
+    return sharded, hybrid
+
 
 def graph_phases(smi, kind):
-    """Phases 19-22, 25 and 26: the scan engine at deepfm-criteo width on
+    """Phases 19-22, 25-34: the scan engine at deepfm-criteo width on
     the fused and sparse placements, the guard under a graph, CTR serving,
-    the substrate at full width and its clips at a small size. Every
-    tensor is freed on return."""
+    the substrate at full width and its clips at a small size, the
+    hot/cold tiers, durability and the sharded placements. Every tensor is
+    freed on return."""
     power = smi.strip().split(", ")[-1]
     t0 = time.perf_counter()
     tr, te = criteo_data(steps=GRAPH_STEPS, seed=1)
@@ -3018,7 +3366,8 @@ def graph_phases(smi, kind):
     clip_phase()
     phase_end()
     calls = hotcold_phases(tr, hp, power, kind)
-    return calls, durability_phases(tr, hp, power, kind)
+    guarded = durability_phases(tr, hp, power, kind)
+    return calls, guarded, sharded_phases(tr, hp, power, kind)
 
 
 def wkv_inputs(gen, bh, seq, n, zero_frac=0.0):
@@ -3440,7 +3789,8 @@ def main() -> int:
     phase_start(24)
     lines.append(embed_phase(smi, kind))
     phase_end()
-    hot_calls, guarded_calls = graph_phases(smi, kind)
+    hot_calls, guarded_calls, (sharded_calls, hybrid_calls) = \
+        graph_phases(smi, kind)
     for line in lines:
         if line["name"] in hot_calls:
             # calls on phase 27's eager run of the hot/cold placement
@@ -3448,6 +3798,10 @@ def main() -> int:
         if line["name"] in guarded_calls:
             # calls on phase 31's eager guarded hot/cold steps
             line["launches_hotcold_guarded"] = guarded_calls[line["name"]]
+        if line["name"] in sharded_calls:
+            # calls on phases 33 and 34's eager runs
+            line["launches_sharded"] = sharded_calls[line["name"]]
+            line["launches_sharded_sparse"] = hybrid_calls[line["name"]]
     lines.append(lm_phases(smi, kind))
     phase_end()
     print(f"[exit] threads alive: "

@@ -249,9 +249,11 @@ def build_train_step(
     ``repro_torch.embed.EmbeddingStore``: ``substrate`` (this module's
     composable chain, the oracle), ``fused``, ``sparse``, ``hotcold``
     (``store_kw``: ``hot_capacity``, ``cold_store``, ``cold_dir``,
-    ``admission``, ``half_life``); the sharded ones raise naming their
-    ROADMAP item. ``path=None`` honors the config: ``cfg.placement`` if
-    set, else ``cfg.sparse`` selects "sparse", otherwise "substrate"."""
+    ``admission``, ``half_life``), ``sharded`` and ``sharded_sparse``
+    (``store_kw``: ``mesh``, a ``launch.mesh.CtrMesh``, required;
+    ``partition``, "div" or "mod"). ``path=None`` honors
+    the config: ``cfg.placement`` if set, else ``cfg.sparse`` selects
+    "sparse", otherwise "substrate"."""
     from ..embed.store import store_for  # deferred: embed imports core
 
     return store_for(cfg, path=path, **store_kw).make_bundle(

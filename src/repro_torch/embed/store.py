@@ -1,19 +1,21 @@
 """EmbeddingStore: one facade over the embedding placements.
 
-A port of ``repro.embed.store``. Four placements are built: ``dense``
-tables updated through the composable optimizer chain
-(``kernel="substrate"``, the exactness oracle: ``core.builders
-.build_optimizer`` with any Table-7 clip) or by the fused CowClip +
-coupled-L2 + Adam kernel (``kernel="fused"``); ``sparse``, the unique-id
-placement whose update runs on a batch's unique rows through the two
-sparse kernels, with lazy decay settled by ``flush``; and ``hotcold``, a
-fixed-capacity hot tier a field beside the full tables, for streaming
-training (``embed.hotcold``), with the cold tier on the card
-(``cold_store="none"``) or in an out-of-core host store planned one step
-ahead (``"mem"``/``"mmap"``, ``embed.migrate``). The sharded placements
-are named here so the CLI and the routing stay those of the reference,
-and raise ``NotImplementedError`` naming their ROADMAP item when a bundle
-is asked for::
+A port of ``repro.embed.store``. Its placements: ``dense`` tables
+updated through the composable optimizer chain (``kernel="substrate"``,
+the exactness oracle: ``core.builders.build_optimizer`` with any Table-7
+clip) or by the fused CowClip + coupled-L2 + Adam kernel
+(``kernel="fused"``); ``sparse``, the unique-id placement whose update
+runs on a batch's unique rows through the two sparse kernels, with lazy
+decay settled by ``flush``; ``sharded`` and ``sharded_sparse``, the
+tables' rows split over the ``"model"`` axis of a ``torch.distributed``
+grid of ranks and the batch over its ``"data"`` axis
+(``embed.sharded``, ``embed.sharded_sparse``; a rank's update dense on
+its rows through the fused kernel, or on the batch ids it owns through
+the sparse pair); and ``hotcold``, a fixed-capacity hot tier a field
+beside the full tables, for streaming training (``embed.hotcold``), with
+the cold tier on the card (``cold_store="none"``) or in an out-of-core
+host store planned one step ahead (``"mem"``/``"mmap"``,
+``embed.migrate``)::
 
     bundle = store_for(cfg, path="sparse").make_bundle(cfg, hp, ...)
     params = bundle.prepare(params)
@@ -25,7 +27,7 @@ is asked for::
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -45,18 +47,12 @@ _PATH_TO_STORE = {
     "hotcold": ("hotcold", "auto"),
 }
 
-# where each placement that is not ported yet stands in ROADMAP.md
-NOT_PORTED = {
-    "sharded": "ROADMAP queue 1 item 7 (multi-GPU placements)",
-    "sharded_sparse": "ROADMAP queue 1 item 7 (multi-GPU placements)",
-}
+MESH_PLACEMENTS = ("sharded", "sharded_sparse")
 
-
-def not_ported(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"placement {path!r} is not ported to repro_torch yet: "
-        f"{NOT_PORTED[path]}; use the 'substrate', 'fused', 'sparse' or "
-        "'hotcold' placement")
+# where the sharded placements' guard, snapshots and streaming stand in
+# ROADMAP.md
+SHARDED_ITEM = ("ROADMAP queue 1 item 9 (the guard, snapshots and "
+                "streaming on the sharded placements)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +69,9 @@ class EmbeddingStore:
     cold_dir: Optional[str] = None  # hotcold/mmap only: table directory
     admission: str = "cumulative"   # hotcold only: "cumulative" | "decayed"
     half_life: int = 0              # hotcold/decayed only: steps per halving
+    mesh: Any = None                # sharded only, required there: a
+                                    # launch.mesh.CtrMesh
+    partition: str = "div"          # sharded only: "div" | "mod"
 
     def __post_init__(self):
         if self.placement not in PLACEMENTS:
@@ -87,6 +86,11 @@ class EmbeddingStore:
         if self.cold_store == "mmap" and not self.cold_dir:
             raise ValueError("cold_store='mmap' needs cold_dir "
                              "(the on-disk table directory)")
+        if self.placement in MESH_PLACEMENTS and self.mesh is None:
+            raise ValueError(
+                f"the {self.placement} placement needs mesh= (a grid of "
+                "repro_torch.launch.mesh.make_ctr_mesh, inside its "
+                "process_group)")
 
     @property
     def path(self) -> str:
@@ -94,6 +98,12 @@ class EmbeddingStore:
         return self.kernel if self.placement == "dense" else self.placement
 
     def describe(self) -> str:
+        if self.placement in MESH_PLACEMENTS:
+            detail = ("per-shard unique-id update, "
+                      if self.placement == "sharded_sparse" else "")
+            return (f"{self.placement}(rows over model={self.mesh.model}, "
+                    f"batch over data={self.mesh.data}, {detail}"
+                    f"{self.partition} partition)")
         if self.placement == "dense":
             return f"dense({self.kernel})"
         if self.placement == "hotcold":
@@ -122,9 +132,7 @@ class EmbeddingStore:
         eps: float = 1e-8,
         nonfinite_guard: bool = False,
     ) -> TrainStepBundle:
-        """Build this placement's bundle (``substrate``, ``fused``,
-        ``sparse`` and ``hotcold``; the sharded ones raise naming their
-        ROADMAP item).
+        """Build this placement's bundle.
 
         The substrate takes any ``clip_kind`` of
         ``core.cowclip.CLIP_KINDS`` (``clip_t`` the constant clips'
@@ -135,10 +143,9 @@ class EmbeddingStore:
         loss is NaN/Inf, counted in ``aux["skipped_steps"]``, value-exact
         on clean data; the async hotcold placement (a cold store) refuses
         it, as the reference does: its step fills host-side eviction
-        handles and cannot be skipped.
+        handles and cannot be skipped; so do the sharded placements, not
+        ported with a guard yet (``SHARDED_ITEM``).
         """
-        if self.path in NOT_PORTED:
-            raise not_ported(self.path)
         from ..train import loop as loop_lib  # deferred: train imports core
 
         if self.path == "substrate":
@@ -168,6 +175,18 @@ class EmbeddingStore:
                 cfg, hp, r=r, zeta=zeta, dense_tx=dense_tx, clip=clip,
                 b1=b1, b2=b2, eps=eps, nonfinite_guard=nonfinite_guard)
             return TrainStepBundle(step, init, flush)
+        if self.placement in MESH_PLACEMENTS:
+            if nonfinite_guard:
+                raise NotImplementedError(
+                    f"nonfinite_guard on the {self.placement} placement is "
+                    f"not ported to repro_torch yet: {SHARDED_ITEM}")
+            make = (loop_lib.make_sharded_sparse_train_step
+                    if self.placement == "sharded_sparse"
+                    else loop_lib.make_sharded_train_step)
+            step, init, flush, prepare, export = make(
+                cfg, hp, self.mesh, scheme=self.partition, r=r, zeta=zeta,
+                dense_tx=dense_tx, clip=clip, b1=b1, b2=b2, eps=eps)
+            return TrainStepBundle(step, init, flush, prepare, export)
 
         kw = dict(r=r, zeta=zeta, dense_tx=dense_tx, clip=clip, b1=b1,
                   b2=b2, eps=eps, admission=self.admission,
@@ -223,15 +242,17 @@ def resolve_path(cfg, path: Optional[str] = None) -> str:
     return path
 
 
-def store_for(cfg, *, path: Optional[str] = None,
-              hot_capacity: int = 4096, cold_store: str = "none",
-              cold_dir: Optional[str] = None, admission: str = "cumulative",
+def store_for(cfg, *, path: Optional[str] = None, mesh: Any = None,
+              partition: str = "div", hot_capacity: int = 4096,
+              cold_store: str = "none", cold_dir: Optional[str] = None,
+              admission: str = "cumulative",
               half_life: int = 0) -> EmbeddingStore:
     """The store for a config: routes the train-path names and the
-    config's ``placement`` onto one of the placements; the hotcold knobs
-    are carried along (and validated) whatever the placement."""
+    config's ``placement`` onto one of the placements; the sharded and
+    hotcold knobs are carried along (and validated) whatever the
+    placement."""
     placement, kernel = _PATH_TO_STORE[resolve_path(cfg, path)]
-    return EmbeddingStore(placement=placement, kernel=kernel,
-                          hot_capacity=hot_capacity, cold_store=cold_store,
-                          cold_dir=cold_dir, admission=admission,
-                          half_life=half_life)
+    return EmbeddingStore(placement=placement, kernel=kernel, mesh=mesh,
+                          partition=partition, hot_capacity=hot_capacity,
+                          cold_store=cold_store, cold_dir=cold_dir,
+                          admission=admission, half_life=half_life)

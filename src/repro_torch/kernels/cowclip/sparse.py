@@ -43,10 +43,10 @@ from .cowclip import _f32
 
 def safe_uids(uids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """Pad slots (count 0) remapped to the last real slot's uid, so every
-    slot indexes a real row. The TPU kernels' wrappers needed it; the CUDA
-    kernels do not. The sharded_sparse placement (ROADMAP queue 1 item 7)
-    gathers each slot's shard-local state through it, as
-    ``repro/embed/sharded_sparse.py`` does."""
+    slot indexes a real row. The TPU kernels' wrappers needed it, and the
+    reference's sharded_sparse placement gathers each slot's shard-local
+    state through it; the CUDA kernels skip pad slots themselves, so the
+    port's sharded_sparse placement passes its slot sets as they are."""
     n_real = torch.clamp_min(torch.sum((counts > 0).to(torch.int64)), 1)
     last_real = uids[n_real - 1]
     return torch.where(counts > 0, uids, last_real).to(torch.int32)

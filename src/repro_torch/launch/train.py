@@ -18,8 +18,16 @@ takes crash-safe snapshots (``--snapshot-dir DIR --snapshot-every N``,
 (``--resume``), bitwise equal to an uninterrupted run with the same
 cadence; a fault plan in ``REPRO_FAULT_PLAN`` (``testing.faults``) kills
 the trainer where it says. ``--nonfinite-guard`` skips a step whose loss
-is NaN/Inf on every placement but the async hot/cold one. The flags of
-paths not ported yet exit with a message that names their ROADMAP item.
+is NaN/Inf on every placement but the async hot/cold and sharded ones.
+
+``--placement sharded|sharded_sparse`` trains on a ("data", "model") grid
+of ranks (``--mesh DATA,MODEL``, ``--partition div|mod``; ``launch.mesh``),
+one process a rank: ``--device cpu --host-devices N`` spawns N gloo CPU
+ranks; on GPUs, one rank a card under ``torchrun`` (NCCL), or without it
+a world of one rank on one card. Only rank 0 prints, and the eval runs on
+the exported tables. The guard, snapshots, resume and ``--mode stream``
+are not ported with a sharded placement yet, nor is ``--task lm``: those
+flags exit with a message that names their ROADMAP item.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
@@ -38,6 +46,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
       --device cpu --mode stream --placement sparse --samples 2048 \
       --batch 128 --steps 12 --snapshot-dir DIR --snapshot-every 4 [--resume]
+  PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
+      --device cpu --placement sharded_sparse --mesh 2,2 --host-devices 4 \
+      --samples 4096 --batch 512 --steps 4 [--partition mod]
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --task ctr \
+      --placement sharded --mesh 1,4 --batch 8192 --epochs 1
 """
 
 from __future__ import annotations
@@ -54,9 +67,10 @@ from ..core.device import resolve_device
 from ..core.scaling import RULES, scale_hyperparams
 from ..core.tree import tree_leaves
 from ..data import load_criteo_tsv, make_ctr_dataset
-from ..embed.store import NOT_PORTED, store_for
+from ..embed.store import MESH_PLACEMENTS, SHARDED_ITEM, store_for
 from ..models import ctr as ctr_lib
 from ..train import checkpoint, train_ctr
+from . import mesh as mesh_lib
 
 PLACEMENT_CHOICES = ("substrate", "fused", "sparse", "sharded",
                      "sharded_sparse", "hotcold")
@@ -81,14 +95,30 @@ def resolve_placement(placement, sparse_flag, *, warn=print) -> str:
 
 def _unported_flags(args, placement) -> list:
     """(flag, ROADMAP item) for every flag that asks for a path the port
-    does not have yet."""
-    out = []
-    if placement in NOT_PORTED:
-        out.append((f"--placement {placement}", NOT_PORTED[placement]))
-    if args.host_devices:
-        out.append(("--host-devices",
-                    "ROADMAP queue 1 item 7 (multi-GPU placements)"))
-    return out
+    does not have yet: the guard, snapshots, resume and streaming on a
+    sharded placement."""
+    if placement not in MESH_PLACEMENTS:
+        return []
+    asked = [("--nonfinite-guard", args.nonfinite_guard),
+             ("--snapshot-dir", args.snapshot_dir),
+             ("--resume", args.resume),
+             ("--mode stream", args.mode == "stream")]
+    return [(f"{flag} with --placement {placement}", SHARDED_ITEM)
+            for flag, on in asked if on]
+
+
+def _check_mesh_flags(args, placement) -> None:
+    """The grid flags apply to the sharded placements, and
+    ``--host-devices`` spawns CPU ranks."""
+    if placement not in MESH_PLACEMENTS:
+        if args.mesh or args.host_devices:
+            raise SystemExit("[train] --mesh and --host-devices apply to "
+                             "--placement sharded|sharded_sparse")
+        return
+    if args.host_devices and torch.device(args.device).type != "cpu":
+        raise SystemExit("[train] --host-devices spawns gloo CPU ranks; add "
+                         "--device cpu (on GPUs launch one rank a card under "
+                         "torchrun)")
 
 
 def _check_stream_flags(args, placement) -> None:
@@ -183,14 +213,48 @@ def _run_async_segments(args, cfg, bundle, tr, te, params, state,
                        steps=n, params=params, opt_state=state)
 
 
+def _host_rank(rank, world, store_path, args, placement) -> None:
+    """One gloo CPU rank of ``--host-devices``: its share of the host's
+    cores, its process group, its part of the run."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    with mesh_lib.process_group("cpu", rank=rank, world_size=world,
+                                store_path=store_path) as device:
+        _run_ctr(args, placement, device)
+
+
 def run_ctr(args) -> None:
     placement = resolve_placement(args.placement, args.sparse)
     missing = _unported_flags(args, placement)
     if missing:
         raise SystemExit("[train] not ported to repro_torch yet: " + "; ".join(
             f"{flag} -> {item}" for flag, item in missing))
+    _check_mesh_flags(args, placement)
     _check_stream_flags(args, placement)
     device = resolve_device(args.device)
+    if placement not in MESH_PLACEMENTS:
+        _run_ctr(args, placement, device)
+    elif args.host_devices:
+        mesh_lib.spawn_host_ranks(_host_rank, args.host_devices,
+                                  (args, placement))
+    else:
+        with mesh_lib.process_group(device) as rank_device:
+            _run_ctr(args, placement, rank_device)
+
+
+def _quiet(*_args, **_kw) -> None:
+    """The print of a rank other than 0."""
+
+
+def _run_ctr(args, placement, device) -> None:
+    """The run on one device: the whole of it for a single-device
+    placement, this rank's part (inside its process group) for a sharded
+    one, where rank 0 alone prints and writes the checkpoint."""
+    mesh = None
+    if placement in MESH_PLACEMENTS:
+        mesh = mesh_lib.make_ctr_mesh(
+            *(mesh_lib.parse_mesh(args.mesh) if args.mesh else (0, 0)),
+            device_type=device.type)
+    say = print if mesh is None or mesh.rank == 0 else _quiet
 
     if args.criteo:
         ds = load_criteo_tsv(args.criteo, max_rows=args.max_rows)
@@ -207,7 +271,8 @@ def run_ctr(args) -> None:
         sparse=placement == "sparse", unique_capacity=args.unique_capacity,
         placement=placement, compute_dtype=args.compute_dtype,
     )
-    store = store_for(cfg, hot_capacity=args.hot_capacity,
+    store = store_for(cfg, mesh=mesh, partition=args.partition,
+                      hot_capacity=args.hot_capacity,
                       cold_store=args.cold_store, cold_dir=args.cold_dir,
                       admission=args.admission, half_life=args.half_life)
     params0 = ctr_lib.init(cfg, seed=args.seed, device=device)
@@ -216,10 +281,10 @@ def run_ctr(args) -> None:
               if args.engine == "scan" else "eager")
     mode = ("stream (online, no epochs)" if args.mode == "stream"
             else "epochs")
-    print(f"[train] {args.model}: {n_params/1e6:.1f}M params "
-          f"({len(tr)} train rows, batch {args.batch}, rule {args.rule}, "
-          f"embedding store {store.describe()}, engine {engine}, mode "
-          f"{mode}, compute {args.compute_dtype}, device {device})")
+    say(f"[train] {args.model}: {n_params/1e6:.1f}M params "
+        f"({len(tr)} train rows, batch {args.batch}, rule {args.rule}, "
+        f"embedding store {store.describe()}, engine {engine}, mode "
+        f"{mode}, compute {args.compute_dtype}, device {device})")
 
     hp = scale_hyperparams(
         args.rule, base_lr=args.base_lr, base_l2=args.base_l2,
@@ -250,15 +315,15 @@ def run_ctr(args) -> None:
         # --cold-dir with the snapshot's copy before the store opens it
         restored = snapshot_lib.resume(snap_mgr, bundle, params0,
                                        token=token, cold_dir=args.cold_dir,
-                                       warn=print)
+                                       warn=say)
         if restored is None:
-            print(f"[train] --resume: no valid snapshot under "
-                  f"{args.snapshot_dir}; starting fresh")
+            say(f"[train] --resume: no valid snapshot under "
+                f"{args.snapshot_dir}; starting fresh")
         else:
             p0, s0, start_step, cursor = restored
             init_state = (p0, s0)
-            print(f"[train] resumed from snapshot step {start_step} "
-                  f"(cursor {cursor})")
+            say(f"[train] resumed from snapshot step {start_step} "
+                f"(cursor {cursor})")
     if init_state is None:
         params0 = bundle.prepare(params0)
         init_state = (params0, bundle.init(params0))
@@ -298,7 +363,7 @@ def run_ctr(args) -> None:
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         trace_ctx = torch.profiler.profile(activities=activities)
-        print(f"[train] profiling to {args.profile_trace} (chrome trace)")
+        say(f"[train] profiling to {args.profile_trace} (chrome trace)")
     with trace_ctx as prof:
         if segments:
             res = _run_async_segments(args, cfg, bundle, tr, te,
@@ -306,22 +371,25 @@ def run_ctr(args) -> None:
                                       snap_meta, fault_plan)
         else:
             res = train_ctr(cfg, None, tr, te, batch_size=args.batch,
-                            epochs=args.epochs, seed=args.seed, log_fn=print,
+                            epochs=args.epochs, seed=args.seed, log_fn=say,
                             step_bundle=bundle, max_steps=args.steps,
                             engine=args.engine, scan_steps=args.scan_steps,
                             mode=args.mode, stream=stream,
                             init_state=init_state, start_step=start_step,
                             snapshot_cb=snapshot_cb)
-    if args.profile_trace:
+    first = mesh is None or mesh.rank == 0
+    if args.profile_trace and first:
         os.makedirs(args.profile_trace, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_trace,
                                               "trace.json"))
-    print(f"[train] done: {res.steps} steps in {res.seconds:.1f}s "
-          f"-> AUC {100*res.final_eval['auc']:.2f} "
-          f"logloss {res.final_eval['logloss']:.4f}")
+    say(f"[train] done: {res.steps} steps in {res.seconds:.1f}s "
+        f"-> AUC {100*res.final_eval['auc']:.2f} "
+        f"logloss {res.final_eval['logloss']:.4f}")
     if args.checkpoint:
+        exported = bundle.export(res.params)   # every rank: a collective
+    if args.checkpoint and first:
         checkpoint.save(args.checkpoint, {
-            "params": bundle.export(res.params),
+            "params": exported,
             "final_eval": {k: np.asarray(v)
                            for k, v in res.final_eval.items()
                            if k in ("auc", "logloss")},
@@ -330,8 +398,8 @@ def run_ctr(args) -> None:
                 .astype(np.int64)
                 for i, v in enumerate(cfg.vocab_sizes)},
         })
-        print(f"[train] final params checkpointed to {args.checkpoint} "
-              "(with id_freq for serving)")
+        say(f"[train] final params checkpointed to {args.checkpoint} "
+            "(with id_freq for serving)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -358,8 +426,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--zeta", type=float, default=1e-5)
     ap.add_argument("--placement", default=None, choices=PLACEMENT_CHOICES,
                     help="embedding store placement; 'fused' (the default "
-                         "here), 'sparse', 'substrate' and 'hotcold' are "
-                         "ported so far")
+                         "here). sharded_sparse = row-sharded tables with "
+                         "per-shard unique-id updates; hotcold = a hot tier "
+                         "beside the full tables, for --mode stream")
     ap.add_argument("--mode", default="epochs", choices=("epochs", "stream"),
                     help="'stream' trains online from an endless event stream "
                          "(no epochs; needs --steps)")
@@ -387,9 +456,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sparse placement: padded per-field unique-id "
                          "capacity; <= 0 means the exact min(batch, vocab)")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="sharded placements only (not ported yet)")
+                    help="the grid of --placement sharded/sharded_sparse, "
+                         "e.g. '2,4' = 2-way batch split x 4-way table "
+                         "row-sharding; default (1, world size)")
     ap.add_argument("--partition", default="div", choices=("div", "mod"),
-                    help="sharded placements only (not ported yet)")
+                    help="sharded row mapping: div = contiguous blocks, "
+                         "mod = round-robin (balances Zipf-hot low ids)")
     ap.add_argument("--engine", default="scan", choices=("eager", "scan"),
                     help="training hot loop: 'scan' (default) captures "
                          "--scan-steps steps as one CUDA graph on the card "
@@ -423,7 +495,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "on clean data; not available with --cold-store "
                          "mem/mmap")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="not ported yet (multi-GPU placements)")
+                    help="sharded placements with --device cpu: spawn N gloo "
+                         "CPU ranks, one a grid cell")
     ap.add_argument("--epochs", type=int, default=10)
     # lm
     ap.add_argument("--arch", default="gemma3-12b")

@@ -162,6 +162,26 @@ def batch_unique(ids: torch.Tensor, vocab_sizes: Sequence[int],
     }
 
 
+def unique_owned_ids(ids_col: torch.Tensor, owned: torch.Tensor, vocab: int,
+                     capacity: int):
+    """Dedup the subset of a batch column that ``owned`` flags (one
+    model shard's ids): the other ids are masked to the ``vocab``
+    sentinel first, so the dedup runs at ``capacity + 1`` and the
+    sentinel's slot (always the last real one: it is the largest value) is
+    dropped.
+
+    Returns ``(uids, counts, overflow)``: ``[capacity]`` int32 distinct
+    owned ids ascending (pads ``vocab``), ``[capacity]`` f32 batch counts
+    (0 on pads), and a 0-dim bool tensor, True when more than ``capacity``
+    distinct owned ids were present (the ``capacity`` smallest are kept;
+    a caller must then fall back to a dense update to stay exact)."""
+    masked = torch.where(owned, ids_col, torch.full_like(ids_col, vocab))
+    u = unique_ids(masked, vocab, capacity + 1)
+    real = u.uids < vocab
+    counts = torch.where(real, u.counts, 0.0)
+    return (u.uids[:capacity], counts[:capacity], real[capacity])
+
+
 def gather_rows(tables: dict, uniq: dict) -> dict:
     """Each field's unique rows, ``{"field_i": [capacity_i, dim]}``. Pad
     slots read the last row: values nothing reads back or scatters (and

@@ -12,11 +12,13 @@ over epochs of a dataset or online from a stream of chunks
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import builders
 from ..core.builders import StepFn, dense_tower_tx, skipped, write_back
@@ -27,6 +29,8 @@ from ..data import prefetch as prefetch_lib
 from ..data.synthetic import CTRDataset, iterate_batches
 from ..models import ctr
 from . import metrics
+
+logger = logging.getLogger(__name__)
 
 
 def _loss_and_grads(params, cfg, batch):
@@ -290,6 +294,331 @@ def _make_lazy_flush(adam_kw: dict):
     return flush
 
 
+def _data_slice(batch: dict, mesh) -> dict:
+    """This rank's slice of a global batch: every rank draws the same
+    global batch and keeps rows ``[d * b_loc, (d + 1) * b_loc)`` at data
+    coordinate ``d``."""
+    b = batch["ids"].shape[0]
+    if b % mesh.data:
+        raise ValueError(
+            f"batch {b} not divisible by data axis {mesh.data}")
+    n = b // mesh.data
+    lo = mesh.data_rank * n
+    return {k: v[lo:lo + n] for k, v in batch.items()}
+
+
+def _sharded_forward_backward(cfg, plans, mesh, groups, dense_params, batch,
+                              *, last_steps=None, step=None, factor=None):
+    """The per-rank forward and backward of both sharded steps.
+
+    Each group's embedding is assembled from the ranks' masked partial
+    lookups by an ``all_reduce`` SUM over ``"model"``
+    (``embed.sharded.lookup_groups``; with ``last_steps``, the pending
+    decay applied inline), the tower runs on this rank's batch slice, and
+    the gradients are taken w.r.t. the assembled embeddings and the
+    tower. The loss (its sum over the slice, over the global batch size)
+    and the tower's gradients are summed over ``"data"`` by one
+    ``all_reduce`` of one flat buffer, so every replica of the tower gets
+    the same bits. Returns ``(loss, g_embs, g_dense, mine, local)``:
+    ``g_embs`` each group's ``[b_loc, F, D_g]`` cotangent, ``mine`` and
+    ``local`` the slice's owned ids and their local rows
+    (``embed.sharded.owned_rows``)."""
+    from ..embed import sharded as shard_lib
+
+    ids = batch["ids"]
+    b_global = ids.shape[0] * mesh.data
+    plan_list = [plans[f"field_{i}"] for i in range(cfg.n_fields)]
+    mine, local = shard_lib.owned_rows(ids, plan_list, mesh.model_rank)
+    embs = shard_lib.lookup_groups(groups, mine, local, mesh.model_group,
+                                   last_steps=last_steps, step=step,
+                                   factor=factor)
+    embs = [e.requires_grad_() for e in embs]
+    dense_view = tree_map(lambda p: p.detach().requires_grad_(),
+                          dense_params)
+    with torch.enable_grad():
+        logits = ctr._forward_from_emb(dense_view, cfg, embs[0],
+                                       embs[1] if len(embs) > 1 else None,
+                                       batch["dense"])
+        loss = torch.sum(torch.logaddexp(logits, torch.zeros_like(logits))
+                         - batch["labels"] * logits) / b_global
+    leaves = tree_leaves(dense_view)
+    grads = torch.autograd.grad(loss, embs + leaves)
+    g_embs, g_leaves = list(grads[:len(embs)]), grads[len(embs):]
+    flat = torch.cat([loss.detach().reshape(1)]
+                     + [g.reshape(-1) for g in g_leaves])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    parts = iter(torch.split(flat[1:], [g.numel() for g in g_leaves]))
+    g_dense = tree_map(lambda p: next(parts).view(p.shape), dense_view)
+    return flat[0], g_embs, g_dense, mine, local
+
+
+def _sum_rowgrads(keys, g_embs, rows, mesh) -> list:
+    """Each group's ``[rows, D_g]`` row gradient from this slice's
+    cotangents, in one call of the port's embedding backward (one sort of
+    ``keys``, the fm and LR lookups together; keys past a field's rows
+    dropped), then summed over ``"data"`` by one ``all_reduce`` a
+    group."""
+    from ..kernels.embedding import embedding_backward_groups, sort_plan
+
+    grads = embedding_backward_groups(
+        sort_plan(keys), [g.reshape(-1, g.shape[-1]) for g in g_embs], rows)
+    for g in grads:
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    return grads
+
+
+def make_sharded_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
+                            scheme: str = "div", r: float = 1.0,
+                            zeta: float = 1e-5, dense_tx=None,
+                            clip: bool = True, b1: float = 0.9,
+                            b2: float = 0.999, eps: float = 1e-8):
+    """The multi-GPU train step: tables row-sharded over the grid's
+    ``"model"`` axis, the batch split over ``"data"``, the dense tower
+    replicated, one process a rank (``launch.mesh.CtrMesh``;
+    ``embed.sharded`` holds the per-rank blocks).
+
+    A rank takes the global batch and keeps its data slice. Its forward
+    and backward are ``_sharded_forward_backward``; then the embedding
+    cotangent of its owned ids is summed onto its rows (one embedding
+    backward call for the fm and LR lookups) and, with CowClip's per-id
+    counts, summed over ``"data"``. The update of each table shard is the
+    fused kernel 1 (``embed.sharded.shard_update``, 2 x 26 launches a step
+    at deepfm-criteo width), row-local and collective-free; the tower's
+    summed gradient goes through ``dense_tx`` on every rank. Everything
+    is written in place, nothing is read on the host, and every collective
+    is issued on its group whatever its size, so the step is its own
+    ``scan_step`` (captured into a CUDA graph with its NCCL calls).
+
+    Returns ``(step, init, flush, prepare, export)``: ``prepare`` keeps
+    this rank's padded block of each logical table, ``export`` gathers
+    them back to ``[vocab, D]`` (a collective: every rank calls it), and
+    ``flush`` is the identity (absent ids decay on their shard every step,
+    as on the dense path)."""
+    from ..embed import sharded as shard_lib
+    from ..kernels.cowclip import step_scalars
+
+    if dense_tx is None:
+        dense_tx = dense_tower_tx(hp, b1=b1, b2=b2, eps=eps)
+    plans = shard_lib.make_plans(cfg.vocab_sizes, mesh.model, scheme)
+    plan_list = [plans[f"field_{i}"] for i in range(cfg.n_fields)]
+    upd_kw = dict(clip=clip, r=r, zeta=zeta, lr=hp.emb_lr, l2=hp.emb_l2,
+                  b1=b1, b2=b2, eps=eps)
+    prepare, export = shard_lib.make_prepare_export(plans, mesh)
+
+    def init(params):
+        return {
+            "step": counter(params),
+            "m": tree_map(torch.zeros_like, params["embed"]),
+            "v": tree_map(torch.zeros_like, params["embed"]),
+            "dense": dense_tx.init(params["dense"]),
+        }
+
+    def step_impl(params, state, batch):
+        batch = _data_slice(batch, mesh)
+        t = state["step"] + 1
+        scalars = step_scalars(t, b1=b1, b2=b2)
+        groups = list(params["embed"].values())
+        loss, g_embs, g_dense, _, local = _sharded_forward_backward(
+            cfg, plans, mesh, groups, params["dense"], batch)
+
+        layout = shard_lib.local_layout(plan_list, local.device)
+        keys = layout.keys(local)
+        g_rows = _sum_rowgrads(keys, g_embs, layout.rows, mesh)
+        cnt = torch.zeros(layout.rows + 1, dtype=torch.float32,
+                          device=keys.device)
+        cnt.index_add_(0, keys.to(torch.int64),
+                       torch.ones(keys.shape[0], dtype=torch.float32,
+                                  device=keys.device))
+        dist.all_reduce(cnt, op=dist.ReduceOp.SUM, group=mesh.data_group)
+        counts = layout.split(cnt)
+        for g, (group, tables) in zip(g_rows, params["embed"].items()):
+            for g_f, cnt_f, (name, w) in zip(layout.split(g), counts,
+                                             tables.items()):
+                shard_lib.shard_update(w, g_f, cnt_f, state["m"][group][name],
+                                       state["v"][group][name], scalars,
+                                       **upd_kw)
+        _update_dense(params, state, g_dense, dense_tx, t, None)
+        return params, state, {"loss": loss}
+
+    return (StepFn(step_impl), init, builders.identity_flush, prepare,
+            export)
+
+
+def _warn_overflow(n: int, steps: int) -> None:
+    """The sharded_sparse placement's capacity-overflow note: ``n`` dense
+    per-shard fallbacks (field-shard steps) within ``steps`` steps. The
+    reference warns from the eager step and once a scanned chunk; the port
+    reads the count once an epoch, with the losses. Through ``logging``
+    (stderr by default), never stdout, which drivers parse."""
+    logger.warning(
+        "[sharded_sparse] unique capacity overflow on %d field-shard "
+        "step(s) within %d step(s); dense per-shard fallback (exact, but "
+        "O(rows/shard) for those shards)", int(n), int(steps))
+
+
+def make_sharded_sparse_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
+                                   scheme: str = "div", r: float = 1.0,
+                                   zeta: float = 1e-5, dense_tx=None,
+                                   clip: bool = True, b1: float = 0.9,
+                                   b2: float = 0.999, eps: float = 1e-8):
+    """The sharded+sparse hybrid step: tables row-sharded as in
+    ``make_sharded_train_step``, each shard's update restricted to the
+    batch ids it owns (``embed.sharded_sparse``).
+
+    Per rank: each field's owned ids of the global batch deduplicated into
+    a static-capacity slot set (staged over ``"data"``: one ``all_gather``
+    of every field's slice sets, packed; single-stage with one data
+    slice), the overflow flags summed over ``"model"``; the forward reads
+    the raw tables with each row's pending decay applied inline; the
+    backward sums the owned cotangents onto the slots (``slot_keys``; the
+    full rows for a field that can overflow) in one embedding backward
+    call, summed over ``"data"``; then ``update_phases``: one grouped
+    launch of the catch-up kernel and one of the update kernel over every
+    table of the rank, the fused kernel for the fallback of a capped field,
+    selected by its flag. ``aux``: ``loss``, ``overflow_shards`` (the
+    field-shard fallbacks this step, over the grid) and
+    ``catchup_depth_max`` (an ``all_reduce`` MAX over ``"model"``), all
+    0-dim tensors on the device.
+
+    Returns ``(step, init, flush, prepare, export)``: ``prepare``/
+    ``export`` as the sharded step's, ``flush`` the lazy-decay flush of
+    the rank's shards (needed before export, eval or checkpoint;
+    idempotent)."""
+    from ..core.optim import decay_factor
+    from ..embed import sharded as shard_lib
+    from ..embed import sharded_sparse as hybrid_lib
+    from ..kernels.cowclip import step_scalars
+    from ..kernels.embedding import field_layout
+
+    if dense_tx is None:
+        dense_tx = dense_tower_tx(hp, b1=b1, b2=b2, eps=eps)
+    plans = shard_lib.make_plans(cfg.vocab_sizes, mesh.model, scheme)
+    plan_list = [plans[f"field_{i}"] for i in range(cfg.n_fields)]
+    adam_kw = dict(lr=hp.emb_lr, l2=hp.emb_l2, b1=b1, b2=b2, eps=eps)
+    upd_kw = dict(clip=clip, r=r, zeta=zeta, **adam_kw)
+    factor = decay_factor(hp.emb_lr, hp.emb_l2)
+    shard = mesh.model_rank
+    prepare, export = shard_lib.make_prepare_export(plans, mesh)
+
+    def init(params):
+        return {
+            "step": counter(params),
+            "m": tree_map(torch.zeros_like, params["embed"]),
+            "v": tree_map(torch.zeros_like, params["embed"]),
+            "last_step": tree_map(
+                lambda w: torch.zeros((w.shape[0],), dtype=torch.int32,
+                                      device=w.device), params["embed"]),
+            "dense": dense_tx.init(params["dense"]),
+        }
+
+    def dedup(ids, b_global):
+        """Each field's ``(uloc, counts, overflow or None, gathered)``:
+        the slot set, its flag where the field can overflow, and the
+        gathered slice sets of the staged dedup (None single-stage)."""
+        caps = [hybrid_lib.shard_capacity(p, b_global, cfg.unique_capacity)
+                for p in plan_list]
+        out = []
+        if mesh.data > 1:
+            b_loc = ids.shape[0]
+            slices = [hybrid_lib.slice_unique_counts(
+                ids[:, i], p.vocab, min(b_loc, p.vocab))
+                for i, p in enumerate(plan_list)]
+            packed = torch.cat([torch.stack([u, c.to(torch.int32)])
+                                for u, c in slices], dim=1)
+            parts = [torch.empty_like(packed) for _ in range(mesh.data)]
+            dist.all_gather(parts, packed, group=mesh.data_group)
+            lo = 0
+            for (u, _), p, cap in zip(slices, plan_list, caps):
+                hi = lo + u.shape[0]
+                gids = torch.cat([x[0, lo:hi] for x in parts])
+                gcnts = torch.cat([x[1, lo:hi] for x in parts]).to(
+                    torch.float32)
+                uloc, cnts, ovf = hybrid_lib.owned_unique_weighted(
+                    gids, gcnts, p, cap, shard)
+                out.append([uloc, cnts, ovf, (gids, gcnts)])
+                lo = hi
+        else:
+            for i, (p, cap) in enumerate(zip(plan_list, caps)):
+                uloc, cnts, ovf = hybrid_lib.owned_unique_local(
+                    ids[:, i], p, cap, shard)
+                out.append([uloc, cnts, ovf, None])
+        for d, p, cap in zip(out, plan_list, caps):
+            if not hybrid_lib.can_overflow(p, b_global, cap):
+                d[2] = None
+        return out
+
+    def step_impl(params, state, batch):
+        batch = _data_slice(batch, mesh)
+        ids = batch["ids"]
+        b_global = ids.shape[0] * mesh.data
+        t = state["step"] + 1
+        scalars = step_scalars(t, b1=b1, b2=b2)
+        sets = dedup(ids, b_global)
+        n_overflow = torch.zeros(1, dtype=torch.int32, device=ids.device)
+        for _, _, ovf, _ in sets:
+            if ovf is not None:
+                n_overflow += ovf.to(torch.int32)
+        dist.all_reduce(n_overflow, op=dist.ReduceOp.SUM,
+                        group=mesh.model_group)
+
+        groups = list(params["embed"].values())
+        loss, g_embs, g_dense, mine, local = _sharded_forward_backward(
+            cfg, plans, mesh, groups, params["dense"], batch,
+            last_steps=list(state["last_step"].values()), step=t,
+            factor=factor)
+
+        # one embedding backward call: a field that cannot overflow sums
+        # onto its slots, one that can onto its full rows (its fallback
+        # needs them)
+        key_rows, cols = [], []
+        for i, (p, (uloc, _, ovf, _)) in enumerate(zip(plan_list, sets)):
+            if ovf is None:
+                key_rows.append(uloc.shape[0])
+                cols.append(hybrid_lib.slot_keys(local[:, i], mine[:, i],
+                                                 uloc))
+            else:
+                key_rows.append(p.rows_per_shard)
+                cols.append(local[:, i])
+        layout = field_layout(tuple(key_rows), ids.device)
+        g_rows = _sum_rowgrads(layout.keys(torch.stack(cols, dim=1)),
+                               g_embs, layout.rows, mesh)
+
+        cnt_full = []
+        for i, (p, (_, _, ovf, gathered)) in enumerate(zip(plan_list, sets)):
+            if ovf is None:
+                cnt_full.append(None)
+            elif gathered is not None:
+                cnt_full.append(hybrid_lib.full_counts_from_gathered(
+                    *gathered, p, shard))
+            else:
+                c = shard_lib.counts_partial(ids[:, i], p, shard)
+                dist.all_reduce(c, op=dist.ReduceOp.SUM,
+                                group=mesh.data_group)
+                cnt_full.append(c)
+
+        tables = []
+        for g, (group, ws) in zip(g_rows, params["embed"].items()):
+            per_field = layout.split(g)
+            for i, (name, w) in enumerate(ws.items()):
+                uloc, cnts, ovf, _ = sets[i]
+                tables.append(hybrid_lib.ShardTable(
+                    w, state["m"][group][name], state["v"][group][name],
+                    state["last_step"][group][name], uloc, cnts, ovf,
+                    per_field[i] if ovf is None else None,
+                    per_field[i] if ovf is not None else None,
+                    cnt_full[i]))
+        depth = hybrid_lib.update_phases(tables, scalars, **upd_kw)
+        depth = depth.reshape(1).clone()
+        dist.all_reduce(depth, op=dist.ReduceOp.MAX, group=mesh.model_group)
+        _update_dense(params, state, g_dense, dense_tx, t, None)
+        return params, state, {"loss": loss,
+                               "overflow_shards": n_overflow[0],
+                               "catchup_depth_max": depth[0]}
+
+    return (StepFn(step_impl), init, _make_lazy_flush(adam_kw), prepare,
+            export)
+
+
 def make_eval_fn(cfg: ctr.CTRConfig):
     """Batched evaluation through the serving engine's fixed-shape
     ``padded_score_loop``; returns auc, logloss and ``eval_rows_per_sec``
@@ -331,6 +660,10 @@ class TrainResult:
     # On the CPU they are the host clock around the step (or chunk).
     losses: list = dataclasses.field(default_factory=list)
     step_seconds: list = dataclasses.field(default_factory=list)
+    # the sharded_sparse placement's dense per-shard fallbacks over the
+    # run (field-shard steps; its aux["overflow_shards"], read with the
+    # losses)
+    overflow_shards: int = 0
 
 
 class _StepClock:
@@ -474,7 +807,8 @@ def train_ctr(
     is the stream's (``batch_size``, ``scan_steps`` and ``epochs`` are
     ignored), and the stream is closed on exit. A bundle with a
     ``stream_driver`` (the async hotcold placement) consumes the stream
-    itself (stream mode only); its final eval reads ``bundle.export``.
+    itself (stream mode only). Every eval reads ``bundle.export`` of the
+    flushed params, the canonical ``[vocab, D]`` tables.
 
     Crash-safe resume hooks (``train.snapshot``): ``init_state`` may be a
     snapshot's restore; ``start_step`` seeds the step counter, so
@@ -517,9 +851,15 @@ def train_ctr(
     runner = (engine_lib.make_chunk_runner(
         engine_lib.resolve_scan_step(step_bundle))
         if engine == "scan" and driver is None else None)
-    eval_fn = make_eval_fn(cfg)
+    evaluate = make_eval_fn(cfg)
+
+    def eval_fn(params, ds):
+        # on the canonical tables: a sharded rank gathers them back (a
+        # collective every rank calls) and scores the whole test set
+        return evaluate(step_bundle.export(params), ds)
 
     history, losses, step_seconds = [], [], []
+    overflow = 0
     n_steps = int(start_step)
     t0 = time.perf_counter()
     if mode == "stream":
@@ -542,8 +882,7 @@ def train_ctr(
         params, opt_state = flush(params, opt_state)
         final = {}
         if test_ds is not None:
-            final = eval_fn(step_bundle.export(params) if driver is not None
-                            else params, test_ds)
+            final = eval_fn(params, test_ds)
         if log_fn:
             log_fn(f"stream: {n_steps} steps"
                    + (f", migration overlap "
@@ -559,7 +898,7 @@ def train_ctr(
         if max_steps is not None and n_steps >= max_steps:
             break
         clock = _StepClock(dev)
-        epoch_losses = []
+        epoch_losses, epoch_overflow, epoch_start = [], [], n_steps
         if runner is not None:
             def on_chunk(k, aux):
                 if aux is None:
@@ -567,6 +906,8 @@ def train_ctr(
                     return
                 clock.stop(k)
                 epoch_losses.append(aux["loss"])
+                if "overflow_shards" in aux:
+                    epoch_overflow.append(aux["overflow_shards"])
 
             params, opt_state, ran, _ = engine_lib.run_epoch(
                 runner, params, opt_state, train_ds, batch_size, scan_steps,
@@ -581,6 +922,8 @@ def train_ctr(
                 params, opt_state, aux = step_fn(params, opt_state, batch)
                 clock.stop()
                 epoch_losses.append(aux["loss"].reshape(1))
+                if "overflow_shards" in aux:
+                    epoch_overflow.append(aux["overflow_shards"].reshape(1))
                 n_steps += 1
                 if snapshot_cb is not None:
                     params, opt_state = snapshot_cb(params, opt_state,
@@ -590,6 +933,11 @@ def train_ctr(
             batches.close()
         if epoch_losses:   # the epoch's one read of the device
             losses.extend(torch.cat(epoch_losses).tolist())
+        if epoch_overflow:
+            n = int(torch.cat(epoch_overflow).sum())
+            if n:
+                _warn_overflow(n, n_steps - epoch_start)
+            overflow += n
         step_seconds.extend(clock.seconds())
         if eval_every_epoch and test_ds is not None:
             params, opt_state = flush(params, opt_state)
@@ -605,4 +953,4 @@ def train_ctr(
     return TrainResult(history=history, final_eval=dict(final),
                        seconds=seconds, steps=n_steps, params=params,
                        opt_state=opt_state, losses=losses,
-                       step_seconds=step_seconds)
+                       step_seconds=step_seconds, overflow_shards=overflow)

@@ -1204,3 +1204,87 @@ def test_torch_snapshot_cuda_resume_bitwise(tmp_path):
     fb = _tensors({"p": resumed.params, "s": resumed.opt_state})
     for k in fa:
         assert torch.equal(fa[k], fb[k]), k
+
+
+def _sharded_runs(placement, engine, capacity=0, steps=6):
+    """train_ctr of ``placement`` on an NCCL world of one rank (a 1x1
+    grid) from the same params over the same batches: (result, the
+    flushed and exported params)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg, hp, ds = _small_ctr(placement)
+    cfg = dataclasses.replace(cfg, unique_capacity=capacity)
+    tr, _ = ds.split(0.95)
+    params0 = ctr.init(cfg, seed=2, device="cuda")
+    with mesh_lib.process_group("cuda"):
+        grid = mesh_lib.make_ctr_mesh(1, 1, device_type="cuda")
+        bundle = store_for(cfg, mesh=grid).make_bundle(cfg, hp,
+                                                       warmup_steps=3)
+        params = bundle.prepare(params0)
+        res = train_ctr(cfg, None, tr, None, batch_size=512, seed=0,
+                        step_bundle=bundle, max_steps=steps, engine=engine,
+                        scan_steps=3,
+                        init_state=(params, bundle.init(params)))
+        exported = bundle.export(bundle.flush(res.params,
+                                              res.opt_state)[0])
+        torch.cuda.synchronize()
+    return res, exported
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement,capacity", [("sharded", 0),
+                                                ("sharded_sparse", 0),
+                                                ("sharded_sparse", 8)])
+def test_torch_sharded_cuda_nccl_graph_equals_eager(placement, capacity):
+    """On an NCCL world of one rank, its collectives issued at size 1:
+    eager twice and the scan engine (3 steps a CUDA graph, NCCL calls
+    captured) give the same params, state and losses bit for bit; with a
+    capped capacity the overflow fallback runs inside the graph and the
+    count matches the eager steps'."""
+    _need_cuda()
+    a, ea = _sharded_runs(placement, "eager", capacity)
+    b, eb = _sharded_runs(placement, "eager", capacity)
+    g, eg = _sharded_runs(placement, "scan", capacity)
+    assert a.losses == b.losses == g.losses
+    assert a.overflow_shards == b.overflow_shards == g.overflow_shards
+    assert (a.overflow_shards > 0) == (capacity > 0)
+    for x, y in ((a, b), (a, g)):
+        for t in (lambda r: r.params, lambda r: r.opt_state):
+            fx, fy = _flat(t(x)), _flat(t(y))
+            for k in fx:
+                assert torch.equal(fx[k], fy[k]), k
+    for e in (eb, eg):
+        fx, fy = _flat(ea), _flat(e)
+        for k in fx:
+            assert torch.equal(fx[k], fy[k]), k
+
+
+@pytest.mark.cuda
+def test_torch_sharded_cuda_decayed_lookup_equals_catchup_kernel():
+    """The sharded_sparse forward's inline decay and the catch-up kernel
+    give the same rows bit for bit, at pending depths 0 to 1000."""
+    _need_cuda()
+    from repro_torch.embed import sharded as shard_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, dim = 100003, 10
+    w = 0.01 * torch.randn(rows, dim, generator=gen, device="cuda")
+    m, v = torch.zeros_like(w), torch.zeros_like(w)
+    ls = torch.randint(0, 1001, (rows,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    uids = torch.randperm(rows, generator=gen, device="cuda")[:8192]
+    uids = torch.sort(uids).values.to(torch.int32)
+    counts = torch.ones(uids.shape[0], device="cuda")
+    lr, l2 = 0.08, 1e-3
+    rows_out, _ = sparse_gather_catchup_tables(
+        [w], [m], [v], [ls], [uids], [counts],
+        step_scalars(1002, device="cuda"), lr=lr, l2=l2)
+    caught = rows_out[0][0]
+    plan = shard_lib.RowShardPlan(rows, 1)
+    from repro_torch.core.optim import decay_factor
+
+    got = shard_lib.decayed_lookup_partial(
+        w, ls, uids, plan, 0, torch.tensor(1002, dtype=torch.int32,
+                                           device="cuda"),
+        decay_factor(lr, l2))
+    assert torch.equal(got, caught)

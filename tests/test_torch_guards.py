@@ -7,7 +7,8 @@
   and no public function of the port defaults ``device`` to ``"cpu"``.
 * The CLI trains on the CPU when asked to (fused, sparse, and hotcold
   online from a stream), refuses the reference's bad streaming flag
-  combinations, and names the ROADMAP item of a path not ported yet.
+  combinations and the grid flags without a sharded placement, and names
+  the ROADMAP item of a path not ported yet.
 * The LM serving CLI decodes on the CPU with JAX unimportable, and refuses
   to start without a card when no device is named.
 """
@@ -161,23 +162,40 @@ def test_torch_cli_sparse_alias_conflicts_with_other_placement():
         == "sparse"
 
 
+# The four cases named "queue 1 item 7" once checked that the sharded
+# placements' flags exited naming that item. The placements are ported
+# now (test_torch_sharded*.py trains them, the CLI included), so each case
+# asks for what is still missing on them, ROADMAP queue 1 item 9 (the
+# guard, snapshots, resume and streaming on a sharded placement), with
+# the flags it had; the ids stay, so each case keeps its name.
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--placement", "sharded_sparse"], "queue 1 item 7",
-                 id="flags0-queue 1 item 7"),
-    pytest.param(["--placement", "sharded"], "queue 1 item 7",
-                 id="flags2-queue 1 item 7"),
-    pytest.param(["--host-devices", "8"], "queue 1 item 7",
-                 id="flags3-queue 1 item 7"),
-    pytest.param(["--mesh", "2,4", "--host-devices", "8"], "queue 1 item 7",
-                 id="flags5-queue 1 item 7"),
+    pytest.param(["--placement", "sharded_sparse", "--nonfinite-guard"],
+                 "--nonfinite-guard with --placement sharded_sparse -> "
+                 "ROADMAP queue 1 item 9", id="flags0-queue 1 item 7"),
+    pytest.param(["--placement", "sharded", "--mode", "stream", "--steps",
+                  "2"], "--mode stream with --placement sharded -> ROADMAP "
+                 "queue 1 item 9", id="flags2-queue 1 item 7"),
+    pytest.param(["--host-devices", "8", "--placement", "sharded",
+                  "--mode", "stream", "--steps", "4", "--snapshot-dir",
+                  "unused", "--snapshot-every", "2"],
+                 "--snapshot-dir with --placement sharded -> ROADMAP queue "
+                 "1 item 9", id="flags3-queue 1 item 7"),
+    pytest.param(["--mesh", "2,4", "--host-devices", "8", "--placement",
+                  "sharded_sparse", "--resume"],
+                 "--resume with --placement sharded_sparse -> ROADMAP queue "
+                 "1 item 9", id="flags5-queue 1 item 7"),
     pytest.param(["--task", "lm"], "queue 1 item 8",
                  id="flags6-queue 1 item 8"),
 ])
-def test_torch_cli_names_roadmap_for_unported(flags, item):
+def test_torch_cli_names_roadmap_for_unported(flags, item, tmp_path,
+                                              monkeypatch):
+    """Each refusal exits before any rank starts or any file is made."""
     from repro_torch.launch import train as launch
 
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match=item):
         launch.main(["--device", "cpu"] + flags)
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("cold_store", ["none", "mem"])
@@ -257,3 +275,26 @@ def test_torch_serve_decode_cli_without_device_refuses():
     assert out.returncode != 0
     assert "torch.cuda.is_available() is False" in out.stderr
     assert "serving" not in out.stdout
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--host-devices", "4"], "--mesh and --host-devices apply to "
+     "--placement sharded|sharded_sparse"),
+    (["--mesh", "1,2"], "--mesh and --host-devices apply to"),
+])
+def test_torch_cli_refuses_grid_flags_without_a_sharded_placement(
+        flags, message):
+    from repro_torch.launch import train as launch
+
+    with pytest.raises(SystemExit, match=message):
+        launch.main(["--device", "cpu"] + flags)
+
+
+def test_torch_cli_host_devices_need_the_cpu(monkeypatch):
+    """``--host-devices`` spawns gloo CPU ranks; with the card as the
+    device it exits before spawning anything."""
+    from repro_torch.launch import train as launch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit, match="add --device cpu"):
+        launch.main(["--placement", "sharded", "--host-devices", "2"])
