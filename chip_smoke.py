@@ -190,7 +190,28 @@ Phases, each fatal on failure:
      size a capped capacity (64) that overflows, eager and in a replayed
      chunk (bitwise, the same count), against the substrate on the card
      (rtol / atol 1e-5)
-Phase 24 runs after 12; phases 19-22 and 25-34 between 24 and 13. Each
+ 35. the guard on sharded and sharded_sparse (div) on an NCCL world of one
+     rank, at phase 19's width, batch, initial params and batches, 4 steps
+     a graph: guarded against unguarded over 8 clean steps through the
+     scan engine, bitwise; a chunk whose 2nd batch holds a NaN: the eager
+     guarded steps skip it (every leaf bitwise unchanged by it; kernel 1
+     52 launches a step on sharded, kernels 2 and 3 one each on
+     sharded_sparse, the embedding backward one run with one sort, as
+     unguarded) and the chunk's replay equals them, skipped_steps 1; a
+     traced guarded replay (0 host reads); the guard's ms a graph step
+     against unguarded, 10 replays each way in turns
+ 36. streaming with snapshots on the sharded placements (an NCCL world of
+     one rank): sharded_sparse (div) at full width through
+     train_ctr(mode="stream"), 12 online steps, 4 a graph, a snapshot at
+     step 8 (its bytes and seconds by part: flush, export with the
+     state's gather and the host copy, write with fsync, sha256, manifest
+     with rename), resumed from it in a fresh bundle for the last 4 steps
+     (its seconds): bitwise equal to the uninterrupted run; the online ms
+     a step; sharded (div) the same way at phase 6's small size; the CLI
+     (--placement sharded_sparse --mode stream) killed in a child process
+     by a FaultPlan inside its step-8 snapshot write, then --resume:
+     bitwise equal to its uninterrupted run
+Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
 prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
@@ -205,6 +226,7 @@ import faulthandler
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -275,6 +297,10 @@ SHARD_STEPS = 4                # steps of each engine, phases 33-34
 SHARD_TIMED = 10               # chunks timed each way, phases 33-34
 SHARD_CAP = 64                 # the capped slot capacity at phase 6's
                                # small size, phase 34
+GUARD_STEPS = 8                # clean steps guarded and unguarded, phase 35
+GUARD_TIMED = 10               # replays timed each way (the guard), 35
+STREAM_STEPS = 12              # online steps of each run, phase 36
+STREAM_SNAP = 8                # the step of its snapshot, phase 36
 # NCCL's kernels (ncclDevKernel_*, ncclKernel_*): the sharded steps'
 # collectives on the card
 NCCL_GROUP = ("NCCL's kernels", ("nccl",))
@@ -3018,12 +3044,12 @@ def durability_phases(tr, hp, power, kind):
     return calls
 
 def shard_run(cfg, hp, tr, params0, engine, *, placement, grid=None,
-              steps=SHARD_STEPS, batch=None):
+              steps=SHARD_STEPS, batch=None, guard=False):
     """``steps`` steps of ``placement`` through ``train_ctr`` from
     ``params0`` over ``tr``'s batches of ``batch`` rows (default BATCH;
-    seed 3, phases 19-20's), on the grid ``grid`` for a sharded placement;
-    the scan engine takes SCAN_STEPS steps a graph. Returns (bundle,
-    result)."""
+    seed 3, phases 19-20's), on the grid ``grid`` for a sharded placement,
+    under the non-finite guard if ``guard``; the scan engine takes
+    SCAN_STEPS steps a graph. Returns (bundle, result)."""
     from repro_torch.core.tree import tree_map
     from repro_torch.embed import store_for
     from repro_torch.train import train_ctr
@@ -3033,7 +3059,8 @@ def shard_run(cfg, hp, tr, params0, engine, *, placement, grid=None,
     cfg = dataclasses.replace(cfg, placement=placement,
                               sparse=placement == "sparse")
     bundle = store_for(cfg, mesh=grid).make_bundle(
-        cfg, hp, warmup_steps=max(1, len(tr) // batch))
+        cfg, hp, warmup_steps=max(1, len(tr) // batch),
+        nonfinite_guard=guard)
     params = bundle.prepare(tree_map(torch.clone, params0))
     res = train_ctr(cfg, None, tr, None, batch_size=batch, seed=3,
                     step_bundle=bundle, max_steps=steps, engine=engine,
@@ -3092,9 +3119,7 @@ def sharded_phase(placement, tr, hp, power, kind):
 def _sharded_phase(placement, grid, tr, hp, power, kind):
     from repro_torch.configs.deepfm_criteo import CONFIG
     from repro_torch.data.prefetch import chunk_epoch
-    from repro_torch.kernels import cowclip as cc
-    from repro_torch.kernels.embedding import (embedding_backward_groups,
-                                               ref, sort_plan)
+    from repro_torch.kernels.embedding import ref, sort_plan
     from repro_torch.models import ctr
     from repro_torch.train import engine as engine_lib
 
@@ -3102,16 +3127,7 @@ def _sharded_phase(placement, grid, tr, hp, power, kind):
     t0 = time.perf_counter()
     cfg = dataclasses.replace(CONFIG, emb_sigma=1e-2)
     params0 = ctr.init(cfg, seed=7, device="cuda")
-    wrappers = {"cowclip_adam_update": cc.fused_cowclip_adam,
-                "sparse_gather_catchup (one table)":
-                    cc.sparse_gather_catchup,
-                "sparse_update_scatter (one table)":
-                    cc.sparse_update_scatter,
-                "sparse_gather_catchup": cc.sparse_gather_catchup_tables,
-                "sparse_update_scatter": cc.sparse_update_scatter_tables,
-                "embedding_backward": embedding_backward_groups}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = shard_wrappers()
     sort_plan.sorts = 0
     b_eager, eager = shard_run(cfg, hp, tr, params0, "eager",
                                placement=placement, grid=grid)
@@ -3334,12 +3350,400 @@ def sharded_phases(tr, hp, power, kind):
     return sharded, hybrid
 
 
+SHARD_WRAPPERS = ("cowclip_adam_update", "sparse_gather_catchup",
+                  "sparse_update_scatter", "embedding_backward")
+
+
+def shard_wrappers():
+    """{name: wrapper} of the kernels a sharded step may launch, their
+    counts set to 0 (the single-table sparse wrappers too, which no step
+    may call)."""
+    from repro_torch.kernels import cowclip as cc
+    from repro_torch.kernels.embedding import embedding_backward_groups
+
+    wrappers = {"cowclip_adam_update": cc.fused_cowclip_adam,
+                "sparse_gather_catchup": cc.sparse_gather_catchup_tables,
+                "sparse_update_scatter": cc.sparse_update_scatter_tables,
+                "embedding_backward": embedding_backward_groups,
+                "sparse_gather_catchup (one table)":
+                    cc.sparse_gather_catchup,
+                "sparse_update_scatter (one table)":
+                    cc.sparse_update_scatter}
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def sharded_guard_phase(tr, hp, power, kind):
+    """Phase 35: the non-finite guard on ``sharded`` and
+    ``sharded_sparse`` (div) on an NCCL world of one rank, at
+    deepfm-criteo width and batch BATCH from phase 19's initial params and
+    batches, 4 steps a graph: guarded against unguarded over GUARD_STEPS
+    clean steps through the scan engine, bitwise; a chunk whose 2nd batch
+    holds a NaN: the eager guarded steps skip it (every leaf bitwise
+    unchanged by it; the update kernels launch and write nothing) and the
+    chunk's replay equals them; a traced guarded replay (the kernels a
+    step, 0 host reads); the guard's ms a graph step beside the unguarded
+    one, GUARD_TIMED replays each way in turns. Returns each placement's
+    wrapper calls on its eager guarded steps."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    with mesh_lib.process_group("cuda"):
+        grid = mesh_lib.make_ctr_mesh(1, 1, device_type="cuda")
+        calls = {}
+        for placement in ("sharded", "sharded_sparse"):
+            calls[placement] = _sharded_guard(placement, grid, tr, hp,
+                                              power, kind)
+            phase_end()
+        del grid
+    return calls
+
+
+def _sharded_guard(placement, grid, tr, hp, power, kind):
+    from repro_torch.configs.deepfm_criteo import CONFIG
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.prefetch import chunk_epoch
+    from repro_torch.kernels.embedding import ref, sort_plan
+    from repro_torch.models import ctr
+    from repro_torch.train import engine as engine_lib
+
+    tag = f"{placement}-guard"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG, emb_sigma=1e-2)
+    params0 = ctr.init(cfg, seed=7, device="cuda")
+    run = dict(placement=placement, grid=grid, steps=GUARD_STEPS)
+    b_u, unguarded = shard_run(cfg, hp, tr, params0, "scan", **run)
+    b_g, guarded = shard_run(cfg, hp, tr, params0, "scan", guard=True,
+                             **run)
+    del params0
+    differ = tree_diff(state_of(unguarded), state_of(guarded))
+    same_losses = guarded.losses == unguarded.losses
+    print(f"[{tag}] guarded against unguarded {placement} on an NCCL world "
+          f"of one rank, {GUARD_STEPS} clean steps, {SCAN_STEPS} a graph: "
+          f"params, moments, {'last_step, ' if 'sparse' in placement else ''}"
+          f"the tower's state and the step "
+          f"{'bitwise equal' if not differ else f'DIFFER at {differ[:6]}'}"
+          f", losses {'bitwise equal' if same_losses else 'DIFFER'}",
+          flush=True)
+    check(not differ and same_losses and all(
+        math.isfinite(x) for x in guarded.losses),
+        f"guarded {placement} differs from unguarded on clean batches")
+
+    chunk = next(chunk_epoch(tr, BATCH, SCAN_STEPS, seed=4))
+    chunk["dense"][1, 0, 0] = np.nan
+    chunk = {k: torch.as_tensor(v, device="cuda") for k, v in chunk.items()}
+    wrappers = shard_wrappers()
+    sort_plan.sorts = 0
+    p, s = tree_map(torch.clone, state_of(guarded))
+    skipped, unchanged = [], None
+    for i in range(SCAN_STEPS):
+        before = tree_map(torch.clone, (p, s)) if i == 1 else None
+        p, s, aux = b_g.step(p, s, {k: v[i] for k, v in chunk.items()})
+        skipped.append(aux["skipped_steps"])
+        if before is not None:
+            unchanged = tree_diff(before, (p, s))
+            del before
+    torch.cuda.synchronize()
+    calls = {name: w.launches for name, w in wrappers.items()}
+    sorts = sort_plan.sorts
+    skipped = [int(x) for x in skipped]
+    eager = (p, s)
+    p, s = tree_map(torch.clone, state_of(guarded))
+    runner_g = engine_lib.make_chunk_runner(b_g.step.scan_step)
+    p, s, aux = runner_g(p, s, chunk)
+    replay_differ = tree_diff(eager, (p, s))
+    n_skipped = int(aux["skipped_steps"].sum())
+    n_tables = 2 * cfg.n_fields
+    per_step = ({"cowclip_adam_update": n_tables, "embedding_backward": 1}
+                if placement == "sharded" else
+                {"sparse_gather_catchup": 1, "sparse_update_scatter": 1,
+                 "embedding_backward": 1})
+    print(f"[{tag}] a NaN batch 2nd of a chunk of {SCAN_STEPS}: eager "
+          f"guarded steps skipped {skipped}, the poisoned step left every "
+          f"leaf "
+          f"{'bitwise unchanged' if not unchanged else f'CHANGED at {unchanged[:6]}'}"
+          f"; the graph's replay skipped {n_skipped}, the step "
+          f"{int(s['step'])}, "
+          f"{'bitwise equal to' if not replay_differ else 'DIFFERS from'} "
+          f"the eager steps; wrapper calls of the {SCAN_STEPS} eager steps "
+          f"{calls} (expected a step {per_step}, nothing else), the "
+          f"embedding backward's sorts {sorts} (expected 1 a step)",
+          flush=True)
+    check(skipped == [0, 1, 0, 0][:SCAN_STEPS] and not unchanged
+          and n_skipped == 1 and not replay_differ
+          and int(s["step"]) == GUARD_STEPS + SCAN_STEPS - 1,
+          f"{placement}: the guard under a graph ({replay_differ[:4]})")
+    check(all(calls[n] == SCAN_STEPS * per_step.get(n, 0) for n in calls)
+          and sorts == SCAN_STEPS,
+          f"guarded {placement}: launches {calls}, sorts {sorts}")
+    del eager, aux
+
+    # one more replay of the poisoned chunk, traced
+    wall_ms, prof = profiled(lambda: runner_g(p, s, chunk))
+    kernels = by_kernel(prof)
+    counts = {n: sum(c for _, c, k in kernels if n in k)
+              for n in FUSED_KERNELS + SPARSE_KERNELS + EMBED_KERNELS}
+    reads = sum(e.name == HOST_READ for e in prof.events())
+    theirs = torch_embedding_backward(kernels)
+    levels = ref.levels(BATCH * cfg.n_fields)
+    fused = sum(counts[n] for n in FUSED_KERNELS)
+    print(f"[{tag}] one guarded replay traced ({wall_ms:.1f} ms wall for "
+          f"{SCAN_STEPS} steps): kernels {counts}; PyTorch's embedding "
+          f"backward kernels {theirs}; host reads of a scalar {reads}",
+          flush=True)
+    want_counts = (fused == n_tables * SCAN_STEPS
+                   and counts["sparse_catchup_kernel"] == 0
+                   if placement == "sharded" else
+                   fused == 0
+                   and counts["sparse_catchup_kernel"] == SCAN_STEPS
+                   and counts["sparse_update_kernel"] == SCAN_STEPS)
+    check(reads == 0 and not theirs and want_counts
+          and counts[EMBED_KERNELS[0]] == levels * SCAN_STEPS,
+          f"guarded {placement} replay: kernels {counts}, host reads "
+          f"{reads}")
+    del prof
+
+    clean = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(chunk_epoch(tr, BATCH, SCAN_STEPS, seed=6)).items()}
+    pu, su = state_of(unguarded)
+    runner_u = engine_lib.make_chunk_runner(b_u.step.scan_step)
+    runner_u(pu, su, clean)
+    runner_g(p, s, clean)
+    torch.cuda.synchronize()
+    spans = {"unguarded": [], "guarded": []}
+    for _ in range(GUARD_TIMED):
+        for name, fn in (("unguarded", lambda: runner_u(pu, su, clean)),
+                         ("guarded", lambda: runner_g(p, s, clean))):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            spans[name].append((a, b))
+    torch.cuda.synchronize()
+    ms = {n: [a.elapsed_time(b) / SCAN_STEPS for a, b in v]
+          for n, v in spans.items()}
+    print(f"[{tag}] ms a graph step (CUDA events around each replay of "
+          f"{SCAN_STEPS} steps, in turns): unguarded "
+          f"{spread(ms['unguarded'])}, guarded {spread(ms['guarded'])}; "
+          f"{kind} at {power}", flush=True)
+    check(all(math.isfinite(x) and x > 0 for v in ms.values() for x in v),
+          f"guarded {placement} timing")
+    del runner_g, runner_u, p, s, pu, su, chunk, clean, b_g, b_u
+    del guarded, unguarded
+    print(f"[{tag}] in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {n: calls[n] for n in SHARD_WRAPPERS}
+
+
+def stream_batches(tr, batch, chunk, start=0):
+    """Phase 36's online batches: the train split replayed as an event
+    stream (half a batch an event, seed 5), from step ``start``'s first
+    row, in chunks of ``chunk`` steps."""
+    from repro_torch.data import stream as stream_lib
+
+    events = stream_lib.synthetic_event_stream(
+        tr, rows_per_event=batch // 2, seed=5)
+    if start:
+        events = stream_lib.skip_rows(events, start * batch)
+    return stream_lib.stream_chunks(events, batch, chunk,
+                                    start_rows=start * batch)
+
+
+def stream_resume(tag, cfg, hp, tr, params0, grid, root, *, batch):
+    """STREAM_STEPS online steps of ``cfg.placement`` (div) through
+    ``train_ctr(mode="stream")``, SCAN_STEPS a graph, with a snapshot
+    at STREAM_SNAP; a fresh bundle resumed from that snapshot and run to
+    STREAM_STEPS, against the uninterrupted run: bitwise. Prints the
+    snapshot's bytes and seconds by part, the resume's seconds and the
+    online ms a step."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.embed import store_for
+    from repro_torch.models import ctr
+    from repro_torch.train import snapshot as snap_lib
+    from repro_torch.train import train_ctr
+
+    store = store_for(cfg, mesh=grid)
+    token = snap_lib.placement_token(store)
+    mgr = snap_lib.SnapshotManager(os.path.join(root, tag), retain=2)
+    warm = max(1, len(tr) // batch)
+    taken = []
+
+    def cb(p, s, n):
+        if n == STREAM_SNAP:
+            t0 = time.perf_counter()
+            p, s = snap_lib.capture(
+                mgr, b_w, p, s, step=n, cursor={"rows_consumed": n * batch},
+                meta={"placement": token, "snapshot_every": STREAM_SNAP})
+            taken.append((n, time.perf_counter() - t0,
+                          dict(mgr.last_timings)))
+        return p, s
+
+    b_w = store.make_bundle(cfg, hp, warmup_steps=warm)
+    p = b_w.prepare(tree_map(torch.clone, params0))
+    whole = train_ctr(cfg, None, tr, None, batch_size=batch,
+                      step_bundle=b_w, max_steps=STREAM_STEPS,
+                      engine="scan", mode="stream",
+                      stream=stream_batches(tr, batch, SCAN_STEPS),
+                      init_state=(p, b_w.init(p)), snapshot_cb=cb,
+                      device="cuda")
+    del p
+    check([n for n, _, _ in taken] == [STREAM_SNAP], f"snapshots {taken}")
+    _, wall, t = taken[0]
+    steady = whole.step_seconds[SCAN_STEPS:]
+    print(f"[{tag}] {STREAM_STEPS} online steps ({SCAN_STEPS} a graph), "
+          f"a snapshot at step {STREAM_SNAP}: {wall:.2f} s of stall (flush "
+          f"{t['flush']:.2f}, export with the state's gather and the copy "
+          f"to the host {t['export']:.2f}, write with fsync "
+          f"{t['write']:.2f}, sha256 {t['sha256']:.2f}, manifest with "
+          f"rename and rotation {t['manifest']:.2f}), payload {t['bytes']} "
+          f"B; online ms a step: the host clock over train_ctr's "
+          f"{STREAM_STEPS} steps (the graphs' captures and the snapshot "
+          f"included) {1e3 * whole.seconds / STREAM_STEPS:.1f}, the steps "
+          f"alone (CUDA events, chunks 2-{STREAM_STEPS // SCAN_STEPS}) "
+          f"{1e3 * np.mean(steady):.3f}", flush=True)
+
+    b_r = store.make_bundle(cfg, hp, warmup_steps=warm)
+    t0 = time.perf_counter()
+    restored = snap_lib.resume(mgr, b_r, ctr.init(cfg, seed=8,
+                                                  device="cuda"),
+                               token=token)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    check(restored is not None, f"{tag}: no valid snapshot")
+    rp, rs, start, cursor = restored
+    del restored
+    print(f"[{tag}] resumed from step {start} (cursor {cursor}) in "
+          f"{resume_s:.2f} s (validate the checksums, load, overlay on the "
+          f"host, keep the rank's blocks, copy to the card)", flush=True)
+    check(start == STREAM_SNAP and int(rs["step"]) == STREAM_SNAP,
+          f"{tag}: resumed at {start}")
+    resumed = train_ctr(cfg, None, tr, None, batch_size=batch,
+                        step_bundle=b_r, max_steps=STREAM_STEPS,
+                        engine="scan", mode="stream",
+                        stream=stream_batches(tr, batch, SCAN_STEPS, start),
+                        init_state=(rp, rs), start_step=start,
+                        device="cuda")
+    del rp, rs
+    differ = tree_diff(state_of(whole), state_of(resumed))
+    same_losses = whole.losses[STREAM_SNAP:] == resumed.losses
+    print(f"[{tag}] resumed at step {start} in a fresh bundle, run to "
+          f"{STREAM_STEPS}, against the uninterrupted run with the same "
+          f"cadence: params, moments, "
+          f"{'last_step, ' if 'sparse' in cfg.placement else ''}the tower's "
+          f"state and the step "
+          f"{'bitwise equal' if not differ else f'DIFFER at {differ[:6]}'}"
+          f", losses of steps {start + 1}-{STREAM_STEPS} "
+          f"{'bitwise equal' if same_losses else 'DIFFER'}", flush=True)
+    check(not differ and same_losses, f"{tag}: the resumed run differs")
+    return t
+
+
+def sharded_stream_phase(tr, hp, power, kind):
+    """Phase 36: streaming with snapshots on the sharded placements, on an
+    NCCL world of one rank. ``sharded_sparse`` (div) at deepfm-criteo
+    width, batch BATCH, phase 19's initial params (``stream_resume``),
+    then ``sharded`` (div) the same way at phase 6's small size; then the
+    CLI (``--placement sharded_sparse --mode stream``, a world of one rank
+    of its own) killed in a child process by a FaultPlan inside its step-8
+    snapshot write and run again with ``--resume``: bitwise equal to its
+    uninterrupted run. Snapshots go under build/, removed after."""
+    import shutil
+
+    from repro_torch.configs.deepfm_criteo import CONFIG
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import ctr
+
+    root = snap_dir()
+    try:
+        with mesh_lib.process_group("cuda"):
+            grid = mesh_lib.make_ctr_mesh(1, 1, device_type="cuda")
+            cfg = dataclasses.replace(CONFIG, emb_sigma=1e-2,
+                                      placement="sharded_sparse")
+            t0 = time.perf_counter()
+            stream_resume("sharded_sparse-stream", cfg, hp, tr,
+                          ctr.init(cfg, seed=7, device="cuda"), grid, root,
+                          batch=BATCH)
+            print(f"[sharded_sparse-stream] {kind} at {power}; in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            phase_end()
+            scfg, shp, ds = small_setup("sharded")
+            stream_resume("sharded-stream-small", scfg, shp, ds,
+                          ctr.init(scfg, seed=2, device="cuda"), grid, root,
+                          batch=512)
+            del grid
+        phase_end()
+        sharded_cli_kill(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sharded_cli_kill(root):
+    """The CLI with ``--placement sharded_sparse --mode stream`` on the
+    card (a world of one rank): uninterrupted with snapshots every 4
+    steps; killed in a child process by ``FaultPlan(kill_at_step=8,
+    kill_in_snapshot=True)``; then ``--resume``: the checkpoints' params
+    bitwise equal."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launch
+    from repro_torch.testing import FaultPlan
+
+    src = Path(__file__).resolve().parent / "src"
+    args = ["--task", "ctr", "--mode", "stream", "--steps", "12",
+            "--samples", "4096", "--batch", "256", "--base-batch", "256",
+            "--snapshot-every", "4", "--placement", "sharded_sparse",
+            "--engine", "scan", "--scan-steps", "2"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch.main(args + ["--snapshot-dir", os.path.join(root, "ref"),
+                            "--checkpoint", os.path.join(root, "ref.npz")])
+    plan = FaultPlan(kill_at_step=8, kill_in_snapshot=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(src) + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    env.update(plan.to_env())
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train"] + args
+        + ["--snapshot-dir", os.path.join(root, "cli")], env=env,
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    child_s = time.perf_counter() - t0
+    listing = sorted(os.listdir(os.path.join(root, "cli")))
+    with contextlib.redirect_stdout(out):
+        launch.main(args + ["--snapshot-dir", os.path.join(root, "cli"),
+                            "--resume", "--checkpoint",
+                            os.path.join(root, "resumed.npz")])
+    with np.load(os.path.join(root, "ref.npz")) as a, \
+            np.load(os.path.join(root, "resumed.npz")) as b:
+        keys = [k for k in a.files if k.startswith("params/")]
+        same = (keys and set(keys) == {k for k in b.files
+                                       if k.startswith("params/")}
+                and all(np.array_equal(a[k], b[k]) for k in keys))
+    resumed_at = [ln for ln in out.getvalue().splitlines()
+                  if "resumed from snapshot step" in ln]
+    print(f"[sharded-cli] the CLI with --placement sharded_sparse --mode "
+          f"stream on the card (an NCCL world of one rank) under "
+          f"FaultPlan(kill_at_step=8, kill_in_snapshot=True): the child "
+          f"exited {child.returncode} in {child_s:.1f} s leaving {listing}; "
+          f"--resume: {resumed_at}; params "
+          f"{'bitwise equal' if same else 'DIFFER'} to the uninterrupted "
+          f"run's", flush=True)
+    check(child.returncode == -9, "the child was not killed: "
+          + child.stderr[-2000:])
+    check("snap-00000008.tmp" in listing and "snap-00000008" not in listing,
+          f"snapshots {listing}")
+    check(resumed_at and "step 4" in resumed_at[0] and same,
+          "the sharded CLI's resumed run differs")
+
+
 def graph_phases(smi, kind):
-    """Phases 19-22, 25-34: the scan engine at deepfm-criteo width on
+    """Phases 19-22, 25-36: the scan engine at deepfm-criteo width on
     the fused and sparse placements, the guard under a graph, CTR serving,
     the substrate at full width and its clips at a small size, the
-    hot/cold tiers, durability and the sharded placements. Every tensor is
-    freed on return."""
+    hot/cold tiers, durability, the sharded placements, and their guard,
+    snapshots and streaming. Every tensor is freed on return."""
     power = smi.strip().split(", ")[-1]
     t0 = time.perf_counter()
     tr, te = criteo_data(steps=GRAPH_STEPS, seed=1)
@@ -3367,7 +3771,14 @@ def graph_phases(smi, kind):
     phase_end()
     calls = hotcold_phases(tr, hp, power, kind)
     guarded = durability_phases(tr, hp, power, kind)
-    return calls, guarded, sharded_phases(tr, hp, power, kind)
+    sharded = sharded_phases(tr, hp, power, kind)
+    phase_start(35)
+    sharded_guarded = sharded_guard_phase(tr, hp, power, kind)
+    phase_end()
+    phase_start(36)
+    sharded_stream_phase(tr, hp, power, kind)
+    phase_end()
+    return calls, guarded, sharded, sharded_guarded
 
 
 def wkv_inputs(gen, bh, seq, n, zero_frac=0.0):
@@ -3789,8 +4200,8 @@ def main() -> int:
     phase_start(24)
     lines.append(embed_phase(smi, kind))
     phase_end()
-    hot_calls, guarded_calls, (sharded_calls, hybrid_calls) = \
-        graph_phases(smi, kind)
+    hot_calls, guarded_calls, (sharded_calls, hybrid_calls), \
+        sharded_guarded = graph_phases(smi, kind)
     for line in lines:
         if line["name"] in hot_calls:
             # calls on phase 27's eager run of the hot/cold placement
@@ -3802,6 +4213,11 @@ def main() -> int:
             # calls on phases 33 and 34's eager runs
             line["launches_sharded"] = sharded_calls[line["name"]]
             line["launches_sharded_sparse"] = hybrid_calls[line["name"]]
+            # calls on phase 35's eager guarded steps (a NaN batch 2nd)
+            line["launches_sharded_guarded"] = \
+                sharded_guarded["sharded"][line["name"]]
+            line["launches_sharded_sparse_guarded"] = \
+                sharded_guarded["sharded_sparse"][line["name"]]
     lines.append(lm_phases(smi, kind))
     phase_end()
     print(f"[exit] threads alive: "

@@ -214,6 +214,13 @@ class TrainStepBundle(NamedTuple):
              loop in ``train_ctr(mode="stream")`` -- bundles that must
              interleave host work with each dispatch (filling eviction
              handles) own their consume loop.
+    export_state: optional state -> state as a snapshot writes it
+             (``train.snapshot.capture``); None writes the state as it
+             is. The sharded placements gather a rank's row blocks to the
+             reference's padded logical layout (a collective).
+    import_state: optional ``(state, flat) -> state``, the inverse for a
+             resume from a snapshot's path-keyed arrays; None overlays them
+             on the state as it is (``train.snapshot.overlay``).
     """
 
     step: Callable
@@ -223,6 +230,8 @@ class TrainStepBundle(NamedTuple):
     export: Callable = identity_prepare
     stream_transform: Optional[Callable] = None
     stream_driver: Optional[Callable] = None
+    export_state: Optional[Callable] = None
+    import_state: Optional[Callable] = None
 
 
 TRAIN_PATHS = ("substrate", "fused", "sparse", "sharded", "sharded_sparse",

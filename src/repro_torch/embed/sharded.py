@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.tree import tree_map
 from ..kernels.embedding import field_layout
 
 SCHEMES = ("div", "mod")
@@ -311,6 +312,35 @@ def lookup_groups(groups: Sequence[dict], mine: torch.Tensor,
     return outs
 
 
+def _keep_block(padded: torch.Tensor, plan: RowShardPlan,
+                shard: int) -> torch.Tensor:
+    """Shard ``shard``'s block of a padded logical ``[padded_vocab, ...]``
+    leaf, in its physical order (a new contiguous tensor)."""
+    rows = plan.rows_per_shard
+    if plan.is_identity_layout:
+        return padded[shard * rows:(shard + 1) * rows].contiguous()
+    return _permute(padded, plan.shard_rows(shard)).contiguous()
+
+
+def _gather_logical(block: torch.Tensor, plan: RowShardPlan,
+                    mesh) -> torch.Tensor:
+    """The padded logical ``[padded_vocab, ...]`` leaf from every rank's
+    block: an all-gather over ``"model"`` (a collective), then the inverse
+    of the layout. The pad rows stay."""
+    parts = [torch.empty_like(block) for _ in range(mesh.model)]
+    dist.all_gather(parts, block.contiguous(), group=mesh.model_group)
+    physical = torch.cat(parts)
+    if plan.is_identity_layout:
+        return physical
+    return _permute(physical, plan.physical_of_logical())
+
+
+def _map_tables(tree: dict, fn) -> dict:
+    """``fn(leaf, plan_name)`` over a ``{group: {field: leaf}}`` tree."""
+    return {g: {f: fn(w, f) for f, w in tables.items()}
+            for g, tables in tree.items()}
+
+
 def make_prepare_export(plans: Dict[str, RowShardPlan], mesh):
     """The layout pair of the sharded placements. ``prepare`` takes the
     logical params, pads every table to ``rows_per_shard * n_shards`` rows
@@ -322,34 +352,58 @@ def make_prepare_export(plans: Dict[str, RowShardPlan], mesh):
     shard = mesh.model_rank
 
     def prepare(params):
-        embed = {}
-        for g, tables in params["embed"].items():
-            embed[g] = {}
-            for f, w in tables.items():
-                plan = plans[f]
-                padded = pad_rows(w, plan.padded_vocab)
-                rows = plan.rows_per_shard
-                if plan.is_identity_layout:
-                    block = padded[shard * rows:(shard + 1) * rows]
-                else:
-                    block = _permute(padded, plan.shard_rows(shard))
-                embed[g][f] = block.contiguous()
-        return dict(params, embed=embed)
+        return dict(params, embed=_map_tables(
+            params["embed"], lambda w, f: _keep_block(
+                pad_rows(w, plans[f].padded_vocab), plans[f], shard)))
 
     def export(params):
-        embed = {}
-        for g, tables in params["embed"].items():
-            embed[g] = {}
-            for f, w in tables.items():
-                plan = plans[f]
-                parts = [torch.empty_like(w) for _ in range(mesh.model)]
-                dist.all_gather(parts, w.contiguous(),
-                                group=mesh.model_group)
-                physical = torch.cat(parts)
-                logical = (physical if plan.is_identity_layout
-                           else _permute(physical,
-                                         plan.physical_of_logical()))
-                embed[g][f] = unpad_rows(logical, plan.vocab)
-        return dict(params, embed=embed)
+        return dict(params, embed=_map_tables(
+            params["embed"], lambda w, f: unpad_rows(
+                _gather_logical(w, plans[f], mesh), plans[f].vocab)))
 
     return prepare, export
+
+
+def make_state_export_import(plans: Dict[str, RowShardPlan], mesh,
+                             row_keys: Sequence[str]):
+    """The snapshot layout pair of a sharded state, whose ``row_keys``
+    entries (``m``, ``v`` and, lazily decayed, ``last_step``) are trees
+    of this rank's blocks shaped like ``params["embed"]``.
+
+    ``export_state`` gives the reference's raw state layout: each of those
+    leaves all-gathered over ``"model"`` and put back in logical row
+    order, padded to ``rows_per_shard * n_shards`` rows (the reference's
+    ``pad_embed_tree`` order; a collective: every rank calls it, and
+    every rank gets the whole state); the step counter and the dense
+    tower's state as they are. ``import_state(state, flat)`` is its
+    inverse for a resume: the path-keyed arrays of a snapshot overlaid on
+    a template of those padded logical shapes (``checkpoint._fill_like``:
+    a missing leaf raises ``KeyError``, another shape ``ValueError``, as
+    the reference's overlay does, so a snapshot of a grid whose padded
+    sizes differ is refused), then this rank's block of each row leaf kept
+    on its device. The overlay runs on the host, so the card never holds
+    more than the rank's blocks; no collective."""
+    from ..train import checkpoint
+
+    shard = mesh.model_rank
+
+    def export_state(state):
+        return dict(state, **{k: _map_tables(
+            state[k], lambda w, f: _gather_logical(w, plans[f], mesh))
+            for k in row_keys})
+
+    def import_state(state, flat):
+        def logical_like(w, f):
+            return torch.empty((plans[f].padded_vocab,) + tuple(w.shape[1:]),
+                               dtype=w.dtype, device="meta")
+
+        template = dict(state, **{k: _map_tables(state[k], logical_like)
+                                  for k in row_keys})
+        host = checkpoint._fill_like(template, flat, "snapshot state",
+                                     device="cpu")
+        local = {k: (_map_tables(v, lambda w, f: _keep_block(
+            w, plans[f], shard)) if k in row_keys else v)
+            for k, v in host.items()}
+        return tree_map(lambda new, old: new.to(old.device), local, state)
+
+    return export_state, import_state

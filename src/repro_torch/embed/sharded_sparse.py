@@ -232,7 +232,10 @@ def update_phases(tables: Sequence[ShardTable], step, *, clip=True, r=1.0,
     caught up through ``t - 1`` into new buffers and updated there by the
     fused kernel 1 (``sharded.shard_update``); after the sparse branch,
     ``torch.where`` on the flag keeps one branch's w, m, v and
-    ``last_step`` (``t`` everywhere for the fallback).
+    ``last_step`` (``t`` everywhere for the fallback). Under the guard
+    (``step.ok`` set) the select is on ``overflow & ok``: the sparse
+    kernels write nothing on a skipped step, and neither does the
+    fallback.
 
     Returns the catch-up kernel's deepest pending decay over the real
     slots (0-dim int32): this rank's ``catchup_depth_max``."""
@@ -266,10 +269,12 @@ def update_phases(tables: Sequence[ShardTable], step, *, clip=True, r=1.0,
     with torch.no_grad():
         for i, (wd, md, vd) in fallback.items():
             tb = tables[i]
-            ovf = tb.overflow
+            # under the guard a skipped step keeps the live shard: the
+            # fallback's buffers hold the decayed table whatever the flag
+            take = tb.overflow if step.ok is None else tb.overflow & step.ok
             for live, dense in ((tb.w, wd), (tb.m, md), (tb.v, vd)):
-                live.copy_(torch.where(ovf, dense, live))
-            tb.last_step.copy_(torch.where(ovf, t.to(torch.int32),
+                live.copy_(torch.where(take, dense, live))
+            tb.last_step.copy_(torch.where(take, t.to(torch.int32),
                                            tb.last_step))
     return depth
 

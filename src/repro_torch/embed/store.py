@@ -11,8 +11,10 @@ tables' rows split over the ``"model"`` axis of a ``torch.distributed``
 grid of ranks and the batch over its ``"data"`` axis
 (``embed.sharded``, ``embed.sharded_sparse``; a rank's update dense on
 its rows through the fused kernel, or on the batch ids it owns through
-the sparse pair); and ``hotcold``, a fixed-capacity hot tier a field
-beside the full tables, for streaming training (``embed.hotcold``), with
+the sparse pair; both take the non-finite guard, snapshots and
+streaming as the single-device placements do); and ``hotcold``, a
+fixed-capacity hot tier a field beside the full tables, for streaming
+training (``embed.hotcold``), with
 the cold tier on the card (``cold_store="none"``) or in an out-of-core
 host store planned one step ahead (``"mem"``/``"mmap"``,
 ``embed.migrate``)::
@@ -48,11 +50,6 @@ _PATH_TO_STORE = {
 }
 
 MESH_PLACEMENTS = ("sharded", "sharded_sparse")
-
-# where the sharded placements' guard, snapshots and streaming stand in
-# ROADMAP.md
-SHARDED_ITEM = ("ROADMAP queue 1 item 9 (the guard, snapshots and "
-                "streaming on the sharded placements)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +138,11 @@ class EmbeddingStore:
         "adaptive_column" (CowClip) or "none" (the ablation clips are
         substrate-only). ``nonfinite_guard`` skips any update whose batch
         loss is NaN/Inf, counted in ``aux["skipped_steps"]``, value-exact
-        on clean data; the async hotcold placement (a cold store) refuses
-        it, as the reference does: its step fills host-side eviction
-        handles and cannot be skipped; so do the sharded placements, not
-        ported with a guard yet (``SHARDED_ITEM``).
+        on clean data (on the sharded placements every rank takes the
+        same flag, ``train.loop.make_sharded_train_step``); the async
+        hotcold placement (a cold store) refuses it, as the reference
+        does: its step fills host-side eviction handles and cannot be
+        skipped.
         """
         from ..train import loop as loop_lib  # deferred: train imports core
 
@@ -176,17 +174,12 @@ class EmbeddingStore:
                 b1=b1, b2=b2, eps=eps, nonfinite_guard=nonfinite_guard)
             return TrainStepBundle(step, init, flush)
         if self.placement in MESH_PLACEMENTS:
-            if nonfinite_guard:
-                raise NotImplementedError(
-                    f"nonfinite_guard on the {self.placement} placement is "
-                    f"not ported to repro_torch yet: {SHARDED_ITEM}")
             make = (loop_lib.make_sharded_sparse_train_step
                     if self.placement == "sharded_sparse"
                     else loop_lib.make_sharded_train_step)
-            step, init, flush, prepare, export = make(
-                cfg, hp, self.mesh, scheme=self.partition, r=r, zeta=zeta,
-                dense_tx=dense_tx, clip=clip, b1=b1, b2=b2, eps=eps)
-            return TrainStepBundle(step, init, flush, prepare, export)
+            return make(cfg, hp, self.mesh, scheme=self.partition, r=r,
+                        zeta=zeta, dense_tx=dense_tx, clip=clip, b1=b1,
+                        b2=b2, eps=eps, nonfinite_guard=nonfinite_guard)
 
         kw = dict(r=r, zeta=zeta, dense_tx=dense_tx, clip=clip, b1=b1,
                   b2=b2, eps=eps, admission=self.admission,

@@ -150,12 +150,38 @@ def make_ctr_mesh(data: int = 0, model: int = 0, *,
 def spawn_host_ranks(fn: Callable, n: int, args: tuple = ()) -> None:
     """Run ``fn(rank, n, store_path, *args)`` in ``n`` spawned processes,
     the CPU ranks of one gloo world (``fn`` opens ``process_group("cpu",
-    rank=rank, world_size=n, store_path=store_path)``). Joins them all;
-    a rank that fails ends the others and raises here."""
+    rank=rank, world_size=n, store_path=store_path)``). Joins them all.
+
+    A rank that fails ends the world: ``torch.multiprocessing``'s join
+    sends the others SIGTERM, then SIGKILL after 30 s, and waits for
+    every one of them, so no rank outlives this call (a rank blocked in a
+    collective whose peer died would otherwise wait out gloo's 30-minute
+    timeout). A rank that raised re-raises here. A rank killed by a signal
+    N (a fault plan's SIGKILL) makes this process exit ``128 + N``, as a
+    shell reports a killed command (137 for SIGKILL), after naming the
+    lowest such rank on stderr."""
+    import signal
+    import sys
+
     import torch.multiprocessing as mp
 
     if n < 1:
         raise ValueError(f"--host-devices must be >= 1, got {n}")
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(fn, args=(n, os.path.join(tmp, "store"), *args),
-                           nprocs=n, join=True, start_method="spawn")
+        ctx = mp.start_processes(fn, args=(n, os.path.join(tmp, "store"),
+                                           *args),
+                                 nprocs=n, join=False, start_method="spawn")
+        try:
+            while not ctx.join():
+                pass
+        except (mp.ProcessExitedException, mp.ProcessRaisedException):
+            killed = [(r, -p.exitcode) for r, p in enumerate(ctx.processes)
+                      if p.exitcode is not None and p.exitcode < 0
+                      and -p.exitcode != signal.SIGTERM]
+            if not killed:
+                raise
+            rank, signum = killed[0]
+            print(f"[train] rank {rank} of {n} was killed by "
+                  f"{signal.Signals(signum).name}; the other ranks were "
+                  f"ended", file=sys.stderr, flush=True)
+            raise SystemExit(128 + signum) from None

@@ -18,16 +18,25 @@ takes crash-safe snapshots (``--snapshot-dir DIR --snapshot-every N``,
 (``--resume``), bitwise equal to an uninterrupted run with the same
 cadence; a fault plan in ``REPRO_FAULT_PLAN`` (``testing.faults``) kills
 the trainer where it says. ``--nonfinite-guard`` skips a step whose loss
-is NaN/Inf on every placement but the async hot/cold and sharded ones.
+is NaN/Inf on every placement but the async hot/cold one.
 
 ``--placement sharded|sharded_sparse`` trains on a ("data", "model") grid
 of ranks (``--mesh DATA,MODEL``, ``--partition div|mod``; ``launch.mesh``),
 one process a rank: ``--device cpu --host-devices N`` spawns N gloo CPU
 ranks; on GPUs, one rank a card under ``torchrun`` (NCCL), or without it
 a world of one rank on one card. Only rank 0 prints, and the eval runs on
-the exported tables. The guard, snapshots, resume and ``--mode stream``
-are not ported with a sharded placement yet, nor is ``--task lm``: those
-flags exit with a message that names their ROADMAP item.
+the exported tables. The guard, ``--mode stream``, snapshots and
+``--resume`` work there too: every rank draws the same event stream from
+``--seed`` and keeps its data slice in the step; every rank takes part in
+a snapshot's flush and gathers, and rank 0 alone writes it; every rank
+resumes from the same latest valid snapshot. A rank that dies (a fault
+plan's SIGKILL lands on every rank at a step boundary, and inside a
+snapshot's write on rank 0 alone) ends the world: under
+``--host-devices`` the parent ends the other ranks (SIGTERM, then
+SIGKILL) and exits ``128 + N`` for a rank killed by signal N (137 for
+SIGKILL), naming the rank on stderr (``launch.mesh.spawn_host_ranks``);
+under ``torchrun`` its agent ends the others and exits non-zero.
+``--task lm`` is not ported yet: it exits naming its ROADMAP item.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
@@ -49,6 +58,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
       --device cpu --placement sharded_sparse --mesh 2,2 --host-devices 4 \
       --samples 4096 --batch 512 --steps 4 [--partition mod]
+  PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
+      --device cpu --placement sharded --mesh 2,2 --host-devices 4 \
+      --mode stream --samples 2048 --batch 128 --steps 12 \
+      --nonfinite-guard --snapshot-dir DIR --snapshot-every 4 [--resume]
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --task ctr \
       --placement sharded --mesh 1,4 --batch 8192 --epochs 1
 """
@@ -67,7 +80,7 @@ from ..core.device import resolve_device
 from ..core.scaling import RULES, scale_hyperparams
 from ..core.tree import tree_leaves
 from ..data import load_criteo_tsv, make_ctr_dataset
-from ..embed.store import MESH_PLACEMENTS, SHARDED_ITEM, store_for
+from ..embed.store import MESH_PLACEMENTS, store_for
 from ..models import ctr as ctr_lib
 from ..train import checkpoint, train_ctr
 from . import mesh as mesh_lib
@@ -91,20 +104,6 @@ def resolve_placement(placement, sparse_flag, *, warn=print) -> str:
         warn("[train] --sparse is deprecated; use --placement sparse")
         return "sparse"
     return placement or "fused"
-
-
-def _unported_flags(args, placement) -> list:
-    """(flag, ROADMAP item) for every flag that asks for a path the port
-    does not have yet: the guard, snapshots, resume and streaming on a
-    sharded placement."""
-    if placement not in MESH_PLACEMENTS:
-        return []
-    asked = [("--nonfinite-guard", args.nonfinite_guard),
-             ("--snapshot-dir", args.snapshot_dir),
-             ("--resume", args.resume),
-             ("--mode stream", args.mode == "stream")]
-    return [(f"{flag} with --placement {placement}", SHARDED_ITEM)
-            for flag, on in asked if on]
 
 
 def _check_mesh_flags(args, placement) -> None:
@@ -224,10 +223,6 @@ def _host_rank(rank, world, store_path, args, placement) -> None:
 
 def run_ctr(args) -> None:
     placement = resolve_placement(args.placement, args.sparse)
-    missing = _unported_flags(args, placement)
-    if missing:
-        raise SystemExit("[train] not ported to repro_torch yet: " + "; ".join(
-            f"{flag} -> {item}" for flag, item in missing))
     _check_mesh_flags(args, placement)
     _check_stream_flags(args, placement)
     device = resolve_device(args.device)
@@ -328,6 +323,7 @@ def _run_ctr(args, placement, device) -> None:
         params0 = bundle.prepare(params0)
         init_state = (params0, bundle.init(params0))
     del params0
+    first = mesh is None or mesh.rank == 0   # the rank that writes
     snap_meta = {"placement": token, "snapshot_every": args.snapshot_every,
                  "seed": args.seed, "batch": args.batch}
 
@@ -345,7 +341,7 @@ def _run_ctr(args, placement, device) -> None:
                 params, state = snapshot_lib.capture(
                     snap_mgr, bundle, params, state, step=n,
                     cursor={"rows_consumed": n * args.batch},
-                    meta=snap_meta)
+                    meta=snap_meta, write=first)
                 last_snap[0] = n
             if fault_plan is not None:
                 fault_plan.maybe_kill(n)
@@ -377,7 +373,6 @@ def _run_ctr(args, placement, device) -> None:
                             mode=args.mode, stream=stream,
                             init_state=init_state, start_step=start_step,
                             snapshot_cb=snapshot_cb)
-    first = mesh is None or mesh.rank == 0
     if args.profile_trace and first:
         os.makedirs(args.profile_trace, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_trace,

@@ -1,7 +1,7 @@
-"""CTR training loop: the substrate, fused and sparse train steps, epochs,
-eval.
+"""CTR training loop: the substrate, fused, sparse and sharded train
+steps, epochs, eval.
 
-A port of ``repro.train.loop`` for its single-device placements. Each
+A port of ``repro.train.loop``. Each
 step reads nothing on the host and writes its params and state in place,
 so it runs eagerly (``engine="eager"``) or as K steps captured into one
 CUDA graph (``engine="scan"``, ``train.engine``). ``train_ctr`` trains
@@ -371,7 +371,8 @@ def make_sharded_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
                             scheme: str = "div", r: float = 1.0,
                             zeta: float = 1e-5, dense_tx=None,
                             clip: bool = True, b1: float = 0.9,
-                            b2: float = 0.999, eps: float = 1e-8):
+                            b2: float = 0.999, eps: float = 1e-8,
+                            nonfinite_guard: bool = False):
     """The multi-GPU train step: tables row-sharded over the grid's
     ``"model"`` axis, the batch split over ``"data"``, the dense tower
     replicated, one process a rank (``launch.mesh.CtrMesh``;
@@ -389,11 +390,27 @@ def make_sharded_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
     is issued on its group whatever its size, so the step is its own
     ``scan_step`` (captured into a CUDA graph with its NCCL calls).
 
-    Returns ``(step, init, flush, prepare, export)``: ``prepare`` keeps
-    this rank's padded block of each logical table, ``export`` gathers
-    them back to ``[vocab, D]`` (a collective: every rank calls it), and
-    ``flush`` is the identity (absent ids decay on their shard every step,
-    as on the dense path)."""
+    ``nonfinite_guard`` skips the whole update (the shards' tables and
+    moments, the tower, its state and the step counter) when the batch
+    loss is NaN/Inf, as the reference's where-select around the step does:
+    the flag is ``core.builders.nonfinite_guard`` of the loss after its
+    SUM over ``"data"``, kernel 1 reads it from the step block and writes
+    nothing, and the tower goes through ``write_back`` under it. Every
+    rank takes the same flag with no collective of its own: each rank of
+    a data slice runs the same tower on the same assembled embedding (the
+    lookup's SUM over ``"model"``), so its partial loss is the same bits
+    on every model rank, and the SUM over ``"data"`` adds the same
+    partial losses in the same order on every rank. A NaN or Inf in any
+    rank's rows or in any slice's batch reaches every rank's loss through
+    those two SUMs. Counted in ``aux["skipped_steps"]``.
+
+    Returns a ``TrainStepBundle``: ``prepare`` keeps this rank's padded
+    block of each logical table, ``export`` gathers them back to
+    ``[vocab, D]`` (a collective: every rank calls it), ``flush`` is the
+    identity (absent ids decay on their shard every step, as on the dense
+    path), and ``export_state``/``import_state`` move m and v between the
+    rank's blocks and the reference's padded logical snapshot layout
+    (``embed.sharded.make_state_export_import``)."""
     from ..embed import sharded as shard_lib
     from ..kernels.cowclip import step_scalars
 
@@ -404,6 +421,8 @@ def make_sharded_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
     upd_kw = dict(clip=clip, r=r, zeta=zeta, lr=hp.emb_lr, l2=hp.emb_l2,
                   b1=b1, b2=b2, eps=eps)
     prepare, export = shard_lib.make_prepare_export(plans, mesh)
+    export_state, import_state = shard_lib.make_state_export_import(
+        plans, mesh, ("m", "v"))
 
     def init(params):
         return {
@@ -416,10 +435,11 @@ def make_sharded_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
     def step_impl(params, state, batch):
         batch = _data_slice(batch, mesh)
         t = state["step"] + 1
-        scalars = step_scalars(t, b1=b1, b2=b2)
         groups = list(params["embed"].values())
         loss, g_embs, g_dense, _, local = _sharded_forward_backward(
             cfg, plans, mesh, groups, params["dense"], batch)
+        ok = builders.nonfinite_guard(loss) if nonfinite_guard else None
+        scalars = step_scalars(t, b1=b1, b2=b2, ok=ok)
 
         layout = shard_lib.local_layout(plan_list, local.device)
         keys = layout.keys(local)
@@ -437,11 +457,15 @@ def make_sharded_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
                 shard_lib.shard_update(w, g_f, cnt_f, state["m"][group][name],
                                        state["v"][group][name], scalars,
                                        **upd_kw)
-        _update_dense(params, state, g_dense, dense_tx, t, None)
-        return params, state, {"loss": loss}
+        _update_dense(params, state, g_dense, dense_tx, t, ok)
+        aux = {"loss": loss}
+        if nonfinite_guard:
+            aux["skipped_steps"] = skipped(ok)
+        return params, state, aux
 
-    return (StepFn(step_impl), init, builders.identity_flush, prepare,
-            export)
+    return builders.TrainStepBundle(
+        StepFn(step_impl), init, builders.identity_flush, prepare, export,
+        export_state=export_state, import_state=import_state)
 
 
 def _warn_overflow(n: int, steps: int) -> None:
@@ -460,7 +484,8 @@ def make_sharded_sparse_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
                                    scheme: str = "div", r: float = 1.0,
                                    zeta: float = 1e-5, dense_tx=None,
                                    clip: bool = True, b1: float = 0.9,
-                                   b2: float = 0.999, eps: float = 1e-8):
+                                   b2: float = 0.999, eps: float = 1e-8,
+                                   nonfinite_guard: bool = False):
     """The sharded+sparse hybrid step: tables row-sharded as in
     ``make_sharded_train_step``, each shard's update restricted to the
     batch ids it owns (``embed.sharded_sparse``).
@@ -480,10 +505,20 @@ def make_sharded_sparse_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
     ``catchup_depth_max`` (an ``all_reduce`` MAX over ``"model"``), all
     0-dim tensors on the device.
 
-    Returns ``(step, init, flush, prepare, export)``: ``prepare``/
-    ``export`` as the sharded step's, ``flush`` the lazy-decay flush of
-    the rank's shards (needed before export, eval or checkpoint;
-    idempotent)."""
+    ``nonfinite_guard`` as in ``make_sharded_train_step`` (the same flag
+    on every rank, for the same reasons): kernels 2 and 3 read it from the
+    step block, so the update kernel writes no row and no ``last_step``
+    on a skipped step; a capped field's dense fallback is selected on
+    ``overflow & ok`` (``update_phases``), so its decayed table never
+    lands either; the tower and the step counter keep their values.
+    ``overflow_shards`` and ``catchup_depth_max`` still report the
+    skipped step's dedup and catch-up, as the reference's guard passes
+    ``aux`` through; ``aux["skipped_steps"]`` counts the skip.
+
+    Returns a ``TrainStepBundle``: ``prepare``/``export`` as the sharded
+    step's, ``flush`` the lazy-decay flush of the rank's shards (needed
+    before export, eval or checkpoint; idempotent), and
+    ``export_state``/``import_state`` over m, v and ``last_step``."""
     from ..core.optim import decay_factor
     from ..embed import sharded as shard_lib
     from ..embed import sharded_sparse as hybrid_lib
@@ -499,6 +534,8 @@ def make_sharded_sparse_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
     factor = decay_factor(hp.emb_lr, hp.emb_l2)
     shard = mesh.model_rank
     prepare, export = shard_lib.make_prepare_export(plans, mesh)
+    export_state, import_state = shard_lib.make_state_export_import(
+        plans, mesh, ("m", "v", "last_step"))
 
     def init(params):
         return {
@@ -552,7 +589,6 @@ def make_sharded_sparse_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
         ids = batch["ids"]
         b_global = ids.shape[0] * mesh.data
         t = state["step"] + 1
-        scalars = step_scalars(t, b1=b1, b2=b2)
         sets = dedup(ids, b_global)
         n_overflow = torch.zeros(1, dtype=torch.int32, device=ids.device)
         for _, _, ovf, _ in sets:
@@ -566,6 +602,8 @@ def make_sharded_sparse_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
             cfg, plans, mesh, groups, params["dense"], batch,
             last_steps=list(state["last_step"].values()), step=t,
             factor=factor)
+        ok = builders.nonfinite_guard(loss) if nonfinite_guard else None
+        scalars = step_scalars(t, b1=b1, b2=b2, ok=ok)
 
         # one embedding backward call: a field that cannot overflow sums
         # onto its slots, one that can onto its full rows (its fallback
@@ -610,13 +648,16 @@ def make_sharded_sparse_train_step(cfg: ctr.CTRConfig, hp, mesh, *,
         depth = hybrid_lib.update_phases(tables, scalars, **upd_kw)
         depth = depth.reshape(1).clone()
         dist.all_reduce(depth, op=dist.ReduceOp.MAX, group=mesh.model_group)
-        _update_dense(params, state, g_dense, dense_tx, t, None)
-        return params, state, {"loss": loss,
-                               "overflow_shards": n_overflow[0],
-                               "catchup_depth_max": depth[0]}
+        _update_dense(params, state, g_dense, dense_tx, t, ok)
+        aux = {"loss": loss, "overflow_shards": n_overflow[0],
+               "catchup_depth_max": depth[0]}
+        if nonfinite_guard:
+            aux["skipped_steps"] = skipped(ok)
+        return params, state, aux
 
-    return (StepFn(step_impl), init, _make_lazy_flush(adam_kw), prepare,
-            export)
+    return builders.TrainStepBundle(
+        StepFn(step_impl), init, _make_lazy_flush(adam_kw), prepare, export,
+        export_state=export_state, import_state=import_state)
 
 
 def make_eval_fn(cfg: ctr.CTRConfig):

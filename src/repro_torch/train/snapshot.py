@@ -47,6 +47,17 @@ sparse and hot/cold placements do too, so a captured CUDA graph stays
 valid across a snapshot. The export to the host is a synchronous copy of
 each tensor into pageable NumPy memory: nothing of a snapshot is read on
 the host before its copy has finished.
+
+On the sharded placements a rank holds only its row blocks. ``capture``
+runs on every rank (the flush, ``export`` and the bundle's
+``export_state``, which gathers m, v and ``last_step`` to the
+reference's padded logical layout, are collectives, called in the same
+order on every rank); only the rank that writes (``write=True``, rank 0)
+copies to the host and calls ``SnapshotManager.save``, so one process
+writes, rotates and collects ``*.tmp`` directories. ``resume`` runs on
+every rank over the same directory: each reads the same latest valid
+snapshot, ``prepare`` keeps its blocks of the canonical tables, and the
+bundle's ``import_state`` keeps its blocks of the state.
 """
 
 from __future__ import annotations
@@ -277,20 +288,29 @@ def placement_token(store) -> str:
 
 
 def capture(manager: SnapshotManager, bundle, params, state, *, step: int,
-            cursor: dict, meta: Optional[dict] = None):
+            cursor: dict, meta: Optional[dict] = None, write: bool = True):
     """Flush, export, and publish one snapshot; returns the *flushed*
     ``(params, state)`` the trainer must continue from (the flush is part
     of the trajectory — see the module docstring). The phases' wall
-    seconds land in ``manager.last_timings``."""
+    seconds land in ``manager.last_timings``. ``write=False`` is a rank
+    of a sharded world that does not write: it runs the flush and the
+    collectives of the export and the state's gather with the writer, and
+    nothing else."""
     t0 = time.perf_counter()
     params, state = bundle.flush(params, state)
     dev = tree_leaves(params["dense"])[0].device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
-    arrays = {"canonical": _flat_numpy(bundle.export(params))}
-    copy_dirs = None
+    canonical = bundle.export(params)
+    copy_dirs, raw = None, None
     ctrl = controller_of(bundle)
+    if ctrl is None:
+        raw = (state if bundle.export_state is None
+               else bundle.export_state(state))
+    if not write:
+        return params, state
+    arrays = {"canonical": _flat_numpy(canonical)}
     if ctrl is not None:
         if ctrl.store.backend == "mmap":
             # flush just persisted the sidecar and msynced the tables; the
@@ -299,7 +319,8 @@ def capture(manager: SnapshotManager, bundle, params, state, *, step: int,
         else:
             arrays["async_hotcold"] = ctrl.export_snapshot(params, state)
     else:
-        arrays["state"] = _flat_numpy(state)
+        arrays["state"] = _flat_numpy(raw)
+    del canonical, raw
     t2 = time.perf_counter()
     manager.save(step, arrays,
                  {"step": int(step), "cursor": dict(cursor),
@@ -369,7 +390,9 @@ def resume(manager: SnapshotManager, bundle, init_params, *,
         params = bundle.prepare(canonical)
         state = bundle.init(params)
         if same:
-            state = overlay(state, manager.load_arrays(path, "state"))
+            flat = manager.load_arrays(path, "state")
+            state = (overlay(state, flat) if bundle.import_state is None
+                     else bundle.import_state(state, flat))
         else:
             warn(f"snapshot {path} was written by {saved_token!r}, "
                  f"resuming under {token!r}: params-only restore, fresh "

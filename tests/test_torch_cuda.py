@@ -1206,7 +1206,7 @@ def test_torch_snapshot_cuda_resume_bitwise(tmp_path):
         assert torch.equal(fa[k], fb[k]), k
 
 
-def _sharded_runs(placement, engine, capacity=0, steps=6):
+def _sharded_runs(placement, engine, capacity=0, steps=6, guard=False):
     """train_ctr of ``placement`` on an NCCL world of one rank (a 1x1
     grid) from the same params over the same batches: (result, the
     flushed and exported params)."""
@@ -1218,8 +1218,8 @@ def _sharded_runs(placement, engine, capacity=0, steps=6):
     params0 = ctr.init(cfg, seed=2, device="cuda")
     with mesh_lib.process_group("cuda"):
         grid = mesh_lib.make_ctr_mesh(1, 1, device_type="cuda")
-        bundle = store_for(cfg, mesh=grid).make_bundle(cfg, hp,
-                                                       warmup_steps=3)
+        bundle = store_for(cfg, mesh=grid).make_bundle(
+            cfg, hp, warmup_steps=3, nonfinite_guard=guard)
         params = bundle.prepare(params0)
         res = train_ctr(cfg, None, tr, None, batch_size=512, seed=0,
                         step_bundle=bundle, max_steps=steps, engine=engine,
@@ -1288,3 +1288,134 @@ def test_torch_sharded_cuda_decayed_lookup_equals_catchup_kernel():
                                            device="cuda"),
         decay_factor(lr, l2))
     assert torch.equal(got, caught)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement,capacity", [("sharded", 0),
+                                                ("sharded_sparse", 0),
+                                                ("sharded_sparse", 8)])
+def test_torch_sharded_cuda_guard_equals_unguarded(placement, capacity):
+    """On an NCCL world of one rank, 6 clean steps through the scan engine
+    (3 a graph): the guarded step gives the unguarded one's params, state
+    and losses bit for bit, and skips nothing."""
+    _need_cuda()
+    u, eu = _sharded_runs(placement, "scan", capacity)
+    g, eg = _sharded_runs(placement, "scan", capacity, guard=True)
+    assert u.losses == g.losses
+    for x, y in ((u.params, g.params), (u.opt_state, g.opt_state),
+                 (eu, eg)):
+        fx, fy = _flat(x), _flat(y)
+        for k in fx:
+            assert torch.equal(fx[k], fy[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement,capacity", [("sharded", 0),
+                                                ("sharded_sparse", 0),
+                                                ("sharded_sparse", 8)])
+def test_torch_sharded_cuda_guard_skips_inside_a_graph(placement, capacity):
+    """A chunk of 3 batches whose second holds a NaN, on an NCCL world of
+    one rank: the guarded eager steps skip it (every leaf bitwise
+    unchanged by it) and the chunk's replay equals them bit for bit."""
+    _need_cuda()
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg, hp, ds = _small_ctr(placement)
+    cfg = dataclasses.replace(cfg, unique_capacity=capacity)
+    host = [b for _, b in zip(range(3), iterate_batches(ds, 512, seed=1))]
+    host[1]["dense"][5, 0] = np.nan
+    chunk = {k: torch.as_tensor(np.stack([b[k] for b in host])).cuda()
+             for k in host[0]}
+    params0 = ctr.init(cfg, seed=2, device="cuda")
+    with mesh_lib.process_group("cuda"):
+        grid = mesh_lib.make_ctr_mesh(1, 1, device_type="cuda")
+        bundle = store_for(cfg, mesh=grid).make_bundle(
+            cfg, hp, warmup_steps=3, nonfinite_guard=True)
+        p = bundle.prepare(tree_map(torch.clone, params0))
+        s = bundle.init(p)
+        skipped = []
+        for i in range(3):
+            before = _flat(tree_map(torch.clone, (p, s)))
+            p, s, aux = bundle.step(p, s, {k: v[i] for k, v in chunk.items()})
+            skipped.append(int(aux["skipped_steps"]))
+            if i == 1:
+                after = _flat((p, s))
+                for k in before:
+                    assert torch.equal(before[k], after[k]), k
+        g = bundle.prepare(tree_map(torch.clone, params0))
+        gs = bundle.init(g)
+        runner = engine_lib.make_chunk_runner(bundle.step.scan_step)
+        g, gs, aux = runner(g, gs, chunk)       # the capture, a replay
+        torch.cuda.synchronize()
+        assert skipped == [0, 1, 0]
+        assert aux["skipped_steps"].tolist() == [0, 1, 0]
+        assert int(gs["step"]) == int(s["step"]) == 2
+        fx, fy = _flat((p, s)), _flat((g, gs))
+        for k in fx:
+            assert torch.equal(fx[k], fy[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["sharded", "sharded_sparse"])
+def test_torch_sharded_cuda_snapshot_resume_bitwise(placement, tmp_path):
+    """Online on an NCCL world of one rank, graphs of 2 steps, a snapshot
+    every 4: a fresh bundle resumed from step 4 (its state's blocks back
+    on the card) and run to 8 equals the uninterrupted 8 steps bit for
+    bit."""
+    _need_cuda()
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import snapshot as snap_lib
+
+    cfg, hp, ds = _small_ctr(placement)
+    tr, _ = ds.split(0.95)
+    params0 = ctr.init(cfg, seed=4, device="cuda")
+    with mesh_lib.process_group("cuda"):
+        grid = mesh_lib.make_ctr_mesh(1, 1, device_type="cuda")
+        store = store_for(cfg, mesh=grid, partition="mod")
+        token = snap_lib.placement_token(store)
+
+        def run(d, *, max_steps, start=0, init_state=None, bundle=None):
+            bundle = bundle or store.make_bundle(cfg, hp,
+                                                 nonfinite_guard=True)
+            mgr = snap_lib.SnapshotManager(str(d))
+            last = [start]
+
+            def cb(p, s, n):
+                if n - last[0] >= 4:
+                    p, s = snap_lib.capture(
+                        mgr, bundle, p, s, step=n,
+                        cursor={"rows_consumed": n * 512},
+                        meta={"placement": token})
+                    last[0] = n
+                return p, s
+
+            if init_state is None:
+                p = bundle.prepare(tree_map(torch.clone, params0))
+                init_state = (p, bundle.init(p))
+            events = stream_lib.skip_rows(stream_lib.synthetic_event_stream(
+                tr, rows_per_event=300, seed=2), start * 512)
+            return train_ctr(cfg, None, tr, None, batch_size=512,
+                             step_bundle=bundle, max_steps=max_steps,
+                             engine="scan", mode="stream",
+                             stream=stream_lib.stream_chunks(
+                                 events, 512, 2, start_rows=start * 512),
+                             init_state=init_state, start_step=start,
+                             snapshot_cb=cb)
+
+        whole = run(tmp_path / "a", max_steps=8)
+        run(tmp_path / "b", max_steps=4)
+        bundle = store.make_bundle(cfg, hp, nonfinite_guard=True)
+        p, s, start, _ = snap_lib.resume(
+            snap_lib.SnapshotManager(str(tmp_path / "b")), bundle,
+            ctr.init(cfg, seed=5, device="cuda"), token=token)
+        assert start == 4 and s["step"].is_cuda and int(s["step"]) == 4
+        assert all(t.is_cuda for t in tree_leaves(s))
+        resumed = run(tmp_path / "b", max_steps=8, start=start,
+                      init_state=(p, s), bundle=bundle)
+        assert whole.losses[4:] == resumed.losses
+        fa = _tensors({"p": whole.params, "s": whole.opt_state})
+        fb = _tensors({"p": resumed.params, "s": resumed.opt_state})
+        for k in fa:
+            assert torch.equal(fa[k], fb[k]), k
+        torch.cuda.synchronize()

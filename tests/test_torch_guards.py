@@ -163,39 +163,57 @@ def test_torch_cli_sparse_alias_conflicts_with_other_placement():
 
 
 # The four cases named "queue 1 item 7" once checked that the sharded
-# placements' flags exited naming that item. The placements are ported
-# now (test_torch_sharded*.py trains them, the CLI included), so each case
-# asks for what is still missing on them, ROADMAP queue 1 item 9 (the
-# guard, snapshots, resume and streaming on a sharded placement), with
-# the flags it had; the ids stay, so each case keeps its name.
-@pytest.mark.parametrize("flags,item", [
-    pytest.param(["--placement", "sharded_sparse", "--nonfinite-guard"],
-                 "--nonfinite-guard with --placement sharded_sparse -> "
-                 "ROADMAP queue 1 item 9", id="flags0-queue 1 item 7"),
+# placements' flags exited naming that item, and then that the guard,
+# snapshots, resume and streaming on them exited naming queue 1 item 9.
+# Those are ported now (test_torch_sharded_guard.py and
+# test_torch_sharded_snapshot.py hold them), so each case, with its id,
+# checks that its flags start a run with a sharded placement (a tiny one,
+# on the CPU) or reach the reference's own refusal: --resume without
+# --snapshot-dir. --task lm still names its item.
+_TINY = ["--samples", "512", "--batch", "64", "--base-batch", "64",
+         "--mlp-dim", "16"]
+
+
+@pytest.mark.parametrize("flags,expect", [
+    pytest.param(["--placement", "sharded_sparse", "--nonfinite-guard",
+                  "--steps", "1"] + _TINY,
+                 "[train] done: 1 steps", id="flags0-queue 1 item 7"),
     pytest.param(["--placement", "sharded", "--mode", "stream", "--steps",
-                  "2"], "--mode stream with --placement sharded -> ROADMAP "
-                 "queue 1 item 9", id="flags2-queue 1 item 7"),
-    pytest.param(["--host-devices", "8", "--placement", "sharded",
+                  "2"] + _TINY,
+                 "[train] done: 2 steps", id="flags2-queue 1 item 7"),
+    pytest.param(["--host-devices", "2", "--placement", "sharded",
                   "--mode", "stream", "--steps", "4", "--snapshot-dir",
-                  "unused", "--snapshot-every", "2"],
-                 "--snapshot-dir with --placement sharded -> ROADMAP queue "
-                 "1 item 9", id="flags3-queue 1 item 7"),
+                  "snaps", "--snapshot-every", "2", "--scan-steps", "2"]
+                 + _TINY,
+                 "[train] done: 4 steps", id="flags3-queue 1 item 7"),
     pytest.param(["--mesh", "2,4", "--host-devices", "8", "--placement",
                   "sharded_sparse", "--resume"],
-                 "--resume with --placement sharded_sparse -> ROADMAP queue "
-                 "1 item 9", id="flags5-queue 1 item 7"),
+                 "--resume needs --snapshot-dir", id="flags5-queue 1 item 7"),
     pytest.param(["--task", "lm"], "queue 1 item 8",
                  id="flags6-queue 1 item 8"),
 ])
-def test_torch_cli_names_roadmap_for_unported(flags, item, tmp_path,
+def test_torch_cli_names_roadmap_for_unported(flags, expect, tmp_path,
                                               monkeypatch):
-    """Each refusal exits before any rank starts or any file is made."""
+    """A run's flags start it (the CLI in a child process; ``--host-devices``
+    spawns gloo ranks), its snapshots land in the working directory; a
+    refusal exits before any rank starts or any file is made."""
     from repro_torch.launch import train as launch
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match=item):
-        launch.main(["--device", "cpu"] + flags)
-    assert not any(tmp_path.iterdir())
+    if not expect.startswith("[train] done"):
+        with pytest.raises(SystemExit, match=expect):
+            launch.main(["--device", "cpu"] + flags)
+        assert not any(tmp_path.iterdir())
+        return
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device",
+         "cpu"] + flags, env=_env(), capture_output=True, text=True,
+        timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count(expect) == 1, out.stdout
+    if "--snapshot-dir" in flags:
+        assert sorted(p.name for p in (tmp_path / "snaps").iterdir()) == [
+            "snap-00000002", "snap-00000004"]
 
 
 @pytest.mark.parametrize("cold_store", ["none", "mem"])
