@@ -99,7 +99,7 @@ Phases, each fatal on failure:
      MicroBatcher behind 8 client threads answers every request once; a
      HotEmbeddingCache equals the engine (1e-5); rows/s, p50 / p99 ms
  23. decode graph (beside phase 15): the decode step captured once for
-     batch 4; 4 x 64-token prompts, 32 new tokens: the eager tokens,
+     batch 4 (a recurrent state: one graph at any max_len); 4 x 64-token prompts, 32 new tokens: the eager tokens,
      logits within 1e-4; ms per decoded token eager and graph, and a
      traced replay beside phase 16's eager step
  24. embedding backward vs its plain version, bitwise (and the max abs
@@ -211,7 +211,24 @@ Phases, each fatal on failure:
      (--placement sharded_sparse --mode stream) killed in a child process
      by a FaultPlan inside its step-8 snapshot write, then --resume:
      bitwise equal to its uninterrupted run
-Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13. Each
+ 37. gemma3-12b at full width and depth (12,772,028,160 params drawn on
+     the card after rwkv6-7b's are freed; 40 local layers with a
+     1024-slot ring cache, 8 attn layers with a linear one), f32 compute:
+     a cached prefill of 2 x 1000 tokens then 64 teacher-forced decode
+     steps (the ring wraps at 1024), and 2 x 1536 + 16 (the prefill's
+     roll), held to one forward over all the tokens within 5e-3 (the JAX
+     package's decode-vs-forward bar)
+ 38. the same params in bf16: score-only prefill of 1 x 4096 (ms,
+     tokens/s); greedy generation of 4 x 1000-token prompts + 64 tokens
+     eager and from the decode graph (its cursor on the card), the same
+     tokens and logits within 1e-4 (bitwise or not, printed), ms per
+     decoded token each way, the KV caches' bytes; no port kernel
+     launched in 37-38; peak device memory a phase
+ 39. the six attention archs (and deepseek with pad_attn_heads 8) at the
+     reduced f32 size, card vs CPU: forward logits, cached prefill and 4
+     decode steps, max abs 1e-4
+Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13;
+phases 37-39 last. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
 prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
@@ -273,6 +290,19 @@ LM_LONG = (1, 32768)           # prefill_32k's length, at batch 1 (not 32)
 LM_RAGGED = (1, 4001)          # a prompt length that is no multiple of 16
 LM_REPEATS = 2
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
+GEMMA3_12B_PARAMS = 12_772_028_160   # repro.models.lm.param_counts(gemma3-12b)
+ATTN_TEACHER = ((1000, 64), (1536, 16))   # f32 prompt + fed tokens, 37
+ATTN_DECODE_BAR = 5e-3         # decode vs forward (tests/test_lm_smoke.py)
+ATTN_PREFILL = (1, 4096)       # score-only bf16 prefill, phase 38
+ATTN_GEN_BATCH, ATTN_GEN_PROMPT, ATTN_GEN_NEW = 4, 1000, 64   # phase 38
+# kernel-name groups of the attention LM's traces (phase 38): PyTorch's
+# casts (the f32 weights to bf16) and copies, cuBLAS's GEMMs, the softmax
+ATTN_GROUPS = (("casts and copies", ("bfloat16_copy_kernel",
+                                     "direct_copy_kernel")),
+               ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")),
+               ("softmax", ("SoftMax", "softmax")))
+ATTN_ARCHS = ("stablelm-3b", "granite-20b", "deepseek-coder-33b",
+              "gemma3-12b", "musicgen-large", "internvl2-26b")
 LM_AGREE = 1e-4                # max abs logits, card vs CPU (f32, reduced)
 GRAPH_STEPS = 8                # steps of each engine, phases 19-20
 SCAN_STEPS = 4                 # steps a captured graph, phases 19-20
@@ -3856,6 +3886,7 @@ def lm_phases(smi, kind):
 
     # -- 13. wkv6 kernel vs its plain versions ---------------------------
     phase_start(13)
+    torch.cuda.reset_peak_memory_stats()
     cases = [(f"[{bh}, {seq}, {n}] chunk {chunk}{' zeros' if z else ''}",
               bh, seq, n, chunk, z)
              for bh, seq, n, chunk, z in (
@@ -3921,6 +3952,7 @@ def lm_phases(smi, kind):
         check(False, "a ragged sequence did not raise")
     torch.cuda.empty_cache()
 
+    peak_line(13)
     # -- 14. rwkv6-7b at full width: score-only prefill (the main path) --
     phase_start(14)
     cfg = dataclasses.replace(RWKV6_7B, wkv_backend="chunked")
@@ -3986,6 +4018,7 @@ def lm_phases(smi, kind):
 
     # -- 15. greedy generation, and layer 0's real streams ---------------
     phase_start(15)
+    torch.cuda.reset_peak_memory_stats()
     gen_prompt = torch.as_tensor(make_lm_tokens(
         GEN_BATCH * GEN_PROMPT, cfg.vocab_size, seed=2).reshape(
             GEN_BATCH, GEN_PROMPT), device="cuda")
@@ -3993,7 +4026,7 @@ def lm_phases(smi, kind):
     phase_start(23)
     t0 = time.perf_counter()
     decoder = GraphDecoder(params, cfg)
-    decoder.graph(GEN_BATCH)
+    decoder.graph(GEN_BATCH, GEN_PROMPT + GEN_NEW)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     timing, gen_launches, gens = {}, [], {}
@@ -4033,7 +4066,7 @@ def lm_phases(smi, kind):
           f"{'equal to' if same else 'DIFFER from'} the eager ones, last "
           f"logits max_abs {gap:.3e} (bar {LM_AGREE}), {kind} at {power}",
           flush=True)
-    check(same and gap <= LM_AGREE and list(decoder.graphs) == [GEN_BATCH],
+    check(same and gap <= LM_AGREE and list(decoder.graphs) == [(GEN_BATCH, None)],
           "the decode graph's generation differs from the eager one")
     with torch.inference_mode():
         p0 = tree_map(lambda t: t[0], params["dense"]["blocks"]["pos_0"])
@@ -4060,8 +4093,10 @@ def lm_phases(smi, kind):
                 f"chunk-channels)", got, want)
     del p0, x, h, streams, r, k, v, w, u, got, want, res
 
+    peak_line("15 and 23")
     # -- 16. where a full-width prefill's and a decode step's time goes --
     phase_start(16)
+    torch.cuda.reset_peak_memory_stats()
     print_trace("lm-trace", f"prefill {list(LM_PREFILL)}",
                 *device_time_by_kernel(lambda: prefill(LM_PREFILL)),
                 groups=(("the wkv6 scan's kernels", WKV6_KERNELS),))
@@ -4075,8 +4110,8 @@ def lm_phases(smi, kind):
 
     print_trace("lm-trace", f"decode step, batch {GEN_BATCH}",
                 *device_time_by_kernel(decode_one))
-    step_graph = decoder.graph(GEN_BATCH)
-    step_graph.start(first.argmax(-1), cache)
+    step_graph = decoder.graph(GEN_BATCH, GEN_PROMPT + 1)
+    step_graph.start(first.argmax(-1), cache, cur)
     print_trace("lm-trace", f"decode step as a graph replay, batch "
                 f"{GEN_BATCH}", *device_time_by_kernel(step_graph.step))
     del first, cache, step_graph, decoder, gens
@@ -4084,8 +4119,10 @@ def lm_phases(smi, kind):
     gc.collect()
     torch.cuda.empty_cache()
 
+    peak_line(16)
     # -- 17. agreement with the CPU path at the reduced f32 size ---------
     phase_start(17)
+    torch.cuda.reset_peak_memory_stats()
     small = dataclasses.replace(reduce_config(RWKV6_7B), wkv_backend="chunked")
     params0 = lm.init(small, seed=0, device="cpu")
     feed = torch.as_tensor(make_lm_tokens(4 * 2, small.vocab_size,
@@ -4123,8 +4160,10 @@ def lm_phases(smi, kind):
               f"tokens, card vs CPU: max_abs {gap:.3e} (bar {LM_AGREE})")
         check(gap <= LM_AGREE, "card and CPU disagree on decode logits")
 
+    peak_line(17)
     # -- 18. kernel times: L2 flushed before each launch -----------------
     phase_start(18)
+    torch.cuda.reset_peak_memory_stats()
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     times = {}
     for shape in (WKV_FULL, WKV_LONG):
@@ -4144,6 +4183,7 @@ def lm_phases(smi, kind):
               f"{other:.4f} ms), {kind} at {power}", flush=True)
         del inp
     del scratch
+    peak_line(18)
     k_ms, p_ms, b_ms, b_by = times[WKV_FULL]
     return {
         "name": "chunked_wkv6",
@@ -4158,6 +4198,277 @@ def lm_phases(smi, kind):
         "bound_by": b_by,
         "library_ms": None,
     }
+
+
+def kv_bytes(cache):
+    """Bytes of a decode cache's KV buffers."""
+    from repro_torch.core.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+
+
+def peak_line(phase):
+    """The device's peak since the last reset, and what is still held."""
+    print(f"[phase {phase}] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(max_memory_allocated), {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB still allocated", flush=True)
+
+
+def attn_lm_phases(smi, kind):
+    """Phases 37-39: gemma3-12b at full width and depth (f32 decode held
+    to one forward across the ring's wrap and the prefill's roll; bf16
+    prefill, and greedy generation eager and from the decode graph), then
+    the six attention archs card against CPU at the reduced f32 size. The
+    attention path runs no kernel of the port's: each wrapper's count
+    must stay 0. Every tensor is freed on return."""
+    from repro_torch.configs import reduce_config
+    from repro_torch.configs.gemma3_12b import CONFIG as GEMMA3_12B
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels.cowclip import (fused_cowclip_adam,
+                                             sparse_gather_catchup,
+                                             sparse_update_scatter)
+    from repro_torch.kernels.embedding import embedding_backward_groups
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import (GraphDecoder, frontend_prefix,
+                                          greedy_generate)
+
+    power = smi.strip().split(", ")[-1]
+    wrappers = (fused_cowclip_adam, sparse_gather_catchup,
+                sparse_update_scatter, wkv6, embedding_backward_groups)
+    for fn in wrappers:
+        fn.launches = 0
+
+    # -- 37. gemma3-12b, full width and depth: f32 decode vs forward -----
+    phase_start(37)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GEMMA3_12B
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab_size, cfg.window, cfg.rope_theta,
+           cfg.compute_dtype)
+          == (48, 3840, 16, 8, 256, 15360, 262144, 1024, 1e6, "bfloat16")
+          and cfg.block_pattern == ("local",) * 5 + ("attn",),
+          "not the gemma3-12b width")
+    n_params = lm.param_counts(cfg)["total"]
+    check(n_params == GEMMA3_12B_PARAMS, f"{n_params} parameters")
+    print(f"[attn-lm] before gemma3-12b: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+          f"(rwkv6-7b's params freed)", flush=True)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    drawn = sum(t.numel() for t in tree_leaves(params))
+    check(drawn == n_params, f"{drawn} parameters drawn, expected "
+          f"{n_params}")
+    n_local = cfg.n_repeats * cfg.block_pattern.count("local")
+    print(f"[attn-lm] gemma3-12b: {n_params} parameters (f32, "
+          f"{4 * n_params / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {n_local} local layers (ring "
+          f"of {cfg.window}) + {cfg.n_layers - n_local} attn layers, "
+          f"head_dim {cfg.hd}", flush=True)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    for prompt_len, steps in ATTN_TEACHER:
+        total = prompt_len + steps
+        tokens = torch.as_tensor(make_lm_tokens(
+            2 * total, cfg.vocab_size, seed=prompt_len).reshape(2, total),
+            device="cuda")
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            full, _ = lm.forward(params, f32, tokens)
+            want = full[:, prompt_len - 1:].clone()
+            del full
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            last, cache, cur = lm.prefill_with_cache(
+                params, f32, tokens[:, :prompt_len], total)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            ring = cache["pos_0"].k.shape[2]
+            check(cur == prompt_len and ring == cfg.window
+                  and cache["pos_5"].k.shape[2] == total,
+                  f"caches of {ring} / {cache['pos_5'].k.shape[2]} slots")
+            outs = [last]
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = lm.decode_step(params, f32,
+                                               tokens[:, prompt_len + i],
+                                               cache, cur + i, inplace=True)
+                outs.append(logits)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t0
+            got = torch.stack(outs, dim=1)
+        gap = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()), "non-finite f32 logits")
+        what = (f"crosses the ring's wrap at {ring}"
+                if prompt_len < ring < total
+                else f"the prefill rolls the last {ring} of {prompt_len} "
+                     "tokens into the ring")
+        print(f"[attn-lm] f32, batch 2, {prompt_len}-token prompt + {steps} "
+              f"teacher-forced decode steps ({what}): logits at positions "
+              f"{prompt_len - 1}-{total - 1} vs one forward over {total} "
+              f"tokens max_abs {gap:.3e} (bar {ATTN_DECODE_BAR}); forward "
+              f"{fwd_s:.2f} s, cached prefill {pre_s:.2f} s, "
+              f"{dec_s * 1e3 / steps:.1f} ms a decode step, {kind} at "
+              f"{power}", flush=True)
+        check(gap <= ATTN_DECODE_BAR,
+              f"f32 decode differs from the forward by {gap}")
+        del tokens, want, last, cache, outs, got, logits
+    peak_line(37)
+    print(f"[phase 37] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    phase_end()
+
+    # -- 38. bf16 compute: score-only prefill, greedy generation ---------
+    phase_start(38)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    b, s = ATTN_PREFILL
+    prompt = torch.as_tensor(make_lm_tokens(b * s, cfg.vocab_size,
+                                            seed=5).reshape(b, s),
+                             device="cuda")
+
+    def prefill():
+        with torch.inference_mode():
+            out = lm.prefill(params, cfg, prompt)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    last = prefill()
+    first_s = time.perf_counter() - t0
+    check(tuple(last.shape) == (b, cfg.padded_vocab)
+          and bool(torch.isfinite(last).all()), "bf16 prefill not finite")
+    t0 = time.perf_counter()
+    for _ in range(LM_REPEATS):
+        prefill()
+    ms = (time.perf_counter() - t0) * 1e3 / LM_REPEATS
+    print(f"[attn-lm] bf16 score-only prefill {list(ATTN_PREFILL)}: "
+          f"{ms:.1f} ms ({b * s / ms * 1e3:.0f} tokens/s; first call "
+          f"{first_s * 1e3:.1f} ms), mean of {LM_REPEATS}, {kind} at "
+          f"{power}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+    print_trace("attn-trace", f"bf16 prefill {list(ATTN_PREFILL)}",
+                *device_time_by_kernel(prefill), groups=ATTN_GROUPS)
+    del last, prompt
+    gen_prompt = torch.as_tensor(make_lm_tokens(
+        ATTN_GEN_BATCH * ATTN_GEN_PROMPT, cfg.vocab_size, seed=6).reshape(
+            ATTN_GEN_BATCH, ATTN_GEN_PROMPT), device="cuda")
+    max_len = ATTN_GEN_PROMPT + ATTN_GEN_NEW
+    t0 = time.perf_counter()
+    decoder = GraphDecoder(params, cfg)
+    graph = decoder.graph(ATTN_GEN_BATCH, max_len)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    timing, gens = {}, {}
+    for mode in ("eager", "graph"):
+        for new in (0, ATTN_GEN_NEW):
+            t0 = time.perf_counter()
+            gens[mode] = greedy_generate(params, cfg, gen_prompt, new,
+                                         decoder=decoder,
+                                         graph=mode == "graph")
+            torch.cuda.synchronize()
+            timing[mode, new] = time.perf_counter() - t0
+    res = gens["eager"]
+    check(tuple(res.tokens.shape) == (ATTN_GEN_BATCH, ATTN_GEN_NEW)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
+          and bool(torch.isfinite(res.logits).all()),
+          "greedy generation: bad tokens or non-finite logits")
+    decode_ms = {mode: (timing[mode, ATTN_GEN_NEW] - timing[mode, 0]) * 1e3
+                 / ATTN_GEN_NEW for mode in ("eager", "graph")}
+    same = torch.equal(gens["graph"].tokens, res.tokens)
+    gap = (gens["graph"].logits - res.logits).abs().max().item()
+    bitwise = torch.equal(gens["graph"].logits, res.logits)
+    cache_b = kv_bytes(graph.cache)
+    print(f"[attn-lm] bf16 greedy generation, {ATTN_GEN_BATCH} x "
+          f"{ATTN_GEN_PROMPT}-token prompts + {ATTN_GEN_NEW} tokens: cached "
+          f"prefill {timing['eager', 0] * 1e3:.1f} ms; eager "
+          f"{decode_ms['eager']:.2f} ms per decoded token "
+          f"({ATTN_GEN_BATCH * 1e3 / decode_ms['eager']:.0f} tokens/s), "
+          f"graph {decode_ms['graph']:.2f} ms "
+          f"({ATTN_GEN_BATCH * 1e3 / decode_ms['graph']:.0f} tokens/s; "
+          f"captured once for ({ATTN_GEN_BATCH}, {max_len}) in "
+          f"{capture_s:.2f} s with its warm-up step); graph tokens "
+          f"{'equal to' if same else 'DIFFER from'} the eager ones, last "
+          f"logits max_abs {gap:.3e} (bar {LM_AGREE}), "
+          f"{'bitwise' if bitwise else 'not bitwise'}; KV caches {cache_b} "
+          f"B ({n_local} rings of {cfg.window} + {cfg.n_layers - n_local} "
+          f"linear of {max_len} slots, bf16); cursor {int(graph.cursor)}; first tokens "
+          f"{res.tokens[0, :8].tolist()}; {kind} at {power}", flush=True)
+    check(same and gap <= LM_AGREE
+          and list(decoder.graphs) == [(ATTN_GEN_BATCH, max_len)]
+          and int(graph.cursor) == max_len,
+          "the decode graph's generation differs from the eager one")
+    with torch.inference_mode():
+        first, cache, cur = lm.prefill_with_cache(params, cfg, gen_prompt,
+                                                  max_len)
+    graph.start(first.argmax(-1), cache, cur)
+    print_trace("attn-trace", f"bf16 decode step as a graph replay, batch "
+                f"{ATTN_GEN_BATCH}, position {cur}",
+                *device_time_by_kernel(graph.step), groups=ATTN_GROUPS)
+
+    def eager_step():
+        with torch.inference_mode():
+            lm.decode_step(params, cfg, first.argmax(-1), cache, cur,
+                           inplace=True)
+
+    print_trace("attn-trace", f"bf16 eager decode step, batch "
+                f"{ATTN_GEN_BATCH}, position {cur}",
+                *device_time_by_kernel(eager_step), groups=ATTN_GROUPS)
+    del first, cache
+    launched = [fn.launches for fn in wrappers]
+    print(f"[attn-lm] the port's kernels launched {launched} times in "
+          f"phases 37-38 (none on the attention path)", flush=True)
+    check(not any(launched), f"kernels launched {launched} times")
+    del gens, res, graph, decoder, gen_prompt, params
+    peak_line(38)
+    print(f"[phase 38] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    phase_end()
+
+    # -- 39. the six attention archs, card vs CPU, reduced f32 -----------
+    phase_start(39)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    seq = 12
+    cases = [(arch, reduce_config(get_config(arch))) for arch in ATTN_ARCHS]
+    cases.append(("deepseek-coder-33b, pad_attn_heads 8", dataclasses.replace(
+        cases[2][1], pad_attn_heads=8)))
+    for tag, small in cases:
+        params0 = lm.init(small, seed=0, device="cpu")
+        tokens = torch.as_tensor(make_lm_tokens(
+            2 * (seq + 4), small.vocab_size, seed=7).reshape(2, seq + 4))
+        prefix = frontend_prefix(small, 2, seed=8, device="cpu")
+        p = 0 if prefix is None else prefix.shape[1]
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            prm = tree_map(lambda t: t.to(dev), params0)
+            pre = None if prefix is None else prefix.to(dev)
+            with torch.inference_mode():
+                logits, _ = lm.forward(prm, small, tokens[:, :seq].to(dev),
+                                       pre)
+                last, cache, cur = lm.prefill_with_cache(
+                    prm, small, tokens[:, :seq].to(dev), p + seq + 4, pre)
+                outs = [logits, last]
+                for i in range(4):
+                    last, cache = lm.decode_step(
+                        prm, small, tokens[:, seq + i].to(dev), cache,
+                        cur + i, inplace=True)
+                    outs.append(last)
+            runs[dev] = [t.cpu() for t in outs]
+        gaps = [(a - c).abs().max().item()
+                for a, c in zip(runs["cuda"], runs["cpu"])]
+        print(f"[attn-agree] reduced {tag} ({small.block_pattern}, kv "
+              f"{small.n_kv_heads}, alloc {small.n_heads_alloc}, act "
+              f"{small.act}, prefix {p}), {seq} tokens, card vs CPU max_abs: "
+              f"forward {gaps[0]:.3e}, cached prefill {gaps[1]:.3e}, 4 "
+              f"decode steps {max(gaps[2:]):.3e} (bar {LM_AGREE})",
+              flush=True)
+        check(max(gaps) <= LM_AGREE, f"card and CPU disagree on {tag}")
+    peak_line(39)
+    print(f"[phase 39] {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -4219,6 +4530,8 @@ def main() -> int:
             line["launches_sharded_sparse_guarded"] = \
                 sharded_guarded["sharded_sparse"][line["name"]]
     lines.append(lm_phases(smi, kind))
+    phase_end()
+    attn_lm_phases(smi, kind)
     phase_end()
     print(f"[exit] threads alive: "
           f"{[(t.name, t.daemon) for t in threading.enumerate()]}",

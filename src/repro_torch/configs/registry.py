@@ -1,6 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution, as in
-``repro.configs.registry``. Of the LM archs only rwkv6-7b is ported; the
-others raise ``NotImplementedError`` naming their ROADMAP item."""
+``repro.configs.registry``. Of the LM archs, the attention ones and
+rwkv6-7b are ported; llama4-scout, granite-moe (MoE) and zamba2
+(``mamba2``, ``shared_attn``) raise ``NotImplementedError`` naming their
+ROADMAP item."""
 
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ ARCH_MODULES = {
 }
 
 ASSIGNED_ARCHS = tuple(k for k in ARCH_MODULES if k != "deepfm-criteo")
-PORTED_ARCHS = ("rwkv6-7b", "deepfm-criteo")
+PORTED_ARCHS = ("granite-20b", "stablelm-3b", "musicgen-large", "rwkv6-7b",
+                "gemma3-12b", "deepseek-coder-33b", "internvl2-26b",
+                "deepfm-criteo")
 
 
 def get_config(arch: str):

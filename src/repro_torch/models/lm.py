@@ -1,5 +1,6 @@
 """Decoder LM assembled from a config, as in ``repro.models.lm``; the port
-runs its RWKV-6 configurations (``block_pattern`` of ``"rwkv6"`` only).
+runs the ``attn``, ``local`` and ``rwkv6`` block kinds, with the audio /
+vision frontends' prefix embeddings.
 
 * **Stacked superblocks.** Layers are grouped into a repeating
   ``block_pattern``; every leaf of ``params["dense"]["blocks"]["pos_i"]``
@@ -8,15 +9,19 @@ runs its RWKV-6 configurations (``block_pattern`` of ``"rwkv6"`` only).
   params across unchanged. The reference's ``jax.lax.scan`` over
   superblocks is a Python loop indexing the stacked leaves.
 * **Two-group params.** ``{"embed": {"tokens": [V, D]}, "dense": ...}``.
-* **Decode states.** O(1) recurrent ``RWKVState`` per layer, stacked per
-  superblock like the params.
+* **Decode states.** KV ring buffers for ``local``, linear KV buffers for
+  ``attn`` (``layers.KVCache``), the O(1) recurrent ``RWKVState`` for
+  ``rwkv6``; stacked per superblock like the params.
+* **Frontends** (audio frames / vision patches) are precomputed
+  embeddings ``[B, P, D]`` concatenated ahead of the token embeddings, as
+  in the reference.
 * **Cast points** are the reference's: the embedding is cast to the
   compute dtype, the mixers run in it with weights cast at use (the decay
   and the wkv scan in f32), norms accumulate in f32, logits are cast to
   ``logits_dtype``.
 
-The ``attn``/``local``/``mamba2`` kinds, MoE, ``shared_attn`` and the
-frontends raise ``NotImplementedError`` naming their ROADMAP item.
+The ``mamba2`` kind, MoE and ``shared_attn`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -117,13 +122,15 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+PORTED_KINDS = ("attn", "local", "rwkv6")
+
+
 def _require_ported(cfg: LMConfig) -> None:
     cfg.validate()
-    other = sorted(set(cfg.block_pattern) - {"rwkv6"})
+    other = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
     what = (f"block kinds {other}" if other else
             "MoE" if cfg.moe is not None else
-            "shared_attn" if cfg.shared_attn else
-            f"the {cfg.frontend!r} frontend" if cfg.frontend else None)
+            "shared_attn" if cfg.shared_attn else None)
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {what} not ported to repro_torch yet: "
@@ -135,9 +142,24 @@ def _require_ported(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def has_kv_cache(cfg: LMConfig) -> bool:
+    """Whether decode state grows with ``max_len`` (an attention kind)."""
+    return bool({"attn", "local"} & set(cfg.block_pattern))
+
+
 def _init_position(gen, kind: str, cfg: LMConfig, device) -> dict:
     """Params of one layer position, stacked ``[n_repeats, ...]``."""
     d, lead = cfg.d_model, (cfg.n_repeats,)
+    if kind in ("attn", "local"):
+        return {
+            "norm1": layers.init_rmsnorm(d, lead=lead, device=device),
+            "attn": layers.init_attention(
+                gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                cfg.n_heads_alloc, lead=lead, device=device),
+            "norm2": layers.init_rmsnorm(d, lead=lead, device=device),
+            "ffn": layers.init_mlp(gen, d, cfg.d_ff, cfg.act, lead=lead,
+                                   device=device),
+        }
     if kind == "rwkv6":
         return {
             "norm1": layers.init_rmsnorm(d, lead=lead, device=device),
@@ -157,21 +179,21 @@ def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
     card the values are drawn there; ``device="meta"`` allocates
     nothing."""
     _require_ported(cfg)
-    device = (torch.device("meta") if str(device) == "meta"
-              else resolve_device(device))
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(
             device="cpu" if device.type == "meta" else device
         ).manual_seed(seed)
-    embed = {"tokens": rwkv._normal(generator,
-                                    (cfg.padded_vocab, cfg.d_model),
-                                    cfg.emb_sigma, device)}
+    embed = {"tokens": layers._normal(generator,
+                                      (cfg.padded_vocab, cfg.d_model),
+                                      cfg.emb_sigma, device)}
     dense: dict = {"blocks": {
         f"pos_{i}": _init_position(generator, kind, cfg, device)
         for i, kind in enumerate(cfg.block_pattern)}}
     dense["final_norm"] = layers.init_rmsnorm(cfg.d_model, device=device)
-    dense["head"] = rwkv._normal(generator, (cfg.d_model, cfg.padded_vocab),
-                                 1.0 / math.sqrt(cfg.d_model), device)
+    dense["head"] = layers._normal(generator,
+                                   (cfg.d_model, cfg.padded_vocab),
+                                   1.0 / math.sqrt(cfg.d_model), device)
     return {"embed": embed, "dense": dense}
 
 
@@ -184,8 +206,11 @@ def _stack(trees: list):
     return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
-def _embed(params, cfg: LMConfig, tokens):
-    return params["embed"]["tokens"][tokens].to(cfg.dtype)
+def _embed(params, cfg: LMConfig, tokens, prefix_emb=None):
+    x = params["embed"]["tokens"][tokens].to(cfg.dtype)
+    if prefix_emb is not None:
+        x = torch.cat([prefix_emb.to(cfg.dtype), x], dim=1)
+    return x
 
 
 def _shift(h):
@@ -193,19 +218,25 @@ def _shift(h):
     return torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
 
 
-def _no_prefix(prefix_emb) -> None:
-    if prefix_emb is not None:
-        raise NotImplementedError(f"frontend prefix embeddings: "
-                                  f"{NOT_PORTED_LM}")
-
-
 # ---------------------------------------------------------------------------
 # forward (training / scoring)
 # ---------------------------------------------------------------------------
 
 
+def _window(kind: str, cfg: LMConfig):
+    return cfg.window if kind == "local" else None
+
+
 def _apply_position(p, kind: str, cfg: LMConfig, x, aux):
     """One layer forward over a full sequence."""
+    if kind in ("attn", "local"):
+        x = x + layers.attention_train(
+            p["attn"], layers.rmsnorm(p["norm1"], x, cfg.norm_eps),
+            theta=cfg.rope_theta, window=_window(kind, cfg),
+            n_valid_heads=cfg.n_heads,
+        )
+        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        return x + layers.mlp(p["ffn"], h, cfg.act), aux
     if kind == "rwkv6":
         x = x + rwkv.rwkv6_train(
             p["att"], layers.rmsnorm(p["norm1"], x, cfg.norm_eps),
@@ -218,11 +249,11 @@ def _apply_position(p, kind: str, cfg: LMConfig, x, aux):
 
 def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
             prefix_emb: Optional[torch.Tensor] = None):
-    """Full-sequence forward: tokens [B, S] -> (logits [B, S, V_padded],
+    """Full-sequence forward: tokens [B, S] (after the frontend's
+    ``prefix_emb`` [B, P, D], if any) -> (logits [B, P + S, V_padded],
     aux), aux the f32 scalar MoE loss (0 here)."""
     _require_ported(cfg)
-    _no_prefix(prefix_emb)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, prefix_emb)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = params["dense"]["blocks"]
     for rep in range(cfg.n_repeats):
@@ -248,7 +279,9 @@ def loss_fn(params, cfg: LMConfig, tokens, prefix_emb=None):
     """Next-token cross-entropy (mean over predicted positions) + MoE aux.
     The forward only: training (``--task lm``) is not ported."""
     logits, aux = forward(params, cfg, tokens, prefix_emb)
-    pred = logits[:, : tokens.shape[1] - 1]
+    # predictions come from positions [P .. P+S-2] for targets tokens[:, 1:]
+    p = 0 if prefix_emb is None else prefix_emb.shape[1]
+    pred = logits[:, p: p + tokens.shape[1] - 1]
     tgt = tokens[:, 1:]
     # f32 accumulation regardless of logits storage dtype
     logz = torch.logsumexp(pred.to(torch.float32), dim=-1)
@@ -262,29 +295,59 @@ def loss_fn(params, cfg: LMConfig, tokens, prefix_emb=None):
 # ---------------------------------------------------------------------------
 
 
+def _position_cache(kind: str, cfg: LMConfig, batch: int, max_len: int,
+                    device):
+    if kind == "attn":
+        return layers.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.hd,
+                                    cfg.dtype, device=device)
+    if kind == "local":
+        return layers.init_kv_cache(batch, min(cfg.window, max_len),
+                                    cfg.n_kv_heads, cfg.hd, cfg.dtype,
+                                    device=device)
+    if kind == "rwkv6":
+        return rwkv.init_rwkv_state(batch, cfg.d_model, cfg.n_heads,
+                                    device=device)
+    raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED_LM}")
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """Stacked decode state per pattern position: an ``RWKVState`` whose
-    leaves are ``[n_repeats, ...]``. ``max_len`` sizes attention caches,
-    which the ported kinds do not have."""
+    """Stacked decode state per pattern position, leaves ``[n_repeats,
+    ...]``: a ``KVCache`` of ``max_len`` slots (``attn``) or of
+    ``min(window, max_len)`` (``local``), or an ``RWKVState``."""
     _require_ported(cfg)
     device = resolve_device(device)
     cache = {}
     for i, kind in enumerate(cfg.block_pattern):
-        one = rwkv.init_rwkv_state(batch, cfg.d_model, cfg.n_heads,
-                                   device=device)
+        one = _position_cache(kind, cfg, batch, max_len, device)
         cache[f"pos_{i}"] = tree_map(
             lambda t: t.expand((cfg.n_repeats,) + t.shape).contiguous(), one)
     return cache
 
 
-def _decode_position(p, kind, cfg, x, state):
+def _decode_position(p, kind, cfg, x, state, cur_index, inplace):
+    """One layer of a decode step. With ``inplace`` the new state is in
+    ``state``'s tensors on return (a KV row written in place, or the
+    recurrent state copied over after the layer has read it)."""
+    if kind in ("attn", "local"):
+        h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        y, state = layers.attention_decode(
+            p["attn"], h, state, cur_index, theta=cfg.rope_theta,
+            window=_window(kind, cfg), n_valid_heads=cfg.n_heads,
+            inplace=inplace,
+        )
+        x = x + y
+        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        return x + layers.mlp(p["ffn"], h, cfg.act), state
     if kind == "rwkv6":
+        old = state
         h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
         y, state = rwkv.rwkv6_decode(p["att"], h, state, n_heads=cfg.n_heads)
         x = x + y
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         y, state = rwkv.channel_mix_decode(p["ffn"], h, state)
+        if inplace:
+            state = tree_map(lambda o, n: o.copy_(n), old, state)
         return x + y, state
     raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED_LM}")
 
@@ -293,13 +356,18 @@ def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
                 cache: dict, cur_index, *, inplace: bool = False):
     """One serving step: the latest tokens [B] -> (next-token logits
     [B, V_padded] f32, updated cache). ``cur_index`` (tokens already in the
-    cache) positions attention caches; the recurrent state needs none, so
-    a captured step is right at any position. With ``inplace`` each
-    layer's new state is written into ``cache`` itself (after that layer
-    has read its old one), which is returned: what a CUDA graph over a
-    static cache needs (``serve.decode.DecodeGraph``)."""
+    cache: a 0-dim integer tensor on the device, or an int) is the new
+    token's position, its rope angle and its KV slot; the recurrent state
+    needs none. With ``inplace`` each layer's new state is written into
+    ``cache`` itself (after that layer has read its old one), which is
+    returned: what a CUDA graph over a static cache and a device cursor
+    needs (``serve.decode.DecodeGraph``). Without it, every layer's cache
+    is copied, as the reference's functional update is."""
     _require_ported(cfg)
     x = _embed(params, cfg, token[:, None])
+    if not isinstance(cur_index, torch.Tensor):
+        cur_index = torch.tensor(cur_index, dtype=torch.int64,
+                                 device=x.device)
     blocks = params["dense"]["blocks"]
     per_repeat = []
     for rep in range(cfg.n_repeats):
@@ -307,10 +375,8 @@ def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
         new_states = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, new_states[f"pos_{i}"] = _decode_position(
-                block[f"pos_{i}"], kind, cfg, x, block_cache[f"pos_{i}"])
-            if inplace:
-                tree_map(lambda old, new: old.copy_(new),
-                         block_cache[f"pos_{i}"], new_states[f"pos_{i}"])
+                block[f"pos_{i}"], kind, cfg, x, block_cache[f"pos_{i}"],
+                cur_index, inplace)
         per_repeat.append(new_states)
     x = layers.rmsnorm(params["dense"]["final_norm"], x, cfg.norm_eps)
     logits = (x[:, 0] @ params["dense"]["head"].to(cfg.dtype)).to(
@@ -328,8 +394,16 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     return logits[:, -1]
 
 
-def _prefill_position(p, kind: str, cfg: LMConfig, x):
+def _prefill_position(p, kind: str, cfg: LMConfig, x, fresh_state):
     """One layer over the prompt, populating its decode state."""
+    if kind in ("attn", "local"):
+        h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        y, state = layers.attention_prefill(
+            p["attn"], h, fresh_state, theta=cfg.rope_theta,
+            window=_window(kind, cfg), n_valid_heads=cfg.n_heads)
+        x = x + y
+        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        return x + layers.mlp(p["ffn"], h, cfg.act), state
     if kind == "rwkv6":
         h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
         y, s_fin = rwkv.rwkv6_train(p["att"], h, n_heads=cfg.n_heads,
@@ -350,21 +424,25 @@ def _prefill_position(p, kind: str, cfg: LMConfig, x):
 def prefill_with_cache(params: dict, cfg: LMConfig, tokens: torch.Tensor,
                        max_len: int,
                        prefix_emb: Optional[torch.Tensor] = None):
-    """Serving prefill: forward the prompt AND populate every layer's decode
-    state, so ``decode_step`` continues from ``cur_index = S``.
+    """Serving prefill: forward the prompt (after ``prefix_emb``, if any)
+    AND populate every layer's decode state (linear / ring KV buffers,
+    recurrent states), so ``decode_step`` continues from
+    ``cur_index = P + S``.
 
     Returns (last_logits [B, V_padded] f32, cache, cur_index)."""
     _require_ported(cfg)
-    _no_prefix(prefix_emb)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, prefix_emb)
+    fresh = {f"pos_{i}": _position_cache(kind, cfg, x.shape[0], max_len,
+                                         x.device)
+             for i, kind in enumerate(cfg.block_pattern)}
     blocks = params["dense"]["blocks"]
     per_repeat = []
     for rep in range(cfg.n_repeats):
         block = _repeat(blocks, rep)
         states = {}
         for i, kind in enumerate(cfg.block_pattern):
-            x, states[f"pos_{i}"] = _prefill_position(block[f"pos_{i}"],
-                                                      kind, cfg, x)
+            x, states[f"pos_{i}"] = _prefill_position(
+                block[f"pos_{i}"], kind, cfg, x, fresh[f"pos_{i}"])
         per_repeat.append(states)
     x = layers.rmsnorm(params["dense"]["final_norm"], x, cfg.norm_eps)
     logits = (x[:, -1] @ params["dense"]["head"].to(cfg.dtype)).to(

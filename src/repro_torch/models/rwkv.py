@@ -33,12 +33,9 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..kernels.wkv6 import wkv6
+from .layers import _normal
 
 F32 = torch.float32
-
-
-def _normal(gen, shape, scale, device):
-    return torch.randn(shape, generator=gen, device=device).mul_(scale)
 
 
 def init_rwkv6(gen, d_model: int, n_heads: int, decay_rank: int = 64, *,

@@ -1,6 +1,7 @@
 """repro_torch.serve: CTR scoring on a captured CUDA graph, the request
 micro-batcher and the hot-id embedding cache (a port of ``repro.serve``),
-and RWKV-6 greedy decoding (``serve.decode``).
+and LM greedy decoding (``serve.decode``: RWKV-6 and the attention
+archs).
 
 * ``engine``: ``ServingEngine``, a fixed-shape forward captured once over
   a flush-applied dense snapshot of any placement's checkpoint.

@@ -26,6 +26,7 @@ from repro.models import lm as jax_lm
 from repro_torch.configs import (ARCH_MODULES, ASSIGNED_ARCHS, INPUT_SHAPES,
                                  get_config, reduce_config,
                                  supports_long_context)
+from repro_torch.configs.registry import PORTED_ARCHS
 from repro_torch.core.tree import flatten_with_paths
 from repro_torch.data import make_lm_tokens
 from repro_torch.kernels.wkv6 import wkv6
@@ -61,18 +62,28 @@ def _max_abs(a, b):
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
-def test_torch_lm_config_letter_for_letter():
-    full = get_config("rwkv6-7b")
+LM_ARCHS = tuple(a for a in PORTED_ARCHS if a != "deepfm-criteo")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_torch_lm_config_letter_for_letter(arch):
+    full = get_config(arch)
     assert dataclasses.asdict(full) == dataclasses.asdict(
-        jax_get_config("rwkv6-7b"))
-    jcfg, tcfg = _cfgs()
+        jax_get_config(arch))
+    jcfg = jax_reduce_config(jax_get_config(arch))
+    tcfg = reduce_config(full)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert (tcfg.n_layers, tcfg.d_model, tcfg.n_heads, tcfg.vocab_size,
-            tcfg.compute_dtype) == (2, 128, 4, 512, "float32")
+            tcfg.compute_dtype) == (2 * len(tcfg.block_pattern), 128, 4,
+                                    512, "float32")
     assert tcfg.dtype is torch.float32 and full.dtype is torch.bfloat16
+    assert (tcfg.hd, tcfg.n_heads_alloc) == (jcfg.hd, jcfg.n_heads_alloc)
+    assert (full.hd, full.n_heads_alloc, full.padded_vocab) == (
+        jax_get_config(arch).hd, jax_get_config(arch).n_heads_alloc,
+        jax_get_config(arch).padded_vocab)
     assert INPUT_SHAPES == jax_base.INPUT_SHAPES
     assert supports_long_context(full) is jax_base.supports_long_context(
-        jax_get_config("rwkv6-7b"))
+        jax_get_config(arch))
     assert ARCH_MODULES == JAX_ARCH_MODULES
 
 
@@ -312,9 +323,12 @@ def test_torch_make_lm_tokens_bitwise(n, vocab, seed):
 
 
 def test_torch_lm_unported_archs_name_roadmap():
-    for arch in ASSIGNED_ARCHS:
-        if arch == "rwkv6-7b":
-            continue
+    """Only the MoE archs and zamba2 (``mamba2`` with ``shared_attn``) are
+    left; they, and those kinds in any config, name queue 1 item 8."""
+    unported = [a for a in ASSIGNED_ARCHS if a not in PORTED_ARCHS]
+    assert sorted(unported) == ["granite-moe-3b-a800m",
+                                "llama4-scout-17b-a16e", "zamba2-2.7b"]
+    for arch in unported:
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             get_config(arch)
     assert get_config("deepfm-criteo").name == "deepfm"
@@ -323,7 +337,8 @@ def test_torch_lm_unported_archs_name_roadmap():
     cfg = reduce_config(get_config("rwkv6-7b"))
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         reduce_config(dataclasses.replace(cfg, moe=object()))
-    for other in (dict(block_pattern=("attn",)), dict(shared_attn=True),
-                  dict(frontend="audio")):
+    for other in (dict(block_pattern=("mamba2",)),
+                  dict(block_pattern=("attn", "mamba2"), n_layers=4),
+                  dict(shared_attn=True), dict(moe=object())):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             lm.init(dataclasses.replace(cfg, **other), device="cpu")
