@@ -227,8 +227,30 @@ Phases, each fatal on failure:
  39. the six attention archs (and deepseek with pad_attn_heads 8) at the
      reduced f32 size, card vs CPU: forward logits, cached prefill and 4
      decode steps, max abs 1e-4
+ 40. zamba2-2.7b at full width and depth (2,422,670,240 params drawn on
+     the card after gemma3-12b's are freed; 54 Mamba-2 layers, the
+     shared attention + MLP block after every 6, a ring of 4096 each),
+     f32: a cached prefill of 2 x 1000 tokens then 64 teacher-forced
+     decode steps held to one forward over the 1064 tokens within 5e-3;
+     forward, prefill and decode-step times; the kernel launches of the
+     prefill as the profiler counts them
+ 41. the same params in bf16: score-only prefill of 1 x 4096 (ms,
+     tokens/s, a traced run's idle share); greedy generation of 4 x
+     1000-token prompts + 64 tokens eager and from the decode graph, as
+     phase 38, the decode state's bytes by part (shared rings, SSM
+     states, conv tails), a traced replay with no host read of a device
+     scalar
+ 42. granite-moe-3b-a800m at full width (3,425,404,416 params,
+     1,009,485,312 active): f32 at capacity factor 5.0 (no drop), 2 x
+     1000 + 64 decode vs forward within 5e-3; the share of token-slots
+     the config's 1.25 drops in that forward; bf16 at 1.25 as phase 41,
+     the replay's device time by group with the expert einsums' kernels
+ 43. zamba2-2.7b (a 12-token prompt past its ring of 8),
+     granite-moe-3b-a800m and llama4-scout-17b-a16e at the reduced f32
+     size, card vs CPU: forward logits, the MoE aux, cached prefill and
+     4 decode steps, max abs 1e-4; no port kernel launched in 40-43
 Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13;
-phases 37-39 last. Each
+phases 37-43 last. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
 prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
@@ -293,14 +315,23 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
 GEMMA3_12B_PARAMS = 12_772_028_160   # repro.models.lm.param_counts(gemma3-12b)
 ATTN_TEACHER = ((1000, 64), (1536, 16))   # f32 prompt + fed tokens, 37
 ATTN_DECODE_BAR = 5e-3         # decode vs forward (tests/test_lm_smoke.py)
-ATTN_PREFILL = (1, 4096)       # score-only bf16 prefill, phase 38
-ATTN_GEN_BATCH, ATTN_GEN_PROMPT, ATTN_GEN_NEW = 4, 1000, 64   # phase 38
+ATTN_PREFILL = (1, 4096)       # score-only bf16 prefill, 38, 41 and 42
+ATTN_GEN_BATCH, ATTN_GEN_PROMPT, ATTN_GEN_NEW = 4, 1000, 64   # 38, 41, 42
 # kernel-name groups of the attention LM's traces (phase 38): PyTorch's
 # casts (the f32 weights to bf16) and copies, cuBLAS's GEMMs, the softmax
 ATTN_GROUPS = (("casts and copies", ("bfloat16_copy_kernel",
                                      "direct_copy_kernel")),
                ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")),
                ("softmax", ("SoftMax", "softmax")))
+ZAMBA2_PARAMS = 2_422_670_240   # repro.models.lm.param_counts(zamba2-2.7b)
+GRANITE_MOE_PARAMS = (3_425_404_416, 1_009_485_312)   # its total, active
+HYBRID_TEACHER = (1000, 64)    # f32 prompt + fed tokens, phases 40 and 42
+MOE_NO_DROP = 5.0              # the capacity factor whose capacity is a
+                               # group's 1064 tokens: phase 42 drops none
+# the MoE dispatch's stable sorts, beside the attention groups (41-42)
+HYBRID_GROUPS = ATTN_GROUPS + (("sorts", ("sort", "Sort", "radix")),)
+HYBRID_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m",
+                "llama4-scout-17b-a16e")
 ATTN_ARCHS = ("stablelm-3b", "granite-20b", "deepseek-coder-33b",
               "gemma3-12b", "musicgen-large", "internvl2-26b")
 LM_AGREE = 1e-4                # max abs logits, card vs CPU (f32, reduced)
@@ -611,13 +642,19 @@ def profiled(fn, with_stack=False):
 
 def by_kernel(prof):
     """[(device ms, count, name)] of a profile's kernels and copies (not
-    the device-side spans of the steps' labels), sorted by device time."""
-    return sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0
-         and not e.key.startswith(STEP_LABEL)), reverse=True)
+    the device-side spans of the steps' labels), sorted by device time.
+    Summed from the profiler's raw device events (what ``key_averages``
+    sums, without building the op tree first: that takes minutes for the
+    half a million kernels of a zamba2-2.7b prefill)."""
+    totals: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.duration_ns() <= 0 or e.name().startswith(STEP_LABEL)):
+            continue
+        ms, n = totals.get(e.name(), (0.0, 0))
+        totals[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((ms, n, name) for name, (ms, n) in totals.items()),
+                  reverse=True)
 
 
 def device_time_by_kernel(fn):
@@ -4225,16 +4262,13 @@ def attn_lm_phases(smi, kind):
     from repro_torch.configs import reduce_config
     from repro_torch.configs.gemma3_12b import CONFIG as GEMMA3_12B
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.tree import tree_leaves, tree_map
-    from repro_torch.data import make_lm_tokens
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels.cowclip import (fused_cowclip_adam,
                                              sparse_gather_catchup,
                                              sparse_update_scatter)
     from repro_torch.kernels.embedding import embedding_backward_groups
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models import lm
-    from repro_torch.serve.decode import (GraphDecoder, frontend_prefix,
-                                          greedy_generate)
 
     power = smi.strip().split(", ")[-1]
     wrappers = (fused_cowclip_adam, sparse_gather_catchup,
@@ -4273,37 +4307,12 @@ def attn_lm_phases(smi, kind):
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     for prompt_len, steps in ATTN_TEACHER:
         total = prompt_len + steps
-        tokens = torch.as_tensor(make_lm_tokens(
-            2 * total, cfg.vocab_size, seed=prompt_len).reshape(2, total),
-            device="cuda")
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            full, _ = lm.forward(params, f32, tokens)
-            want = full[:, prompt_len - 1:].clone()
-            del full
-            torch.cuda.synchronize()
-            fwd_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            last, cache, cur = lm.prefill_with_cache(
-                params, f32, tokens[:, :prompt_len], total)
-            torch.cuda.synchronize()
-            pre_s = time.perf_counter() - t0
-            ring = cache["pos_0"].k.shape[2]
-            check(cur == prompt_len and ring == cfg.window
-                  and cache["pos_5"].k.shape[2] == total,
-                  f"caches of {ring} / {cache['pos_5'].k.shape[2]} slots")
-            outs = [last]
-            t0 = time.perf_counter()
-            for i in range(steps):
-                logits, cache = lm.decode_step(params, f32,
-                                               tokens[:, prompt_len + i],
-                                               cache, cur + i, inplace=True)
-                outs.append(logits)
-            torch.cuda.synchronize()
-            dec_s = time.perf_counter() - t0
-            got = torch.stack(outs, dim=1)
-        gap = (got - want).abs().max().item()
-        check(bool(torch.isfinite(got).all()), "non-finite f32 logits")
+        gap, fwd_s, pre_s, dec_s, cache = teacher_forced(
+            params, f32, lm_tokens(cfg, 2, total, seed=prompt_len),
+            prompt_len)
+        ring = cache["pos_0"].k.shape[2]
+        check(ring == cfg.window and cache["pos_5"].k.shape[2] == total,
+              f"caches of {ring} / {cache['pos_5'].k.shape[2]} slots")
         what = (f"crosses the ring's wrap at {ring}"
                 if prompt_len < ring < total
                 else f"the prefill rolls the last {ring} of {prompt_len} "
@@ -4317,7 +4326,7 @@ def attn_lm_phases(smi, kind):
               f"{power}", flush=True)
         check(gap <= ATTN_DECODE_BAR,
               f"f32 decode differs from the forward by {gap}")
-        del tokens, want, last, cache, outs, got, logits
+        del cache
     peak_line(37)
     print(f"[phase 37] {time.perf_counter() - t_phase:.1f} s", flush=True)
     phase_end()
@@ -4326,10 +4335,89 @@ def attn_lm_phases(smi, kind):
     phase_start(38)
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
+    score_prefill("gemma3-12b", params, cfg, ATTN_GROUPS, power, kind)
+    graph = generation_phase("gemma3-12b", params, cfg, ATTN_GROUPS, power,
+                             kind)
+    print(f"[lm-serve] gemma3-12b KV caches: {n_local} rings of "
+          f"{cfg.window} + {cfg.n_layers - n_local} linear of "
+          f"{ATTN_GEN_PROMPT + ATTN_GEN_NEW} slots, bf16", flush=True)
+    launched = [fn.launches for fn in wrappers]
+    print(f"[attn-lm] the port's kernels launched {launched} times in "
+          f"phases 37-38 (none on the attention path)", flush=True)
+    check(not any(launched), f"kernels launched {launched} times")
+    del graph, params
+    peak_line(38)
+    print(f"[phase 38] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    phase_end()
+
+    # -- 39. the six attention archs, card vs CPU, reduced f32 -----------
+    phase_start(39)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cases = [(arch, reduce_config(get_config(arch))) for arch in ATTN_ARCHS]
+    cases.append(("deepseek-coder-33b, pad_attn_heads 8", dataclasses.replace(
+        cases[2][1], pad_attn_heads=8)))
+    for tag, small in cases:
+        agree_reduced(tag, small, seq=12)
+    peak_line(39)
+    print(f"[phase 39] {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def lm_tokens(cfg, batch, length, seed):
+    """[batch, length] int32 tokens on the card from the port's seeded
+    generator (``data.make_lm_tokens``)."""
+    from repro_torch.data import make_lm_tokens
+
+    return torch.as_tensor(make_lm_tokens(
+        batch * length, cfg.vocab_size, seed=seed).reshape(batch, length),
+        device="cuda")
+
+
+def teacher_forced(params, cfg, tokens, prompt_len):
+    """A cached prefill of ``tokens[:, :prompt_len]``, then the rest fed
+    as teacher-forced decode steps, held to one forward over all of
+    ``tokens``: (max abs logits gap, forward s, prefill s, decode s, the
+    cache after the steps)."""
+    from repro_torch.models import lm
+
+    total = tokens.shape[1]
+    steps = total - prompt_len
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full, _ = lm.forward(params, cfg, tokens)
+        want = full[:, prompt_len - 1:].clone()
+        del full
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        last, cache, cur = lm.prefill_with_cache(params, cfg,
+                                                 tokens[:, :prompt_len],
+                                                 total)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        check(cur == prompt_len, f"cur_index {cur}")
+        outs = [last]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = lm.decode_step(params, cfg,
+                                           tokens[:, prompt_len + i], cache,
+                                           cur + i, inplace=True)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        got = torch.stack(outs, dim=1)
+    check(bool(torch.isfinite(got).all()), "non-finite f32 logits")
+    return (got - want).abs().max().item(), fwd_s, pre_s, dec_s, cache
+
+
+def score_prefill(tag, params, cfg, groups, power, kind):
+    """bf16 score-only prefill of ``ATTN_PREFILL``: the first call, the
+    mean of ``LM_REPEATS`` more, and a traced one (device time by kernel,
+    idle share)."""
+    from repro_torch.models import lm
+
     b, s = ATTN_PREFILL
-    prompt = torch.as_tensor(make_lm_tokens(b * s, cfg.vocab_size,
-                                            seed=5).reshape(b, s),
-                             device="cuda")
+    prompt = lm_tokens(cfg, b, s, seed=5)
 
     def prefill():
         with torch.inference_mode():
@@ -4341,22 +4429,48 @@ def attn_lm_phases(smi, kind):
     last = prefill()
     first_s = time.perf_counter() - t0
     check(tuple(last.shape) == (b, cfg.padded_vocab)
-          and bool(torch.isfinite(last).all()), "bf16 prefill not finite")
+          and bool(torch.isfinite(last).all()), f"{tag}: bf16 prefill not "
+          "finite")
     t0 = time.perf_counter()
     for _ in range(LM_REPEATS):
         prefill()
     ms = (time.perf_counter() - t0) * 1e3 / LM_REPEATS
-    print(f"[attn-lm] bf16 score-only prefill {list(ATTN_PREFILL)}: "
-          f"{ms:.1f} ms ({b * s / ms * 1e3:.0f} tokens/s; first call "
+    print(f"[lm-serve] {tag} bf16 score-only prefill {list(ATTN_PREFILL)}"
+          f": {ms:.1f} ms ({b * s / ms * 1e3:.0f} tokens/s; first call "
           f"{first_s * 1e3:.1f} ms), mean of {LM_REPEATS}, {kind} at "
           f"{power}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB", flush=True)
-    print_trace("attn-trace", f"bf16 prefill {list(ATTN_PREFILL)}",
-                *device_time_by_kernel(prefill), groups=ATTN_GROUPS)
-    del last, prompt
-    gen_prompt = torch.as_tensor(make_lm_tokens(
-        ATTN_GEN_BATCH * ATTN_GEN_PROMPT, cfg.vocab_size, seed=6).reshape(
-            ATTN_GEN_BATCH, ATTN_GEN_PROMPT), device="cuda")
+    print_trace("lm-trace", f"{tag} bf16 prefill {list(ATTN_PREFILL)}",
+                *device_time_by_kernel(prefill), groups=groups)
+
+
+def op_kernels(prof, op):
+    """The kernel names launched under ``op`` (an aten op's name) in a
+    profile, less those some other op also launches."""
+    mine, others = set(), set()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        up, under = e, False
+        while up is not None and not under:
+            under, up = up.name == op, up.cpu_parent
+        (mine if under else others).update(k.name for k in e.kernels)
+    return tuple(sorted(mine - others))
+
+
+def generation_phase(tag, params, cfg, groups, power, kind, op_group=None):
+    """bf16 greedy generation of ``ATTN_GEN_BATCH`` x ``ATTN_GEN_PROMPT``
+    tokens + ``ATTN_GEN_NEW``, eager and from the decode graph: the same
+    tokens, logits within ``LM_AGREE``; ms a decoded token each way, the
+    capture's seconds; then a traced replay (device time by group, no
+    host read of a device scalar) and a traced eager step (with
+    ``op_group``, (label, aten op): the kernels only that op launches
+    there, which are then also a group of the replay's). Returns the
+    decode graph."""
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import GraphDecoder, greedy_generate
+
+    gen_prompt = lm_tokens(cfg, ATTN_GEN_BATCH, ATTN_GEN_PROMPT, seed=6)
     max_len = ATTN_GEN_PROMPT + ATTN_GEN_NEW
     t0 = time.perf_counter()
     decoder = GraphDecoder(params, cfg)
@@ -4376,14 +4490,13 @@ def attn_lm_phases(smi, kind):
     check(tuple(res.tokens.shape) == (ATTN_GEN_BATCH, ATTN_GEN_NEW)
           and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all())
           and bool(torch.isfinite(res.logits).all()),
-          "greedy generation: bad tokens or non-finite logits")
+          f"{tag}: bad tokens or non-finite logits")
     decode_ms = {mode: (timing[mode, ATTN_GEN_NEW] - timing[mode, 0]) * 1e3
                  / ATTN_GEN_NEW for mode in ("eager", "graph")}
     same = torch.equal(gens["graph"].tokens, res.tokens)
     gap = (gens["graph"].logits - res.logits).abs().max().item()
     bitwise = torch.equal(gens["graph"].logits, res.logits)
-    cache_b = kv_bytes(graph.cache)
-    print(f"[attn-lm] bf16 greedy generation, {ATTN_GEN_BATCH} x "
+    print(f"[lm-serve] {tag} bf16 greedy generation, {ATTN_GEN_BATCH} x "
           f"{ATTN_GEN_PROMPT}-token prompts + {ATTN_GEN_NEW} tokens: cached "
           f"prefill {timing['eager', 0] * 1e3:.1f} ms; eager "
           f"{decode_ms['eager']:.2f} ms per decoded token "
@@ -4394,81 +4507,304 @@ def attn_lm_phases(smi, kind):
           f"{capture_s:.2f} s with its warm-up step); graph tokens "
           f"{'equal to' if same else 'DIFFER from'} the eager ones, last "
           f"logits max_abs {gap:.3e} (bar {LM_AGREE}), "
-          f"{'bitwise' if bitwise else 'not bitwise'}; KV caches {cache_b} "
-          f"B ({n_local} rings of {cfg.window} + {cfg.n_layers - n_local} "
-          f"linear of {max_len} slots, bf16); cursor {int(graph.cursor)}; first tokens "
-          f"{res.tokens[0, :8].tolist()}; {kind} at {power}", flush=True)
+          f"{'bitwise' if bitwise else 'not bitwise'}; decode state "
+          f"{kv_bytes(graph.cache)} B; cursor {int(graph.cursor)}; first "
+          f"tokens {res.tokens[0, :8].tolist()}; {kind} at {power}",
+          flush=True)
     check(same and gap <= LM_AGREE
           and list(decoder.graphs) == [(ATTN_GEN_BATCH, max_len)]
           and int(graph.cursor) == max_len,
-          "the decode graph's generation differs from the eager one")
+          f"{tag}: the decode graph's generation differs from the eager one")
+
     with torch.inference_mode():
         first, cache, cur = lm.prefill_with_cache(params, cfg, gen_prompt,
                                                   max_len)
-    graph.start(first.argmax(-1), cache, cur)
-    print_trace("attn-trace", f"bf16 decode step as a graph replay, batch "
-                f"{ATTN_GEN_BATCH}, position {cur}",
-                *device_time_by_kernel(graph.step), groups=ATTN_GROUPS)
 
     def eager_step():
         with torch.inference_mode():
             lm.decode_step(params, cfg, first.argmax(-1), cache, cur,
                            inplace=True)
 
-    print_trace("attn-trace", f"bf16 eager decode step, batch "
-                f"{ATTN_GEN_BATCH}, position {cur}",
-                *device_time_by_kernel(eager_step), groups=ATTN_GROUPS)
-    del first, cache
-    launched = [fn.launches for fn in wrappers]
-    print(f"[attn-lm] the port's kernels launched {launched} times in "
-          f"phases 37-38 (none on the attention path)", flush=True)
-    check(not any(launched), f"kernels launched {launched} times")
-    del gens, res, graph, decoder, gen_prompt, params
-    peak_line(38)
-    print(f"[phase 38] {time.perf_counter() - t_phase:.1f} s", flush=True)
-    phase_end()
+    wall_ms, prof = profiled(eager_step)
+    op_names = op_kernels(prof, op_group[1]) if op_group else ()
+    if op_group:
+        groups = groups + ((op_group[0], op_names),)
+        print(f"[lm-trace] {tag}: {len(op_names)} kernels launched only "
+              f"under {op_group[1]} in the eager step: {list(op_names)}")
+    print_trace("lm-trace", f"{tag} bf16 eager decode step, batch "
+                f"{ATTN_GEN_BATCH}, position {cur}", wall_ms, by_kernel(prof),
+                groups=groups)
+    graph.start(first.argmax(-1), cache, cur)
+    wall_ms, prof = profiled(graph.step, with_stack=True)
+    print_trace("lm-trace", f"{tag} bf16 decode step as a graph replay, "
+                f"batch {ATTN_GEN_BATCH}, position {cur}", wall_ms,
+                by_kernel(prof), groups=groups)
+    reads = host_reads(prof)
+    n_dev = sum(r[1] == "device" for r in reads)
+    print(f"[lm-trace] {tag}: the traced replay made {len(reads)} host "
+          f"reads ({HOST_READ}), {n_dev} of a device scalar", flush=True)
+    check(not n_dev, f"{tag}: host reads of a device scalar in a replay: "
+          f"{reads}")
+    return graph
 
-    # -- 39. the six attention archs, card vs CPU, reduced f32 -----------
-    phase_start(39)
+
+def agree_reduced(tag, small, seq):
+    """``small`` (a reduced f32 config) on the card against the CPU from
+    the same params: forward logits and MoE aux, the cached prefill and 4
+    decode steps, max abs, each within ``LM_AGREE``."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import frontend_prefix
+
+    params0 = lm.init(small, seed=0, device="cpu")
+    tokens = torch.as_tensor(make_lm_tokens(
+        2 * (seq + 4), small.vocab_size, seed=7).reshape(2, seq + 4))
+    prefix = frontend_prefix(small, 2, seed=8, device="cpu")
+    p = 0 if prefix is None else prefix.shape[1]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        prm = tree_map(lambda t: t.to(dev), params0)
+        pre = None if prefix is None else prefix.to(dev)
+        with torch.inference_mode():
+            logits, aux = lm.forward(prm, small, tokens[:, :seq].to(dev), pre)
+            last, cache, cur = lm.prefill_with_cache(
+                prm, small, tokens[:, :seq].to(dev), p + seq + 4, pre)
+            outs = [logits, aux, last]
+            for i in range(4):
+                last, cache = lm.decode_step(
+                    prm, small, tokens[:, seq + i].to(dev), cache, cur + i,
+                    inplace=True)
+                outs.append(last)
+        runs[dev] = [t.cpu() for t in outs]
+    gaps = [(a - c).abs().max().item()
+            for a, c in zip(runs["cuda"], runs["cpu"])]
+    aux = runs["cuda"][1].item()
+    ring = (f", shared rings of {small.window} under a {seq}-token prompt"
+            if small.shared_attn else "")
+    moe = (f", {small.moe.n_experts} experts top {small.moe.top_k}, aux "
+           f"{aux:.6f}" if small.moe else "")
+    print(f"[lm-agree] reduced {tag} ({small.block_pattern}, kv "
+          f"{small.n_kv_heads}, alloc {small.n_heads_alloc}, act "
+          f"{small.act}, prefix {p}{ring}{moe}), {seq} tokens, card vs CPU "
+          f"max_abs: forward {gaps[0]:.3e}, aux {gaps[1]:.3e}, cached "
+          f"prefill {gaps[2]:.3e}, 4 decode steps {max(gaps[3:]):.3e} (bar "
+          f"{LM_AGREE})", flush=True)
+    check(max(gaps) <= LM_AGREE, f"card and CPU disagree on {tag}")
+
+
+def count_drops(moe_lib, tally):
+    """``moe_lib.moe_ffn`` wrapped to add, on the card, each call's
+    token-slots (groups x tokens x top_k) and those its capacity drops
+    (each expert's choices past the capacity, per group) to ``tally``."""
+    inner = moe_lib.moe_ffn
+
+    def moe_ffn(params, x, cfg, act="swiglu"):
+        probs = torch.softmax(
+            (x @ params["router"].to(x.dtype)).to(torch.float32), dim=-1)
+        top_e = torch.topk(probs, cfg.top_k, dim=-1).indices
+        counts = moe_lib._expert_counts(top_e.reshape(x.shape[0], -1),
+                                        cfg.n_experts)
+        cap = moe_lib.capacity(x.shape[1], cfg)
+        tally["dropped"] += (counts - cap).clamp(min=0).sum()
+        tally["slots"] += top_e.numel()
+        return inner(params, x, cfg, act)
+
+    return moe_ffn
+
+
+def hybrid_lm_phases(smi, kind):
+    """Phases 40-43: zamba2-2.7b at full width and depth (f32 decode held
+    to one forward; bf16 prefill and greedy generation eager and from the
+    decode graph), granite-moe-3b-a800m the same way (f32 at capacity
+    factor 5.0, the drop share at 1.25), then zamba2, granite-moe and
+    llama4-scout card against CPU at the reduced f32 size. The Mamba-2,
+    shared-attention and MoE paths run no kernel of the port's: each
+    wrapper's count must stay 0. Every tensor is freed on return."""
+    from repro_torch.configs import reduce_config
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.cowclip import (fused_cowclip_adam,
+                                             sparse_gather_catchup,
+                                             sparse_update_scatter)
+    from repro_torch.kernels.embedding import embedding_backward_groups
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+
+    power = smi.strip().split(", ")[-1]
+    wrappers = (fused_cowclip_adam, sparse_gather_catchup,
+                sparse_update_scatter, wkv6, embedding_backward_groups)
+    for fn in wrappers:
+        fn.launches = 0
+    prompt_len, steps = HYBRID_TEACHER
+
+    # -- 40. zamba2-2.7b, full width and depth: f32 decode vs forward ----
+    phase_start(40)
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    seq = 12
-    cases = [(arch, reduce_config(get_config(arch))) for arch in ATTN_ARCHS]
-    cases.append(("deepseek-coder-33b, pad_attn_heads 8", dataclasses.replace(
-        cases[2][1], pad_attn_heads=8)))
-    for tag, small in cases:
-        params0 = lm.init(small, seed=0, device="cpu")
-        tokens = torch.as_tensor(make_lm_tokens(
-            2 * (seq + 4), small.vocab_size, seed=7).reshape(2, seq + 4))
-        prefix = frontend_prefix(small, 2, seed=8, device="cpu")
-        p = 0 if prefix is None else prefix.shape[1]
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            prm = tree_map(lambda t: t.to(dev), params0)
-            pre = None if prefix is None else prefix.to(dev)
-            with torch.inference_mode():
-                logits, _ = lm.forward(prm, small, tokens[:, :seq].to(dev),
-                                       pre)
-                last, cache, cur = lm.prefill_with_cache(
-                    prm, small, tokens[:, :seq].to(dev), p + seq + 4, pre)
-                outs = [logits, last]
-                for i in range(4):
-                    last, cache = lm.decode_step(
-                        prm, small, tokens[:, seq + i].to(dev), cache,
-                        cur + i, inplace=True)
-                    outs.append(last)
-            runs[dev] = [t.cpu() for t in outs]
-        gaps = [(a - c).abs().max().item()
-                for a, c in zip(runs["cuda"], runs["cpu"])]
-        print(f"[attn-agree] reduced {tag} ({small.block_pattern}, kv "
-              f"{small.n_kv_heads}, alloc {small.n_heads_alloc}, act "
-              f"{small.act}, prefix {p}), {seq} tokens, card vs CPU max_abs: "
-              f"forward {gaps[0]:.3e}, cached prefill {gaps[1]:.3e}, 4 "
-              f"decode steps {max(gaps[2:]):.3e} (bar {LM_AGREE})",
-              flush=True)
-        check(max(gaps) <= LM_AGREE, f"card and CPU disagree on {tag}")
-    peak_line(39)
-    print(f"[phase 39] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    cfg = ZAMBA2
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.ssm_state, cfg.mamba_head_dim, cfg.window,
+           cfg.n_repeats, cfg.shared_attn, cfg.vocab_size)
+          == (54, 2560, 32, 32, 80, 10240, 64, 64, 4096, 9, True, 32000)
+          and cfg.block_pattern == ("mamba2",) * 6,
+          "not the zamba2-2.7b width")
+    n_params = lm.param_counts(cfg)["total"]
+    check(n_params == ZAMBA2_PARAMS, f"{n_params} parameters")
+    print(f"[hybrid-lm] before zamba2-2.7b: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+          f"(gemma3-12b's params freed)", flush=True)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    drawn = sum(t.numel() for t in tree_leaves(params))
+    check(drawn == n_params, f"{drawn} parameters drawn, expected "
+          f"{n_params}")
+    print(f"[hybrid-lm] zamba2-2.7b: {n_params} parameters (f32, "
+          f"{4 * n_params / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {cfg.n_layers} Mamba-2 layers "
+          f"(state {cfg.ssm_state}, head_dim {cfg.mamba_head_dim}), the "
+          f"shared block after every {len(cfg.block_pattern)} "
+          f"({cfg.n_repeats} invocations, ring of {cfg.window})",
+          flush=True)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    tokens = lm_tokens(cfg, 2, prompt_len + steps, seed=prompt_len)
+    gap, fwd_s, pre_s, dec_s, _ = teacher_forced(params, f32, tokens,
+                                                 prompt_len)
+    print(f"[hybrid-lm] zamba2-2.7b f32, batch 2, {prompt_len}-token prompt "
+          f"+ {steps} teacher-forced decode steps: logits at positions "
+          f"{prompt_len - 1}-{prompt_len + steps - 1} vs one forward over "
+          f"{prompt_len + steps} tokens max_abs {gap:.3e} (bar "
+          f"{ATTN_DECODE_BAR}); forward {fwd_s:.2f} s, cached prefill "
+          f"{pre_s:.2f} s, {dec_s * 1e3 / steps:.1f} ms a decode step, "
+          f"{kind} at {power}", flush=True)
+    check(gap <= ATTN_DECODE_BAR,
+          f"zamba2 f32 decode differs from the forward by {gap}")
+
+    def cached_prefill():
+        with torch.inference_mode():
+            lm.prefill_with_cache(params, f32, tokens[:, :prompt_len],
+                                  prompt_len + steps)
+        torch.cuda.synchronize()
+
+    wall_ms, prof = profiled(cached_prefill)
+    kernels = by_kernel(prof)
+    print(f"[hybrid-lm] zamba2-2.7b f32 cached prefill of 2 x {prompt_len}: "
+          f"{sum(n for _, n, _ in kernels)} kernel launches (the profiler's "
+          f"count), {wall_ms:.1f} ms traced", flush=True)
+    print_trace("hybrid-trace", f"zamba2-2.7b f32 cached prefill 2 x "
+                f"{prompt_len}", wall_ms, kernels, groups=HYBRID_GROUPS)
+    del tokens, prof, kernels
+    peak_line(40)
+    print(f"[phase 40] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    phase_end()
+
+    # -- 41. zamba2-2.7b in bf16: prefill, greedy generation -------------
+    phase_start(41)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    score_prefill("zamba2-2.7b", params, cfg, HYBRID_GROUPS, power, kind)
+    graph = generation_phase("zamba2-2.7b", params, cfg, HYBRID_GROUPS,
+                             power, kind)
+    mixers = [graph.cache[f"pos_{i}"] for i in range(len(cfg.block_pattern))]
+    parts = {"shared rings": kv_bytes(graph.cache["shared"]),
+             "SSM states": sum(kv_bytes(m.s) for m in mixers),
+             "conv tails": sum(kv_bytes(m.conv) for m in mixers)}
+    print(f"[hybrid-lm] zamba2-2.7b decode state at batch {ATTN_GEN_BATCH}, "
+          f"max_len {ATTN_GEN_PROMPT + ATTN_GEN_NEW}, bf16: "
+          f"{kv_bytes(graph.cache)} B: {parts}", flush=True)
+    check(sum(parts.values()) == kv_bytes(graph.cache),
+          "the decode state's parts do not add up")
+    del graph, params
+    peak_line(41)
+    print(f"[phase 41] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    phase_end()
+
+    # -- 42. granite-moe-3b-a800m, full width ----------------------------
+    phase_start(42)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GRANITE
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_heads_alloc,
+           cfg.n_kv_heads, cfg.moe.n_experts, cfg.moe.top_k, cfg.d_ff,
+           cfg.vocab_size, cfg.padded_vocab, cfg.moe.capacity_factor)
+          == (32, 1536, 24, 32, 8, 40, 8, 512, 49155, 49408, 1.25),
+          "not the granite-moe-3b-a800m width")
+    counts = lm.param_counts(cfg)
+    check((counts["total"], counts["active"]) == GRANITE_MOE_PARAMS,
+          f"{counts} parameters")
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[hybrid-lm] granite-moe-3b-a800m: {counts['total']} parameters "
+          f"({counts['active']} active; f32, {4 * counts['total'] / 1e9:.2f}"
+          f" GB) drawn on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              moe=dataclasses.replace(
+                                  cfg.moe, capacity_factor=MOE_NO_DROP))
+    check(moe_lib.capacity(prompt_len + steps, f32.moe) == prompt_len + steps,
+          "the capacity is not a group's tokens")
+    tokens = lm_tokens(cfg, 2, prompt_len + steps, seed=prompt_len)
+    gap, fwd_s, pre_s, dec_s, _ = teacher_forced(params, f32, tokens,
+                                                 prompt_len)
+    print(f"[hybrid-lm] granite-moe-3b-a800m f32 at capacity factor "
+          f"{MOE_NO_DROP} (capacity {prompt_len + steps}: no drop), batch 2, "
+          f"{prompt_len}-token prompt + {steps} teacher-forced decode steps: "
+          f"max_abs {gap:.3e} vs one forward (bar {ATTN_DECODE_BAR}); "
+          f"forward {fwd_s:.2f} s, cached prefill {pre_s:.2f} s, "
+          f"{dec_s * 1e3 / steps:.1f} ms a decode step, {kind} at {power}",
+          flush=True)
+    check(gap <= ATTN_DECODE_BAR,
+          f"granite-moe f32 decode differs from the forward by {gap}")
+    tally = {"dropped": torch.zeros((), dtype=torch.int64, device="cuda"),
+             "slots": 0}
+    own = dataclasses.replace(f32, moe=cfg.moe)
+    inner, moe_lib.moe_ffn = moe_lib.moe_ffn, count_drops(moe_lib, tally)
+    try:
+        with torch.inference_mode():
+            at_own, _ = lm.forward(params, own, tokens)
+            ample, _ = lm.forward(params, f32, tokens)
+    finally:
+        moe_lib.moe_ffn = inner
+    dropped = int(tally["dropped"])
+    print(f"[hybrid-lm] granite-moe-3b-a800m f32 forward over 2 x "
+          f"{prompt_len + steps} at the config's capacity factor "
+          f"{cfg.moe.capacity_factor} (capacity "
+          f"{moe_lib.capacity(prompt_len + steps, cfg.moe)}): {dropped} of "
+          f"{tally['slots']} token-slots dropped "
+          f"({100 * dropped / tally['slots']:.2f}%; at {MOE_NO_DROP} none); "
+          f"its logits vs {MOE_NO_DROP}'s max_abs "
+          f"{(at_own - ample).abs().max().item():.3e}", flush=True)
+    del tokens, at_own, ample
+    score_prefill("granite-moe-3b-a800m", params, cfg, HYBRID_GROUPS, power,
+                  kind)
+    graph = generation_phase("granite-moe-3b-a800m", params, cfg,
+                             HYBRID_GROUPS, power, kind,
+                             op_group=("expert einsums", "aten::einsum"))
+    del graph, params
+    launched = [fn.launches for fn in wrappers]
+    print(f"[hybrid-lm] the port's kernels launched {launched} times in "
+          f"phases 40-42 (none on the Mamba-2, shared-attention and MoE "
+          f"paths)", flush=True)
+    check(not any(launched), f"kernels launched {launched} times")
+    peak_line(42)
+    print(f"[phase 42] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    phase_end()
+
+    # -- 43. the three archs, card vs CPU, reduced f32 -------------------
+    phase_start(43)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for arch in HYBRID_ARCHS:
+        agree_reduced(arch, reduce_config(get_config(arch)), seq=12)
+    launched = [fn.launches for fn in wrappers]
+    check(not any(launched), f"kernels launched {launched} times")
+    peak_line(43)
+    print(f"[phase 43] {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -4532,6 +4868,8 @@ def main() -> int:
     lines.append(lm_phases(smi, kind))
     phase_end()
     attn_lm_phases(smi, kind)
+    phase_end()
+    hybrid_lm_phases(smi, kind)
     phase_end()
     print(f"[exit] threads alive: "
           f"{[(t.name, t.daemon) for t in threading.enumerate()]}",

@@ -3,14 +3,16 @@
 The port's copy of ``repro.configs.base`` without ``input_specs``, which
 feeds JAX's ahead-of-time lowering: ``INPUT_SHAPES``,
 ``supports_long_context`` and ``reduce_config`` (the CPU-smoke variant:
-2 layers, d_model 128, vocab 512, f32).
+2 layers a pattern position, d_model 128, vocab 512, <= 4 experts,
+f32).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from ..models.lm import NOT_PORTED_LM, LMConfig
+from ..models.lm import LMConfig
+from ..models.moe import MoEConfig
 
 INPUT_SHAPES = {
     "train_4k":    {"seq_len": 4_096,   "global_batch": 256, "step": "train"},
@@ -34,12 +36,8 @@ def supports_long_context(cfg: LMConfig) -> bool:
 
 def reduce_config(cfg: LMConfig) -> LMConfig:
     """Same family, toy size: 2 layers (pattern-preserving), d_model 128,
-    4 heads, d_ff 256, vocab 512, f32 — runs a forward on the CPU in
-    seconds. MoE configs raise: MoE is not ported."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE is not ported to repro_torch yet: "
-            f"{NOT_PORTED_LM}")
+    4 heads, d_ff 256, vocab 512, <= 4 experts top <= 2, f32 — runs a
+    forward on the CPU in seconds."""
     # keep one occurrence of each distinct kind, in order
     seen, pattern = set(), []
     for kind in cfg.block_pattern:
@@ -51,6 +49,16 @@ def reduce_config(cfg: LMConfig) -> LMConfig:
     kv_ratio = max(1, cfg.n_heads // cfg.n_kv_heads)
     n_heads = 4
     n_kv = max(1, n_heads // kv_ratio)
+    moe = None
+    if cfg.moe is not None:
+        # capacity_factor high enough that smoke-scale batches never drop
+        # tokens, so decode agrees with the forward (full-size configs
+        # keep the realistic 1.25)
+        moe = MoEConfig(
+            n_experts=min(4, cfg.moe.n_experts),
+            top_k=min(2, cfg.moe.top_k),
+            capacity_factor=8.0,
+        )
     return dataclasses.replace(
         cfg,
         n_layers=2 * len(pattern),
@@ -62,7 +70,7 @@ def reduce_config(cfg: LMConfig) -> LMConfig:
         vocab_size=512,
         block_pattern=pattern,
         window=8 if cfg.window else None,
-        moe=None,
+        moe=moe,
         n_prefix=8 if cfg.frontend else 0,
         compute_dtype="float32",
         remat=False,

@@ -1,14 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution, as in
-``repro.configs.registry``. Of the LM archs, the attention ones and
-rwkv6-7b are ported; llama4-scout, granite-moe (MoE) and zamba2
-(``mamba2``, ``shared_attn``) raise ``NotImplementedError`` naming their
-ROADMAP item."""
+``repro.configs.registry``: the ten assigned LM archs and the paper's
+deepfm-criteo."""
 
 from __future__ import annotations
 
 from importlib import import_module
 
-from ..models.lm import NOT_PORTED_LM, LMConfig
+from ..models.lm import LMConfig
 
 # id -> module name in the JAX package's configs
 ARCH_MODULES = {
@@ -27,9 +25,6 @@ ARCH_MODULES = {
 }
 
 ASSIGNED_ARCHS = tuple(k for k in ARCH_MODULES if k != "deepfm-criteo")
-PORTED_ARCHS = ("granite-20b", "stablelm-3b", "musicgen-large", "rwkv6-7b",
-                "gemma3-12b", "deepseek-coder-33b", "internvl2-26b",
-                "deepfm-criteo")
 
 
 def get_config(arch: str):
@@ -37,10 +32,6 @@ def get_config(arch: str):
         raise KeyError(
             f"unknown arch {arch!r}; available: {', '.join(ARCH_MODULES)}"
         )
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet: "
-            f"{NOT_PORTED_LM}")
     mod = import_module(f".{ARCH_MODULES[arch]}", __package__)
     cfg = mod.CONFIG
     if isinstance(cfg, LMConfig):

@@ -511,8 +511,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.task == "lm":
+        from ..models.lm import NOT_PORTED_LM
+
         raise SystemExit("[train] --task lm is not ported to repro_torch "
-                         "yet: ROADMAP queue 1 item 8 (the LM side)")
+                         f"yet: {NOT_PORTED_LM}")
     run_ctr(args)
 
 

@@ -1,6 +1,7 @@
-"""Decoder LM assembled from a config, as in ``repro.models.lm``; the port
-runs the ``attn``, ``local`` and ``rwkv6`` block kinds, with the audio /
-vision frontends' prefix embeddings.
+"""Decoder LM assembled from a config, as in ``repro.models.lm``: the
+``attn``, ``local``, ``rwkv6`` and ``mamba2`` block kinds, MoE FFNs,
+zamba2's weight-shared attention block, and the audio / vision
+frontends' prefix embeddings.
 
 * **Stacked superblocks.** Layers are grouped into a repeating
   ``block_pattern``; every leaf of ``params["dense"]["blocks"]["pos_i"]``
@@ -9,9 +10,14 @@ vision frontends' prefix embeddings.
   params across unchanged. The reference's ``jax.lax.scan`` over
   superblocks is a Python loop indexing the stacked leaves.
 * **Two-group params.** ``{"embed": {"tokens": [V, D]}, "dense": ...}``.
+* **Heterogeneous mixers.** Pattern entries pick the mixer per position.
+  zamba2's shared attention + MLP block (``dense["shared"]``, not
+  stacked) runs after every superblock; its weights are shared, its KV
+  ring is not (``cache["shared"]``, one ring a superblock).
 * **Decode states.** KV ring buffers for ``local``, linear KV buffers for
   ``attn`` (``layers.KVCache``), the O(1) recurrent ``RWKVState`` for
-  ``rwkv6``; stacked per superblock like the params.
+  ``rwkv6`` and ``MambaState`` for ``mamba2``; stacked per superblock
+  like the params.
 * **Frontends** (audio frames / vision patches) are precomputed
   embeddings ``[B, P, D]`` concatenated ahead of the token embeddings, as
   in the reference.
@@ -19,24 +25,23 @@ vision frontends' prefix embeddings.
   compute dtype, the mixers run in it with weights cast at use (the decay
   and the wkv scan in f32), norms accumulate in f32, logits are cast to
   ``logits_dtype``.
-
-The ``mamba2`` kind, MoE and ``shared_attn`` raise
-``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
 from ..core.device import resolve_device
 from ..core.tree import tree_leaves, tree_map
-from . import layers, rwkv
+from . import layers, mamba, moe as moe_lib, rwkv
+from .moe import MoEConfig
 
-NOT_PORTED_LM = "ROADMAP queue 1 item 8 (the rest of the LM side)"
+# what --task lm (LM training) waits for
+NOT_PORTED_LM = "ROADMAP queue 1 item 8.3 (--task lm)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +57,7 @@ class LMConfig:
     head_dim: Optional[int] = None
     block_pattern: tuple = ("attn",)
     window: Optional[int] = None      # sliding-window width for 'local'
-    moe: Optional[Any] = None         # MoE config (not ported)
+    moe: Optional[MoEConfig] = None
     ssm_state: int = 64
     mamba_head_dim: int = 64
     shared_attn: bool = False         # zamba2: shared attn+mlp per superblock
@@ -122,29 +127,15 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-PORTED_KINDS = ("attn", "local", "rwkv6")
-
-
-def _require_ported(cfg: LMConfig) -> None:
-    cfg.validate()
-    other = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
-    what = (f"block kinds {other}" if other else
-            "MoE" if cfg.moe is not None else
-            "shared_attn" if cfg.shared_attn else None)
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} not ported to repro_torch yet: "
-            f"{NOT_PORTED_LM}")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 
 def has_kv_cache(cfg: LMConfig) -> bool:
-    """Whether decode state grows with ``max_len`` (an attention kind)."""
-    return bool({"attn", "local"} & set(cfg.block_pattern))
+    """Whether decode state grows with ``max_len`` (an attention kind, or
+    zamba2's shared block, whose rings hold ``min(window, max_len)``)."""
+    return cfg.shared_attn or bool({"attn", "local"} & set(cfg.block_pattern))
 
 
 def _init_position(gen, kind: str, cfg: LMConfig, device) -> dict:
@@ -157,8 +148,11 @@ def _init_position(gen, kind: str, cfg: LMConfig, device) -> dict:
                 gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                 cfg.n_heads_alloc, lead=lead, device=device),
             "norm2": layers.init_rmsnorm(d, lead=lead, device=device),
-            "ffn": layers.init_mlp(gen, d, cfg.d_ff, cfg.act, lead=lead,
-                                   device=device),
+            "ffn": (moe_lib.init_moe(gen, d, cfg.d_ff, cfg.moe, cfg.act,
+                                     lead=lead, device=device)
+                    if cfg.moe is not None else
+                    layers.init_mlp(gen, d, cfg.d_ff, cfg.act, lead=lead,
+                                    device=device)),
         }
     if kind == "rwkv6":
         return {
@@ -169,7 +163,14 @@ def _init_position(gen, kind: str, cfg: LMConfig, device) -> dict:
             "ffn": rwkv.init_channel_mix(gen, d, cfg.d_ff, lead=lead,
                                          device=device),
         }
-    raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED_LM}")
+    if kind == "mamba2":
+        return {
+            "norm1": layers.init_rmsnorm(d, lead=lead, device=device),
+            "mixer": mamba.init_mamba2(gen, d, d_state=cfg.ssm_state,
+                                       head_dim=cfg.mamba_head_dim,
+                                       lead=lead, device=device),
+        }
+    raise ValueError(kind)
 
 
 def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
@@ -178,7 +179,7 @@ def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
     ``generator`` (a fresh one seeded with ``seed`` when None). On the
     card the values are drawn there; ``device="meta"`` allocates
     nothing."""
-    _require_ported(cfg)
+    cfg.validate()
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(
@@ -190,6 +191,17 @@ def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
     dense: dict = {"blocks": {
         f"pos_{i}": _init_position(generator, kind, cfg, device)
         for i, kind in enumerate(cfg.block_pattern)}}
+    if cfg.shared_attn:
+        d = cfg.d_model
+        dense["shared"] = {
+            "norm1": layers.init_rmsnorm(d, device=device),
+            "attn": layers.init_attention(generator, d, cfg.n_heads,
+                                          cfg.n_kv_heads, cfg.hd,
+                                          cfg.n_heads_alloc, device=device),
+            "norm2": layers.init_rmsnorm(d, device=device),
+            "ffn": layers.init_mlp(generator, d, cfg.d_ff, cfg.act,
+                                   device=device),
+        }
     dense["final_norm"] = layers.init_rmsnorm(cfg.d_model, device=device)
     dense["head"] = layers._normal(generator,
                                    (cfg.d_model, cfg.padded_vocab),
@@ -227,6 +239,19 @@ def _window(kind: str, cfg: LMConfig):
     return cfg.window if kind == "local" else None
 
 
+def _ffn(p, cfg: LMConfig, h):
+    """An attention position's FFN: (out, the MoE's aux loss or None)."""
+    if cfg.moe is not None:
+        return moe_lib.moe_ffn(p["ffn"], h, cfg.moe, cfg.act)
+    return layers.mlp(p["ffn"], h, cfg.act), None
+
+
+def _mamba(p, cfg: LMConfig, x, **kw):
+    return mamba.mamba2_train(
+        p["mixer"], layers.rmsnorm(p["norm1"], x, cfg.norm_eps),
+        d_state=cfg.ssm_state, head_dim=cfg.mamba_head_dim, **kw)
+
+
 def _apply_position(p, kind: str, cfg: LMConfig, x, aux):
     """One layer forward over a full sequence."""
     if kind in ("attn", "local"):
@@ -235,8 +260,8 @@ def _apply_position(p, kind: str, cfg: LMConfig, x, aux):
             theta=cfg.rope_theta, window=_window(kind, cfg),
             n_valid_heads=cfg.n_heads,
         )
-        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        return x + layers.mlp(p["ffn"], h, cfg.act), aux
+        y, a = _ffn(p, cfg, layers.rmsnorm(p["norm2"], x, cfg.norm_eps))
+        return x + y, aux if a is None else aux + a
     if kind == "rwkv6":
         x = x + rwkv.rwkv6_train(
             p["att"], layers.rmsnorm(p["norm1"], x, cfg.norm_eps),
@@ -244,22 +269,43 @@ def _apply_position(p, kind: str, cfg: LMConfig, x, aux):
         )
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         return x + rwkv.channel_mix(p["ffn"], h, _shift(h)), aux
-    raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED_LM}")
+    if kind == "mamba2":
+        return x + _mamba(p, cfg, x), aux
+    raise ValueError(kind)
+
+
+def _shared_mlp(p, cfg: LMConfig, x):
+    """The shared block's second half: x + its MLP."""
+    return x + layers.mlp(p["ffn"], layers.rmsnorm(p["norm2"], x,
+                                                   cfg.norm_eps), cfg.act)
+
+
+def _apply_shared(p, cfg: LMConfig, x):
+    """zamba2's shared attention (window ``cfg.window``) + MLP block."""
+    x = x + layers.attention_train(
+        p["attn"], layers.rmsnorm(p["norm1"], x, cfg.norm_eps),
+        theta=cfg.rope_theta, window=cfg.window, n_valid_heads=cfg.n_heads,
+    )
+    return _shared_mlp(p, cfg, x)
 
 
 def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
             prefix_emb: Optional[torch.Tensor] = None):
     """Full-sequence forward: tokens [B, S] (after the frontend's
     ``prefix_emb`` [B, P, D], if any) -> (logits [B, P + S, V_padded],
-    aux), aux the f32 scalar MoE loss (0 here)."""
-    _require_ported(cfg)
+    aux), aux the f32 scalar MoE loss summed over the layers (0 without
+    MoE)."""
+    cfg.validate()
     x = _embed(params, cfg, tokens, prefix_emb)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = params["dense"]["blocks"]
+    shared = params["dense"].get("shared")
     for rep in range(cfg.n_repeats):
         block = _repeat(blocks, rep)
         for i, kind in enumerate(cfg.block_pattern):
             x, aux = _apply_position(block[f"pos_{i}"], kind, cfg, x, aux)
+        if shared is not None:
+            x = _apply_shared(shared, cfg, x)
     x = layers.rmsnorm(params["dense"]["final_norm"], x, cfg.norm_eps)
     logits = x @ params["dense"]["head"].to(cfg.dtype)
     logits = _mask_pad_vocab(logits, cfg)
@@ -307,22 +353,44 @@ def _position_cache(kind: str, cfg: LMConfig, batch: int, max_len: int,
     if kind == "rwkv6":
         return rwkv.init_rwkv_state(batch, cfg.d_model, cfg.n_heads,
                                     device=device)
-    raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED_LM}")
+    if kind == "mamba2":
+        return mamba.init_mamba_state(batch, cfg.d_model,
+                                      d_state=cfg.ssm_state,
+                                      head_dim=cfg.mamba_head_dim,
+                                      device=device)
+    raise ValueError(kind)
+
+
+def _fresh_cache(cfg: LMConfig, batch: int, max_len: int, device) -> dict:
+    """One superblock's empty decode state: each pattern position's, and
+    the shared block's ring of ``min(window or max_len, max_len)``
+    slots."""
+    fresh = {f"pos_{i}": _position_cache(kind, cfg, batch, max_len, device)
+             for i, kind in enumerate(cfg.block_pattern)}
+    if cfg.shared_attn:
+        fresh["shared"] = layers.init_kv_cache(
+            batch, min(cfg.window or max_len, max_len), cfg.n_kv_heads,
+            cfg.hd, cfg.dtype, device=device)
+    return fresh
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """Stacked decode state per pattern position, leaves ``[n_repeats,
-    ...]``: a ``KVCache`` of ``max_len`` slots (``attn``) or of
-    ``min(window, max_len)`` (``local``), or an ``RWKVState``."""
-    _require_ported(cfg)
-    device = resolve_device(device)
-    cache = {}
-    for i, kind in enumerate(cfg.block_pattern):
-        one = _position_cache(kind, cfg, batch, max_len, device)
-        cache[f"pos_{i}"] = tree_map(
-            lambda t: t.expand((cfg.n_repeats,) + t.shape).contiguous(), one)
-    return cache
+    """Stacked decode state, leaves ``[n_repeats, ...]``: per pattern
+    position a ``KVCache`` of ``max_len`` slots (``attn``) or of
+    ``min(window, max_len)`` (``local``), an ``RWKVState`` or a
+    ``MambaState``; with ``shared_attn`` the shared block's rings under
+    ``"shared"``."""
+    cfg.validate()
+    fresh = _fresh_cache(cfg, batch, max_len, resolve_device(device))
+    return tree_map(
+        lambda t: t.expand((cfg.n_repeats,) + t.shape).contiguous(), fresh)
+
+
+def _copy_into(old, new, inplace):
+    """A recurrent state's update: with ``inplace`` copied over ``old``
+    (after the layer has read it), else ``new`` as it is."""
+    return tree_map(lambda o, n: o.copy_(n), old, new) if inplace else new
 
 
 def _decode_position(p, kind, cfg, x, state, cur_index, inplace):
@@ -337,8 +405,8 @@ def _decode_position(p, kind, cfg, x, state, cur_index, inplace):
             inplace=inplace,
         )
         x = x + y
-        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        return x + layers.mlp(p["ffn"], h, cfg.act), state
+        y, _ = _ffn(p, cfg, layers.rmsnorm(p["norm2"], x, cfg.norm_eps))
+        return x + y, state
     if kind == "rwkv6":
         old = state
         h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -346,10 +414,14 @@ def _decode_position(p, kind, cfg, x, state, cur_index, inplace):
         x = x + y
         h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
         y, state = rwkv.channel_mix_decode(p["ffn"], h, state)
-        if inplace:
-            state = tree_map(lambda o, n: o.copy_(n), old, state)
-        return x + y, state
-    raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED_LM}")
+        return x + y, _copy_into(old, state, inplace)
+    if kind == "mamba2":
+        h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        y, new = mamba.mamba2_decode(p["mixer"], h, state,
+                                     d_state=cfg.ssm_state,
+                                     head_dim=cfg.mamba_head_dim)
+        return x + y, _copy_into(state, new, inplace)
+    raise ValueError(kind)
 
 
 def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
@@ -357,18 +429,19 @@ def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
     """One serving step: the latest tokens [B] -> (next-token logits
     [B, V_padded] f32, updated cache). ``cur_index`` (tokens already in the
     cache: a 0-dim integer tensor on the device, or an int) is the new
-    token's position, its rope angle and its KV slot; the recurrent state
-    needs none. With ``inplace`` each layer's new state is written into
+    token's position, its rope angle and its KV slot; the recurrent states
+    need none. With ``inplace`` each layer's new state is written into
     ``cache`` itself (after that layer has read its old one), which is
     returned: what a CUDA graph over a static cache and a device cursor
     needs (``serve.decode.DecodeGraph``). Without it, every layer's cache
     is copied, as the reference's functional update is."""
-    _require_ported(cfg)
+    cfg.validate()
     x = _embed(params, cfg, token[:, None])
     if not isinstance(cur_index, torch.Tensor):
         cur_index = torch.tensor(cur_index, dtype=torch.int64,
                                  device=x.device)
     blocks = params["dense"]["blocks"]
+    shared = params["dense"].get("shared")
     per_repeat = []
     for rep in range(cfg.n_repeats):
         block, block_cache = _repeat(blocks, rep), _repeat(cache, rep)
@@ -377,6 +450,13 @@ def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
             x, new_states[f"pos_{i}"] = _decode_position(
                 block[f"pos_{i}"], kind, cfg, x, block_cache[f"pos_{i}"],
                 cur_index, inplace)
+        if shared is not None:
+            h = layers.rmsnorm(shared["norm1"], x, cfg.norm_eps)
+            y, new_states["shared"] = layers.attention_decode(
+                shared["attn"], h, block_cache["shared"], cur_index,
+                theta=cfg.rope_theta, window=cfg.window,
+                n_valid_heads=cfg.n_heads, inplace=inplace)
+            x = _shared_mlp(shared, cfg, x + y)
         per_repeat.append(new_states)
     x = layers.rmsnorm(params["dense"]["final_norm"], x, cfg.norm_eps)
     logits = (x[:, 0] @ params["dense"]["head"].to(cfg.dtype)).to(
@@ -402,8 +482,8 @@ def _prefill_position(p, kind: str, cfg: LMConfig, x, fresh_state):
             p["attn"], h, fresh_state, theta=cfg.rope_theta,
             window=_window(kind, cfg), n_valid_heads=cfg.n_heads)
         x = x + y
-        h = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        return x + layers.mlp(p["ffn"], h, cfg.act), state
+        y, _ = _ffn(p, cfg, layers.rmsnorm(p["norm2"], x, cfg.norm_eps))
+        return x + y, state
     if kind == "rwkv6":
         h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
         y, s_fin = rwkv.rwkv6_train(p["att"], h, n_heads=cfg.n_heads,
@@ -418,7 +498,10 @@ def _prefill_position(p, kind: str, cfg: LMConfig, x, fresh_state):
             x_prev_ffn=h2[:, -1].to(torch.float32),
         )
         return x, state
-    raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED_LM}")
+    if kind == "mamba2":
+        y, state = _mamba(p, cfg, x, return_state=True)
+        return x + y, state
+    raise ValueError(kind)
 
 
 def prefill_with_cache(params: dict, cfg: LMConfig, tokens: torch.Tensor,
@@ -426,16 +509,15 @@ def prefill_with_cache(params: dict, cfg: LMConfig, tokens: torch.Tensor,
                        prefix_emb: Optional[torch.Tensor] = None):
     """Serving prefill: forward the prompt (after ``prefix_emb``, if any)
     AND populate every layer's decode state (linear / ring KV buffers,
-    recurrent states), so ``decode_step`` continues from
-    ``cur_index = P + S``.
+    recurrent states, the shared block's rings), so ``decode_step``
+    continues from ``cur_index = P + S``.
 
     Returns (last_logits [B, V_padded] f32, cache, cur_index)."""
-    _require_ported(cfg)
+    cfg.validate()
     x = _embed(params, cfg, tokens, prefix_emb)
-    fresh = {f"pos_{i}": _position_cache(kind, cfg, x.shape[0], max_len,
-                                         x.device)
-             for i, kind in enumerate(cfg.block_pattern)}
+    fresh = _fresh_cache(cfg, x.shape[0], max_len, x.device)
     blocks = params["dense"]["blocks"]
+    shared = params["dense"].get("shared")
     per_repeat = []
     for rep in range(cfg.n_repeats):
         block = _repeat(blocks, rep)
@@ -443,6 +525,12 @@ def prefill_with_cache(params: dict, cfg: LMConfig, tokens: torch.Tensor,
         for i, kind in enumerate(cfg.block_pattern):
             x, states[f"pos_{i}"] = _prefill_position(
                 block[f"pos_{i}"], kind, cfg, x, fresh[f"pos_{i}"])
+        if shared is not None:
+            h = layers.rmsnorm(shared["norm1"], x, cfg.norm_eps)
+            y, states["shared"] = layers.attention_prefill(
+                shared["attn"], h, fresh["shared"], theta=cfg.rope_theta,
+                window=cfg.window, n_valid_heads=cfg.n_heads)
+            x = _shared_mlp(shared, cfg, x + y)
         per_repeat.append(states)
     x = layers.rmsnorm(params["dense"]["final_norm"], x, cfg.norm_eps)
     logits = (x[:, -1] @ params["dense"]["head"].to(cfg.dtype)).to(
@@ -456,8 +544,17 @@ def prefill_with_cache(params: dict, cfg: LMConfig, tokens: torch.Tensor,
 
 
 def param_counts(cfg: LMConfig) -> dict:
-    """Total and active parameter counts, from params built on the ``meta``
-    device (nothing is allocated)."""
+    """Total and active (MoE top-k) parameter counts, from params built on
+    the ``meta`` device (nothing is allocated)."""
     params = init(cfg, device="meta")
     total = sum(t.numel() for t in tree_leaves(params))
-    return {"total": total, "active": total}
+    active = total
+    if cfg.moe is not None:
+        expert_params = sum(
+            pos["ffn"][name].numel()
+            for pos in params["dense"]["blocks"].values()
+            if "ffn" in pos and "router" in pos["ffn"]
+            for name in ("w_in", "w_out", "w_gate") if name in pos["ffn"])
+        frac = cfg.moe.top_k / cfg.moe.n_experts
+        active = total - expert_params + int(expert_params * frac)
+    return {"total": total, "active": active}

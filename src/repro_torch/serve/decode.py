@@ -6,18 +6,21 @@ which fills every layer's KV cache or recurrent state, eagerly), then one
 ``lm.decode_step`` per new token with argmax sampling, as that script's
 loop does. The reference jits that step; here, on the card, it is
 captured once per batch size (and ``max_len``, where the model has a KV
-cache) as a CUDA graph over a static token buffer, a static cache that
+cache: an attention layer's, or zamba2's shared rings) as a CUDA graph over a static token buffer, a static cache that
 the step writes in place and a cursor on the card that it advances
 (``DecodeGraph``), and each new token is one replay.
 
     PYTHONPATH=src python -m repro_torch.serve.decode --device cpu
     PYTHONPATH=src python -m repro_torch.serve.decode --arch gemma3-12b \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.serve.decode --arch zamba2-2.7b \
+        --device cpu
 
-run an arch's reduced config (2 or 4 layers, d_model 128, f32) on the
-CPU; without ``--device`` they run on the card and refuse to start without
-one. ``--arch`` takes every ported LM arch; musicgen-large and
-internvl2-26b get a seeded ``[B, n_prefix, d_model]`` frontend prefix.
+run an arch's reduced config (2 or 4 layers, d_model 128, f32; MoE at 4
+experts) on the CPU; without ``--device`` they run on the card and refuse
+to start without one. ``--arch`` takes all ten LM archs
+(``configs.ASSIGNED_ARCHS``); musicgen-large and internvl2-26b get a
+seeded ``[B, n_prefix, d_model]`` frontend prefix.
 ``--wkv-backend`` picks rwkv6-7b's sequence scan of both prefills (the
 cached one and the score-only one the script also runs): ``chunked`` (the
 wkv6 kernel on the card) or ``scan``.
@@ -181,8 +184,8 @@ def greedy_generate(params: dict, cfg: lm.LMConfig, prompt: torch.Tensor,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="rwkv6-7b",
-                    help="a ported LM arch id (configs.registry."
-                         "PORTED_ARCHS), run at its reduced size")
+                    help="an LM arch id (configs.ASSIGNED_ARCHS), run at "
+                         "its reduced size")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)

@@ -2,7 +2,8 @@
 version, the substrate, fused and sparse train steps on the card against
 the CPU path, the hot/cold step's graphs against its eager steps and its
 async cold store against it, the RWKV-6 LM's forward, prefill and decode on the card against
-the CPU path, the attention LM's decode graph across a ring's wrap, and the CUDA graphs (the scan engine's chunks, the guard's
+the CPU path, the attention LM's decode graph across a ring's wrap,
+zamba2's and granite-moe's decode graphs, and the CUDA graphs (the scan engine's chunks, the guard's
 skip under them, serving and the decode step) against the eager runs.
 
 They carry the ``cuda`` marker and skip without a CUDA device. This file
@@ -789,6 +790,40 @@ def test_torch_attn_decode_graph_cuda_equals_eager():
     cfg = reduce_config(get_config("gemma3-12b"))
     params = lm.init(cfg, seed=0, device="cuda")
     prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 6))).cuda()
+    eager = greedy_generate(params, cfg, prompt, 12, graph=False)
+    decoder = GraphDecoder(params, cfg)
+    for _ in range(2):
+        got = greedy_generate(params, cfg, prompt, 12, decoder=decoder)
+        assert torch.equal(got.tokens, eager.tokens)
+        assert (got.logits - eager.logits).abs().max().item() <= 1e-4
+    assert list(decoder.graphs) == [(3, 18)]
+    graph = decoder.graphs[3, 18]
+    assert int(graph.cursor) == 18 and graph.position == 18
+    with pytest.raises(ValueError, match="max_len"):
+        graph.step()
+    cpu = tree_map(lambda t: t.cpu(), params)
+    with torch.inference_mode():
+        _, cache, cur = lm.prefill_with_cache(cpu, cfg, prompt.cpu(), 18)
+        for i in range(12):
+            logits, cache = lm.decode_step(cpu, cfg, eager.tokens[:, i].cpu(),
+                                           cache, cur + i)
+    assert (logits - eager.logits.cpu()).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-moe-3b-a800m"])
+def test_torch_hybrid_moe_decode_graph_cuda_equals_eager(arch):
+    """Greedy decoding of reduced zamba2 (Mamba-2 states and the shared
+    block's rings of 8, which wrap inside the replays) and granite-moe (a
+    linear KV cache and the MoE's router, sorts and gathers on the card)
+    from one graph: the eager steps' tokens, logits within 1e-4; one
+    capture per (batch, max_len); no step past max_len; the CPU's steps
+    fed the same tokens end within 1e-4 of the eager logits."""
+    _need_cuda()
+    cfg = reduce_config(get_config(arch))
+    params = lm.init(cfg, seed=0, device="cuda")
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, (3, 6))).cuda()
     eager = greedy_generate(params, cfg, prompt, 12, graph=False)
     decoder = GraphDecoder(params, cfg)

@@ -26,7 +26,6 @@ from repro.models import lm as jax_lm
 from repro_torch.configs import (ARCH_MODULES, ASSIGNED_ARCHS, INPUT_SHAPES,
                                  get_config, reduce_config,
                                  supports_long_context)
-from repro_torch.configs.registry import PORTED_ARCHS
 from repro_torch.core.tree import flatten_with_paths
 from repro_torch.data import make_lm_tokens
 from repro_torch.kernels.wkv6 import wkv6
@@ -62,7 +61,7 @@ def _max_abs(a, b):
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
-LM_ARCHS = tuple(a for a in PORTED_ARCHS if a != "deepfm-criteo")
+LM_ARCHS = ASSIGNED_ARCHS
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -322,23 +321,24 @@ def test_torch_make_lm_tokens_bitwise(n, vocab, seed):
     assert np.array_equal(got, want)
 
 
-def test_torch_lm_unported_archs_name_roadmap():
-    """Only the MoE archs and zamba2 (``mamba2`` with ``shared_attn``) are
-    left; they, and those kinds in any config, name queue 1 item 8."""
-    unported = [a for a in ASSIGNED_ARCHS if a not in PORTED_ARCHS]
-    assert sorted(unported) == ["granite-moe-3b-a800m",
-                                "llama4-scout-17b-a16e", "zamba2-2.7b"]
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            get_config(arch)
+def test_torch_lm_every_arch_resolves_and_inits():
+    """All ten assigned LM archs resolve and init on the meta device, at
+    full size and reduced (llama4-scout's 102,235,345,920 parameters
+    allocate nothing); an unknown block kind still raises ValueError, an
+    unknown arch KeyError."""
+    assert len(ASSIGNED_ARCHS) == 10
+    for arch in ASSIGNED_ARCHS:
+        for cfg in (get_config(arch), reduce_config(get_config(arch))):
+            params = lm.init(cfg, device="meta")
+            assert params["embed"]["tokens"].device.type == "meta"
+            assert sorted(params["dense"]["blocks"]) == [
+                f"pos_{i}" for i in range(len(cfg.block_pattern))]
+            assert ("shared" in params["dense"]) is cfg.shared_attn
     assert get_config("deepfm-criteo").name == "deepfm"
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = reduce_config(get_config("rwkv6-7b"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        reduce_config(dataclasses.replace(cfg, moe=object()))
-    for other in (dict(block_pattern=("mamba2",)),
-                  dict(block_pattern=("attn", "mamba2"), n_layers=4),
-                  dict(shared_attn=True), dict(moe=object())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    for other in (dict(block_pattern=("mamba3",)),
+                  dict(block_pattern=("attn", "conv"), n_layers=4)):
+        with pytest.raises(ValueError, match="unknown block kind"):
             lm.init(dataclasses.replace(cfg, **other), device="cpu")
