@@ -249,8 +249,32 @@ Phases, each fatal on failure:
      granite-moe-3b-a800m and llama4-scout-17b-a16e at the reduced f32
      size, card vs CPU: forward logits, the MoE aux, cached prefill and
      4 decode steps, max abs 1e-4; no port kernel launched in 40-43
+ 44. LM training's kernels at rwkv6-7b's shapes: the fused CowClip update
+     of the [65536, 4096] token table with one 8 x 512 batch's counts,
+     against its plain version at rtol 1e-5 / atol 1e-7 (steps 1 and
+     1000), timed beside its bound
+ 45. the embedding backward of that batch's 4096 token rows of width 4096
+     into 65536 rows, bitwise its plain version (and run twice), timed
+     beside its bound and PyTorch's embedding_dense_backward
+ 46. wkv6 under autograd at [512, 512, 64]: the kernel's forward at the
+     wkv6 bar against the chunked plain version, its gradients of r, k,
+     v, w and u bitwise the plain version's autograd; the kernel, the
+     plain forward and the plain backward (the recompute) timed, and the
+     backward's memory
+ 47. a reduced f32 LM step of each family (rwkv6 through the kernels,
+     attention, Mamba-2 with the shared block, MoE, a frontend prefix)
+     on the card against the CPU from the card's params: loss within
+     1e-4, every gradient leaf within 1e-3 of its largest value, params
+     within 1e-4 after the CPU's update of the card's gradients
+ 48. rwkv6-7b at full width, 8 of its 32 layers, bf16, trained 10 steps
+     of batch 8 x 512 through make_lm_train_step (the CLI's step): the
+     loss at steps 1 and 10 (it must fall), ms a step (CUDA events, the
+     median of steps 3-10) and tokens/s, peak memory; a traced step:
+     8 wkv6, 1 fused CowClip and 1 embedding backward launches, no host
+     read of a device scalar, no PyTorch embedding backward, the idle
+     share; a second run of 3 steps from the same seed bitwise the first
 Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13;
-phases 37-43 last. Each
+phases 37-43, then 44-48, last. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
 prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
@@ -268,6 +292,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -335,6 +360,36 @@ HYBRID_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m",
 ATTN_ARCHS = ("stablelm-3b", "granite-20b", "deepseek-coder-33b",
               "gemma3-12b", "musicgen-large", "internvl2-26b")
 LM_AGREE = 1e-4                # max abs logits, card vs CPU (f32, reduced)
+# LM training (phases 44-48): rwkv6-7b at full width, its 32 layers cut
+# to 8, batch 8 x 512 tokens (run_lm's base batch of 1024 tokens x 4)
+LM_TRAIN_LAYERS = 8
+LM_TRAIN_PARAMS = 2_286_292_992   # lm.param_counts(rwkv6-7b at 8 layers)
+LM_TRAIN_BATCH = (8, 512)
+LM_TRAIN_STEPS = 10
+# --base-lr of phase 48's run (embedding lr 2.5e-5, dense lr 1e-4 after
+# the warm-up at 4096 tokens a step): at the CLI's default 2e-2 (dense lr
+# 8e-2) this width diverges, the loss 11.56 -> 154.4 in 10 steps; from
+# 2.5e-4 to 5e-5 it jumps to 14-25 after the first updates
+# (scripts/lm_train_lr_sweep.py)
+LM_TRAIN_BASE_LR = 2.5e-5
+LM_TRAIN_REPEAT = 3            # steps of each of the two runs held bitwise
+LM_TRAIN_TABLE = (65536, 4096)  # rwkv6-7b's token table (padded vocab, D)
+LM_TRAIN_WKV = (512, 512, 64)   # the mixer's wkv6 call: batch 8 x 64 heads
+LM_TRAIN_ARCHS = ("rwkv6-7b", "gemma3-12b", "zamba2-2.7b",
+                  "granite-moe-3b-a800m", "musicgen-large")
+# a gradient leaf's max abs difference over its own largest |g|, card vs
+# CPU (phase 47). rwkv6 has its own bar: its per-head norm of the wkv
+# output (eps 1e-5) divides positions whose output is tiny by up to 316,
+# so f32 rounding set by the largest outputs comes back magnified in the
+# gradients of its r/k path (1.14e-4 card vs CPU; on the CPU the port's
+# scan is 1.92e-4 from JAX's, and with eps 0.1 under 2e-5:
+# tests/test_torch_lm_train.py)
+LM_GRAD_BAR = 1e-4
+LM_GRAD_BAR_RWKV6 = 3e-4
+LM_AGREE_STEPS = 3             # steps of each family held card vs CPU
+# phase 47's run of the CLI on the card: reduced rwkv6-7b, batch 16 x 64
+LM_CLI_ARGS = ("--task", "lm", "--arch", "rwkv6-7b", "--reduced", "--batch",
+               "16", "--seq", "64", "--steps", "5")
 GRAPH_STEPS = 8                # steps of each engine, phases 19-20
 SCAN_STEPS = 4                 # steps a captured graph, phases 19-20
 TIMED_CHUNKS = 25              # chunks timed each way, steady state, 19-20
@@ -4268,7 +4323,9 @@ def attn_lm_phases(smi, kind):
                                              sparse_update_scatter)
     from repro_torch.kernels.embedding import embedding_backward_groups
     from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.train import build_parser
     from repro_torch.models import lm
+    from repro_torch.train.loop import train_lm
 
     power = smi.strip().split(", ")[-1]
     wrappers = (fused_cowclip_adam, sparse_gather_catchup,
@@ -4807,6 +4864,455 @@ def hybrid_lm_phases(smi, kind):
     print(f"[phase 43] {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def lm_cowclip_phase(gen, tokens, power, kind):
+    """Phase 44: the fused CowClip update of the token table at
+    ``LM_TRAIN_TABLE`` with ``tokens``' counts against its plain version
+    (phase 3's rtol / atol), steps 1 and 1000, then timed (L2 flushed,
+    host work covered) beside its bound. Returns the line's numbers."""
+    from repro_torch.kernels.cowclip import (fused_cowclip_adam, reference,
+                                             step_scalars)
+    from repro_torch.models.embedding import token_counts
+
+    rows, dim = LM_TRAIN_TABLE
+    cnt = token_counts(tokens, rows)
+    step_kw = dict(r=1.0, zeta=1e-5, lr=2e-2, l2=1e-5)
+    err = [0.0]
+    w, g, cnt, m, v = kernel_inputs(gen, rows, dim, cnt=cnt)
+    for t in (1, 1000):
+        block = step_scalars(t, device="cuda")
+        want = reference(w, g, cnt, m, v, block, **step_kw)
+        got = [x.clone() for x in (w, m, v)]
+        fused_cowclip_adam(got[0], g, cnt, got[1], got[2], block, **step_kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip("wmv", got, want):
+            compare("lm-cowclip", f"[{rows}, {dim}] step {t}, {name} "
+                    f"({int((cnt > 0).sum())} rows touched by "
+                    f"{tokens.numel()} tokens)", a, b, err)
+        del want, got
+    torch.cuda.empty_cache()
+    scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    block = step_scalars(5, device="cuda")
+    ms = cuda_time_cold_ms(lambda: fused_cowclip_adam(
+        w, g, cnt, m, v, block, **step_kw), 20, scratch)
+    plain_ms = cuda_time_cold_ms(lambda: reference(
+        w, g, cnt, m, v, block, **step_kw), 3, scratch)
+    bound_ms, bound_by, touched, nbytes = update_bound(cnt, dim)
+    print(f"[time] fused CowClip [{rows}, {dim}], one {tokens.shape[0]} x "
+          f"{tokens.shape[1]} batch's counts ({touched} rows touched, L2 "
+          f"flushed): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s: {100 * bound_ms / ms:.1f}% of "
+          f"it), {kind} at {power}", flush=True)
+    del w, g, cnt, m, v, scratch
+    return {"max_abs_err_lm_train": err[0], "ms_lm_train": ms,
+            "plain_ms_lm_train": plain_ms, "bound_ms_lm_train": bound_ms,
+            "bound_by_lm_train": bound_by, "library_ms_lm_train": None}
+
+
+def lm_embed_phase(gen, tokens, power, kind):
+    """Phase 45: the token table's gradient, the embedding backward of
+    ``tokens``' rows of width D into ``LM_TRAIN_TABLE``'s rows, bitwise
+    its plain version and run to run; timed (its sort included) beside
+    its bound and PyTorch's ``embedding_dense_backward``."""
+    from repro_torch.kernels.embedding import (embedding_backward,
+                                               reference_groups, sort_plan)
+
+    rows, dim = LM_TRAIN_TABLE
+    keys = tokens.reshape(-1).to(torch.int32)
+    n = keys.numel()
+    cot = 1e-3 * torch.randn(n, dim, generator=gen, device="cuda")
+    got = embedding_backward(keys, cot, rows)
+    again = embedding_backward(keys, cot, rows)
+    want = reference_groups(sort_plan(keys), [cot], rows)[0]
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    same, repeat = torch.equal(got, want), torch.equal(got, again)
+    print(f"[lm-embed] {n} token rows of width {dim} into [{rows}, {dim}]: "
+          f"against the plain version max_abs {err:.3e}, "
+          f"{'bitwise equal' if same else 'DIFFERENT'}; run twice "
+          f"{'bitwise equal' if repeat else 'DIFFERENT'}", flush=True)
+    check(same and repeat, "the embedding backward at the token table's "
+          "width is not bitwise its plain version, or not run to run")
+    del got, again, want
+    scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    ms = cuda_time_cold_ms(lambda: embedding_backward(keys, cot, rows), 20,
+                           scratch)
+    plain_ms = cuda_time_cold_ms(lambda: reference_groups(
+        sort_plan(keys), [cot], rows), 3, scratch)
+    lib_ms = cuda_time_cold_ms(lambda: torch.ops.aten.embedding_dense_backward(
+        cot, keys, rows, -1, False), 20, scratch)
+    bound_ms, bound_by, nbytes = embed_bound(n, (dim,), rows)
+    print(f"[time] embedding backward, {n} rows of width {dim} into "
+          f"[{rows}, {dim}] (sort, fill, levels; L2 flushed): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, PyTorch's "
+          f"embedding_dense_backward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({nbytes} B: {100 * bound_ms / ms:.1f}% of it), "
+          f"{kind} at {power}", flush=True)
+    del cot, scratch
+    return {"max_abs_err_lm_train": err, "ms_lm_train": ms,
+            "plain_ms_lm_train": plain_ms, "bound_ms_lm_train": bound_ms,
+            "bound_by_lm_train": bound_by, "library_ms_lm_train": lib_ms}
+
+
+def lm_wkv_phase(gen, power, kind):
+    """Phase 46: wkv6 under autograd at ``LM_TRAIN_WKV``: the forward (the
+    kernel) at the wkv6 bar against the chunked plain version, the
+    gradients of r, k, v, w and u (the plain version's backward,
+    recomputed) bitwise the plain version's own autograd; times of the
+    kernel, the plain forward and the plain backward, and the backward's
+    memory above its inputs. Returns the line's numbers and the
+    backward's ms."""
+    from repro_torch.kernels.wkv6 import chunked_wkv6_reference, wkv6
+
+    inp = wkv_inputs(gen, *LM_TRAIN_WKV)
+    gy = torch.randn(inp[0].shape, generator=gen, device="cuda")
+    outs, grads = {}, {}
+    for name, fn in (("kernel", wkv6), ("plain", chunked_wkv6_reference)):
+        ins = [t.clone().requires_grad_() for t in inp]
+        y, s = fn(*ins)
+        outs[name] = (y.detach(), s.detach())
+        grads[name] = torch.autograd.grad(y, ins, gy)
+        del y, s, ins
+    err = [0.0]
+    wkv_compare(f"{list(LM_TRAIN_WKV)} under autograd, forward vs chunked "
+                f"plain", outs["kernel"], outs["plain"], err)
+    gaps = [(a - b).abs().max().item()
+            for a, b in zip(grads["kernel"], grads["plain"])]
+    same = all(torch.equal(a, b)
+               for a, b in zip(grads["kernel"], grads["plain"]))
+    print(f"[wkv6] {list(LM_TRAIN_WKV)} gradients of r, k, v, w, u through "
+          f"the wrapper (kernel forward, plain backward) against the plain "
+          f"version's autograd: max_abs {max(gaps):.3e}, "
+          f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+    check(same, "wkv6's gradients are not the plain version's")
+    del outs, grads
+    torch.cuda.empty_cache()
+    scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    with torch.no_grad():
+        k_ms = cuda_time_cold_ms(lambda: wkv6(*inp), 20, scratch)
+        p_ms = cuda_time_cold_ms(lambda: chunked_wkv6_reference(*inp), 3,
+                                 scratch)
+    ins = [t.clone().requires_grad_() for t in inp]
+    y, _ = wkv6(*ins)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_ms = cuda_time_cold_ms(lambda: torch.autograd.grad(
+        y, ins, gy, retain_graph=True), 5, scratch)
+    bwd_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    b_ms, b_by, nbytes, flops = wkv_bound(*LM_TRAIN_WKV)
+    print(f"[time] chunked_wkv6 {list(LM_TRAIN_WKV)} (L2 flushed): kernel "
+          f"{k_ms:.4f} ms, plain forward {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by} ({nbytes} B, {flops} FLOP); the plain backward "
+          f"(recompute and autograd) {bwd_ms:.4f} ms, {bwd_gib:.2f} GiB "
+          f"above its inputs at its peak; {kind} at {power}", flush=True)
+    del inp, ins, y, gy, scratch
+    return ({"max_abs_err_lm_train": err[0], "ms_lm_train": k_ms,
+             "plain_ms_lm_train": p_ms, "bound_ms_lm_train": b_ms,
+             "bound_by_lm_train": b_by, "library_ms_lm_train": None},
+            bwd_ms)
+
+
+def grad_gaps(want, got):
+    """Each gradient leaf's max abs difference over its own largest |g| in
+    ``want`` (0 where both are all zero), by path."""
+    from repro_torch.core.tree import flatten_with_paths
+
+    want = flatten_with_paths(want)
+    out = {}
+    for k, g in flatten_with_paths(got).items():
+        w = want[k].double()
+        err = (g.cpu().double() - w).abs().max().item()
+        scale = w.abs().max().item()
+        out[k] = err / scale if scale else (0.0 if not err else math.inf)
+    return out
+
+
+def lm_step_agree(arch):
+    """Phase 47, one family (and ``tests/test_torch_cuda.py``):
+    ``LM_AGREE_STEPS`` steps of ``make_lm_train_step`` at the reduced f32
+    size on the card against the CPU, along the card's trajectory: at each
+    step, from the card's params, the loss within ``LM_AGREE`` and every
+    gradient leaf within ``LM_GRAD_BAR`` (rwkv6: ``LM_GRAD_BAR_RWKV6``) of
+    its own largest value; the step launches the fused CowClip kernel
+    once, the embedding backward once and wkv6 once a rwkv6 layer; the
+    CPU's update of the card's gradients tracked beside it, every param
+    within ``LM_AGREE`` after the steps. Returns the largest gaps."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.scaling import scale_hyperparams
+    from repro_torch.core.tree import flatten_with_paths, tree_map
+    from repro_torch.kernels.cowclip import fused_cowclip_adam
+    from repro_torch.kernels.embedding import embedding_backward_groups
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import frontend_prefix
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(reduce_config(get_config(arch)),
+                              wkv_backend="chunked")
+    bar = LM_GRAD_BAR_RWKV6 if "rwkv6" in cfg.block_pattern else LM_GRAD_BAR
+    hp = scale_hyperparams("cowclip", base_lr=2e-2, base_l2=1e-5,
+                           base_batch=1024, batch_size=1024,
+                           base_dense_lr=4e-2)
+    step, init = loop.make_lm_train_step(cfg, hp)
+    cpu_update = loop.make_lm_update(cfg, hp)[0]
+    cpu = lm.init(cfg, seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    cpu_state, state = init(cpu), init(card)
+    counters = (fused_cowclip_adam, embedding_backward_groups, wkv6)
+    want_calls = (1, 1, cfg.n_layers if "rwkv6" in cfg.block_pattern else 0)
+    rng = np.random.default_rng(47)
+    gap_loss, gaps = 0.0, {}
+    for i in range(LM_AGREE_STEPS):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32)))
+        prefix = frontend_prefix(cfg, 4, seed=i, device="cpu")
+        here = tree_map(lambda t: t.cpu(), card)
+        want_loss, want = loop._grads(here, lambda v: lm.loss_fn(
+            v, cfg, tokens, prefix)[0])
+        loss, grads = loop._grads(card, lambda v: lm.loss_fn(
+            v, cfg, tokens.cuda(), None if prefix is None else prefix.cuda()
+        )[0])
+        gap_loss = max(gap_loss, abs(loss.item() - want_loss.item()))
+        for k, gap in grad_gaps(want, grads).items():
+            gaps[k] = max(gaps.get(k, 0.0), gap)
+        cpu_update(cpu, cpu_state, tree_map(lambda t: t.cpu(), grads),
+                   tokens)
+        before = [fn.launches for fn in counters]
+        card, state, aux = step(card, state, {
+            "tokens": tokens.cuda(),
+            "prefix": None if prefix is None else prefix.cuda()})
+        calls = tuple(fn.launches - b for fn, b in zip(counters, before))
+        check(calls == want_calls, f"{arch}: a step launched {calls} "
+              f"(fused CowClip, embedding backward, wkv6), not {want_calls}")
+        check(torch.equal(aux["loss"], loss), f"{arch}: the step's loss is "
+              f"not its gradient's")
+    cpu_flat = flatten_with_paths(cpu)
+    gap_param = max((t.cpu() - cpu_flat[k]).abs().max().item()
+                    for k, t in flatten_with_paths(card).items())
+    worst = max(gaps, key=gaps.get)
+    print(f"[lm-train-agree] reduced {arch} ({cfg.block_pattern}), "
+          f"{LM_AGREE_STEPS} steps of batch 4 x 32, card vs CPU: loss "
+          f"max_abs {gap_loss:.3e} (bar {LM_AGREE}); gradients max_abs over "
+          f"the leaf's max |g| {gaps[worst]:.3e} in {worst} (bar {bar}), "
+          f"next {sorted(gaps.values())[-3:-1]}; params after the CPU's "
+          f"update of the card's gradients max_abs {gap_param:.3e} (bar "
+          f"{LM_AGREE})", flush=True)
+    check(gap_loss <= LM_AGREE and gaps[worst] <= bar
+          and gap_param <= LM_AGREE, f"card and CPU disagree on {arch}'s "
+          f"train step")
+    return gap_loss, gaps[worst], gap_param
+
+
+def lm_cli_on_card():
+    """Phase 47: ``python -m repro_torch.launch.train`` with
+    ``LM_CLI_ARGS`` and a checkpoint, on the card (its default device):
+    each step launches the fused CowClip kernel once, the embedding
+    backward once and wkv6 once a layer; the loss falls (the CLI's own
+    check) and the checkpoint holds every param leaf at its shape."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.kernels.cowclip import fused_cowclip_adam
+    from repro_torch.kernels.embedding import embedding_backward_groups
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch import train as cli
+    from repro_torch.models import lm
+
+    cfg = reduce_config(get_config("rwkv6-7b"))
+    steps = int(LM_CLI_ARGS[LM_CLI_ARGS.index("--steps") + 1])
+    counters = (fused_cowclip_adam, embedding_backward_groups, wkv6)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "lm.npz")
+        for fn in counters:
+            fn.launches = 0
+        cli.main(list(LM_CLI_ARGS) + ["--checkpoint", ckpt])
+        calls = {fn.__name__: fn.launches for fn in counters}
+        with np.load(ckpt) as saved:
+            shapes = {k: saved[k].shape for k in saved.files}
+    want = {k: tuple(t.shape) for k, t in flatten_with_paths(
+        lm.init(cfg, seed=0, device="cpu")).items()}
+    print(f"[lm-train-cli] {' '.join(LM_CLI_ARGS)} on the card: wrapper "
+          f"calls {calls} (expected 1, 1 and {cfg.n_layers} a step); the "
+          f"checkpoint holds {len(shapes)} leaves", flush=True)
+    check(calls == {"fused_cowclip_adam": steps,
+                    "embedding_backward_groups": steps,
+                    "wkv6": cfg.n_layers * steps}, f"the CLI launched {calls}")
+    check(shapes == want, "the CLI's checkpoint is not the params' tree")
+
+
+def lm_train_phases(smi, kind):
+    """Phases 44-48: LM training (``--task lm``'s step) at rwkv6-7b's
+    width. Returns each kernel's numbers at this path's shapes and its
+    launches in phase 48's 10-step run, by kernel name."""
+    from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6_7B
+    from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels.cowclip import fused_cowclip_adam
+    from repro_torch.kernels.embedding import embedding_backward_groups, ref
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models import lm
+    from repro_torch.train.loop import train_lm
+
+    power = smi.strip().split(", ")[-1]
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    b, s = LM_TRAIN_BATCH
+    # the CLI's token stream (``--samples``' default, seed 0): phases 44-45
+    # and the traced step take its first batch, phase 48's first step's
+    samples = build_parser().get_default("samples")
+    first = torch.as_tensor(make_lm_tokens(samples, RWKV6_7B.vocab_size,
+                                           seed=0)[:b * s].reshape(b, s),
+                            device="cuda")
+    lines = {}
+
+    phase_start(44)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    lines["cowclip_adam_update"] = lm_cowclip_phase(gen, first, power,
+                                                    kind)
+    peak_line(44)
+    phase_end()
+    phase_start(45)
+    torch.cuda.reset_peak_memory_stats()
+    lines["embedding_backward"] = lm_embed_phase(gen, first, power,
+                                                 kind)
+    peak_line(45)
+    phase_end()
+    phase_start(46)
+    torch.cuda.reset_peak_memory_stats()
+    lines["chunked_wkv6"], wkv_bwd_ms = lm_wkv_phase(gen, power, kind)
+    peak_line(46)
+    phase_end()
+    phase_start(47)
+    for arch in LM_TRAIN_ARCHS:
+        lm_step_agree(arch)
+    lm_cli_on_card()
+    phase_end()
+    print(f"[phase 44-47] {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- 48. rwkv6-7b at full width, 8 layers: 10 training steps ---------
+    phase_start(48)
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(RWKV6_7B, n_layers=LM_TRAIN_LAYERS,
+                              wkv_backend="chunked")
+    n_params = lm.param_counts(cfg)["total"]
+    check(cfg.d_model == 4096 and cfg.n_heads == 64 and cfg.d_ff == 14336
+          and cfg.vocab_size == 65536 and cfg.compute_dtype == "bfloat16"
+          and n_params == LM_TRAIN_PARAMS, f"not rwkv6-7b's width at "
+          f"{LM_TRAIN_LAYERS} layers: {n_params} parameters")
+
+    def run(steps):    # the CLI's loop at LM_TRAIN_BASE_LR
+        return train_lm(cfg, batch=b, seq=s, steps=steps,
+                        base_lr=LM_TRAIN_BASE_LR, base_l2=1e-5,
+                        samples=samples, seed=0, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = (wkv6, fused_cowclip_adam, embedding_backward_groups)
+    for fn in counters:
+        fn.launches = 0
+    out = run(LM_TRAIN_STEPS)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    params, state, step = out.params, out.state, out.step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = out.losses.tolist()
+    step_ms = [1e3 * x for x in out.step_seconds]
+    steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    print(f"[lm-train] {out.hp} (run_lm's scaling from --base-lr "
+          f"{LM_TRAIN_BASE_LR}, --base-l2 1e-5)", flush=True)
+    print(f"[lm-train] rwkv6-7b at full width, {LM_TRAIN_LAYERS} of 32 "
+          f"layers ({n_params} parameters, f32 masters), bf16, wkv6 chunked, "
+          f"batch {b} x {s}: {LM_TRAIN_STEPS} steps, loss {losses[0]:.4f} "
+          f"at step 1 -> {losses[-1]:.4f} at step {LM_TRAIN_STEPS}; "
+          f"launches {launches} (expected wkv6 {LM_TRAIN_LAYERS}, the fused "
+          f"CowClip update 1 and the embedding backward 1 a step)",
+          flush=True)
+    print(f"[lm-train] ms a step (CUDA events) {[round(x, 1) for x in step_ms]}"
+          f"; median of steps 3-{LM_TRAIN_STEPS} {steady:.1f} ms "
+          f"({b * s / steady * 1e3:.0f} tokens/s); peak device memory "
+          f"{peak:.2f} GiB; {kind} at {power}", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+    check(launches == {"wkv6": LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
+                       "fused_cowclip_adam": LM_TRAIN_STEPS,
+                       "embedding_backward_groups": LM_TRAIN_STEPS},
+          f"LM training launched {launches}")
+
+    # a traced step: the kernels, host reads, PyTorch's embedding backward
+    def control():    # one read of a device scalar, then of a host one
+        float(torch.ones((), device="cuda"))
+        float(torch.ones(()))
+
+    kinds = sorted(r[1] for r in host_reads(profiled(control,
+                                                      with_stack=True)[1]))
+    check(kinds == ["device", "host"], f"host reads classified {kinds}")
+    for fn in counters:
+        fn.launches = 0
+
+    def traced():
+        with torch.profiler.record_function(f"{STEP_LABEL} 0"):
+            step(params, state, {"tokens": first, "prefix": None})
+
+    wall_ms, prof = profiled(traced, with_stack=True)
+    kernels = by_kernel(prof)
+    traced_launches = {fn.__name__: fn.launches for fn in counters}
+    busy = sum(t for t, _, _ in kernels)
+    print_trace("lm-train-trace", f"one step, batch {b} x {s}", wall_ms,
+                kernels, groups=(("the wkv6 scan's kernels", WKV6_KERNELS),
+                                 ("the fused CowClip update's kernels",
+                                  FUSED_KERNELS), EMBED_GROUP) + ATTN_GROUPS)
+    n_kernel = {label: sum(n for _, n, name in kernels
+                           if any(k in name for k in names))
+                for label, names in (("wkv6", WKV6_KERNELS),
+                                     ("fused", FUSED_KERNELS),
+                                     ("embed", EMBED_KERNELS))}
+    reads = host_reads(prof)
+    dev_reads = [r[:4] for r in reads if r[1] == "device"]
+    theirs = torch_embedding_backward(kernels)
+    print(f"[lm-train-trace] wrapper calls {traced_launches}; kernels "
+          f"{n_kernel} (the embedding backward's {ref.levels(b * s)} level "
+          f"launches a run); host reads {len(reads)}, {len(dev_reads)} of a "
+          f"device scalar; PyTorch's embedding backward kernels {theirs}; "
+          f"device idle {100 * (1 - busy / wall_ms) if busy else float('nan'):.1f}"
+          f"% of {wall_ms:.1f} ms", flush=True)
+    check(traced_launches == {"wkv6": LM_TRAIN_LAYERS,
+                              "fused_cowclip_adam": 1,
+                              "embedding_backward_groups": 1},
+          f"a traced step launched {traced_launches}")
+    check(not busy or (n_kernel["wkv6"] == LM_TRAIN_LAYERS
+                       and n_kernel["fused"] == 1
+                       and n_kernel["embed"] == ref.levels(b * s)),
+          f"the traced step's kernels {n_kernel}")
+    check(not dev_reads, f"host reads of a device scalar: {dev_reads}")
+    check(not theirs, f"PyTorch's embedding backward ran: {theirs}")
+    print(f"[lm-train] the plain wkv6 backward {wkv_bwd_ms:.1f} ms a layer "
+          f"(phase 46) x {LM_TRAIN_LAYERS} = "
+          f"{wkv_bwd_ms * LM_TRAIN_LAYERS:.1f} ms, "
+          f"{100 * wkv_bwd_ms * LM_TRAIN_LAYERS / steady:.1f}% of a "
+          f"{steady:.1f} ms step", flush=True)
+    del params, state, step, out, prof, kernels
+    phase_end()
+
+    # two runs of 3 steps from the same seed, bitwise equal
+    snapshot = {k: t.cpu() for k, t in
+                flatten_with_paths(run(LM_TRAIN_REPEAT).params).items()}
+    params = run(LM_TRAIN_REPEAT).params
+    diffs = {k: (t.cpu() - snapshot[k]).abs().max().item()
+             for k, t in flatten_with_paths(params).items()
+             if not torch.equal(t.cpu(), snapshot[k])}
+    print(f"[lm-train] two runs of {LM_TRAIN_REPEAT} steps from seed 0: "
+          + ("bitwise equal in every param leaf" if not diffs else
+             f"DIFFERENT in {len(diffs)} leaves, largest "
+             f"{max(diffs.values()):.3e} in {max(diffs, key=diffs.get)}"),
+          flush=True)
+    check(not diffs, f"two runs of the same steps differ: {diffs}")
+    del params, snapshot
+    print(f"[phase 48] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    launches = {"chunked_wkv6": launches["wkv6"],
+                "cowclip_adam_update": launches["fused_cowclip_adam"],
+                "embedding_backward": launches["embedding_backward_groups"]}
+    for name, line in lines.items():
+        line["launches_lm_train"] = launches[name]
+    return lines
+
+
 def main() -> int:
     # a SIGSEGV (or SIGBUS, SIGFPE, SIGABRT) prints every thread's Python
     # stack to stderr before the process dies of it, with its exit code
@@ -4870,6 +5376,11 @@ def main() -> int:
     attn_lm_phases(smi, kind)
     phase_end()
     hybrid_lm_phases(smi, kind)
+    phase_end()
+    for name, extra in lm_train_phases(smi, kind).items():
+        # this slice's path, LM training: its shapes' numbers, and the
+        # calls on phase 48's 10-step run
+        next(line for line in lines if line["name"] == name).update(extra)
     phase_end()
     print(f"[exit] threads alive: "
           f"{[(t.name, t.daemon) for t in threading.enumerate()]}",

@@ -96,9 +96,13 @@ def chunked_wkv6_reference(r, k, v, w, u, *, chunk: int = 16):
                                                           chunk)
     state = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
     ys = []
-    for c in range(seq // chunk):
-        ys.append(intra[:, c] + r_dec[:, c] @ state + bonus_v[:, c])
-        state = decay[:, c] * state + carry_in[:, c]
+    # a chunk's terms by unbind, not [:, c]: under autograd one backward
+    # a term, not a zero fill of the whole term a chunk
+    for intra_c, r_dec_c, bonus_c, decay_c, carry_c in zip(
+            *(t.unbind(1) for t in (intra, r_dec, bonus_v, decay,
+                                    carry_in))):
+        ys.append(intra_c + r_dec_c @ state + bonus_c)
+        state = decay_c * state + carry_c
     y = (torch.cat(ys, dim=1) if ys
          else torch.zeros((bh, 0, n), dtype=torch.float32, device=r.device))
     return y.to(r.dtype), state

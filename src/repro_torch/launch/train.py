@@ -36,7 +36,15 @@ snapshot's write on rank 0 alone) ends the world: under
 SIGKILL) and exits ``128 + N`` for a rank killed by signal N (137 for
 SIGKILL), naming the rank on stderr (``launch.mesh.spawn_host_ranks``);
 under ``torchrun`` its agent ends the others and exits non-zero.
-``--task lm`` is not ported yet: it exits naming its ROADMAP item.
+
+``--task lm`` trains a decoder LM (``--arch``, ``--reduced``) on a Zipf
+token stream as ``repro.launch.train.run_lm`` does, through
+``train.loop.make_lm_train_step``: CowClip + coupled L2 + Adam on the
+token table by the fused kernel, the dense tree by Adam with a 10-step
+warm-up; ``--wkv-backend chunked`` (the default, as in serving) runs
+rwkv6's mixer through the wkv6 kernel, ``scan`` through the token
+recurrence (the JAX CLI trains with ``scan``). The reference's mesh and
+param shardings mean nothing on one card and are dropped.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --task ctr \
@@ -64,12 +72,15 @@ Usage:
       --nonfinite-guard --snapshot-dir DIR --snapshot-every 4 [--resume]
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --task ctr \
       --placement sharded --mesh 1,4 --batch 8192 --epochs 1
+  PYTHONPATH=src python -m repro_torch.launch.train --task lm \
+      --device cpu --arch gemma3-12b --reduced --batch 16 --seq 64 --steps 5
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import time
 
@@ -397,6 +408,40 @@ def _run_ctr(args, placement, device) -> None:
             "(with id_freq for serving)")
 
 
+def run_lm(args) -> None:
+    """``--task lm``: ``repro.launch.train.run_lm`` on one device
+    (``train.loop.train_lm``); the run fails unless the last loss is below
+    the first."""
+    from ..configs import get_config, reduce_config
+    from ..models import lm
+    from ..train.loop import train_lm
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    cfg = dataclasses.replace(cfg, wkv_backend=args.wkv_backend)
+    print(f"[train-lm] {cfg.name}: "
+          f"{lm.param_counts(cfg)['total']/1e6:.1f}M params, "
+          f"device {device}")
+
+    if args.steps is None:
+        args.steps = 100
+    t0 = time.perf_counter()
+    out = train_lm(cfg, batch=args.batch, seq=args.seq, steps=args.steps,
+                   base_lr=args.base_lr, base_l2=args.base_l2,
+                   samples=args.samples, seed=args.seed, device=device)
+    losses = out.losses.cpu().tolist()
+    dt = time.perf_counter() - t0
+    print(f"[train-lm] {args.steps} steps in {dt:.1f}s; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if args.checkpoint:
+        checkpoint.save(args.checkpoint, out.params)
+        print(f"[train-lm] params checkpointed to {args.checkpoint}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit("[train-lm] training did not reduce loss")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--task", choices=("ctr", "lm"), default="ctr")
@@ -497,8 +542,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="gemma3-12b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--wkv-backend", default="chunked",
+                    choices=("chunked", "scan"),
+                    help="rwkv6's sequence mixer: 'chunked' (the wkv6 "
+                         "kernel) or 'scan' (the token recurrence)")
     ap.add_argument("--steps", type=int, default=None,
-                    help="optional hard cap on total CTR steps")
+                    help="optional hard cap on total CTR steps; LM steps "
+                         "(default 100)")
     # common
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default=None)
@@ -511,11 +561,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.task == "lm":
-        from ..models.lm import NOT_PORTED_LM
-
-        raise SystemExit("[train] --task lm is not ported to repro_torch "
-                         f"yet: {NOT_PORTED_LM}")
-    run_ctr(args)
+        run_lm(args)
+    else:
+        run_ctr(args)
 
 
 if __name__ == "__main__":

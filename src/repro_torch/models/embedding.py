@@ -94,6 +94,14 @@ def field_counts(ids: torch.Tensor, vocab_sizes: Sequence[int]) -> dict:
     return {f"field_{i}": c for i, c in enumerate(layout.split(counts))}
 
 
+def token_counts(tokens: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Occurrence counts of each vocab id in an LM batch (``[B, S]`` ints)
+    -> ``[vocab_size]`` float32, the token table's CowClip ``cnt``: the
+    batch as one field of ``field_counts`` (one ``index_add_``, ids outside
+    ``[0, vocab_size)`` dropped, no host read)."""
+    return field_counts(tokens.reshape(-1, 1), (vocab_size,))["field_0"]
+
+
 class UniqueField(NamedTuple):
     """Static-size dedup of one field's batch ids.
 

@@ -25,6 +25,13 @@ frontends' prefix embeddings.
   compute dtype, the mixers run in it with weights cast at use (the decay
   and the wkv scan in f32), norms accumulate in f32, logits are cast to
   ``logits_dtype``.
+* **Training** (``loss_fn`` under autograd, ``train.loop.
+  make_lm_train_step``): the token gather is the port's
+  ``kernels.embedding.gather_fields``, so the table's gradient comes from
+  its deterministic embedding backward; the wkv6 scan and the Mamba-2
+  scan are differentiable. The reference's ``cfg.remat`` /
+  ``remat_policy`` (``jax.checkpoint`` of a superblock) are not ported:
+  no config sets them.
 """
 
 from __future__ import annotations
@@ -37,11 +44,9 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.tree import tree_leaves, tree_map
+from ..kernels.embedding import gather_fields
 from . import layers, mamba, moe as moe_lib, rwkv
 from .moe import MoEConfig
-
-# what --task lm (LM training) waits for
-NOT_PORTED_LM = "ROADMAP queue 1 item 8.3 (--task lm)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,7 +224,12 @@ def _stack(trees: list):
 
 
 def _embed(params, cfg: LMConfig, tokens, prefix_emb=None):
-    x = params["embed"]["tokens"][tokens].to(cfg.dtype)
+    """The token rows (one field of ``gather_fields``: the same values as
+    an index, and under autograd the port's embedding backward) in the
+    compute dtype, after the prefix."""
+    rows, = gather_fields([[params["embed"]["tokens"]]],
+                          tokens.reshape(-1, 1))
+    x = rows.reshape(*tokens.shape, -1).to(cfg.dtype)
     if prefix_emb is not None:
         x = torch.cat([prefix_emb.to(cfg.dtype), x], dim=1)
     return x
@@ -322,8 +332,9 @@ def _mask_pad_vocab(logits, cfg: LMConfig):
 
 
 def loss_fn(params, cfg: LMConfig, tokens, prefix_emb=None):
-    """Next-token cross-entropy (mean over predicted positions) + MoE aux.
-    The forward only: training (``--task lm``) is not ported."""
+    """Next-token cross-entropy (mean over predicted positions) + MoE aux,
+    differentiable in every param leaf (``train.loop.make_lm_train_step``
+    takes its gradient)."""
     logits, aux = forward(params, cfg, tokens, prefix_emb)
     # predictions come from positions [P .. P+S-2] for targets tokens[:, 1:]
     p = 0 if prefix_emb is None else prefix_emb.shape[1]

@@ -19,8 +19,11 @@ reference's ``jax.lax.scan`` does: ``a_t`` and ``dt_t (x_t ⊗ B_t)`` are
 formed for ``SCAN_CHUNK`` tokens at a time, each token's state is then a
 multiply and an add into a buffer of the chunk's states, and ``y`` is one
 batched product with C a chunk. Every element goes through the
-reference's operations in its order. Decode carries ``MambaState`` —
-O(1) in sequence length.
+reference's operations in its order. Under autograd (training) a token's
+state is a new tensor, ``a * s + dbx``, stacked a chunk, since autograd
+refuses the buffer's ``out=`` writes; serving keeps the buffer (no
+allocation a token in a captured graph). The two give the same bits.
+Decode carries ``MambaState`` — O(1) in sequence length.
 """
 
 from __future__ import annotations
@@ -107,11 +110,15 @@ def _ssm_step(x, b, c, dt, a_log, d_skip, s):
 def _ssm_scan(xs, bmat, cmat, dt, a_log, d_skip):
     """``_ssm_step`` over the sequence from a zero state. xs: [B,S,H,P],
     bmat/cmat: [B,S,N], dt: [B,S,H] (f32) -> (y [B,S,H,P], final state
-    [B,H,P,N])."""
+    [B,H,P,N]). When a gradient is to flow, each token's state is a new
+    tensor (the same multiply, then the same add), else it is written into
+    the chunk's buffer."""
     bsz, seq, n_heads, head_dim = xs.shape
     s = torch.zeros((bsz, n_heads, head_dim, bmat.shape[-1]), dtype=F32,
                     device=xs.device)
     a_all = torch.exp(-dt * torch.exp(a_log)[None, None, :])        # [B,S,H]
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xs, bmat, cmat, dt, a_log, d_skip))
     ys = []
     for t0 in range(0, seq, SCAN_CHUNK):
         span = slice(t0, min(seq, t0 + SCAN_CHUNK))
@@ -123,9 +130,18 @@ def _ssm_scan(xs, bmat, cmat, dt, a_log, d_skip):
         a = tmajor(a_all)[..., None, None]                          # [T,B,H,1,1]
         dbx = dt_c[..., None, None] * (x[..., :, None]
                                        * b[:, :, None, None, :])
-        states = torch.empty_like(dbx)                              # [T,B,H,P,N]
-        for i in range(dbx.shape[0]):
-            s = torch.mul(a[i], s, out=states[i]).add_(dbx[i])
+        if grad:
+            # unbind, not a[i]: one backward for the chunk, not one
+            # chunk-sized zero fill a token
+            steps = []
+            for a_i, dbx_i in zip(a.unbind(0), dbx.unbind(0)):
+                s = a_i * s + dbx_i
+                steps.append(s)
+            states = torch.stack(steps)
+        else:
+            states = torch.empty_like(dbx)                          # [T,B,H,P,N]
+            for i in range(dbx.shape[0]):
+                s = torch.mul(a[i], s, out=states[i]).add_(dbx[i])
         y = (states @ c[:, :, None, :, None])[..., 0] \
             + d_skip[None, None, :, None] * x
         ys.append(y.transpose(0, 1))

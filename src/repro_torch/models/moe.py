@@ -15,6 +15,16 @@ counts are an integer ``scatter_add_`` into a ``[G, E]`` tensor (exact on
 the card), so a decode step captures as a CUDA graph and replays the eager
 step's arithmetic. The reference's ``constrain`` sharding hints have no
 meaning on one card and are dropped.
+
+Everything on the values' path is differentiable, as in the reference:
+the router's softmax and top-k values, the gathers and the einsums (the
+expert ids, orders and counts are integers and carry no gradient); the
+aux loss's gradient reaches the router through ``probs``. The gradient of
+a gather is an accumulating scatter: on the CPU it sums in a fixed order,
+so the backward repeats bit for bit there; on the card the dispatch
+gather's backward (``take_along_dim``: a ``scatter_add`` where the rows
+of a token sent to several experts collide) adds with atomics, so the
+MoE backward is not bitwise repeatable on the card.
 """
 
 from __future__ import annotations

@@ -135,7 +135,11 @@ def _wkv_chunked(params, n_heads, r, k, v, w, *, chunk: int = 16):
     to y or to the state (k = 0) and decays nothing (w = 1, log w = 0), so
     the real steps' y and the final state are those of the unpadded
     sequence, and the clip sees the same exponents. (The JAX twin instead
-    falls back to the token scan; both equal the recurrence.)"""
+    falls back to the token scan; both equal the recurrence.)
+
+    Differentiable: gradients flow back through the head-major copies and
+    the pad (``F.pad``'s backward drops the padded steps) from the wkv6
+    Function, whose backward is the plain chunked version's."""
     b, seq, d = r.shape
     n = d // n_heads
     pad = -seq % chunk

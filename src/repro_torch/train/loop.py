@@ -1,5 +1,6 @@
 """CTR training loop: the substrate, fused, sparse and sharded train
-steps, epochs, eval.
+steps, epochs, eval; and the LM train step (``make_lm_train_step``, the
+step of ``repro.launch.train.run_lm``) and its loop (``train_lm``).
 
 A port of ``repro.train.loop``. Each
 step reads nothing on the host and writes its params and state in place,
@@ -24,7 +25,7 @@ from ..core import builders
 from ..core.builders import StepFn, dense_tower_tx, skipped, write_back
 from ..core.device import resolve_device
 from ..core.optim import apply_updates, counter, decay_catchup_rows
-from ..core.tree import tree_leaves, tree_map
+from ..core.tree import _is_namedtuple, tree_leaves, tree_map
 from ..data import prefetch as prefetch_lib
 from ..data.synthetic import CTRDataset, iterate_batches
 from ..models import ctr
@@ -33,17 +34,25 @@ from . import metrics
 logger = logging.getLogger(__name__)
 
 
-def _loss_and_grads(params, cfg, batch):
-    """Task loss and its gradient w.r.t. every param leaf, as a tree.
+def _grads(params, loss_of):
+    """``loss_of(view)`` and its gradient w.r.t. every param leaf, as a
+    tree. The params themselves never require grad (the kernels update
+    them in place); the graph is built over detached aliases of them."""
+    view = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = loss_of(view)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(view)))
+    return loss.detach(), tree_map(lambda _: next(grads), view)
 
-    The params themselves never require grad (the kernels update them in
-    place); the graph is built over detached aliases of them. With
+
+def _loss_and_grads(params, cfg, batch):
+    """The CTR task loss and its gradient tree (``_grads``). With
     ``cfg.sparse`` the forward runs through the unique-id gather (the
     table gradients then come back through the gather of the unique rows),
     else through the per-field lookup; both end in the port's embedding
     backward."""
-    view = tree_map(lambda p: p.detach().requires_grad_(), params)
-    with torch.enable_grad():
+
+    def loss_of(view):
         if cfg.sparse:
             uniq = ctr.unique_batch(cfg, batch["ids"])
             rows = ctr.gather_embed_rows(view, uniq)
@@ -51,9 +60,9 @@ def _loss_and_grads(params, cfg, batch):
                                     batch["dense"])
         else:
             logits = ctr.apply(view, cfg, batch["ids"], batch["dense"])
-        loss = metrics.logloss(logits, batch["labels"])
-    grads = iter(torch.autograd.grad(loss, tree_leaves(view)))
-    return loss.detach(), tree_map(lambda _: next(grads), view)
+        return metrics.logloss(logits, batch["labels"])
+
+    return _grads(params, loss_of)
 
 
 def make_train_step(cfg: ctr.CTRConfig, tx, *,
@@ -155,6 +164,221 @@ def make_fused_train_step(cfg: ctr.CTRConfig, hp, *, r: float = 1.0,
 
     return StepFn(step_impl), init
 
+
+def _leaf_paths(tree, prefix=()):
+    """The key path of every leaf of a tree of dicts, in ``tree_map``'s
+    order."""
+    if not isinstance(tree, dict):
+        yield prefix
+        return
+    for k, v in tree.items():
+        yield from _leaf_paths(v, prefix + (k,))
+
+
+def _leaf_part(tree, path):
+    """What of ``tree`` belongs to the param leaf at ``path``: a dict (a
+    tree shaped like the params) cut down to that one path; a tuple or
+    NamedTuple (an optimizer state) with each part cut; anything else (a
+    step counter) as it is."""
+    if isinstance(tree, dict):
+        key, *rest = path
+        return {key: _leaf_part(tree[key], rest) if rest else tree[key]}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_leaf_part(t, path) for t in tree))
+    if isinstance(tree, tuple):
+        return type(tree)(_leaf_part(t, path) for t in tree)
+    return tree
+
+
+def _split_state(tree):
+    """An optimizer state as ``(its per-param trees with the counters set
+    to None, the counters)``: the counters are the leaves outside dicts."""
+    if isinstance(tree, dict):
+        return tree, []
+    if isinstance(tree, tuple):
+        parts = [_split_state(t) for t in tree]
+        trees = [p for p, _ in parts]
+        counters = [c for _, cs in parts for c in cs]
+        if _is_namedtuple(tree):
+            return type(tree)(*trees), counters
+        return type(tree)(trees), counters
+    return None, [tree]
+
+
+def update_leafwise(tx, grads, state, params, ok=None) -> None:
+    """``tx.update`` of the tree ``params`` run a leaf at a time, and each
+    leaf's new param and optimizer state written in place before the next
+    (``write_back``, under a guard's flag ``ok``); the counters (the
+    steps the chain counts) are written once, after the last leaf, so
+    every leaf's call sees the step's counters as they were.
+
+    For a chain whose transforms act leaf by leaf (``core.builders.
+    dense_tower_tx``: L2, Adam, the warm-up lr) these are the tree form's
+    operations in its order, so the result is the same bits; but what is
+    held beside the params, their gradients and their state is one leaf's
+    temporaries, not a second copy of the tree (updates, new moments, new
+    params)."""
+    new_state = None
+    for path in _leaf_paths(params):
+        p, s = _leaf_part(params, path), _leaf_part(state, path)
+        updates, new_state = tx.update(_leaf_part(grads, path), s, p)
+        write_back(p, apply_updates(p, updates), ok)
+        write_back(_split_state(s)[0], _split_state(new_state)[0], ok)
+    if new_state is not None:
+        write_back(_split_state(state)[1], _split_state(new_state)[1], ok)
+
+
+def make_lm_update(cfg, hp, *, r: float = 1.0, zeta: float = 1e-5,
+                   warmup_steps: int = 10):
+    """The LM step's update (``make_lm_train_step``'s default form) from
+    given gradients: ``(update, init)``, ``update(params, state, grads,
+    tokens)`` writing params and state in place. The token table goes
+    through the fused CowClip + coupled-L2 + Adam update
+    (``kernels.cowclip.fused_cowclip_adam``: the CUDA kernel on the card,
+    its plain version on the CPU) with ``tokens``' counts
+    (``models.embedding.token_counts``) as its ``cnt`` and the step's
+    scalars in a block filled on the device; the dense tree through
+    ``core.builders.dense_tower_tx(hp, warmup_steps=warmup_steps)``, a
+    leaf at a time (``update_leafwise``). State ``{"step", "m":
+    {"tokens"}, "v": {"tokens"}, "dense"}``, ``step`` a 0-dim int32
+    tensor. Nothing is read on the host."""
+    from ..kernels.cowclip import fused_cowclip_adam, step_scalars
+    from ..models.embedding import token_counts
+
+    dense_tx = dense_tower_tx(hp, warmup_steps=warmup_steps)
+
+    def init(params):
+        table = params["embed"]["tokens"]
+        return {"step": counter(params),
+                "m": {"tokens": torch.zeros_like(table)},
+                "v": {"tokens": torch.zeros_like(table)},
+                "dense": dense_tx.init(params["dense"])}
+
+    def update(params, state, grads, tokens):
+        t = state["step"] + 1
+        fused_cowclip_adam(
+            params["embed"]["tokens"], grads["embed"]["tokens"],
+            token_counts(tokens, cfg.padded_vocab), state["m"]["tokens"],
+            state["v"]["tokens"], step_scalars(t), r=r, zeta=zeta,
+            lr=hp.emb_lr, l2=hp.emb_l2)
+        update_leafwise(dense_tx, grads["dense"], state["dense"],
+                        params["dense"])
+        write_back(state["step"], t)
+
+    return update, init
+
+
+def make_lm_train_step(cfg, hp, *, r: float = 1.0, zeta: float = 1e-5,
+                       warmup_steps: int = 10, tx=None):
+    """The LM train step of ``repro.launch.train.run_lm``: the gradient of
+    ``models.lm.loss_fn`` (next-token cross-entropy + the MoE aux) on a
+    batch ``{"tokens": [B, S] int, "prefix": [B, P, D] or None}``, then
+    the paper's two-group update with CowClip on the token table, whose
+    ``cnt`` is the batch's token counts. Returns ``(step, init)``: a
+    ``StepFn`` over ``(params, state, batch)`` that writes params and
+    state in place and returns ``aux = {"loss"}``, the loss a 0-dim
+    tensor on the params' device (nothing is read on the host), and
+    ``init(params) -> state``.
+
+    By default (the CLI's form) the update is ``make_lm_update``'s: the
+    fused CowClip kernel on the token table, the dense tree a leaf at a
+    time. With ``tx`` (the substrate form, for the tests) it is the
+    composable optimizer (``core.builders.build_optimizer(hp,
+    warmup_steps=10)``, the reference's ``tx``) over the whole tree, with
+    ``counts={"tokens": ...}``, state ``tx.init``.
+    """
+    from ..models import lm
+    from ..models.embedding import token_counts
+
+    def loss_and_grads(params, batch):
+        return _grads(params, lambda view: lm.loss_fn(
+            view, cfg, batch["tokens"], batch.get("prefix"))[0])
+
+    if tx is not None:
+        def substrate_step(params, opt_state, batch):
+            loss, grads = loss_and_grads(params, batch)
+            counts = {"tokens": token_counts(batch["tokens"],
+                                             cfg.padded_vocab)}
+            updates, new_state = tx.update(grads, opt_state, params,
+                                           counts=counts)
+            write_back(params, apply_updates(params, updates))
+            write_back(opt_state, new_state)
+            return params, opt_state, {"loss": loss}
+
+        return StepFn(substrate_step), tx.init
+
+    update, init = make_lm_update(cfg, hp, r=r, zeta=zeta,
+                                  warmup_steps=warmup_steps)
+
+    def step_impl(params, state, batch):
+        loss, grads = loss_and_grads(params, batch)
+        update(params, state, grads, batch["tokens"])
+        return params, state, {"loss": loss}
+
+    return StepFn(step_impl), init
+
+
+
+@dataclasses.dataclass
+class LMTrainResult:
+    params: dict
+    state: dict
+    step: StepFn           # the step the run took (``make_lm_train_step``)
+    hp: object             # the scaled hyperparameters
+    losses: torch.Tensor   # [steps] f32, on the params' device
+    # each step's seconds: CUDA events around it on the card (its tokens
+    # already copied), the host clock on the CPU
+    step_seconds: list
+
+
+def train_lm(cfg, *, batch: int, seq: int, steps: int, base_lr: float,
+             base_l2: float, samples: int, seed: int = 0,
+             device="cuda") -> LMTrainResult:
+    """The loop of ``repro.launch.train.run_lm`` on one device, which the
+    CLI's ``--task lm`` runs: params from ``lm.init(cfg, seed=seed)``;
+    ``scale_hyperparams("cowclip", base_lr, base_l2, base_batch=1024,
+    batch_size=batch * seq, base_dense_lr=2 * base_lr)``; ``steps`` steps
+    of ``make_lm_train_step(cfg, hp, warmup_steps=10)`` over consecutive
+    ``[batch, seq]`` slices of a Zipf stream of ``samples`` tokens
+    (``make_lm_tokens(samples, vocab, seed)``, restarting at its end), and
+    for a frontend a prefix a step, ``default_rng(seed).normal(scale=0.1)``
+    in the compute dtype. A step's loss stays on the device except at the
+    print steps (every ``steps // 10``)."""
+    from ..core.scaling import scale_hyperparams
+    from ..data.synthetic import make_lm_tokens
+    from ..models import lm
+
+    device = resolve_device(device)
+    stream = make_lm_tokens(samples, cfg.vocab_size, seed=seed)
+    n_steps_epoch = len(stream) // (seq * batch)
+    params = lm.init(cfg, seed=seed, device=device)
+    hp = scale_hyperparams("cowclip", base_lr=base_lr, base_l2=base_l2,
+                           base_batch=1024, batch_size=batch * seq,
+                           base_dense_lr=2 * base_lr)
+    step, init = make_lm_train_step(cfg, hp, warmup_steps=10)
+    state = init(params)
+
+    rng = np.random.default_rng(seed)
+    clock = _StepClock(device)
+    losses = []
+    for i in range(steps):
+        off = (i % n_steps_epoch) * seq * batch
+        tokens = torch.from_numpy(
+            stream[off: off + seq * batch].reshape(batch, seq)).to(device)
+        prefix = None
+        if cfg.frontend:
+            prefix = torch.from_numpy(rng.normal(
+                scale=0.1, size=(batch, cfg.n_prefix, cfg.d_model))).to(
+                    device=device, dtype=cfg.dtype)
+        clock.start()
+        params, state, aux = step(params, state,
+                                  {"tokens": tokens, "prefix": prefix})
+        clock.stop()
+        losses.append(aux["loss"])
+        if i % max(1, steps // 10) == 0:
+            print(f"  step {i:4d}: loss {float(losses[-1]):.4f}")
+    return LMTrainResult(params, state, step, hp, torch.stack(losses),
+                         clock.seconds())
 
 def _uniq_tree(embed_params: dict, uniq: dict) -> dict:
     """The per-field dedup broadcast over every embedding group (the fm and

@@ -15,6 +15,8 @@ which imports JAX:
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -458,6 +460,12 @@ def test_torch_wkv6_cuda_segment_edges(bh, seq, n, chunk, segment, zeros):
 
 @pytest.mark.cuda
 def test_torch_wkv6_cuda_rejects_bad_inputs():
+    """A ragged S and mixed devices are refused. Inputs that require a
+    gradient (once refused: the kernel has no backward) go through the
+    kernel's forward (one launch, at the wkv6 bar against the plain
+    chunked version) and the plain version's backward: the gradients of
+    r, k, v, w and u equal autograd's through the plain chunked version
+    on the card, bit for bit, for y's and the state's cotangents."""
     _need_cuda()
     inp = _wkv_inputs(1, 40, 8, seed=0)
     with pytest.raises(ValueError):
@@ -465,9 +473,22 @@ def test_torch_wkv6_cuda_rejects_bad_inputs():
     inp = _wkv_inputs(1, 32, 8, seed=0)
     with pytest.raises(ValueError):
         wkv6(inp[0], inp[1].cpu(), *inp[2:])       # mixed devices
-    inp[0].requires_grad_(True)
-    with pytest.raises(ValueError, match="no backward"):
-        wkv6(*inp)
+    inp = _wkv_inputs(4, 64, 32, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    gy = torch.randn(inp[0].shape, generator=gen, device="cuda")
+    gs = torch.randn((4, 32, 32), generator=gen, device="cuda")
+    grads, outs = {}, {}
+    for name, fn in (("kernel", wkv6), ("plain", chunked_wkv6_reference)):
+        ins = [t.clone().requires_grad_() for t in inp]
+        before = wkv6.launches
+        y, s = fn(*ins, chunk=16)
+        assert wkv6.launches == before + (name == "kernel")
+        outs[name] = (y.detach(), s.detach())
+        grads[name] = torch.autograd.grad((y * gy).sum() + (s * gs).sum(),
+                                          ins)
+    _assert_wkv_bar(*outs["kernel"], *outs["plain"])
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -531,6 +552,25 @@ def test_torch_rwkv_lm_cuda_matches_cpu():
         out[dev] = [t.cpu() for t in [logits] + steps]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "gemma3-12b", "zamba2-2.7b",
+                                  "granite-moe-3b-a800m", "musicgen-large"])
+def test_torch_lm_train_step_cuda_matches_cpu(arch):
+    """``chip_smoke.lm_step_agree`` (phase 47's check, one copy): 3 steps
+    of ``make_lm_train_step`` at the reduced f32 size on the card (rwkv6
+    through the wkv6 kernel) against the CPU along the card's trajectory:
+    the loss within 1e-4, every gradient leaf within 1e-4 of its own
+    largest value (rwkv6 its own bar, ``LM_GRAD_BAR_RWKV6``), each step's
+    launches (the fused CowClip kernel once, the embedding backward once,
+    wkv6 once a rwkv6 layer), every param within 1e-4 of the CPU's update
+    of the card's gradients."""
+    _need_cuda()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import lm_step_agree
+
+    lm_step_agree(arch)
 
 
 # ---------------------------------------------------------------------------

@@ -169,7 +169,8 @@ def test_torch_cli_sparse_alias_conflicts_with_other_placement():
 # test_torch_sharded_snapshot.py hold them), so each case, with its id,
 # checks that its flags start a run with a sharded placement (a tiny one,
 # on the CPU) or reach the reference's own refusal: --resume without
-# --snapshot-dir. --task lm still names its item.
+# --snapshot-dir. --task lm once exited naming queue 1 item 8; it trains
+# now, and its case starts a tiny reduced LM run.
 _TINY = ["--samples", "512", "--batch", "64", "--base-batch", "64",
          "--mlp-dim", "16"]
 
@@ -189,8 +190,10 @@ _TINY = ["--samples", "512", "--batch", "64", "--base-batch", "64",
     pytest.param(["--mesh", "2,4", "--host-devices", "8", "--placement",
                   "sharded_sparse", "--resume"],
                  "--resume needs --snapshot-dir", id="flags5-queue 1 item 7"),
-    pytest.param(["--task", "lm"], "queue 1 item 8",
-                 id="flags6-queue 1 item 8"),
+    pytest.param(["--task", "lm", "--reduced", "--arch", "stablelm-3b",
+                  "--batch", "16", "--seq", "64", "--steps", "2",
+                  "--samples", "4096"],
+                 "[train-lm] 2 steps in", id="flags6-queue 1 item 8"),
 ])
 def test_torch_cli_names_roadmap_for_unported(flags, expect, tmp_path,
                                               monkeypatch):
@@ -200,7 +203,7 @@ def test_torch_cli_names_roadmap_for_unported(flags, expect, tmp_path,
     from repro_torch.launch import train as launch
 
     monkeypatch.chdir(tmp_path)
-    if not expect.startswith("[train] done"):
+    if not expect.startswith("[train"):
         with pytest.raises(SystemExit, match=expect):
             launch.main(["--device", "cpu"] + flags)
         assert not any(tmp_path.iterdir())
