@@ -273,8 +273,22 @@ Phases, each fatal on failure:
      8 wkv6, 1 fused CowClip and 1 embedding backward launches, no host
      read of a device scalar, no PyTorch embedding backward, the idle
      share; a second run of 3 steps from the same seed bitwise the first
+ 49. activation checkpointing on phase 48's config: remat off, "full" and
+     "dots", 3 steps each from seed 0, the losses and every param bitwise
+     equal across the three; for each, ms a step (CUDA events), peak
+     memory, launches a step (wkv6 8 / 16 / 16: the recompute runs the
+     kernel again; the fused update and the embedding backward 1), a
+     traced step with no host read of a device scalar, and FlopCounterMode
+     on a step; then one full-remat step at a batch that remat off cannot
+     hold (picked from the measured activation bytes), with its peak
+ 50. the dry-run (launch/dryrun.py) of phase 49's config on one rank, on
+     fake CPU tensors, remat off and full: its argument bytes exactly the
+     card's params, substrate state and batch; its temp peak with phase
+     49's params and state beside phase 49's measured peak (a ratio, no
+     bar); its FLOPs beside FlopCounterMode's on a card step (the gap is
+     the plain wkv6's products, which the kernel does out of its sight)
 Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13;
-phases 37-43, then 44-48, last. Each
+phases 37-43, then 44-48, then 49-50, last. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
 prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
@@ -5313,6 +5327,219 @@ def lm_train_phases(smi, kind):
     return lines
 
 
+REMAT_STEPS = 3                # steps of each remat setting, phase 49
+# (name, cfg.remat, cfg.remat_policy) of phase 49's three runs
+REMAT_RUNS = (("off", False, "full"), ("full", True, "full"),
+              ("dots", True, "dots"))
+REMAT_ROOM = 0.92              # the share of the card a remat step may plan
+
+
+def remat_phases(smi, kind):
+    """Phases 49-50: activation checkpointing (``cfg.remat``) on phase
+    48's config, and the dry-run of that config on one rank beside the
+    card. Returns the kernels' launches on phase 49's full-remat run (this
+    slice's path), by kernel name."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import input_specs
+    from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6_7B
+    from repro_torch.core.tree import flatten_with_paths, tree_leaves
+    from repro_torch.kernels.cowclip import fused_cowclip_adam
+    from repro_torch.kernels.embedding import embedding_backward_groups
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    from repro_torch.train.loop import train_lm
+
+    power = smi.strip().split(", ")[-1]
+    b, s = LM_TRAIN_BATCH
+    samples = build_parser().get_default("samples")
+    base_cfg = dataclasses.replace(RWKV6_7B, n_layers=LM_TRAIN_LAYERS,
+                                   wkv_backend="chunked")
+    n_params = lm.param_counts(base_cfg)["total"]
+    counters = (wkv6, fused_cowclip_adam, embedding_backward_groups)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def run(cfg, batch, steps):
+        return train_lm(cfg, batch=batch, seq=s, steps=steps,
+                        base_lr=LM_TRAIN_BASE_LR, base_l2=1e-5,
+                        samples=samples, seed=0, device="cuda")
+
+    # -- 49. remat off, full and dots: 3 steps each from seed 0 ----------
+    phase_start(49)
+    t_phase = time.perf_counter()
+    got, ref = {}, None
+    for name, remat, policy in REMAT_RUNS:
+        cfg = dataclasses.replace(base_cfg, remat=remat,
+                                  remat_policy=policy)
+        phase_end()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        out = run(cfg, b, REMAT_STEPS)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = torch.cuda.max_memory_allocated()
+        held = nbytes(out.params) + nbytes(out.state)   # grads come and go
+        ms = [1e3 * x for x in out.step_seconds]
+        flat = {k: t.to("cpu", copy=True)
+                for k, t in flatten_with_paths(out.params).items()}
+        losses = out.losses.cpu()
+        if ref is None:
+            ref = (flat, losses)
+        else:
+            diffs = [k for k, t in flat.items() if not torch.equal(t, ref[0][k])]
+            check(torch.equal(losses, ref[1]) and not diffs,
+                  f"remat {name}: the losses {losses.tolist()} against "
+                  f"{ref[1].tolist()}, params differ in {diffs[:5]}")
+        del flat
+        # one more step traced (host reads), and one under FlopCounterMode
+        batch = {"tokens": torch.as_tensor(np.zeros((b, s), np.int32) + 7,
+                                           device="cuda"), "prefix": None}
+        for fn in counters:
+            fn.launches = 0
+        wall_ms, prof = profiled(lambda: out.step(out.params, out.state,
+                                                  batch), with_stack=True)
+        traced = {fn.__name__: fn.launches for fn in counters}
+        reads = [r[:4] for r in host_reads(prof) if r[1] == "device"]
+        del prof
+        with FlopCounterMode(display=False) as fc:
+            out.step(out.params, out.state, batch)
+        # the forward and backward alone (the step's first half): what the
+        # batch's activations and the gradients take above the params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads = loop._grads(out.params, lambda view: lm.loss_fn(
+            view, cfg, batch["tokens"])[0])
+        fb = torch.cuda.max_memory_allocated() - base
+        del grads
+        want = {"wkv6": LM_TRAIN_LAYERS * (2 if remat else 1),
+                "fused_cowclip_adam": 1, "embedding_backward_groups": 1}
+        per_step = {k: v / REMAT_STEPS for k, v in launches.items()}
+        got[name] = {"peak": peak, "held": held, "ms": ms, "fb": fb,
+                     "flops": fc.get_total_flops(), "launches": launches,
+                     "steady": sum(ms[1:]) / len(ms[1:])}
+        print(f"[remat] {name} (remat={remat}, policy {policy}): "
+              f"{REMAT_STEPS} steps of {b} x {s}, losses "
+              f"{losses.tolist()}; ms a step (CUDA events) "
+              f"{[round(x, 1) for x in ms]}; peak device memory "
+              f"{peak / 2**30:.2f} GiB (params and state "
+              f"{held / 2**30:.2f} GiB; the forward and backward alone "
+              f"{fb / 2**30:.2f} GiB above them, gradients included); "
+              f"launches a step {per_step} "
+              f"(expected {want}); a traced step: {traced}, "
+              f"{len(reads)} host reads of a device scalar, {wall_ms:.1f} "
+              f"ms wall; FlopCounterMode {fc.get_total_flops():.4e} FLOPs a "
+              f"step; {kind} at {power}", flush=True)
+        check(per_step == want and traced == want,
+              f"remat {name}: launches {launches} over {REMAT_STEPS} steps, "
+              f"{traced} traced, expected {want} a step")
+        check(not reads, f"remat {name}: host reads of a device scalar "
+                         f"{reads}")
+        del out, batch
+    print(f"[remat] off, full and dots bitwise equal over {REMAT_STEPS} "
+          f"steps: every loss and every param leaf", flush=True)
+    for name in ("full", "dots"):
+        print(f"[remat] {name} against off: peak "
+              f"{got[name]['peak'] / got['off']['peak']:.3f}x, ms a step "
+              f"(mean of steps 2-{REMAT_STEPS}) "
+              f"{got[name]['steady']:.1f} against {got['off']['steady']:.1f} "
+              f"({got[name]['steady'] / got['off']['steady']:.3f}x); "
+              f"{kind} at {power}", flush=True)
+    ref = None
+
+    # one step of full remat at a batch that remat off cannot hold
+    total = torch.cuda.get_device_properties(0).total_memory
+    # params, state and the gradients (a params' worth) do not grow with
+    # the batch; the rest of the forward and backward's peak is taken to,
+    # token for token; the update's peak (the leaf-wise Adam's temporaries
+    # of the largest stacked leaf) does not grow with it
+    held = got["off"]["held"] + 4 * n_params
+    act = {k: (got[k]["fb"] - 4 * n_params) / (b * s)
+           for k in ("off", "full")}
+    big = next((n for n in range(b, samples // s + 1, b)
+                if held + act["off"] * n * s > total), None)
+    need = None if big is None else max(held + act["full"] * big * s,
+                                        got["full"]["peak"])
+    if big is None or need > REMAT_ROOM * total:
+        print(f"[remat] no batch that remat off cannot hold fits full remat "
+              f"(activations a token: off {act['off']:.0f} B, full "
+              f"{act['full']:.0f} B; {held / 2**30:.2f} GiB held, "
+              f"{total / 2**30:.2f} GiB on the card)", flush=True)
+    else:
+        phase_end()
+        torch.cuda.reset_peak_memory_stats()
+        out = run(dataclasses.replace(base_cfg, remat=True), big, 1)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[remat] full remat, one step of {big} x {s} (remat off "
+              f"would need ~{(held + act['off'] * big * s) / 2**30:.1f} GiB "
+              f"of the card's {total / 2**30:.1f}, from its "
+              f"{act['off']:.0f} B of activations a token): loss "
+              f"{float(out.losses[0]):.4f}, {1e3 * out.step_seconds[0]:.1f} "
+              f"ms, peak {peak / 2**30:.2f} GiB (predicted "
+              f"{need / 2**30:.2f}: its forward and backward "
+              f"{(held + act['full'] * big * s) / 2**30:.2f}, phase 49's "
+              f"update {got['full']['peak'] / 2**30:.2f}); {kind} at "
+              f"{power}", flush=True)
+        check(math.isfinite(float(out.losses[0])),
+              f"full remat at {big} x {s}: loss {out.losses.tolist()}")
+        del out
+    print(f"[phase 49] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    phase_end()
+
+    # -- 50. the dry-run of phase 49's config on one rank ----------------
+    phase_start(50)
+    t_phase = time.perf_counter()
+    spec = {"seq_len": s, "global_batch": b, "step": "train"}
+    params = lm.init(base_cfg, seed=0, device="cuda")
+    hp, tx = dryrun._make_lm_optimizer(base_cfg)
+    card = (nbytes(params) + nbytes(tx.init(params))
+            + nbytes(input_specs(base_cfg, "train_4k", device="cuda",
+                                 spec=spec)))
+    del params
+    phase_end()
+    for name, remat in (("off", False), ("full", True)):
+        rec = dryrun.dryrun_lm("rwkv6-7b", "train_4k", mesh=False,
+                               cfg=dataclasses.replace(base_cfg, remat=remat),
+                               spec=spec, force_remat=False, verbose=False)
+        flops_fb = rec["flops_by_phase"]["forward_backward"]
+        bmm = rec["flops_by_op"].get("aten.bmm", 0.0)
+        predicted = got[name]["held"] + rec["temp_by_phase"][
+            "forward_backward"]
+        measured = got[name]["held"] + got[name]["fb"]
+        print(f"[dry-run] rwkv6-7b, {LM_TRAIN_LAYERS} layers, {b} x {s}, "
+              f"remat {name}, one rank (traced {rec['traced']} on fake "
+              f"CPU tensors, {rec['lower_s']:.1f} s): argument bytes "
+              f"{rec['argument_size_in_bytes']} (the card's params, "
+              f"substrate state and batch: {card}); temp "
+              f"{rec['temp_size_in_bytes'] / 2**30:.2f} GiB, in the forward "
+              f"and backward {rec['temp_by_phase']['forward_backward'] / 2**30:.2f}"
+              f" GiB: with phase 49's params and state "
+              f"{predicted / 2**30:.2f} GiB against its measured forward "
+              f"and backward {measured / 2**30:.2f} GiB (ratio "
+              f"{predicted / measured:.3f}) and its step's peak "
+              f"{got[name]['peak'] / 2**30:.2f} GiB (ratio "
+              f"{predicted / got[name]['peak']:.3f}); FLOPs {flops_fb:.4e} "
+              f"against FlopCounterMode's {got[name]['flops']:.4e} on a card "
+              f"step, gap {flops_fb - got[name]['flops']:.4e} (the plain "
+              f"wkv6's "
+              f"products; the dry-run's bmm FLOPs {bmm:.4e}); "
+              f"{kind} at {power}", flush=True)
+        check(rec["status"] == "ok" and rec["argument_size_in_bytes"] == card,
+              f"the dry-run's argument bytes {rec['argument_size_in_bytes']}"
+              f" against the card's {card}")
+    print(f"[phase 50] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"chunked_wkv6": got["full"]["launches"]["wkv6"],
+            "cowclip_adam_update": got["full"]["launches"][
+                "fused_cowclip_adam"],
+            "embedding_backward": got["full"]["launches"][
+                "embedding_backward_groups"]}
+
+
 def main() -> int:
     # a SIGSEGV (or SIGBUS, SIGFPE, SIGABRT) prints every thread's Python
     # stack to stderr before the process dies of it, with its exit code
@@ -5378,9 +5605,14 @@ def main() -> int:
     hybrid_lm_phases(smi, kind)
     phase_end()
     for name, extra in lm_train_phases(smi, kind).items():
-        # this slice's path, LM training: its shapes' numbers, and the
-        # calls on phase 48's 10-step run
+        # the LM training path: its shapes' numbers, and the calls on
+        # phase 48's 10-step run
         next(line for line in lines if line["name"] == name).update(extra)
+    phase_end()
+    for name, n in remat_phases(smi, kind).items():
+        # this slice's path, full remat: the calls on phase 49's 3 steps
+        next(line for line in lines if line["name"] == name)[
+            "launches_remat_full"] = n
     phase_end()
     print(f"[exit] threads alive: "
           f"{[(t.name, t.daemon) for t in threading.enumerate()]}",

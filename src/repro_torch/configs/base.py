@@ -1,15 +1,16 @@
 """Input shapes and reduced smoke variants of the LM configurations.
 
-The port's copy of ``repro.configs.base`` without ``input_specs``, which
-feeds JAX's ahead-of-time lowering: ``INPUT_SHAPES``,
-``supports_long_context`` and ``reduce_config`` (the CPU-smoke variant:
-2 layers a pattern position, d_model 128, vocab 512, <= 4 experts,
-f32).
+The port's copy of ``repro.configs.base``: ``INPUT_SHAPES``,
+``supports_long_context``, ``input_specs`` (the dry-run's stand-in
+inputs) and ``reduce_config`` (the CPU-smoke variant: 2 layers a pattern
+position, d_model 128, vocab 512, <= 4 experts, f32).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from ..models.lm import LMConfig
 from ..models.moe import MoEConfig
@@ -32,6 +33,36 @@ def supports_long_context(cfg: LMConfig) -> bool:
         return False
     # local/global mix: global layers hold full KV, local ones a ring buffer
     return "local" in kinds
+
+
+def input_specs(cfg: LMConfig, shape_name: str, *, device="meta",
+                spec: dict | None = None) -> dict:
+    """Stand-ins for every input of the shape's step function, made so
+    that nothing is allocated: on the ``meta`` device, or, called inside a
+    ``FakeTensorMode`` (the dry-run), fake tensors on ``device``.
+
+    Train and prefill: ``{"tokens": [B, S] int32}`` and, for a frontend,
+    ``"prefix_emb": [B, P, D]`` in the compute dtype. Decode: ``{"token":
+    [B] int32, "cache": lm.init_cache(cfg, B, S), "cur_index": a 0-dim
+    int64}``. ``spec`` stands in for ``INPUT_SHAPES[shape_name]`` (a
+    reduced shape)."""
+    from ..models import lm
+
+    spec = spec or INPUT_SHAPES[shape_name]
+    b, s = spec["global_batch"], spec["seq_len"]
+    if spec["step"] in ("train", "prefill"):
+        out = {"tokens": torch.zeros((b, s), dtype=torch.int32,
+                                     device=device)}
+        if cfg.frontend:
+            out["prefix_emb"] = torch.zeros((b, cfg.n_prefix, cfg.d_model),
+                                            dtype=cfg.dtype, device=device)
+        return out
+    # decode: one token, a seq_len cache and the cursor
+    return {
+        "token": torch.zeros((b,), dtype=torch.int32, device=device),
+        "cache": lm.init_cache(cfg, b, s, device=device),
+        "cur_index": torch.zeros((), dtype=torch.int64, device=device),
+    }
 
 
 def reduce_config(cfg: LMConfig) -> LMConfig:

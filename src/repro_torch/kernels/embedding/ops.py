@@ -176,11 +176,13 @@ class _GatherFields(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ids, plan, *tables):
         n = ids.shape[1]
-        cols = [torch.clamp_max(ids[:, f], t.shape[0] - 1)
-                for f, t in enumerate(tables[:n])]
         ctx.save_for_backward(ids)
         ctx.plan = plan
         ctx.vocabs = tuple(t.shape[0] for t in tables[:n])
+        if _is_dtensor(ids):
+            return _sharded_lookup(ids, tables)
+        cols = [torch.clamp_max(ids[:, f], t.shape[0] - 1)
+                for f, t in enumerate(tables[:n])]
         return tuple(
             torch.stack([F.embedding(c, t)
                          for c, t in zip(cols, tables[i:i + n])], dim=1)
@@ -191,12 +193,110 @@ class _GatherFields(torch.autograd.Function):
         if not any(ctx.needs_input_grad[2:]):
             return (None,) * len(ctx.needs_input_grad)
         ids, = ctx.saved_tensors
-        layout = field_layout(ctx.vocabs, ids.device)
-        plan = ctx.plan if ctx.plan is not None else sort_plan(
-            layout.keys(ids))
-        gs = embedding_backward_groups(
-            plan, [g.reshape(-1, g.shape[-1]) for g in grads], layout.rows)
-        return (None, None, *[t for g in gs for t in layout.split(g)])
+        if _is_dtensor(ids):
+            return (None, None, *_sharded_table_grads(ctx.vocabs, ids,
+                                                      grads))
+        return (None, None, *_table_grads(ctx.plan, ctx.vocabs, ids, grads))
+
+
+def _table_grads(plan, vocabs, ids, grads) -> list:
+    """Every table's gradient from one ``embedding_backward_groups``
+    call (``plan``, or a sort of ``ids``' keys). On fake tensors (the
+    dry-run's trace) the segmented sum's writes, whose number depends on
+    the ids' values, cannot run; ``_traced_stand_in`` takes its place."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(ids):
+        return _traced_stand_in(vocabs, ids, grads)
+    layout = field_layout(vocabs, ids.device)
+    plan = plan if plan is not None else sort_plan(layout.keys(ids))
+    gs = embedding_backward_groups(
+        plan, [g.reshape(-1, g.shape[-1]) for g in grads], layout.rows)
+    return [t for g in gs for t in layout.split(g)]
+
+
+def _traced_stand_in(vocabs, ids, grads) -> list:
+    """What the dry-run counts for the backward on fake tensors: each
+    field's rows added into a zero table gradient (``index_add_``, the
+    reference's transpose of its gather), the same bytes in and out as
+    the segmented sum without its data-dependent run writes."""
+    out = []
+    for g in grads:
+        for f, v in enumerate(vocabs):
+            col = torch.clamp_max(ids[:, f].to(torch.int64), v - 1)
+            out.append(torch.zeros((v, g.shape[-1]), dtype=g.dtype,
+                                   device=g.device).index_add_(
+                0, col, g[:, f]))
+    return out
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _sharded_lookup(ids, tables) -> tuple:
+    """``_GatherFields``' forward with DTensor ids split over the batch
+    and tables split by rows (the dry-run), as an SPMD partitioner does a
+    gather from a row-sharded table: each table all-gathered over the mesh
+    dims that split the batch; on the dims that split its rows each rank
+    looks its batch's ids up in its own block (ids outside it read zeros)
+    and the output is a partial sum over those dims (a table not split
+    over one of them counts on its first rank only)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ids.device_mesh
+    n = ids.shape[1]
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in ids.placements]
+    ids_pl = [Shard(0) if b else Replicate() for b in batch]
+    rows = [[not b and isinstance(p, Shard) and p.dim == 0
+             for b, p in zip(batch, t.placements)] for t in tables]
+    row_dims = [any(r[m] for r in rows) for m in range(mesh.ndim)]
+    coord = [mesh.get_local_rank(m) for m in range(mesh.ndim)]
+    sizes = list(mesh.shape)
+
+    def local(ids, *blocks):
+        outs = []
+        for i in range(0, len(blocks), n):
+            cols = []
+            for f in range(n):
+                t, split = blocks[i + f], rows[i + f]
+                c = torch.clamp_max(ids[:, f], tables[f].shape[0] - 1)
+                block, own = 0, True
+                for m in range(mesh.ndim):
+                    if split[m]:
+                        block = block * sizes[m] + coord[m]
+                    elif row_dims[m]:
+                        own = own and coord[m] == 0
+                idx = c - block * t.shape[0]
+                ok = (idx >= 0) & (idx < t.shape[0]) & own
+                cols.append(F.embedding(idx.clamp(0, t.shape[0] - 1), t)
+                            * ok[:, None].to(t.dtype))
+            outs.append(torch.stack(cols, dim=1))
+        return tuple(outs)
+
+    out = [Partial() if r else (Shard(0) if b else Replicate())
+           for b, r in zip(batch, row_dims)]
+    in_pl = [ids_pl] + [[Shard(0) if r else Replicate() for r in split]
+                        for split in rows]
+    return local_map(local, out_placements=(out,) * (len(tables) // n),
+                     in_placements=tuple(in_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(ids, *tables)
+
+
+def _sharded_table_grads(vocabs, ids, grads) -> list:
+    """``_table_grads`` with the ids and the output gradients as DTensors
+    split over the batch (the dry-run): each rank runs the backward on
+    its own rows of the batch into a whole-table gradient, a partial sum
+    over the mesh dims that split the batch (``sharding.act.
+    batch_partial``)."""
+    from ...sharding.act import batch_partial
+
+    return list(batch_partial(
+        lambda ids, *gs: tuple(_table_grads(None, vocabs, ids, gs)),
+        len(grads) * len(vocabs), ids, *grads))
 
 
 def gather_fields(groups: Sequence[Sequence[torch.Tensor]], ids: torch.Tensor,

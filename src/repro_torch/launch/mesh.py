@@ -1,4 +1,6 @@
-"""The ("data", "model") process grid of the sharded CTR placements.
+"""The ("data", "model") process grid of the sharded CTR placements, and
+the dry-run's production mesh on a fake process group
+(``make_production_mesh``).
 
 A port of ``repro.launch.mesh``'s CTR half. The JAX package runs one
 process over a mesh of devices under ``shard_map``; the port runs one
@@ -185,3 +187,47 @@ def spawn_host_ranks(fn: Callable, n: int, args: tuple = ()) -> None:
                   f"{signal.Signals(signum).name}; the other ranks were "
                   f"ended", file=sys.stderr, flush=True)
             raise SystemExit(128 + signum) from None
+
+
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+@contextlib.contextmanager
+def make_production_mesh(multi_pod: bool = False, *, shape=None,
+                         axes=None, rank: int = 0):
+    """The dry-run's mesh, as a context manager yielding a CPU
+    ``DeviceMesh``: ``(16, 16)`` ``("data", "model")`` or, with
+    ``multi_pod``, ``(2, 16, 16)`` ``("pod", "data", "model")`` (the
+    reference's production meshes; ``shape`` and ``axes`` give another,
+    e.g. the tests' ``(2, 4)``), over a *fake* process group of that many
+    ranks in this one process, which plays ``rank``: its collectives
+    return at once and move nothing, so a step traced on fake tensors
+    sees every collective it would issue without a peer. The group is
+    destroyed on the way out. A process group that is already up is
+    refused."""
+    # the one import of torch's internal fake backend (registers "fake")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if shape is None:
+        shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    shape, axes = tuple(shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    if dist.is_initialized():
+        raise RuntimeError(
+            "make_production_mesh needs no process group to be up, and one "
+            f"is ({dist.get_backend()}, world {dist.get_world_size()}); "
+            "destroy it first")
+    world = 1
+    for n in shape:
+        world *= n
+    dist.init_process_group("fake", rank=rank, world_size=world,
+                            store=FakeStore())
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    finally:
+        dist.destroy_process_group()

@@ -90,12 +90,15 @@ def _apply_mlp(params: dict, x: torch.Tensor, n_layers: int) -> torch.Tensor:
 def init(cfg: CTRConfig, *, generator: torch.Generator | None = None,
          seed: int = 0, device="cuda") -> dict:
     """Random params for ``cfg`` on ``device``, drawn from ``generator``
-    (a fresh one seeded with ``seed`` when None)."""
+    (a fresh one seeded with ``seed`` when None); ``device="meta"``
+    allocates nothing."""
     if cfg.name not in MODEL_NAMES:
         raise ValueError(f"unknown CTR model {cfg.name!r}")
     device = torch.device(device)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = torch.Generator(
+            device="cpu" if device.type == "meta" else device
+        ).manual_seed(seed)
 
     embed = {"fm": embedding.init_field_tables(
         generator, cfg.vocab_sizes, cfg.emb_dim, sigma=cfg.emb_sigma,

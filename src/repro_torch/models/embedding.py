@@ -84,7 +84,16 @@ def field_counts(ids: torch.Tensor, vocab_sizes: Sequence[int]) -> dict:
     (``kernels.embedding.field_layout``, with one drop bin past its end),
     so nothing is read back to the host; sums of ones are exact in f32
     below 2**24 in any order, so the counts are deterministic on the card
-    too."""
+    too. On DTensors split over the batch (the dry-run) each rank counts
+    its own rows: a partial sum over the batch's mesh dims."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(ids, DTensor):
+        from ..sharding.act import batch_partial
+
+        out = batch_partial(lambda i: tuple(
+            field_counts(i, vocab_sizes).values()), len(vocab_sizes), ids)
+        return {f"field_{i}": c for i, c in enumerate(out)}
     layout = field_layout(tuple(vocab_sizes), ids.device)
     keys = layout.keys(ids)
     counts = torch.zeros(layout.rows + 1, dtype=torch.float32,

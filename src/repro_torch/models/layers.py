@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..sharding.act import (axis_size, constrain, current_mesh,
+                            local_region)
 
 NEG_INF = -1e30
 F32 = torch.float32
@@ -48,11 +50,22 @@ def init_rmsnorm(d: int, *, lead: tuple = (), device="cuda") -> dict:
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last dim, in f32. On a mesh (the dry-run) each
+    rank normalises its own rows (``sharding.act.local_region``), so its
+    backward keeps the rows' layout: DTensor's own choice splits the
+    tokens over "model" there."""
+    rows = ("batch",) + (None,) * (x.dim() - 1)
+    return local_region(lambda x, scale: _rmsnorm(x, scale, eps),
+                        (rows, (None,) * params["scale"].dim()),
+                        (tuple(x.shape), rows))(x, params["scale"])
+
+
+def _rmsnorm(x, scale, eps):
     dt = x.dtype
     xf = x.to(F32)
     y = xf * torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True)
                          + eps)
-    return (y * params["scale"]).to(dt)
+    return (y * scale).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float = 1e4, *,
@@ -105,7 +118,20 @@ def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,
 
 def _proj(x, w, dtype):
     """einsum("bsd,dhk->bshk", x, w) as one matmul over the flattened
-    heads."""
+    heads. On a mesh (the dry-run), where the heads do not divide
+    "model", each rank projects its batch rows onto every head (the
+    weight gathered whole): head_dim is never split."""
+    h, k = w.shape[1:]
+    if h % axis_size("model"):
+        return local_region(
+            lambda x, w: _heads(x, w, dtype), (("batch", None, None),
+                                               (None, None, None)),
+            (tuple(x.shape[:-1]) + (h, k), ("batch", None, None, None)),
+        )(x, w)
+    return _heads(x, w, dtype)
+
+
+def _heads(x, w, dtype):
     d, h, k = w.shape
     return (x @ w.to(dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
@@ -166,6 +192,25 @@ def _grouped_attn(q, k, v, mask, n_valid: int | None = None):
     return out
 
 
+def _attend(q, k, v, mask, n_valid: int | None = None):
+    """``_grouped_attn``; on a mesh (the dry-run) each rank attends its
+    own batch rows and kv heads (``sharding.act.local_region``), the
+    heads split over "model" where the kv heads divide it, and the padded
+    heads masked after."""
+    if current_mesh() is None:
+        return _grouped_attn(q, k, v, mask, n_valid)
+    heads = "model" if k.shape[2] % axis_size("model") == 0 else None
+    qa, ka = ("batch", None, heads, None), ("batch", None, heads, None)
+    out = local_region(_grouped_attn, (qa, ka, ka, None),
+                       (tuple(q.shape), qa))(q, k, v, mask)
+    h = q.shape[2]
+    if n_valid is not None and n_valid < h:
+        head_ok = (torch.arange(h, device=q.device) < n_valid)[
+            None, None, :, None]
+        out = out * head_ok.to(out.dtype)
+    return out
+
+
 def attention_train(params, x, *, theta: float, window: Optional[int] = None,
                     n_valid_heads: Optional[int] = None):
     """Full training/prefill attention over [B, S, D] -> [B, S, D]."""
@@ -179,7 +224,7 @@ def _attention_full(params, x, theta, window, n_valid_heads):
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(params, x, positions, theta, dtype)
     mask = _causal_mask(s, s, window, device=x.device)
-    out = _grouped_attn(q, k, v, mask, n_valid_heads)
+    out = _attend(q, k, v, mask, n_valid_heads)
     return _out_proj(out, params["wo"], dtype), k, v
 
 
@@ -236,8 +281,8 @@ def attention_decode(params, x: torch.Tensor, cache: KVCache, cur_index, *,
     valid = idx <= cur
     if window is not None:
         valid = valid | (cur >= cap)
-    out = _grouped_attn(q, k.to(dtype), v.to(dtype), _additive(valid),
-                        n_valid_heads)
+    out = _attend(q, k.to(dtype), v.to(dtype), _additive(valid),
+                  n_valid_heads)
     return _out_proj(out, params["wo"], dtype), KVCache(k=k, v=v)
 
 
@@ -267,6 +312,10 @@ def attention_prefill(params, x, cache: KVCache, *, theta: float,
 # ---------------------------------------------------------------------------
 
 
+def _hidden(h):
+    return constrain(h, *(("batch",) + (None,) * (h.dim() - 2) + ("model",)))
+
+
 def init_mlp(gen, d_model: int, d_ff: int, act: str = "swiglu", *,
              lead: tuple = (), device="cuda") -> dict:
     device = resolve_device(device)
@@ -282,10 +331,13 @@ def init_mlp(gen, d_model: int, d_ff: int, act: str = "swiglu", *,
 
 
 def mlp(params: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    """The FFN; on a mesh (the dry-run) its hidden activation is split
+    over "model" by its features (Megatron's column-parallel layout),
+    which DTensor's op-by-op choice would otherwise split by tokens."""
     dtype = x.dtype
-    h = x @ params["w_in"].to(dtype)
+    h = _hidden(x @ params["w_in"].to(dtype))
     if act == "swiglu":
-        g = x @ params["w_gate"].to(dtype)
+        g = _hidden(x @ params["w_gate"].to(dtype))
         h = F.silu(g) * h
     elif act == "gelu":
         # jax.nn.gelu's default is the tanh approximation

@@ -29,22 +29,38 @@ frontends' prefix embeddings.
   make_lm_train_step``): the token gather is the port's
   ``kernels.embedding.gather_fields``, so the table's gradient comes from
   its deterministic embedding backward; the wkv6 scan and the Mamba-2
-  scan are differentiable. The reference's ``cfg.remat`` /
-  ``remat_policy`` (``jax.checkpoint`` of a superblock) are not ported:
-  no config sets them.
+  scan are differentiable.
+* **Activation checkpointing** (``cfg.remat``): each superblock (the
+  pattern's layers and zamba2's shared block) runs under
+  ``torch.utils.checkpoint.checkpoint`` (non-reentrant), the
+  counterpart of the reference's ``jax.checkpoint`` of its scan body.
+  ``remat_policy="full"`` keeps only the superblock's input and
+  recomputes the rest in the backward; ``"dots"`` (``_dots_policy``,
+  the counterpart of ``dots_with_no_batch_dims_saveable``) also keeps
+  the outputs of ``aten.mm`` / ``aten.addmm``. The gradients are the
+  same bits as without remat. A kernel that no dispatch mode sees (the
+  wkv6 kernel under autograd) is run again in the recompute, and its
+  launch counter counts it again.
+* **Sharding hints.** ``sharding.act.constrain`` at the reference's
+  places (the embedding, the logits) and on the residual stream after
+  each layer; no-ops without a mesh (the dry-run's).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..core.device import resolve_device
 from ..core.tree import tree_leaves, tree_map
 from ..kernels.embedding import gather_fields
+from ..sharding.act import (constrain, current_mesh, local_region,
+                            placements)
 from . import layers, mamba, moe as moe_lib, rwkv
 from .moe import MoEConfig
 
@@ -299,25 +315,81 @@ def _apply_shared(p, cfg: LMConfig, x):
     return _shared_mlp(p, cfg, x)
 
 
+# the products with no batch dimension, which ``remat_policy="dots"``
+# keeps: a 2-D (or folded 3-D) activation times a 2-D weight
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of ``aten.mm`` and
+    ``aten.addmm``, recompute everything else. Of the port's products,
+    ``x @ w`` with ``x`` [B, S, D] and ``w`` [D, F] reaches the policy as
+    ``aten.mm`` on a [B*S, D] view (the projections, the MLPs, the head,
+    the routers, the rwkv and Mamba-2 in/out projections: kept);
+    ``torch.einsum`` and a matmul of two batched operands reach it as
+    ``aten.bmm`` (attention's scores and their weighted sum, the MoE
+    experts' einsums, the rwkv scan's ``bhn,bhnm->bhm``, the plain
+    chunked wkv6's products: recomputed), as in the reference, whose
+    policy saves no ``dot_general`` with a batch dimension."""
+    del ctx, args, kwargs
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _superblock(block, shared, cfg: LMConfig, x, aux):
+    """One repeat of the pattern (and zamba2's shared block after it). On
+    a mesh the residual stream is laid out over the batch after every
+    layer (``_residual``)."""
+    for i, kind in enumerate(cfg.block_pattern):
+        x, aux = _apply_position(block[f"pos_{i}"], kind, cfg, x, aux)
+        x = _residual(x)
+    if shared is not None:
+        x = _residual(_apply_shared(shared, cfg, x))
+    return x, aux
+
+
+def _residual(x):
+    """The residual stream over the batch, replicated over "model" (on a
+    mesh; else ``x`` itself): the Megatron layout, an all-reduce after a
+    row-parallel product. The reference leaves this to XLA's propagation;
+    DTensor's, op by op, would carry a partial sum from layer to layer
+    and split the tokens over "model" in the backward."""
+    return constrain(x, "batch", None, None)
+
+
+def _remat_superblock(block, shared, cfg: LMConfig, x, aux):
+    """``_superblock`` under activation checkpointing (``cfg.remat``)."""
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat_policy == "full":
+        context_fn = ckpt.noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return ckpt.checkpoint(_superblock, block, shared, cfg, x, aux,
+                           use_reentrant=False, context_fn=context_fn)
+
+
 def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
             prefix_emb: Optional[torch.Tensor] = None):
     """Full-sequence forward: tokens [B, S] (after the frontend's
     ``prefix_emb`` [B, P, D], if any) -> (logits [B, P + S, V_padded],
     aux), aux the f32 scalar MoE loss summed over the layers (0 without
-    MoE)."""
+    MoE). With ``cfg.remat`` each superblock is checkpointed
+    (``_remat_superblock``)."""
     cfg.validate()
-    x = _embed(params, cfg, tokens, prefix_emb)
+    x = constrain(_embed(params, cfg, tokens, prefix_emb), "batch", None,
+                  None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = params["dense"]["blocks"]
     shared = params["dense"].get("shared")
+    run = _remat_superblock if cfg.remat else _superblock
     for rep in range(cfg.n_repeats):
-        block = _repeat(blocks, rep)
-        for i, kind in enumerate(cfg.block_pattern):
-            x, aux = _apply_position(block[f"pos_{i}"], kind, cfg, x, aux)
-        if shared is not None:
-            x = _apply_shared(shared, cfg, x)
+        x, aux = run(_repeat(blocks, rep), shared, cfg, x, aux)
     x = layers.rmsnorm(params["dense"]["final_norm"], x, cfg.norm_eps)
     logits = x @ params["dense"]["head"].to(cfg.dtype)
+    logits = constrain(logits, "batch", None, "model")
     logits = _mask_pad_vocab(logits, cfg)
     return logits.to(_torch_dtype(cfg.logits_dtype)), aux
 
@@ -340,10 +412,51 @@ def loss_fn(params, cfg: LMConfig, tokens, prefix_emb=None):
     p = 0 if prefix_emb is None else prefix_emb.shape[1]
     pred = logits[:, p: p + tokens.shape[1] - 1]
     tgt = tokens[:, 1:]
+    if current_mesh() is not None:
+        return _mesh_loss(pred, tgt, aux)
     # f32 accumulation regardless of logits storage dtype
     logz = torch.logsumexp(pred.to(torch.float32), dim=-1)
     gold = torch.take_along_dim(pred, tgt[..., None].long(), dim=-1)[..., 0]
     ce = torch.mean(logz - gold.to(torch.float32))
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _mesh_loss(pred, tgt, aux):
+    """``loss_fn``'s cross-entropy on a mesh (the dry-run), vocab-parallel
+    as an SPMD partitioner lays it out: with the logits' vocab split over
+    "model" each rank takes its block's max, sum of exponentials and gold
+    logit, and three all-reduces over "model" of ``[B, S]`` finish them,
+    where DTensor would gather the ``[B, S, V]`` logits."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = current_mesh()
+    names = list(mesh.mesh_dim_names)
+    lay = placements(pred.shape, ("batch", None, "model"), mesh)
+    split = "model" in names and lay[names.index("model")].is_shard()
+
+    def local(pred, tgt):
+        v = pred.shape[-1]
+        group = (mesh, names.index("model")) if split else None
+        # the shift's gradient cancels: it carries none
+        m = pred.detach().to(torch.float32).amax(dim=-1)
+        if split:
+            m = funcol.all_reduce(m, "max", group)
+        z = torch.exp(pred.to(torch.float32) - m[..., None]).sum(dim=-1)
+        off = mesh.get_local_rank("model") * v if split else 0
+        idx = tgt.long() - off
+        ok = (idx >= 0) & (idx < v)
+        gold = torch.take_along_dim(pred, idx.clamp(0, v - 1)[..., None],
+                                    dim=-1)[..., 0].to(torch.float32)
+        gold = gold * ok.to(torch.float32)
+        if split:
+            z = funcol.all_reduce(z, "sum", group)
+            gold = funcol.all_reduce(gold, "sum", group)
+        return m + torch.log(z) - gold
+
+    per_token = local_region(local, (("batch", None, "model"),
+                                     ("batch", None)),
+                             (tuple(tgt.shape), ("batch", None)))(pred, tgt)
+    ce = torch.mean(per_token)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -525,7 +638,8 @@ def prefill_with_cache(params: dict, cfg: LMConfig, tokens: torch.Tensor,
 
     Returns (last_logits [B, V_padded] f32, cache, cur_index)."""
     cfg.validate()
-    x = _embed(params, cfg, tokens, prefix_emb)
+    x = constrain(_embed(params, cfg, tokens, prefix_emb), "batch", None,
+                  None)
     fresh = _fresh_cache(cfg, x.shape[0], max_len, x.device)
     blocks = params["dense"]["blocks"]
     shared = params["dense"].get("shared")

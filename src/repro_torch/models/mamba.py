@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..sharding.act import local_region
 from .layers import _normal
 
 F32 = torch.float32
@@ -148,6 +149,20 @@ def _ssm_scan(xs, bmat, cmat, dt, a_log, d_skip):
     return torch.cat(ys, dim=1), s.clone()
 
 
+def _scan(xs, bmat, cmat, dt, a_log, d_skip):
+    """``_ssm_scan``; on a mesh (the dry-run) each rank scans its own
+    batch rows and heads (``sharding.act.local_region``)."""
+    b, _, h, p = xs.shape
+    heads = ("batch", None, "model", None)
+    return local_region(
+        _ssm_scan,
+        (heads, ("batch", None, None), ("batch", None, None),
+         ("batch", None, "model"), ("model",), ("model",)),
+        [(tuple(xs.shape), heads),
+         ((b, h, p, bmat.shape[-1]), ("batch", "model", None, None))],
+    )(xs, bmat, cmat, dt, a_log, d_skip)
+
+
 def _gated_out(params, y, z, d_inner, dtype, eps=1e-5):
     y = y.reshape(*z.shape[:-1], d_inner)
     y = y * F.silu(z.to(F32))
@@ -188,7 +203,7 @@ def mamba2_train(params, x, *, d_state: int = 64, head_dim: int = 64,
     xs = xs.reshape(bsz, seq, n_heads, head_dim)
     dt = F.softplus(dt_raw.to(F32) + params["dt_bias"])
 
-    y, s_fin = _ssm_scan(xs, bmat, cmat, dt, params["A_log"], params["D"])
+    y, s_fin = _scan(xs, bmat, cmat, dt, params["A_log"], params["D"])
     out = _gated_out(params, y.reshape(bsz, seq, d_inner), z, d_inner, dtype)
     if return_state:
         # decode resumes with the pre-silu conv inputs of the last K-1

@@ -13,8 +13,9 @@ gathers each choice's output back from ``ye`` padded by one overflow slot.
 Nothing here reads a value on the host or scatters a float: the expert
 counts are an integer ``scatter_add_`` into a ``[G, E]`` tensor (exact on
 the card), so a decode step captures as a CUDA graph and replays the eager
-step's arithmetic. The reference's ``constrain`` sharding hints have no
-meaning on one card and are dropped.
+step's arithmetic. The reference's two-stage reshard of the dispatched
+and the expert outputs is kept (``sharding.act.constrain``, a no-op off a
+mesh).
 
 Everything on the values' path is differentiable, as in the reference:
 the router's softmax and top-k values, the gathers and the einsums (the
@@ -36,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..sharding.act import constrain, local_region
 from .layers import _normal
 
 F32 = torch.float32
@@ -79,20 +81,15 @@ def _expert_counts(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
     return counts.scatter_add_(1, ids, torch.ones_like(ids))
 
 
-def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
-            act: str = "swiglu"):
-    """x: [B, S, D] -> ([B, S, D], aux_loss f32). Groups = batch rows.
-
-    Token-choice top-k with per-group expert capacity; overflow tokens are
-    dropped (Switch/GShard behaviour — the residual carries them)."""
+def _route(x, router, e: int, k: int, cap: int):
+    """Routing and dispatch, group by group: ``(probs [G,T,E], top_p,
+    top_e [G,T,k], flat_e, keep, safe_pos [G,Tk], xe [G,E,C,D])``."""
     g, tg, d = x.shape
     dtype = x.dtype
-    e, k = cfg.n_experts, cfg.top_k
-    cap = capacity(tg, cfg)
     tk = tg * k
     dev = x.device
 
-    logits = (x @ params["router"].to(dtype)).to(F32)               # [G,T,E]
+    logits = (x @ router.to(dtype)).to(F32)                         # [G,T,E]
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)                     # [G,T,k]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -121,27 +118,86 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
     # k times, without the [G, T*k, D] copy
     xe = torch.take_along_dim(x, (src_choice // k)[:, :, None], dim=1)
     xe = xe.reshape(g, e, cap, d) * slot_valid[..., None].to(dtype)
+    return probs, top_p, top_e, flat_e, keep, safe_pos, xe
 
-    # --- batched expert FFN ----------------------------------------------
-    h = torch.einsum("gecd,edf->gecf", xe, params["w_in"].to(dtype))
+
+def _experts(xe, w_in, w_gate, w_out, act: str):
+    """The batched expert FFN: ``[G,E,C,D] -> [G,E,C,D]``."""
+    dtype = xe.dtype
+    h = torch.einsum("gecd,edf->gecf", xe, w_in.to(dtype))
     if act == "swiglu":
-        gate = torch.einsum("gecd,edf->gecf", xe, params["w_gate"].to(dtype))
+        gate = torch.einsum("gecd,edf->gecf", xe, w_gate.to(dtype))
         h = F.silu(gate) * h
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h, approximate="tanh")
-    ye = torch.einsum("gecf,efd->gecd", h, params["w_out"].to(dtype))
+    return torch.einsum("gecf,efd->gecd", h, w_out.to(dtype))
 
-    # --- gather back + combine -------------------------------------------
+
+def _combine(ye, flat_e, safe_pos, top_p, keep):
+    """Each choice's expert output gathered back from ``ye`` padded by one
+    overflow slot, weighted and summed per token: ``[G,T,D]``."""
+    g, e, _, d = ye.shape
+    tk = flat_e.shape[1]
+    k = top_p.shape[-1]
+    dtype = ye.dtype
     ye_pad = torch.cat([ye, torch.zeros((g, e, 1, d), dtype=ye.dtype,
-                                        device=dev)], dim=2)
-    got = ye_pad[torch.arange(g, device=dev)[:, None], flat_e, safe_pos]
+                                        device=ye.device)], dim=2)
+    got = ye_pad[torch.arange(g, device=ye.device)[:, None], flat_e,
+                 safe_pos]
     weight = (top_p.reshape(g, tk) * keep.to(F32)).to(dtype)
-    y = (got * weight[:, :, None]).reshape(g, tg, k, d).sum(dim=2)
+    return (got * weight[:, :, None]).reshape(g, tk // k, k, d).sum(dim=2)
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
+            act: str = "swiglu"):
+    """x: [B, S, D] -> ([B, S, D], aux_loss f32). Groups = batch rows.
+
+    Token-choice top-k with per-group expert capacity; overflow tokens are
+    dropped (Switch/GShard behaviour — the residual carries them). On a
+    mesh (the dry-run) routing, dispatch and combine run on each rank's
+    groups and the experts on each rank's groups and experts
+    (``sharding.act.local_region``)."""
+    g, tg, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = capacity(tg, cfg)
+    tk = tg * k
+    rows = ("batch", None, None)
+
+    probs, top_p, top_e, flat_e, keep, safe_pos, xe = local_region(
+        lambda x, router: _route(x, router, e, k, cap), (rows, (None, None)),
+        [((g, tg, e), rows), ((g, tg, k), rows), ((g, tg, k), rows),
+         ((g, tk), ("batch", None)), ((g, tk), ("batch", None)),
+         ((g, tk), ("batch", None)), ((g, e, cap, d), rows + (None,))],
+    )(x, params["router"])
+    # two-stage reshard: the gather local to each data shard (E
+    # replicated), then E sliced onto the model axis
+    xe = constrain(xe, "batch", None, None, None)
+    xe = constrain(xe, "batch", "model", None, None)
+
+    experts = ("batch", "model", None, None)
+    w_gate = params.get("w_gate", params["w_in"])
+    ye = local_region(
+        lambda xe, w_in, w_gate, w_out: _experts(xe, w_in, w_gate, w_out,
+                                                 act),
+        (experts, ("model", None, None), ("model", None, None),
+         ("model", None, None)),
+        (tuple(xe.shape), experts),
+    )(xe, params["w_in"], w_gate, params["w_out"])
+    ye = constrain(ye, "batch", "model", None, None)
+    ye = constrain(ye, "batch", None, None, None)   # all-gather E (the comm)
+
+    y = local_region(
+        _combine,
+        (rows + (None,), ("batch", None), ("batch", None), rows,
+         ("batch", None)),
+        ((g, tg, d), rows),
+    )(ye, flat_e, safe_pos, top_p, keep)
 
     # --- Switch-style load-balance aux loss -------------------------------
-    frac_tokens = (_expert_counts(top_e[..., 0], e).to(F32).mean(dim=0)
-                   / tg)
+    counts = local_region(lambda t: _expert_counts(t, e), (("batch", None),),
+                          ((g, e), ("batch", None)))(top_e[..., 0])
+    frac_tokens = counts.to(F32).mean(dim=0) / tg
     frac_probs = probs.mean(dim=(0, 1))
     aux = cfg.aux_loss_weight * e * torch.sum(frac_tokens * frac_probs)
     return y, aux

@@ -14,9 +14,9 @@ The sequence forward runs either the exact token recurrence (``"scan"``)
 or the chunked scan (``"chunked"``), which goes through
 ``kernels.wkv6.wkv6`` at every length (a ragged one padded to a whole
 chunk): the CUDA kernel on the card, its plain chunked version on the
-CPU. Decode carries ``RWKVState`` between steps. The
-reference's sharding hints (``constrain``) are single-device no-ops and
-are dropped.
+CPU. Decode carries ``RWKVState`` between steps. The scan backend keeps
+the reference's sharding hints (``sharding.act.constrain``, no-ops off a
+mesh) on its state and its head-major streams.
 
 Init functions take a ``torch.Generator`` and a ``lead`` shape that
 prepends stacking dims (``[n_repeats]`` in ``lm.init``); their values
@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..kernels.wkv6 import wkv6
+from ..sharding.act import constrain, local_region
 from .layers import _normal
 
 F32 = torch.float32
@@ -88,7 +89,7 @@ def init_rwkv_state(batch: int, d_model: int, n_heads: int, *,
 
 
 def _streams(params, x, x_prev, dtype):
-    """Token-shift lerp + projections. x: [B, D], x_prev: [B, D]."""
+    """Token-shift lerp + projections. x, x_prev: [..., D]."""
     def lerp(mix):
         return x + (x_prev - x) * mix.to(dtype)
 
@@ -117,6 +118,21 @@ def _wkv_step(params, n_heads, r, k, v, w, s):
     y = torch.einsum("bhn,bhnm->bhm", rh, s + u[None, :, :, None] * kv)
     s_new = wh[..., :, None] * s + kv
     return y, s_new
+
+
+def _step(params, n_heads, r, k, v, w, s):
+    """``_wkv_step``; on a mesh (the dry-run) each rank steps its own
+    batch rows and heads (``sharding.act.local_region``)."""
+    n = r.shape[-1] // n_heads
+    streams = ("batch", "model")
+    state = ("batch", "model", None, None)
+    return local_region(
+        lambda r, k, v, w, s, u: _wkv_step({"u": u}, u.shape[0] // n,
+                                           r, k, v, w, s),
+        (streams,) * 4 + (state, ("model",)),
+        [((r.shape[0], n_heads, n), ("batch", "model", None)),
+         (tuple(s.shape), state)],
+    )(r, k, v, w, s, params["u"])
 
 
 def _head_norm(params, y, eps=1e-5):
@@ -160,6 +176,22 @@ def _wkv_chunked(params, n_heads, r, k, v, w, *, chunk: int = 16):
     return y, s_fin.reshape(b, n_heads, n, n)                  # [B,S,H,N]
 
 
+def _chunked(params, n_heads, r, k, v, w):
+    """``_wkv_chunked``; on a mesh (the dry-run) each rank runs the wkv6
+    wrapper on its own batch rows and heads (``sharding.act.
+    local_region``)."""
+    b, seq, d = r.shape
+    n = d // n_heads
+    streams = ("batch", None, "model")
+    return local_region(
+        lambda r, k, v, w, u: _wkv_chunked({"u": u}, u.shape[0] // n,
+                                           r, k, v, w),
+        (streams,) * 4 + (("model",),),
+        [((b, seq, n_heads, n), ("batch", None, "model", None)),
+         ((b, n_heads, n, n), ("batch", "model", None, None))],
+    )(r, k, v, w, params["u"])
+
+
 def rwkv6_train(params, x, *, n_heads: int, backend: str = "scan",
                 return_state: bool = False):
     """Sequence forward. x: [B, S, D] -> [B, S, D] (or (out, s_final) with
@@ -172,19 +204,27 @@ def rwkv6_train(params, x, *, n_heads: int, backend: str = "scan",
     b, seq, d = x.shape
     dtype = x.dtype
     x_shift = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
-    r, k, v, g, w = _streams(params, x.reshape(b * seq, d),
-                             x_shift.reshape(b * seq, d), dtype)
-    r, k, v, g, w = (t.reshape(b, seq, -1) for t in (r, k, v, g, w))
+    r, k, v, g, w = _streams(params, x, x_shift, dtype)
 
     if backend == "chunked":
-        y4, s_fin = _wkv_chunked(params, n_heads, r, k, v, w)
+        y4, s_fin = _chunked(params, n_heads, r, k, v, w)
     else:
         n = d // n_heads
-        s = torch.zeros((b, n_heads, n, n), dtype=F32, device=x.device)
+        s = constrain(torch.zeros((b, n_heads, n, n), dtype=F32,
+                                  device=x.device),
+                      "batch", "model", None, None)
+
+        def heads4(t):
+            # pin head sharding on the scan's inputs, so that a mesh keeps
+            # the recurrence head-parallel
+            return constrain(t.reshape(b, seq, n_heads, n), "batch", None,
+                             "model", None).reshape(b, seq, d)
+
+        r, k, v, w = heads4(r), heads4(k), heads4(v), heads4(w)
         ys = []
         for t in range(seq):
-            y, s = _wkv_step(params, n_heads, r[:, t], k[:, t], v[:, t],
-                             w[:, t], s)
+            y, s = _step(params, n_heads, r[:, t], k[:, t], v[:, t],
+                         w[:, t], s)
             ys.append(y)
         s_fin = s
         y4 = torch.stack(ys, dim=1)                           # [B, S, H, N]
@@ -202,7 +242,7 @@ def rwkv6_decode(params, x, state: RWKVState, *, n_heads: int):
     dtype = x.dtype
     xt = x[:, 0]
     r, k, v, g, w = _streams(params, xt, state.x_prev.to(dtype), dtype)
-    y, s_new = _wkv_step(params, n_heads, r, k, v, w, state.s)
+    y, s_new = _step(params, n_heads, r, k, v, w, state.s)
     y = _head_norm(params, y).reshape(b, d).to(dtype)
     out = (y * F.silu(g)) @ params["wo"].to(dtype)
     new_state = state._replace(x_prev=xt.to(F32), s=s_new)

@@ -269,7 +269,8 @@ def make_lm_update(cfg, hp, *, r: float = 1.0, zeta: float = 1e-5,
 
 
 def make_lm_train_step(cfg, hp, *, r: float = 1.0, zeta: float = 1e-5,
-                       warmup_steps: int = 10, tx=None):
+                       warmup_steps: int = 10, tx=None,
+                       dense_dtype: Optional[torch.dtype] = None):
     """The LM train step of ``repro.launch.train.run_lm``: the gradient of
     ``models.lm.loss_fn`` (next-token cross-entropy + the MoE aux) on a
     batch ``{"tokens": [B, S] int, "prefix": [B, P, D] or None}``, then
@@ -286,13 +287,24 @@ def make_lm_train_step(cfg, hp, *, r: float = 1.0, zeta: float = 1e-5,
     composable optimizer (``core.builders.build_optimizer(hp,
     warmup_steps=10)``, the reference's ``tx``) over the whole tree, with
     ``counts={"tokens": ...}``, state ``tx.init``.
+
+    ``dense_dtype`` (the dry-run's ``bf16_gather``) casts the floating
+    dense leaves to that dtype before the forward, so a sharded weight is
+    gathered in it; the gradients, masters and optimizer stay f32.
     """
     from ..models import lm
     from ..models.embedding import token_counts
 
+    def cast(view):
+        if dense_dtype is None:
+            return view
+        return {"embed": view["embed"], "dense": tree_map(
+            lambda t: t.to(dense_dtype) if t.is_floating_point() else t,
+            view["dense"])}
+
     def loss_and_grads(params, batch):
         return _grads(params, lambda view: lm.loss_fn(
-            view, cfg, batch["tokens"], batch.get("prefix"))[0])
+            cast(view), cfg, batch["tokens"], batch.get("prefix"))[0])
 
     if tx is not None:
         def substrate_step(params, opt_state, batch):
