@@ -4,10 +4,10 @@
 
 Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi); TF32 off for matmul and cuDNN
-  2. build: the five kernels (the fused CowClip + coupled-L2 + Adam
-     update, the sparse pair, the chunked WKV6 scan and the embedding
-     backward) for sm_90a into one extension, from the sources under
-     src/repro_torch/kernels
+  2. build: the seven kernels (the fused CowClip + coupled-L2 + Adam
+     update, the sparse pair, the chunked WKV6 scan, the embedding
+     backward and the Mamba-2 scan's forward and backward) for sm_90a
+     into one extension, from the sources under src/repro_torch/kernels
   3. fused kernel vs its plain PyTorch version at [10131227, 10],
      [10131227, 1] and [4, 10], and at the redesign's edges: V = 100003
      (no multiple of the rows a warp's tile covers) with D in {1, 2, 3,
@@ -232,10 +232,13 @@ Phases, each fatal on failure:
      shared attention + MLP block after every 6, a ring of 4096 each),
      f32: a cached prefill of 2 x 1000 tokens then 64 teacher-forced
      decode steps held to one forward over the 1064 tokens within 5e-3;
-     forward, prefill and decode-step times; the kernel launches of the
-     prefill as the profiler counts them
+     54 ssd_scan launches in the forward and in the prefill, 0 in the
+     decode steps; forward, prefill and decode-step times; the kernel
+     launches of the prefill as the profiler counts them (54 of the SSD
+     forward kernel)
  41. the same params in bf16: score-only prefill of 1 x 4096 (ms,
-     tokens/s, a traced run's idle share); greedy generation of 4 x
+     tokens/s, a traced run's idle share; 54 ssd_scan launches a
+     prefill); greedy generation of 4 x
      1000-token prompts + 64 tokens eager and from the decode graph, as
      phase 38, the decode state's bytes by part (shared rings, SSM
      states, conv tails), a traced replay with no host read of a device
@@ -248,7 +251,9 @@ Phases, each fatal on failure:
  43. zamba2-2.7b (a 12-token prompt past its ring of 8),
      granite-moe-3b-a800m and llama4-scout-17b-a16e at the reduced f32
      size, card vs CPU: forward logits, the MoE aux, cached prefill and
-     4 decode steps, max abs 1e-4; no port kernel launched in 40-43
+     4 decode steps, max abs 1e-4 (zamba2: 2 ssd_scan launches a forward
+     and a prefill); in 40-43 no other port kernel launched and no CUDA
+     tensor reached the SSD scan's plain versions
  44. LM training's kernels at rwkv6-7b's shapes: the fused CowClip update
      of the [65536, 4096] token table with one 8 x 512 batch's counts,
      against its plain version at rtol 1e-5 / atol 1e-7 (steps 1 and
@@ -262,10 +267,12 @@ Phases, each fatal on failure:
      plain forward and the plain backward (the recompute) timed, and the
      backward's memory
  47. a reduced f32 LM step of each family (rwkv6 through the kernels,
-     attention, Mamba-2 with the shared block, MoE, a frontend prefix)
-     on the card against the CPU from the card's params: loss within
-     1e-4, every gradient leaf within 1e-3 of its largest value, params
-     within 1e-4 after the CPU's update of the card's gradients
+     attention, Mamba-2 with the shared block through the SSD scan's
+     forward and backward kernels, MoE, a frontend prefix) on the card
+     against the CPU from the card's params: loss within 1e-4, every
+     gradient leaf within 1e-4 of its largest value (rwkv6 3e-4), params
+     within 1e-4 after the CPU's update of the card's gradients; no CUDA
+     tensor reaches the SSD scan's plain versions
  48. rwkv6-7b at full width, 8 of its 32 layers, bf16, trained 10 steps
      of batch 8 x 512 through make_lm_train_step (the CLI's step): the
      loss at steps 1 and 10 (it must fall), ms a step (CUDA events, the
@@ -287,8 +294,16 @@ Phases, each fatal on failure:
      49's params and state beside phase 49's measured peak (a ratio, no
      bar); its FLOPs beside FlopCounterMode's on a card step (the gap is
      the plain wkv6's products, which the kernel does out of its sight)
+ 51. the Mamba-2 scan's kernels against their plain versions: the
+     forward at zamba2-2.7b's layer (1 x 4096 tokens, 80 heads, P 64, N
+     64) and at 1, 70 and 1000 tokens, y, the final state and the kept
+     chunk states within 1e-5 of their largest value; the backward at
+     phase 47's reduced zamba2 shape (4 x 32, 4 heads) and at 2 x 512 x
+     80 heads against the written-out plain backward, every gradient
+     within 1e-4 of its largest value, two runs bitwise; both timed (L2
+     flushed) beside their bounds and the plain versions
 Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13;
-phases 37-43, then 44-48, then 49-50, last. Each
+phases 37-39, then 51, then 40-43, then 44-48, then 49-50, last. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
 prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
@@ -334,7 +349,11 @@ WKV6_KERNELS = ("wkv6_segment_state_kernel", "wkv6_segment_carry_kernel",
 SPARSE_KERNELS = ("sparse_catchup_kernel", "sparse_update_kernel")
 EMBED_KERNELS = ("embedding_backward_level_kernel",)
 EMBED_GROUP = ("the embedding backward's kernels", EMBED_KERNELS)
-PORT_KERNELS = FUSED_KERNELS + SPARSE_KERNELS + WKV6_KERNELS + EMBED_KERNELS
+# the Mamba-2 scan's: the forward; the backward's reverse scan and its sums
+SSD_KERNELS = ("ssd_scan_forward_kernel", "ssd_scan_backward_kernel",
+               "ssd_scan_reduce_kernel")
+PORT_KERNELS = (FUSED_KERNELS + SPARSE_KERNELS + WKV6_KERNELS + EMBED_KERNELS
+                + SSD_KERNELS)
 # PyTorch's CUDA embedding_dense_backward (EmbeddingBackwardKernel.cu,
 # Embedding.cu): none of its kernels may run in a traced step of the port
 TORCH_EMBED_BACKWARD = ("embedding_backward_feature_kernel",
@@ -367,8 +386,20 @@ GRANITE_MOE_PARAMS = (3_425_404_416, 1_009_485_312)   # its total, active
 HYBRID_TEACHER = (1000, 64)    # f32 prompt + fed tokens, phases 40 and 42
 MOE_NO_DROP = 5.0              # the capacity factor whose capacity is a
                                # group's 1064 tokens: phase 42 drops none
-# the MoE dispatch's stable sorts, beside the attention groups (41-42)
-HYBRID_GROUPS = ATTN_GROUPS + (("sorts", ("sort", "Sort", "radix")),)
+# the MoE dispatch's stable sorts and the Mamba-2 scan's kernels, beside
+# the attention groups (41-42)
+HYBRID_GROUPS = ATTN_GROUPS + (("sorts", ("sort", "Sort", "radix")),
+                               ("the SSD scan's kernels", SSD_KERNELS))
+ZAMBA2_MAMBA_LAYERS = 54       # ssd_scan launches a zamba2-2.7b forward
+# the Mamba-2 scan's shapes (B, S, H, P, N), phase 51: zamba2-2.7b's layer
+# at batch 1 x 4096 tokens, the same width at more lengths, and the
+# backward's at phase 47's reduced zamba2 step (batch 4 x 32, d_model 128:
+# 4 heads) and at full width, batch 2 x 512
+SSD_LAYER = (1, 4096, 80, 64, 64)
+SSD_SEQS = (1, 70, 1000)
+SSD_TRAIN = ((4, 32, 4, 64, 64), (2, 512, 80, 64, 64))
+SSD_BAR = 1e-5                 # forward: max abs over the largest |value|
+SSD_GRAD_BAR = 1e-4            # backward: the same, each gradient
 HYBRID_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m",
                 "llama4-scout-17b-a16e")
 ATTN_ARCHS = ("stablelm-3b", "granite-20b", "deepseek-coder-33b",
@@ -4444,15 +4475,19 @@ def lm_tokens(cfg, batch, length, seed):
         device="cuda")
 
 
-def teacher_forced(params, cfg, tokens, prompt_len):
+def teacher_forced(params, cfg, tokens, prompt_len, launches=None):
     """A cached prefill of ``tokens[:, :prompt_len]``, then the rest fed
     as teacher-forced decode steps, held to one forward over all of
     ``tokens``: (max abs logits gap, forward s, prefill s, decode s, the
-    cache after the steps)."""
+    cache after the steps). With ``launches`` (a dict) it records
+    ``ssd_scan``'s kernel launches in the forward, the prefill and the
+    decode steps."""
+    from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.models import lm
 
     total = tokens.shape[1]
     steps = total - prompt_len
+    marks = [ssd_scan.launches]
     t0 = time.perf_counter()
     with torch.inference_mode():
         full, _ = lm.forward(params, cfg, tokens)
@@ -4460,12 +4495,14 @@ def teacher_forced(params, cfg, tokens, prompt_len):
         del full
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
+        marks.append(ssd_scan.launches)
         t0 = time.perf_counter()
         last, cache, cur = lm.prefill_with_cache(params, cfg,
                                                  tokens[:, :prompt_len],
                                                  total)
         torch.cuda.synchronize()
         pre_s = time.perf_counter() - t0
+        marks.append(ssd_scan.launches)
         check(cur == prompt_len, f"cur_index {cur}")
         outs = [last]
         t0 = time.perf_counter()
@@ -4476,8 +4513,12 @@ def teacher_forced(params, cfg, tokens, prompt_len):
             outs.append(logits)
         torch.cuda.synchronize()
         dec_s = time.perf_counter() - t0
+        marks.append(ssd_scan.launches)
         got = torch.stack(outs, dim=1)
     check(bool(torch.isfinite(got).all()), "non-finite f32 logits")
+    if launches is not None:
+        launches.update(zip(("forward", "prefill", "decode"),
+                            (b - a for a, b in zip(marks, marks[1:]))))
     return (got - want).abs().max().item(), fwd_s, pre_s, dec_s, cache
 
 
@@ -4684,14 +4725,196 @@ def count_drops(moe_lib, tally):
     return moe_ffn
 
 
+def ssd_inputs(gen, b, s, h, p, n):
+    """The Mamba-2 scan's f32 inputs on the card as zamba2's layer makes
+    them: x, b and c of silu's range, dt = softplus(N(-2, 1)), A_log its
+    init's spectrum log(linspace(1, 16, H)), D ~ N(0, 1)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    silu = torch.nn.functional.silu
+    return (silu(randn(b, s, h, p)), silu(randn(b, s, n)),
+            silu(randn(b, s, n)),
+            torch.nn.functional.softplus(randn(b, s, h) - 2.0),
+            torch.log(torch.linspace(1.0, 16.0, h, device="cuda")),
+            randn(h))
+
+
+def ssd_bound(b, s, h, p, n, backward=False):
+    """(bound ms, "bytes" or "operations", bytes, FLOPs) of the scan
+    (``csrc/ssd_scan.cu``, "Bound"): forward x, b, c, dt, A_log, D read,
+    y and the final state written, 6 FLOP a state element a token;
+    backward those inputs, the kept chunk states and the two cotangents
+    read, the six gradients written, 11 FLOP an element a token."""
+    from repro_torch.kernels.ssd import n_chunks
+
+    x, bc, hd, state = b * s * h * p, 2 * b * s * n, b * s * h, b * h * p * n
+    if backward:
+        nbytes = 4 * (2 * (x + bc + hd + 2 * h) + x                 # in, gx
+                      + b * h * n_chunks(s) * p * n + x + state)    # kept, gy, gs
+        flops = 11 * b * s * h * p * n
+    else:
+        nbytes = 4 * (2 * x + bc + hd + 2 * h + state)
+        flops = 6 * b * s * h * p * n
+    return (*_bound(nbytes, flops), nbytes, flops)
+
+
+def rel_gap(got, want):
+    """max |got - want| over max |want| (0 where both are all zero)."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    return err / scale if scale else (0.0 if not err else math.inf)
+
+
+def ssd_phase(smi, kind):
+    """Phase 51: the Mamba-2 scan's kernels against their plain versions
+    on the card. The forward (through ``ssd_scan``) at zamba2's layer,
+    ``SSD_LAYER``, and at S in ``SSD_SEQS``: y and the final state within
+    ``SSD_BAR`` of their largest value, the kept chunk states too; the
+    backward at ``SSD_TRAIN``'s shapes against the written-out plain
+    backward: every gradient within ``SSD_GRAD_BAR`` of its largest
+    value, two runs bitwise equal; both timed (CUDA events, L2 flushed)
+    beside their bounds and the plain versions. Returns the two kernels'
+    lines for the JSON summary (launches filled in by phases 40 and 47)."""
+    from repro_torch.kernels.ssd import (ssd_scan, ssd_scan_backward_reference,
+                                         ssd_scan_reference)
+
+    power = smi.strip().split(", ")[-1]
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    fwd_op = torch.ops.repro_torch.ssd_scan_fwd
+    bwd_op = torch.ops.repro_torch.ssd_scan_bwd
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for b, s, h, p, n in [SSD_LAYER] + [(1, seq) + SSD_LAYER[2:]
+                                        for seq in SSD_SEQS]:
+        ins = ssd_inputs(gen, b, s, h, p, n)
+        with torch.no_grad():
+            y, s_fin = ssd_scan(*ins)
+            _, _, kept = fwd_op(*ins, True)
+            want = ssd_scan_reference(*ins, chunk_states=True)
+        gaps = [rel_gap(y, want[0]), rel_gap(s_fin, want[1]),
+                rel_gap(kept, want[2])]
+        same = [torch.equal(a, w) for a, w in zip((y, s_fin, kept), want)]
+        print(f"[ssd] forward kernel {[b, s, h, p, n]} vs the plain loop, "
+              f"max abs over the largest |value|: y {gaps[0]:.3e}, final "
+              f"state {gaps[1]:.3e}, kept chunk states {gaps[2]:.3e} (bar "
+              f"{SSD_BAR}; bitwise y/state/kept {same})", flush=True)
+        check(max(gaps) <= SSD_BAR, f"the SSD forward kernel disagrees at "
+              f"{[b, s, h, p, n]}: {gaps}")
+        worst["fwd"] = max(worst["fwd"], (y - want[0]).abs().max().item(),
+                           (s_fin - want[1]).abs().max().item())
+        del ins, y, s_fin, kept, want
+    for b, s, h, p, n in SSD_TRAIN:
+        ins = ssd_inputs(gen, b, s, h, p, n)
+        gy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+        gs = torch.randn((b, h, p, n), generator=gen, device="cuda")
+        _, _, kept = fwd_op(*ins, True)
+        got = bwd_op(*ins, kept, gy, gs)
+        again = bwd_op(*ins, kept, gy, gs)
+        with torch.no_grad():
+            plain_kept = ssd_scan_reference(*ins, chunk_states=True)[2]
+            want = ssd_scan_backward_reference(*ins, plain_kept, gy, gs)
+        gaps = {name: rel_gap(g, w) for name, g, w in zip(
+            ("x", "b", "c", "dt", "A_log", "D"), got, want)}
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+        print(f"[ssd] backward kernel {[b, s, h, p, n]} vs the written-out "
+              f"plain backward, max abs over the largest |g|: "
+              f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (bar "
+              f"{SSD_GRAD_BAR}); two runs "
+              f"{'bitwise equal' if bitwise else 'DIFFERENT'}", flush=True)
+        check(max(gaps.values()) <= SSD_GRAD_BAR and bitwise,
+              f"the SSD backward kernel at {[b, s, h, p, n]}: {gaps}, "
+              f"bitwise {bitwise}")
+        worst["bwd"] = max([worst["bwd"]] + [(g - w).abs().max().item()
+                                             for g, w in zip(got, want)])
+        del ins, gy, gs, kept, got, again, plain_kept, want
+
+    torch.cuda.empty_cache()
+    scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    ins = ssd_inputs(gen, *SSD_LAYER)
+    with torch.no_grad():
+        f_ms = cuda_time_cold_ms(lambda: ssd_scan(*ins), 20, scratch)
+        fp_ms = cuda_time_cold_ms(lambda: ssd_scan_reference(*ins), 2,
+                                  scratch)
+    f_bound = ssd_bound(*SSD_LAYER)
+    print(f"[time] ssd_scan forward {list(SSD_LAYER)} (L2 flushed, host "
+          f"work covered): kernel {f_ms:.4f} ms, plain loop {fp_ms:.4f} ms, "
+          f"bound {f_bound[0]:.4f} ms by {f_bound[1]} ({f_bound[2]} B, "
+          f"{f_bound[3]} FLOP: {100 * f_bound[0] / f_ms:.1f}% of it); "
+          f"{kind} at {power}", flush=True)
+    del ins
+    shape = SSD_TRAIN[-1]
+    ins = ssd_inputs(gen, *shape)
+    gy = torch.randn(ins[0].shape, generator=gen, device="cuda")
+    gs = torch.randn(shape[:1] + shape[2:], generator=gen, device="cuda")
+    _, _, kept = fwd_op(*ins, True)
+    with torch.no_grad():
+        b_ms = cuda_time_cold_ms(lambda: bwd_op(*ins, kept, gy, gs), 20,
+                                 scratch)
+        bp_ms = cuda_time_cold_ms(lambda: ssd_scan_backward_reference(
+            *ins, kept, gy, gs), 2, scratch)
+        fk_ms = cuda_time_cold_ms(lambda: fwd_op(*ins, True), 20, scratch)
+    b_bound = ssd_bound(*shape, backward=True)
+    print(f"[time] ssd_scan backward {list(shape)} (L2 flushed, host work "
+          f"covered): kernels {b_ms:.4f} ms, written-out plain backward "
+          f"{bp_ms:.4f} ms, bound {b_bound[0]:.4f} ms by {b_bound[1]} "
+          f"({b_bound[2]} B, {b_bound[3]} FLOP: "
+          f"{100 * b_bound[0] / b_ms:.1f}% of it); the forward keeping its "
+          f"chunk states there {fk_ms:.4f} ms; {kind} at {power}",
+          flush=True)
+    del ins, gy, gs, kept, scratch
+    torch.cuda.empty_cache()
+    source = "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu"
+    # no TPU kernel: the reference's lax.scan over _ssm_step, which XLA
+    # compiles and differentiates
+    replaces = "src/repro/models/mamba.py:137"
+    return [
+        {"name": "ssd_scan_fwd", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": None, "max_abs_err": worst["fwd"],
+         "ms": f_ms, "plain_ms": fp_ms, "bound_ms": f_bound[0],
+         "bound_by": f_bound[1], "library_ms": None},
+        {"name": "ssd_scan_bwd", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": None, "max_abs_err": worst["bwd"],
+         "ms": b_ms, "plain_ms": bp_ms, "bound_ms": b_bound[0],
+         "bound_by": b_bound[1], "library_ms": None},
+    ]
+
+
+class PlainSsdOnCard:
+    """Counts the calls of the scan op's plain versions with a CUDA tensor
+    (none may happen: on the card the op launches its kernels), by
+    wrapping them in ``kernels/ssd/ops.py`` while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssd import ops
+
+        self.ops, self.calls, self.saved = ops, 0, {}
+        for name in ("ssd_scan_reference", "ssd_scan_backward_reference"):
+            inner = self.saved[name] = getattr(ops, name)
+
+            def wrapped(*args, inner=inner, **kw):
+                self.calls += args[0].is_cuda
+                return inner(*args, **kw)
+
+            setattr(ops, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+
 def hybrid_lm_phases(smi, kind):
     """Phases 40-43: zamba2-2.7b at full width and depth (f32 decode held
     to one forward; bf16 prefill and greedy generation eager and from the
     decode graph), granite-moe-3b-a800m the same way (f32 at capacity
     factor 5.0, the drop share at 1.25), then zamba2, granite-moe and
-    llama4-scout card against CPU at the reduced f32 size. The Mamba-2,
-    shared-attention and MoE paths run no kernel of the port's: each
-    wrapper's count must stay 0. Every tensor is freed on return."""
+    llama4-scout card against CPU at the reduced f32 size. The Mamba-2
+    path runs the SSD scan's forward kernel (``ssd_scan``: 54 launches a
+    zamba2-2.7b forward or cached prefill, none in decode) and never its
+    plain loop on a CUDA tensor; the shared-attention and MoE paths run no
+    kernel of the port's: the other wrappers' counts stay 0. Returns the
+    forward kernel's launches in phase 40's forward. Every tensor is freed
+    on return."""
     from repro_torch.configs import reduce_config
     from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
     from repro_torch.configs.registry import get_config
@@ -4701,6 +4924,7 @@ def hybrid_lm_phases(smi, kind):
                                              sparse_gather_catchup,
                                              sparse_update_scatter)
     from repro_torch.kernels.embedding import embedding_backward_groups
+    from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_lib
@@ -4710,6 +4934,8 @@ def hybrid_lm_phases(smi, kind):
                 sparse_update_scatter, wkv6, embedding_backward_groups)
     for fn in wrappers:
         fn.launches = 0
+    ssd_scan.launches = ssd_scan.backward_launches = 0
+    plain_ssd = PlainSsdOnCard().__enter__()
     prompt_len, steps = HYBRID_TEACHER
 
     # -- 40. zamba2-2.7b, full width and depth: f32 decode vs forward ----
@@ -4743,8 +4969,16 @@ def hybrid_lm_phases(smi, kind):
           flush=True)
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     tokens = lm_tokens(cfg, 2, prompt_len + steps, seed=prompt_len)
+    ssd_scan.launches = 0
+    ssd_calls = {}
     gap, fwd_s, pre_s, dec_s, _ = teacher_forced(params, f32, tokens,
-                                                 prompt_len)
+                                                 prompt_len, ssd_calls)
+    print(f"[hybrid-lm] zamba2-2.7b f32: ssd_scan launched {ssd_calls} "
+          f"(expected {ZAMBA2_MAMBA_LAYERS} a forward and a prefill, 0 in "
+          f"{steps} decode steps)", flush=True)
+    check(ssd_calls == {"forward": ZAMBA2_MAMBA_LAYERS,
+                        "prefill": ZAMBA2_MAMBA_LAYERS, "decode": 0},
+          f"ssd_scan launched {ssd_calls}")
     print(f"[hybrid-lm] zamba2-2.7b f32, batch 2, {prompt_len}-token prompt "
           f"+ {steps} teacher-forced decode steps: logits at positions "
           f"{prompt_len - 1}-{prompt_len + steps - 1} vs one forward over "
@@ -4763,9 +4997,14 @@ def hybrid_lm_phases(smi, kind):
 
     wall_ms, prof = profiled(cached_prefill)
     kernels = by_kernel(prof)
+    n_ssd = sum(n for _, n, name in kernels if "ssd_scan_forward_kernel"
+                in name)
     print(f"[hybrid-lm] zamba2-2.7b f32 cached prefill of 2 x {prompt_len}: "
           f"{sum(n for _, n, _ in kernels)} kernel launches (the profiler's "
-          f"count), {wall_ms:.1f} ms traced", flush=True)
+          f"count; a token loop made ~117,000), {n_ssd} of the SSD "
+          f"forward kernel, {wall_ms:.1f} ms traced", flush=True)
+    check(not kernels or n_ssd == ZAMBA2_MAMBA_LAYERS,
+          f"the traced prefill ran the SSD forward kernel {n_ssd} times")
     print_trace("hybrid-trace", f"zamba2-2.7b f32 cached prefill 2 x "
                 f"{prompt_len}", wall_ms, kernels, groups=HYBRID_GROUPS)
     del tokens, prof, kernels
@@ -4777,7 +5016,13 @@ def hybrid_lm_phases(smi, kind):
     phase_start(41)
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
+    before = ssd_scan.launches
     score_prefill("zamba2-2.7b", params, cfg, HYBRID_GROUPS, power, kind)
+    n_pre = ssd_scan.launches - before
+    print(f"[hybrid-lm] zamba2-2.7b bf16 score-only prefills: ssd_scan "
+          f"launched {n_pre} times ({LM_REPEATS + 2} prefills)", flush=True)
+    check(n_pre == (LM_REPEATS + 2) * ZAMBA2_MAMBA_LAYERS,
+          f"ssd_scan launched {n_pre} times in the prefills")
     graph = generation_phase("zamba2-2.7b", params, cfg, HYBRID_GROUPS,
                              power, kind)
     mixers = [graph.cache[f"pos_{i}"] for i in range(len(cfg.block_pattern))]
@@ -4858,10 +5103,12 @@ def hybrid_lm_phases(smi, kind):
                              op_group=("expert einsums", "aten::einsum"))
     del graph, params
     launched = [fn.launches for fn in wrappers]
-    print(f"[hybrid-lm] the port's kernels launched {launched} times in "
-          f"phases 40-42 (none on the Mamba-2, shared-attention and MoE "
-          f"paths)", flush=True)
-    check(not any(launched), f"kernels launched {launched} times")
+    print(f"[hybrid-lm] the port's other kernels launched {launched} times "
+          f"in phases 40-42 (none on the Mamba-2, shared-attention and MoE "
+          f"paths); the SSD backward {ssd_scan.backward_launches}",
+          flush=True)
+    check(not any(launched) and not ssd_scan.backward_launches,
+          f"kernels launched {launched} times")
     peak_line(42)
     print(f"[phase 42] {time.perf_counter() - t_phase:.1f} s", flush=True)
     phase_end()
@@ -4871,11 +5118,23 @@ def hybrid_lm_phases(smi, kind):
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     for arch in HYBRID_ARCHS:
-        agree_reduced(arch, reduce_config(get_config(arch)), seq=12)
+        small = reduce_config(get_config(arch))
+        before = ssd_scan.launches
+        agree_reduced(arch, small, seq=12)
+        # the card's forward and cached prefill, a launch a Mamba-2 layer
+        want = 2 * small.n_repeats * small.block_pattern.count("mamba2")
+        got = ssd_scan.launches - before
+        check(got == want, f"{arch}: ssd_scan launched {got} times, not "
+              f"{want}")
     launched = [fn.launches for fn in wrappers]
     check(not any(launched), f"kernels launched {launched} times")
+    plain_ssd.__exit__()
+    print(f"[hybrid-lm] phases 40-43: the SSD scan's plain versions ran on "
+          f"a CUDA tensor {plain_ssd.calls} times", flush=True)
+    check(not plain_ssd.calls, "a CUDA tensor reached the plain SSD scan")
     peak_line(43)
     print(f"[phase 43] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ssd_calls["forward"]
 
 
 def lm_cowclip_phase(gen, tokens, power, kind):
@@ -5048,14 +5307,17 @@ def lm_step_agree(arch):
     step, from the card's params, the loss within ``LM_AGREE`` and every
     gradient leaf within ``LM_GRAD_BAR`` (rwkv6: ``LM_GRAD_BAR_RWKV6``) of
     its own largest value; the step launches the fused CowClip kernel
-    once, the embedding backward once and wkv6 once a rwkv6 layer; the
-    CPU's update of the card's gradients tracked beside it, every param
-    within ``LM_AGREE`` after the steps. Returns the largest gaps."""
+    once, the embedding backward once, wkv6 once a rwkv6 layer and the
+    SSD scan's forward and backward once a Mamba-2 layer; the CPU's
+    update of the card's gradients tracked beside it, every param within
+    ``LM_AGREE`` after the steps. Returns the largest gaps and the SSD
+    backward's launches in the steps."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.core.scaling import scale_hyperparams
     from repro_torch.core.tree import flatten_with_paths, tree_map
     from repro_torch.kernels.cowclip import fused_cowclip_adam
     from repro_torch.kernels.embedding import embedding_backward_groups
+    from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models import lm
     from repro_torch.serve.decode import frontend_prefix
@@ -5072,8 +5334,13 @@ def lm_step_agree(arch):
     cpu = lm.init(cfg, seed=0, device="cpu")
     card = tree_map(lambda t: t.cuda(), cpu)
     cpu_state, state = init(cpu), init(card)
-    counters = (fused_cowclip_adam, embedding_backward_groups, wkv6)
-    want_calls = (1, 1, cfg.n_layers if "rwkv6" in cfg.block_pattern else 0)
+    counters = (lambda: fused_cowclip_adam.launches,
+                lambda: embedding_backward_groups.launches,
+                lambda: wkv6.launches, lambda: ssd_scan.launches,
+                lambda: ssd_scan.backward_launches)
+    mamba = cfg.n_repeats * cfg.block_pattern.count("mamba2")
+    want_calls = (1, 1, cfg.n_layers if "rwkv6" in cfg.block_pattern else 0,
+                  mamba, mamba)
     rng = np.random.default_rng(47)
     gap_loss, gaps = 0.0, {}
     for i in range(LM_AGREE_STEPS):
@@ -5090,13 +5357,14 @@ def lm_step_agree(arch):
             gaps[k] = max(gaps.get(k, 0.0), gap)
         cpu_update(cpu, cpu_state, tree_map(lambda t: t.cpu(), grads),
                    tokens)
-        before = [fn.launches for fn in counters]
+        before = [fn() for fn in counters]
         card, state, aux = step(card, state, {
             "tokens": tokens.cuda(),
             "prefix": None if prefix is None else prefix.cuda()})
-        calls = tuple(fn.launches - b for fn, b in zip(counters, before))
+        calls = tuple(fn() - b for fn, b in zip(counters, before))
         check(calls == want_calls, f"{arch}: a step launched {calls} "
-              f"(fused CowClip, embedding backward, wkv6), not {want_calls}")
+              f"(fused CowClip, embedding backward, wkv6, the SSD forward "
+              f"and backward), not {want_calls}")
         check(torch.equal(aux["loss"], loss), f"{arch}: the step's loss is "
               f"not its gradient's")
     cpu_flat = flatten_with_paths(cpu)
@@ -5113,7 +5381,7 @@ def lm_step_agree(arch):
     check(gap_loss <= LM_AGREE and gaps[worst] <= bar
           and gap_param <= LM_AGREE, f"card and CPU disagree on {arch}'s "
           f"train step")
-    return gap_loss, gaps[worst], gap_param
+    return gap_loss, gaps[worst], gap_param, mamba * LM_AGREE_STEPS
 
 
 def lm_cli_on_card():
@@ -5196,8 +5464,16 @@ def lm_train_phases(smi, kind):
     peak_line(46)
     phase_end()
     phase_start(47)
-    for arch in LM_TRAIN_ARCHS:
-        lm_step_agree(arch)
+    with PlainSsdOnCard() as plain_ssd:
+        ssd_bwd_calls = {arch: lm_step_agree(arch)[-1]
+                         for arch in LM_TRAIN_ARCHS}
+    print(f"[lm-train-agree] the SSD backward kernel launched "
+          f"{ssd_bwd_calls} times in the steps; the SSD scan's plain "
+          f"versions ran on a CUDA tensor {plain_ssd.calls} times",
+          flush=True)
+    check(ssd_bwd_calls["zamba2-2.7b"] > 0 and not plain_ssd.calls,
+          "the zamba2 step did not run the SSD kernels")
+    lines["ssd_scan_bwd"] = {"launches": ssd_bwd_calls["zamba2-2.7b"]}
     lm_cli_on_card()
     phase_end()
     print(f"[phase 44-47] {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -5323,7 +5599,8 @@ def lm_train_phases(smi, kind):
                 "cowclip_adam_update": launches["fused_cowclip_adam"],
                 "embedding_backward": launches["embedding_backward_groups"]}
     for name, line in lines.items():
-        line["launches_lm_train"] = launches[name]
+        if name in launches:
+            line["launches_lm_train"] = launches[name]
     return lines
 
 
@@ -5567,13 +5844,14 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # -- 2. build: the five kernels, one extension -----------------------
+    # -- 2. build: the seven kernels, one extension ----------------------
     phase_start(2)
     t0 = time.perf_counter()
     build()
     print(f"[build] cowclip_adam.cu + sparse_catchup.cu + sparse_update.cu "
-          f"+ wkv6.cu + embedding_backward.cu + binding.cpp for sm_90a, one "
-          f"extension, in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"+ wkv6.cu + embedding_backward.cu + ssd_scan.cu + binding.cpp "
+          f"for sm_90a, one extension, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     lines = ctr_phases(smi, kind)
     phase_end()
@@ -5602,7 +5880,14 @@ def main() -> int:
     phase_end()
     attn_lm_phases(smi, kind)
     phase_end()
-    hybrid_lm_phases(smi, kind)
+    phase_start(51)
+    t0 = time.perf_counter()
+    ssd_lines = ssd_phase(smi, kind)
+    print(f"[phase 51] {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_end()
+    lines += ssd_lines
+    # the forward's launches on the main path: phase 40's zamba2 forward
+    ssd_lines[0]["launches"] = hybrid_lm_phases(smi, kind)
     phase_end()
     for name, extra in lm_train_phases(smi, kind).items():
         # the LM training path: its shapes' numbers, and the calls on

@@ -1,7 +1,8 @@
 // PyTorch binding of the port's CUDA kernels: the CowClip + coupled-L2 +
 // Adam kernels (the fused dense update and the two sparse unique-id
-// kernels), the chunked WKV6 scan and the deterministic embedding
-// backward. The one translation unit that
+// kernels), the chunked WKV6 scan, the deterministic embedding backward
+// and the Mamba-2 scan's forward and backward. The one translation unit
+// that
 // includes torch/extension.h; the host compiler builds it, nvcc builds only
 // the .cu files.
 #include <torch/extension.h>
@@ -13,6 +14,7 @@
 #include "cowclip_adam.h"
 #include "embedding_backward.h"
 #include "sparse_cowclip.h"
+#include "ssd_scan.h"
 #include "wkv6.h"
 
 namespace {
@@ -365,6 +367,121 @@ void embedding_backward(torch::Tensor sorted_keys, torch::Tensor perm,
       at::cuda::getCurrentCUDAStream().stream()));
 }
 
+// f32, contiguous, on xs's device, of the given shape.
+void check_shaped(const torch::Tensor& t, const char* name,
+                  std::vector<int64_t> shape, const torch::Tensor& like) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device(), name,
+              " must be a CUDA tensor on xs's device");
+  TORCH_CHECK(t.scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK(t.sizes() == c10::IntArrayRef(shape), name, " must be ",
+              c10::IntArrayRef(shape), ", got ", t.sizes());
+}
+
+// The Mamba-2 scan's shapes from xs [B, S, H, P] and bmat [B, S, N],
+// checked against the kernels' limits: {B, S, H, P, N}.
+std::vector<int64_t> ssd_shapes(const torch::Tensor& xs,
+                                const torch::Tensor& bmat) {
+  TORCH_CHECK(xs.dim() == 4, "xs must be [B, S, H, P]");
+  TORCH_CHECK(bmat.dim() == 3, "bmat must be [B, S, N]");
+  const int64_t b = xs.size(0), s = xs.size(1), h = xs.size(2),
+                p = xs.size(3), n = bmat.size(2);
+  TORCH_CHECK(s >= 1, "the scan needs at least one token");
+  TORCH_CHECK(n >= 1 && n <= kSsdMaxN, "state size ", n, " outside [1, ",
+              kSsdMaxN, "]");
+  TORCH_CHECK(b >= 1 && b <= 65535 && h >= 1 && h <= 65535 && p >= 1,
+              "batch and heads must be in [1, 65535], P >= 1");
+  TORCH_CHECK(s <= INT32_MAX && p <= INT32_MAX, "xs is too large");
+  return {b, s, h, p, n};
+}
+
+// The forward: y [B, S, H, P] and s_fin [B, H, P, N] written; s_chunks
+// [B, H, ceil(S / kSsdChunk), P, N] the state at each chunk's start, or
+// [B, H, 0, P, N] (not kept).
+void ssd_scan_forward(torch::Tensor xs, torch::Tensor bmat,
+                      torch::Tensor cmat, torch::Tensor dt,
+                      torch::Tensor a_log, torch::Tensor d_skip,
+                      torch::Tensor y, torch::Tensor s_fin,
+                      torch::Tensor s_chunks) {
+  const auto d = ssd_shapes(xs, bmat);
+  const int64_t b = d[0], s = d[1], h = d[2], p = d[3], n = d[4];
+  const int64_t chunks = (s + kSsdChunk - 1) / kSsdChunk;
+  check_shaped(xs, "xs", {b, s, h, p}, xs);
+  check_shaped(bmat, "bmat", {b, s, n}, xs);
+  check_shaped(cmat, "cmat", {b, s, n}, xs);
+  check_shaped(dt, "dt", {b, s, h}, xs);
+  check_shaped(a_log, "a_log", {h}, xs);
+  check_shaped(d_skip, "d_skip", {h}, xs);
+  check_shaped(y, "y", {b, s, h, p}, xs);
+  check_shaped(s_fin, "s_fin", {b, h, p, n}, xs);
+  const bool keep = s_chunks.numel() > 0;
+  check_shaped(s_chunks, "s_chunks", {b, h, keep ? chunks : 0, p, n}, xs);
+  const c10::cuda::CUDAGuard guard(xs.device());
+  C10_CUDA_CHECK(ssd_scan_forward_launch(
+      xs.data_ptr<float>(), bmat.data_ptr<float>(), cmat.data_ptr<float>(),
+      dt.data_ptr<float>(), a_log.data_ptr<float>(),
+      d_skip.data_ptr<float>(), y.data_ptr<float>(), s_fin.data_ptr<float>(),
+      keep ? s_chunks.data_ptr<float>() : nullptr, static_cast<int>(b),
+      static_cast<int>(s), static_cast<int>(h), static_cast<int>(p),
+      static_cast<int>(n), at::cuda::getCurrentCUDAStream().stream()));
+}
+
+// The backward: the six gradients (each of its input's shape) written,
+// from the forward's inputs, its kept chunk states and the cotangents gy
+// and gs; part_b, part_c [B, S, H, T, N], part_dt [B, S, H, T] and
+// part_h [2, B, H, T] are scratch, T = ceil(P / kSsdPTile).
+void ssd_scan_backward(torch::Tensor xs, torch::Tensor bmat,
+                       torch::Tensor cmat, torch::Tensor dt,
+                       torch::Tensor a_log, torch::Tensor d_skip,
+                       torch::Tensor s_chunks, torch::Tensor gy,
+                       torch::Tensor gs, torch::Tensor gx, torch::Tensor gb,
+                       torch::Tensor gc, torch::Tensor gdt,
+                       torch::Tensor ga_log, torch::Tensor gd,
+                       torch::Tensor part_b, torch::Tensor part_c,
+                       torch::Tensor part_dt, torch::Tensor part_h) {
+  const auto d = ssd_shapes(xs, bmat);
+  const int64_t b = d[0], s = d[1], h = d[2], p = d[3], n = d[4];
+  const int64_t chunks = (s + kSsdChunk - 1) / kSsdChunk;
+  const int64_t tiles = (p + kSsdPTile - 1) / kSsdPTile;
+  for (const auto& [t, name] :
+       std::vector<std::pair<torch::Tensor, const char*>>{
+           {xs, "xs"}, {gy, "gy"}, {gx, "gx"}}) {
+    check_shaped(t, name, {b, s, h, p}, xs);
+  }
+  for (const auto& [t, name] :
+       std::vector<std::pair<torch::Tensor, const char*>>{
+           {bmat, "bmat"}, {cmat, "cmat"}, {gb, "gb"}, {gc, "gc"}}) {
+    check_shaped(t, name, {b, s, n}, xs);
+  }
+  check_shaped(dt, "dt", {b, s, h}, xs);
+  check_shaped(gdt, "gdt", {b, s, h}, xs);
+  for (const auto& [t, name] :
+       std::vector<std::pair<torch::Tensor, const char*>>{
+           {a_log, "a_log"}, {d_skip, "d_skip"}, {ga_log, "ga_log"},
+           {gd, "gd"}}) {
+    check_shaped(t, name, {h}, xs);
+  }
+  check_shaped(s_chunks, "s_chunks", {b, h, chunks, p, n}, xs);
+  check_shaped(gs, "gs", {b, h, p, n}, xs);
+  check_shaped(part_b, "part_b", {b, s, h, tiles, n}, xs);
+  check_shaped(part_c, "part_c", {b, s, h, tiles, n}, xs);
+  check_shaped(part_dt, "part_dt", {b, s, h, tiles}, xs);
+  check_shaped(part_h, "part_h", {2, b, h, tiles}, xs);
+  const c10::cuda::CUDAGuard guard(xs.device());
+  C10_CUDA_CHECK(ssd_scan_backward_launch(
+      xs.data_ptr<float>(), bmat.data_ptr<float>(), cmat.data_ptr<float>(),
+      dt.data_ptr<float>(), a_log.data_ptr<float>(),
+      d_skip.data_ptr<float>(), s_chunks.data_ptr<float>(),
+      gy.data_ptr<float>(), gs.data_ptr<float>(), gx.data_ptr<float>(),
+      gb.data_ptr<float>(), gc.data_ptr<float>(), gdt.data_ptr<float>(),
+      ga_log.data_ptr<float>(), gd.data_ptr<float>(),
+      part_b.data_ptr<float>(), part_c.data_ptr<float>(),
+      part_dt.data_ptr<float>(), part_h.data_ptr<float>(),
+      static_cast<int>(b), static_cast<int>(s), static_cast<int>(h),
+      static_cast<int>(p), static_cast<int>(n),
+      at::cuda::getCurrentCUDAStream().stream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
@@ -383,4 +500,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "the gradients of gathers of one or more groups at the same keys, "
           "as a sorted segmented sum in a fixed order, into the given "
           "zeroed grads, one call");
+  mod.def("ssd_scan_forward", &ssd_scan_forward,
+          "Mamba-2 selective scan: y, the final state and, when its "
+          "tensor is not empty, the state at each chunk's start, written "
+          "into the given outputs");
+  mod.def("ssd_scan_backward", &ssd_scan_backward,
+          "the Mamba-2 scan's six gradients from the kept chunk states, "
+          "written into the given outputs; deterministic");
 }

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels: one extension, compiled at first use.
 
-The five kernels (``cowclip/csrc/cowclip_adam.cu``, ``sparse_catchup.cu``
+The seven kernels (``cowclip/csrc/cowclip_adam.cu``, ``sparse_catchup.cu``
 and ``sparse_update.cu``; ``wkv6/csrc/wkv6.cu``;
-``embedding/csrc/embedding_backward.cu``) are compiled for
+``embedding/csrc/embedding_backward.cu``; the Mamba-2 scan's forward and
+backward, ``ssd/csrc/ssd_scan.cu``) are compiled for
 ``sm_90a`` into one extension by ``torch.utils.cpp_extension.load``, from
 the sources in this package, into ``build/repro_torch_kernels/`` at the
 root of the checkout (listed in ``.gitignore``), at first use and never at
@@ -21,8 +22,9 @@ from pathlib import Path
 KERNELS = Path(__file__).resolve().parent
 SOURCES = ("csrc/binding.cpp", "cowclip/csrc/cowclip_adam.cu",
            "cowclip/csrc/sparse_catchup.cu", "cowclip/csrc/sparse_update.cu",
-           "wkv6/csrc/wkv6.cu", "embedding/csrc/embedding_backward.cu")
-INCLUDE_DIRS = ("cowclip/csrc", "wkv6/csrc", "embedding/csrc")
+           "wkv6/csrc/wkv6.cu", "embedding/csrc/embedding_backward.cu",
+           "ssd/csrc/ssd_scan.cu")
+INCLUDE_DIRS = ("cowclip/csrc", "wkv6/csrc", "embedding/csrc", "ssd/csrc")
 BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 

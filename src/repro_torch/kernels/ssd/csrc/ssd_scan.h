@@ -1,0 +1,39 @@
+// Plain C interface between the Mamba-2 scan kernels (ssd_scan.cu) and
+// their PyTorch binding (kernels/csrc/binding.cpp). No PyTorch header is
+// included here, so nvcc compiles the kernels in seconds.
+#pragma once
+
+#include <cuda_runtime.h>
+
+constexpr int kSsdMaxN = 64;   // state size N the kernels take
+constexpr int kSsdChunk = 16;  // tokens between the states kept for the
+                               // backward (kernels/ssd/ref.py: CHUNK)
+constexpr int kSsdPTile = 16;  // state rows a block holds
+
+// xs, y: [batch, seq, heads, p]; bmat, cmat: [batch, seq, n]; dt:
+// [batch, seq, heads]; a_log, d_skip: [heads]; s_fin: [batch, heads, p,
+// n]; s_chunks: [batch, heads, ceil(seq / kSsdChunk), p, n], the state at
+// the start of each chunk, or null (not kept). All f32, contiguous, on the
+// current device; seq >= 1, 1 <= n <= kSsdMaxN, which the caller checks.
+// Launches one kernel on `stream`; returns the launch's error.
+cudaError_t ssd_scan_forward_launch(const float* xs, const float* bmat,
+                                    const float* cmat, const float* dt,
+                                    const float* a_log, const float* d_skip,
+                                    float* y, float* s_fin, float* s_chunks,
+                                    int batch, int seq, int heads, int p,
+                                    int n, cudaStream_t stream);
+
+// The gradients of the scan from the forward's inputs, its chunk states
+// and the cotangents gy (y's shape) and gs (s_fin's): gx, gb, gc, gdt,
+// ga_log and gd, each of its input's shape. With T = ceil(p / kSsdPTile)
+// row tiles, the scratch of the sums across blocks: part_b and part_c
+// [batch, seq, heads, T, n], part_dt [batch, seq, heads, T], part_h [2,
+// batch, heads, T]. Launches two kernels on `stream`; returns the first
+// error.
+cudaError_t ssd_scan_backward_launch(
+    const float* xs, const float* bmat, const float* cmat, const float* dt,
+    const float* a_log, const float* d_skip, const float* s_chunks,
+    const float* gy, const float* gs, float* gx, float* gb, float* gc,
+    float* gdt, float* ga_log, float* gd, float* part_b, float* part_c,
+    float* part_dt, float* part_h, int batch, int seq, int heads, int p,
+    int n, cudaStream_t stream);

@@ -19,7 +19,9 @@ rank would run on its local blocks:
   ``FlopCounterMode``: mm, bmm, addmm, baddbmm, convolutions, attention)
   on each local op's shapes: per rank.
 * **bytes accessed**: each op's operand and result bytes summed, views
-  excluded: per rank.
+  excluded: per rank. The port's own ops (the ``repro_torch`` library:
+  the Mamba-2 scan, whose shape function stands in for its kernel) are
+  counted as aten's are.
 * **temp bytes**: the peak of the summed sizes of the storages made
   during the trace and still alive, per rank (the arguments were made
   before it).
@@ -60,6 +62,11 @@ KIND_OF = {
     "all_to_all_single": "all-to-all",
 }   # DTensor's redistributions issue no permute: "collective-permute"
     # keeps its place in the reference's list and stays empty
+
+
+# the ops whose operand and result bytes are counted: PyTorch's and the
+# port's own library's (``kernels/ssd/ops.py``)
+BYTES_NAMESPACES = ("aten", "repro_torch")
 
 
 def collective_stats(records) -> dict:
@@ -221,7 +228,7 @@ class StepTrace(TorchDispatchMode):
             n = int(flop_registry[packet](*args, **kwargs, out_val=out))
             self.flops[self.phase] += n
             self.flops_by_op[str(packet)] += n
-        if ns == "aten" and not func.is_view:
+        if ns in BYTES_NAMESPACES and not func.is_view:
             self.bytes_accessed += sum(_nbytes(t) for t in _tensors(args))
             self.bytes_accessed += sum(_nbytes(t) for t in _tensors(out))
         self.op_counts[f"{ns}.{name}"] += 1

@@ -13,10 +13,14 @@ with the model's activation constraints live (``sharding.act.use_mesh``).
 peak live storage and the collectives that DTensor's redistributions
 issue. It is a host analysis, as the reference's is, not a fallback from
 the card: on fake CPU tensors every kernel wrapper takes its plain
-version, so the plain versions are what is counted (``"traced": "plain
-versions"`` in each record), as the reference lowers its jnp twins and
-the substrate optimizer, never a Pallas kernel. With ``mesh=None`` the
-same trace runs unsharded (one rank).
+version, so the plain versions are what is counted, as the reference
+lowers its jnp twins and the substrate optimizer, never a Pallas kernel.
+The Mamba-2 scan is the exception: it is one op of the port
+(``kernels/ssd/ops.py``), which runs its shape function on fake tensors,
+once a layer, and is counted by its FLOP formulas (the plain loop's
+``states @ c`` product) and its operand and result bytes (``"traced"``
+in each record says so). With ``mesh=None`` the same trace runs
+unsharded (one rank).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-12b --shape train_4k
@@ -57,7 +61,8 @@ from ..sharding.specs import (
 from . import comm_analysis
 from .mesh import make_production_mesh
 
-TRACED = "plain versions"
+TRACED = ("plain versions; the Mamba-2 scan as one op, by its shape "
+          "function and FLOP formulas")
 # rwkv6's sequence backend in the CLI's records: the port's training
 # default; its token scan is a Python loop a token, which takes hours to
 # trace at 4096 tokens and 32 layers

@@ -14,16 +14,14 @@ by silu(z) and RMSNorm'd before the out projection (Mamba-2 block layout).
 The in- and out-projections run in the compute dtype, everything between
 them in f32, as in the reference.
 
-The sequence forward runs the recurrence token by token, as the
-reference's ``jax.lax.scan`` does: ``a_t`` and ``dt_t (x_t ⊗ B_t)`` are
-formed for ``SCAN_CHUNK`` tokens at a time, each token's state is then a
-multiply and an add into a buffer of the chunk's states, and ``y`` is one
-batched product with C a chunk. Every element goes through the
-reference's operations in its order. Under autograd (training) a token's
-state is a new tensor, ``a * s + dbx``, stacked a chunk, since autograd
-refuses the buffer's ``out=`` writes; serving keeps the buffer (no
-allocation a token in a captured graph). The two give the same bits.
-Decode carries ``MambaState`` — O(1) in sequence length.
+The sequence forward's selective scan is one op of the port,
+``kernels.ssd.ssd_scan``: a hand-written CUDA kernel on the card (its
+backward a second one), the reference's token recurrence on the CPU
+(``kernels.ssd.ref.ssd_scan_reference``, the ``jax.lax.scan`` over
+``_ssm_step`` as a loop), and a shape function on fake tensors, so the
+dry-run traces it once a layer whatever the sequence length. Decode
+carries ``MambaState`` — O(1) in sequence length — and runs one
+``_ssm_step`` a token, no kernel.
 """
 
 from __future__ import annotations
@@ -35,12 +33,12 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..kernels.ssd import ssd_scan, ssd_scan_reference
 from ..sharding.act import local_region
 from .layers import _normal
 
 F32 = torch.float32
 CONV_K = 4
-SCAN_CHUNK = 64    # tokens whose decay and input term are formed at once
 
 
 def init_mamba2(gen, d_model: int, *, d_state: int = 64, head_dim: int = 64,
@@ -108,54 +106,22 @@ def _ssm_step(x, b, c, dt, a_log, d_skip, s):
     return y, s_new
 
 
-def _ssm_scan(xs, bmat, cmat, dt, a_log, d_skip):
-    """``_ssm_step`` over the sequence from a zero state. xs: [B,S,H,P],
-    bmat/cmat: [B,S,N], dt: [B,S,H] (f32) -> (y [B,S,H,P], final state
-    [B,H,P,N]). When a gradient is to flow, each token's state is a new
-    tensor (the same multiply, then the same add), else it is written into
-    the chunk's buffer."""
-    bsz, seq, n_heads, head_dim = xs.shape
-    s = torch.zeros((bsz, n_heads, head_dim, bmat.shape[-1]), dtype=F32,
-                    device=xs.device)
-    a_all = torch.exp(-dt * torch.exp(a_log)[None, None, :])        # [B,S,H]
-    grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (xs, bmat, cmat, dt, a_log, d_skip))
-    ys = []
-    for t0 in range(0, seq, SCAN_CHUNK):
-        span = slice(t0, min(seq, t0 + SCAN_CHUNK))
+# the plain token loop (the CPU path of ``ssd_scan``)
+_ssm_scan = ssd_scan_reference
 
-        def tmajor(t):                      # [B, T, ...] -> [T, B, ...]
-            return t[:, span].transpose(0, 1)
 
-        x, b, c, dt_c = tmajor(xs), tmajor(bmat), tmajor(cmat), tmajor(dt)
-        a = tmajor(a_all)[..., None, None]                          # [T,B,H,1,1]
-        dbx = dt_c[..., None, None] * (x[..., :, None]
-                                       * b[:, :, None, None, :])
-        if grad:
-            # unbind, not a[i]: one backward for the chunk, not one
-            # chunk-sized zero fill a token
-            steps = []
-            for a_i, dbx_i in zip(a.unbind(0), dbx.unbind(0)):
-                s = a_i * s + dbx_i
-                steps.append(s)
-            states = torch.stack(steps)
-        else:
-            states = torch.empty_like(dbx)                          # [T,B,H,P,N]
-            for i in range(dbx.shape[0]):
-                s = torch.mul(a[i], s, out=states[i]).add_(dbx[i])
-        y = (states @ c[:, :, None, :, None])[..., 0] \
-            + d_skip[None, None, :, None] * x
-        ys.append(y.transpose(0, 1))
-    return torch.cat(ys, dim=1), s.clone()
+def _local_scan(*args):
+    return ssd_scan(*(t.contiguous() for t in args))
 
 
 def _scan(xs, bmat, cmat, dt, a_log, d_skip):
-    """``_ssm_scan``; on a mesh (the dry-run) each rank scans its own
-    batch rows and heads (``sharding.act.local_region``)."""
+    """``ssd_scan`` (on contiguous copies: xs, b and c are slices of the
+    conv's output); on a mesh (the dry-run) each rank scans its own batch
+    rows and heads (``sharding.act.local_region``)."""
     b, _, h, p = xs.shape
     heads = ("batch", None, "model", None)
     return local_region(
-        _ssm_scan,
+        _local_scan,
         (heads, ("batch", None, None), ("batch", None, None),
          ("batch", None, "model"), ("model",), ("model",)),
         [(tuple(xs.shape), heads),

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, the substrate, fused and sparse train steps on the card against
+version (the Mamba-2 scan's forward and backward among them), the
+substrate, fused and sparse train steps on the card against
 the CPU path, the hot/cold step's graphs against its eager steps and its
 async cold store against it, the RWKV-6 LM's forward, prefill and decode on the card against
 the CPU path, the attention LM's decode graph across a ring's wrap,
@@ -571,6 +572,98 @@ def test_torch_lm_train_step_cuda_matches_cpu(arch):
     from chip_smoke import lm_step_agree
 
     lm_step_agree(arch)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 scan: forward and backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(b, s, h, p, n, seed, dt_shift=-2.0):
+    """f32 inputs of the scan on the card from numpy, and the cotangents
+    of y and of the final state."""
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    dt = np.log1p(np.exp(arr(b, s, h) + dt_shift)).astype(np.float32)
+    a_log = np.log(np.linspace(1.0, 16.0, h)).astype(np.float32)
+    ins = (arr(b, s, h, p), arr(b, s, n), arr(b, s, n), dt, a_log, arr(h))
+    return ([torch.from_numpy(t).cuda() for t in ins],
+            torch.from_numpy(arr(b, s, h, p)).cuda(),
+            torch.from_numpy(arr(b, h, p, n)).cuda())
+
+
+def _rel(got, want):
+    return (got - want).abs().max().item() / max(want.abs().max().item(),
+                                                 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,dt_shift", [
+    (1, 1, 3, 16, 64, -2.0), (2, 70, 5, 20, 16, -2.0),
+    (1, 333, 4, 64, 64, -2.0), (3, 48, 2, 8, 1, -2.0),
+    (1, 40, 3, 64, 64, 14.0)])
+def test_torch_ssd_cuda_kernels_match_plain(b, s, h, p, n, dt_shift):
+    """The forward kernel (through ``ssd_scan``, one launch) against the
+    plain loop on the card: y, the final state and the kept chunk states
+    within 1e-5 of their largest value; the backward kernels against the
+    written-out plain backward on the card, every gradient within 1e-4 of
+    its largest value, and two runs bitwise equal. Shapes cover one
+    token, P no multiple of the 16-row tile, N < 64 down to 1, a ragged
+    last chunk and decays that underflow to 0 (dt_shift 14)."""
+    _need_cuda()
+    from repro_torch.kernels.ssd import (ssd_scan,
+                                         ssd_scan_backward_reference,
+                                         ssd_scan_reference)
+
+    ins, gy, gs = _ssd_inputs(b, s, h, p, n, seed=s + n)
+    before = ssd_scan.launches
+    y, s_fin = ssd_scan(*ins)
+    assert ssd_scan.launches == before + 1
+    _, _, kept = torch.ops.repro_torch.ssd_scan_fwd(*ins, True)
+    want = ssd_scan_reference(*ins, chunk_states=True)
+    for got, w in zip((y, s_fin, kept), want):
+        assert _rel(got, w) <= 1e-5
+    grads = torch.ops.repro_torch.ssd_scan_bwd(*ins, kept, gy, gs)
+    again = torch.ops.repro_torch.ssd_scan_bwd(*ins, kept, gy, gs)
+    plain = ssd_scan_backward_reference(*ins, want[2], gy, gs)
+    for g, a, w in zip(grads, again, plain):
+        assert torch.equal(g, a)
+        assert _rel(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_torch_ssd_cuda_autograd_matches_plain_autograd():
+    """``ssd_scan`` under autograd on the card (the forward kernel keeping
+    its chunk states, then the backward kernels: one launch each) against
+    autograd of the plain loop on the card, for y's and the state's
+    cotangents and for y's alone; mixed devices and a CUDA tensor that is
+    not f32 are refused."""
+    _need_cuda()
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_reference
+
+    ins, gy, gs = _ssd_inputs(2, 50, 3, 32, 64, seed=5)
+    for cot in ("both", "y"):
+        grads = {}
+        for name, fn in (("kernel", ssd_scan), ("plain", ssd_scan_reference)):
+            leaves = [t.clone().requires_grad_() for t in ins]
+            before = (ssd_scan.launches, ssd_scan.backward_launches)
+            y, s = fn(*leaves)
+            loss = (y * gy).sum() + ((s * gs).sum() if cot == "both" else 0)
+            grads[name] = torch.autograd.grad(loss, leaves,
+                                              allow_unused=True)
+            want = (1, 1) if name == "kernel" else (0, 0)
+            assert (ssd_scan.launches - before[0],
+                    ssd_scan.backward_launches - before[1]) == want
+        for g, w in zip(grads["kernel"], grads["plain"]):
+            w = torch.zeros_like(g) if w is None else w
+            assert _rel(g, w) <= 1e-4
+    with pytest.raises(ValueError):
+        ssd_scan(ins[0], ins[1].cpu(), *ins[2:])
+    with pytest.raises(TypeError):
+        ssd_scan(ins[0].half(), *ins[1:])
 
 
 # ---------------------------------------------------------------------------

@@ -97,7 +97,8 @@ def batch_bytes(shape, itemsize, data=2):
 
 def check_record(rec):
     assert rec["status"] == "ok" and rec["flops"] > 0, rec
-    assert rec["traced"] == "plain versions"
+    assert rec["traced"] == ("plain versions; the Mamba-2 scan as one op, "
+                             "by its shape function and FLOP formulas")
     assert rec["update_collectives"] == {}, rec["update_collectives"]
     assert rec["temp_size_in_bytes"] > 0 and rec["lower_s"] >= 0
 

@@ -29,6 +29,7 @@ from repro.models import lm as jax_lm
 from repro.models import mamba as jax_mamba
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core.tree import flatten_with_paths
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import lm, mamba
 from repro_torch.serve.decode import GraphDecoder, greedy_generate
 from repro_torch.train import checkpoint
@@ -76,7 +77,7 @@ def test_torch_mamba2_layer_matches_jax(seq, chunk, monkeypatch):
     """mamba2_train (out; out and MambaState) and 3 mamba2_decode steps
     from JAX's handed-over state, at d_model 32, state 16, head_dim 16 (4
     heads); ``chunk`` 4 splits the 17 tokens' scan over 5 chunks."""
-    monkeypatch.setattr(mamba, "SCAN_CHUNK", chunk)
+    monkeypatch.setattr(ssd_ref, "SCAN_CHUNK", chunk)
     kw = dict(d_state=16, head_dim=16)
     jp = jax_mamba.init_mamba2(jax.random.key(seq), 32, **kw)
     tp = _carry(jp)
