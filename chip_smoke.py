@@ -4,9 +4,10 @@
 
 Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi); TF32 off for matmul and cuDNN
-  2. build: the seven kernels (the fused CowClip + coupled-L2 + Adam
-     update, the sparse pair, the chunked WKV6 scan, the embedding
-     backward and the Mamba-2 scan's forward and backward) for sm_90a
+  2. build: the eight kernels (the fused CowClip + coupled-L2 + Adam
+     update, the sparse pair, the chunked WKV6 scan's forward and
+     backward, the embedding backward and the Mamba-2 scan's forward and
+     backward) for sm_90a
      into one extension, from the sources under src/repro_torch/kernels
   3. fused kernel vs its plain PyTorch version at [10131227, 10],
      [10131227, 1] and [4, 10], and at the redesign's edges: V = 100003
@@ -262,29 +263,38 @@ Phases, each fatal on failure:
      into 65536 rows, bitwise its plain version (and run twice), timed
      beside its bound and PyTorch's embedding_dense_backward
  46. wkv6 under autograd at [512, 512, 64]: the kernel's forward at the
-     wkv6 bar against the chunked plain version, its gradients of r, k,
-     v, w and u bitwise the plain version's autograd; the kernel, the
-     plain forward and the plain backward (the recompute) timed, and the
-     backward's memory
+     wkv6 bar against the chunked plain version; the backward kernel
+     (from the forward kernel's kept chunk states) against the
+     written-out plain backward and the plain version's autograd: dr, dk,
+     dv, du and d log w (dw * w) each within 1e-4 of its largest
+     magnitude, dw 0 where w < 1e-38, two runs bitwise; the forward
+     kernel with and without its kept states, the plain forward, the
+     backward kernel beside its bound, the written-out plain backward and
+     the plain recompute under autograd timed (L2 flushed), and each
+     backward's memory above its inputs
  47. a reduced f32 LM step of each family (rwkv6 through the kernels,
      attention, Mamba-2 with the shared block through the SSD scan's
      forward and backward kernels, MoE, a frontend prefix) on the card
      against the CPU from the card's params: loss within 1e-4, every
      gradient leaf within 1e-4 of its largest value (rwkv6 3e-4), params
-     within 1e-4 after the CPU's update of the card's gradients; no CUDA
-     tensor reaches the SSD scan's plain versions
+     within 1e-4 after the CPU's update of the card's gradients; wkv6's
+     forward and backward kernels once a rwkv6 layer a step (the CLI's
+     too); no CUDA tensor reaches the SSD scan's or wkv6's plain versions
  48. rwkv6-7b at full width, 8 of its 32 layers, bf16, trained 10 steps
      of batch 8 x 512 through make_lm_train_step (the CLI's step): the
      loss at steps 1 and 10 (it must fall), ms a step (CUDA events, the
-     median of steps 3-10) and tokens/s, peak memory; a traced step:
-     8 wkv6, 1 fused CowClip and 1 embedding backward launches, no host
+     median of steps 3-10) and tokens/s, peak memory; 80 wkv6 forward and
+     80 backward launches in the 10 steps; a traced step: 8 wkv6 forward,
+     8 wkv6 backward, 1 fused CowClip and 1 embedding backward launches
+     (and as many kernels, by name, in the trace), no host
      read of a device scalar, no PyTorch embedding backward, the idle
      share; a second run of 3 steps from the same seed bitwise the first
  49. activation checkpointing on phase 48's config: remat off, "full" and
      "dots", 3 steps each from seed 0, the losses and every param bitwise
      equal across the three; for each, ms a step (CUDA events), peak
      memory, launches a step (wkv6 8 / 16 / 16: the recompute runs the
-     kernel again; the fused update and the embedding backward 1), a
+     forward kernel again; the wkv6 backward 8 each way; the fused update
+     and the embedding backward 1), a
      traced step with no host read of a device scalar, and FlopCounterMode
      on a step; then one full-remat step at a batch that remat off cannot
      hold (picked from the measured activation bytes), with its peak
@@ -344,8 +354,10 @@ STEP_COVER_CYCLES = 40_000_000  # ~20 ms: > the host work of 52 wrapper
 # the fused update's kernels (one a launch, by D and alignment) and the
 # scan's (the segment pass and the carry only when BH is short of the SMs)
 FUSED_KERNELS = ("cowclip_adam_tile_kernel", "cowclip_adam_kernel")
-WKV6_KERNELS = ("wkv6_segment_state_kernel", "wkv6_segment_carry_kernel",
-                "wkv6_chunked_kernel")
+WKV6_FWD_KERNELS = ("wkv6_segment_state_kernel", "wkv6_segment_carry_kernel",
+                    "wkv6_chunked_kernel")
+WKV6_BWD_KERNELS = ("wkv6_backward_kernel",)    # its backward, one a call
+WKV6_KERNELS = WKV6_FWD_KERNELS + WKV6_BWD_KERNELS
 SPARSE_KERNELS = ("sparse_catchup_kernel", "sparse_update_kernel")
 EMBED_KERNELS = ("embedding_backward_level_kernel",)
 EMBED_GROUP = ("the embedding backward's kernels", EMBED_KERNELS)
@@ -362,6 +374,8 @@ TORCH_EMBED_BACKWARD = ("embedding_backward_feature_kernel",
                         "krn_partial_segment_offset")
 WKV_Y_REL = 1e-4               # the JAX wkv6 test's bar: max |dy| / max |y|
 WKV_S_RTOL, WKV_S_ATOL = 1e-3, 1e-4   # ... and its bar on the final state
+WKV_GRAD_BAR = 1e-4            # the backward: each gradient, max abs over
+                               # its largest magnitude (y's bar)
 WKV_FULL = (256, 4096, 64)     # batch 4 x 64 heads, 4096 tokens, head 64
 WKV_LONG = (64, 32768, 64)     # batch 1 x 64 heads, 32768 tokens
 RWKV6_7B_PARAMS = 7_534_546_944   # repro.models.lm.param_counts(rwkv6-7b)
@@ -4884,11 +4898,15 @@ class PlainSsdOnCard:
     (none may happen: on the card the op launches its kernels), by
     wrapping them in ``kernels/ssd/ops.py`` while it is entered."""
 
-    def __enter__(self):
-        from repro_torch.kernels.ssd import ops
+    MODULE = "repro_torch.kernels.ssd.ops"
+    NAMES = ("ssd_scan_reference", "ssd_scan_backward_reference")
 
+    def __enter__(self):
+        import importlib
+
+        ops = importlib.import_module(self.MODULE)
         self.ops, self.calls, self.saved = ops, 0, {}
-        for name in ("ssd_scan_reference", "ssd_scan_backward_reference"):
+        for name in self.NAMES:
             inner = self.saved[name] = getattr(ops, name)
 
             def wrapped(*args, inner=inner, **kw):
@@ -4901,6 +4919,15 @@ class PlainSsdOnCard:
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.ops, name, fn)
+
+
+class PlainWkvOnCard(PlainSsdOnCard):
+    """The same for the wkv6 wrapper (``kernels/wkv6/ops.py``): its plain
+    chunked version, the CPU's forward and the CPU backward's recompute,
+    may see no CUDA tensor."""
+
+    MODULE = "repro_torch.kernels.wkv6.ops"
+    NAMES = ("chunked_wkv6_reference",)
 
 
 def hybrid_lm_phases(smi, kind):
@@ -5227,62 +5254,177 @@ def lm_embed_phase(gen, tokens, power, kind):
             "bound_by_lm_train": bound_by, "library_ms_lm_train": lib_ms}
 
 
-def lm_wkv_phase(gen, power, kind):
-    """Phase 46: wkv6 under autograd at ``LM_TRAIN_WKV``: the forward (the
-    kernel) at the wkv6 bar against the chunked plain version, the
-    gradients of r, k, v, w and u (the plain version's backward,
-    recomputed) bitwise the plain version's own autograd; times of the
-    kernel, the plain forward and the plain backward, and the backward's
-    memory above its inputs. Returns the line's numbers and the
-    backward's ms."""
-    from repro_torch.kernels.wkv6 import chunked_wkv6_reference, wkv6
+def wkv_bwd_bound(bh, seq, n, chunk=16):
+    """Least time for one backward call (``csrc/wkv6_backward.cu``,
+    "Bound"): r, k, v, w and y's cotangent read and dr, dk, dv and dw
+    written once, u read and du written, the final state's cotangent and
+    the kept chunk states read (f32); 8*L*N*N + 10*L*L*N operations per
+    (bh, chunk): the carry's four products, A, dA, d r_hat, d k_hat and
+    A^T dy."""
+    nbytes = 4 * (9 * bh * seq * n + 2 * bh * n + bh * n * n
+                  + bh * (seq // chunk) * n * n)
+    flops = bh * (seq // chunk) * (8 * chunk * n * n + 10 * chunk * chunk * n)
+    return (*_bound(nbytes, flops), nbytes, flops)
 
-    inp = wkv_inputs(gen, *LM_TRAIN_WKV)
+
+def wkv_grad_gaps(got, want, w):
+    """Each of dr, dk, dv, d log w (dw * w: dw itself divides by decays
+    down to 1e-38) and du: (max abs difference, the same over its largest
+    magnitude in ``want``)."""
+    pairs = list(zip(got, want))
+    pairs[3] = (got[3] * w, want[3] * w)
+    out = []
+    for g, a in pairs:
+        err = (g - a).abs().max().item()
+        scale = a.abs().max().item()
+        out.append((err, err / scale if scale else err))
+    return out
+
+
+def plain_wkv_backward(inp, gy, gs):
+    """The gradient as ``kernels/wkv6/ops.py`` took it before its backward
+    kernel (and still takes it on the CPU): the plain chunked version
+    recomputed under autograd and differentiated."""
+    from repro_torch.kernels.wkv6 import chunked_wkv6_reference
+
+    ins = [t.detach().requires_grad_() for t in inp]
+    with torch.enable_grad():
+        outs = chunked_wkv6_reference(*ins)
+    return torch.autograd.grad(outs, ins, (gy, gs))
+
+
+def lm_wkv_phase(gen, power, kind):
+    """Phase 46: wkv6 under autograd at ``LM_TRAIN_WKV``. The forward (the
+    kernel) at the wkv6 bar against the chunked plain version; the
+    backward kernel (from the forward kernel's kept chunk states) against
+    the written-out plain backward (from the plain chunk states) and
+    against autograd through the plain chunked version: dr, dk, dv, du
+    and d log w (dw * w) each within ``WKV_GRAD_BAR`` of its largest
+    magnitude, dw 0 exactly where the plain one is; two runs bitwise, and
+    the wrapper's gradients the kernel's bits. Timed (L2 flushed): the
+    forward kernel with and without its kept states, the backward kernel
+    beside its bound, the written-out plain backward and the plain
+    backward as the port ran it before (the recompute under autograd);
+    each backward's memory above its inputs. Returns the forward line's
+    numbers, the backward kernel's line and its ms."""
+    import importlib
+
+    from repro_torch.kernels.wkv6 import (chunked_wkv6_backward_reference,
+                                          chunked_wkv6_reference, wkv6)
+
+    launcher = importlib.import_module("repro_torch.kernels.wkv6.wkv6")
+    bh, seq, n = LM_TRAIN_WKV
+    inp = wkv_inputs(gen, *LM_TRAIN_WKV, zero_frac=1e-3)
+    w = inp[3]
     gy = torch.randn(inp[0].shape, generator=gen, device="cuda")
+    gs = torch.randn((bh, n, n), generator=gen, device="cuda")
     outs, grads = {}, {}
     for name, fn in (("kernel", wkv6), ("plain", chunked_wkv6_reference)):
         ins = [t.clone().requires_grad_() for t in inp]
         y, s = fn(*ins)
         outs[name] = (y.detach(), s.detach())
-        grads[name] = torch.autograd.grad(y, ins, gy)
+        grads[name] = torch.autograd.grad((y * gy).sum() + (s * gs).sum(),
+                                          ins)
         del y, s, ins
     err = [0.0]
     wkv_compare(f"{list(LM_TRAIN_WKV)} under autograd, forward vs chunked "
                 f"plain", outs["kernel"], outs["plain"], err)
-    gaps = [(a - b).abs().max().item()
-            for a, b in zip(grads["kernel"], grads["plain"])]
-    same = all(torch.equal(a, b)
-               for a, b in zip(grads["kernel"], grads["plain"]))
-    print(f"[wkv6] {list(LM_TRAIN_WKV)} gradients of r, k, v, w, u through "
-          f"the wrapper (kernel forward, plain backward) against the plain "
-          f"version's autograd: max_abs {max(gaps):.3e}, "
-          f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
-    check(same, "wkv6's gradients are not the plain version's")
-    del outs, grads
+    del outs
+    _, _, kept = launcher.chunked_wkv6(*inp, chunk_states=True)
+    got = launcher.chunked_wkv6_backward(*inp, kept, gy, gs)
+    again = launcher.chunked_wkv6_backward(*inp, kept, gy, gs)
+    with torch.no_grad():
+        plain_kept = chunked_wkv6_reference(*inp, chunk_states=True)[2]
+        written = chunked_wkv6_backward_reference(*inp, plain_kept, gy, gs)
+    torch.cuda.synchronize()
+    names = ("dr", "dk", "dv", "d log w", "du")
+    gaps = {"the written-out plain backward": wkv_grad_gaps(got, written, w),
+            "the plain autograd": wkv_grad_gaps(got, grads["plain"], w)}
+    dead = w < 1e-38
+    zeros = (bool((got[3][dead] == 0).all())
+             and bool((written[3][dead] == 0).all())
+             and bool((grads["plain"][3][dead] == 0).all()))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    wrapper = all(torch.equal(a, b) for a, b in zip(got, grads["kernel"]))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    for what, gap in gaps.items():
+        print(f"[wkv6] {list(LM_TRAIN_WKV)} backward kernel against {what}, "
+              f"max abs / over the largest |g|: "
+              + ", ".join(f"{nm} {e:.3e} / {r:.3e}"
+                          for nm, (e, r) in zip(names, gap))
+              + f" (bar {WKV_GRAD_BAR})", flush=True)
+    print(f"[wkv6] {int(dead.sum())} decays below 1e-38: dw 0 there "
+          f"{'in all three' if zeros else 'NOT everywhere'}; two runs "
+          f"{'bitwise equal' if bitwise else 'DIFFERENT'}; the wrapper's "
+          f"gradients {'the kernel call' if wrapper else 'NOT the kernel call'}"
+          f"'s bits; finite {finite}", flush=True)
+    check(all(r <= WKV_GRAD_BAR for gap in gaps.values() for _, r in gap)
+          and zeros and bitwise and wrapper and finite,
+          "the wkv6 backward kernel disagrees with its plain versions")
+    bwd_err = max(e for e, _ in gaps["the written-out plain backward"])
+    del grads, got, again, written, plain_kept
     torch.cuda.empty_cache()
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     with torch.no_grad():
         k_ms = cuda_time_cold_ms(lambda: wkv6(*inp), 20, scratch)
+        kk_ms = cuda_time_cold_ms(lambda: launcher.chunked_wkv6(
+            *inp, chunk_states=True), 20, scratch)
         p_ms = cuda_time_cold_ms(lambda: chunked_wkv6_reference(*inp), 3,
                                  scratch)
-    ins = [t.clone().requires_grad_() for t in inp]
-    y, _ = wkv6(*ins)
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    bwd_ms = cuda_time_cold_ms(lambda: torch.autograd.grad(
-        y, ins, gy, retain_graph=True), 5, scratch)
-    bwd_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-    b_ms, b_by, nbytes, flops = wkv_bound(*LM_TRAIN_WKV)
+        b_ms = cuda_time_cold_ms(lambda: launcher.chunked_wkv6_backward(
+            *inp, kept, gy, gs), 20, scratch)
+        wp_ms = cuda_time_cold_ms(lambda: chunked_wkv6_backward_reference(
+            *inp, kept, gy, gs), 3, scratch)
+    pb_ms = cuda_time_cold_ms(lambda: plain_wkv_backward(inp, gy, gs), 3,
+                              scratch)
+    del kept
+    # each backward's memory above its inputs (and, the kernel's, the
+    # forward's kept states): the peak of one call less what it started on
+    mem = {}
+    for name, fn in (("kernel", lambda: torch.autograd.grad(
+            (y * gy).sum() + (s * gs).sum(), ins)),
+                     ("plain", lambda: plain_wkv_backward(inp, gy, gs))):
+        ins = [t.clone().requires_grad_() for t in inp]
+        y, s = wkv6(*ins)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        mem[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del out, y, s, ins
+    f_bound = wkv_bound(*LM_TRAIN_WKV)
+    b_bound = wkv_bwd_bound(*LM_TRAIN_WKV)
+    kept_gib = bh * (seq // 16) * n * n * 4 / 2**30
     print(f"[time] chunked_wkv6 {list(LM_TRAIN_WKV)} (L2 flushed): kernel "
-          f"{k_ms:.4f} ms, plain forward {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"by {b_by} ({nbytes} B, {flops} FLOP); the plain backward "
-          f"(recompute and autograd) {bwd_ms:.4f} ms, {bwd_gib:.2f} GiB "
-          f"above its inputs at its peak; {kind} at {power}", flush=True)
-    del inp, ins, y, gy, scratch
-    return ({"max_abs_err_lm_train": err[0], "ms_lm_train": k_ms,
-             "plain_ms_lm_train": p_ms, "bound_ms_lm_train": b_ms,
-             "bound_by_lm_train": b_by, "library_ms_lm_train": None},
-            bwd_ms)
+          f"{k_ms:.4f} ms, keeping its chunk states {kk_ms:.4f} ms "
+          f"({kept_gib:.3f} GiB kept to the backward), plain forward "
+          f"{p_ms:.4f} ms, bound {f_bound[0]:.4f} ms by {f_bound[1]} "
+          f"({f_bound[2]} B, {f_bound[3]} FLOP); {kind} at {power}",
+          flush=True)
+    print(f"[time] wkv6 backward {list(LM_TRAIN_WKV)} (L2 flushed): kernel "
+          f"{b_ms:.4f} ms, bound {b_bound[0]:.4f} ms by {b_bound[1]} "
+          f"({b_bound[2]} B, {b_bound[3]} FLOP: "
+          f"{100 * b_bound[0] / b_ms:.1f}% of it); the written-out plain "
+          f"backward {wp_ms:.4f} ms; the plain backward as the port ran it "
+          f"before (recompute and autograd) {pb_ms:.4f} ms; above its inputs "
+          f"at its peak: the kernel {mem['kernel']:.3f} GiB, the plain "
+          f"recompute {mem['plain']:.3f} GiB; {kind} at {power}",
+          flush=True)
+    del inp, w, gy, gs, scratch
+    fwd = {"max_abs_err_lm_train": err[0], "ms_lm_train": k_ms,
+           "ms_lm_train_chunk_states": kk_ms, "plain_ms_lm_train": p_ms,
+           "bound_ms_lm_train": f_bound[0],
+           "bound_by_lm_train": f_bound[1], "library_ms_lm_train": None}
+    bwd = {"name": "wkv6_backward", "route": "cuda",
+           "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_backward.cu",
+           # no TPU kernel: XLA's gradient of the jnp twin's lax.scan
+           "replaces": "src/repro/models/rwkv.py:107",
+           "launches": None, "max_abs_err": bwd_err, "ms": b_ms,
+           "plain_ms": pb_ms, "written_out_plain_ms": wp_ms,
+           "bound_ms": b_bound[0], "bound_by": b_bound[1],
+           "library_ms": None}
+    return fwd, bwd, b_ms
 
 
 def grad_gaps(want, got):
@@ -5307,11 +5449,11 @@ def lm_step_agree(arch):
     step, from the card's params, the loss within ``LM_AGREE`` and every
     gradient leaf within ``LM_GRAD_BAR`` (rwkv6: ``LM_GRAD_BAR_RWKV6``) of
     its own largest value; the step launches the fused CowClip kernel
-    once, the embedding backward once, wkv6 once a rwkv6 layer and the
-    SSD scan's forward and backward once a Mamba-2 layer; the CPU's
-    update of the card's gradients tracked beside it, every param within
-    ``LM_AGREE`` after the steps. Returns the largest gaps and the SSD
-    backward's launches in the steps."""
+    once, the embedding backward once, wkv6's forward and backward kernels
+    once a rwkv6 layer and the SSD scan's forward and backward once a
+    Mamba-2 layer; the CPU's update of the card's gradients tracked beside
+    it, every param within ``LM_AGREE`` after the steps. Returns the
+    largest gaps and the SSD backward's launches in the steps."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.core.scaling import scale_hyperparams
     from repro_torch.core.tree import flatten_with_paths, tree_map
@@ -5336,11 +5478,12 @@ def lm_step_agree(arch):
     cpu_state, state = init(cpu), init(card)
     counters = (lambda: fused_cowclip_adam.launches,
                 lambda: embedding_backward_groups.launches,
-                lambda: wkv6.launches, lambda: ssd_scan.launches,
+                lambda: wkv6.launches, lambda: wkv6.backward_launches,
+                lambda: ssd_scan.launches,
                 lambda: ssd_scan.backward_launches)
     mamba = cfg.n_repeats * cfg.block_pattern.count("mamba2")
-    want_calls = (1, 1, cfg.n_layers if "rwkv6" in cfg.block_pattern else 0,
-                  mamba, mamba)
+    rwkv = cfg.n_layers if "rwkv6" in cfg.block_pattern else 0
+    want_calls = (1, 1, rwkv, rwkv, mamba, mamba)
     rng = np.random.default_rng(47)
     gap_loss, gaps = 0.0, {}
     for i in range(LM_AGREE_STEPS):
@@ -5363,8 +5506,8 @@ def lm_step_agree(arch):
             "prefix": None if prefix is None else prefix.cuda()})
         calls = tuple(fn() - b for fn, b in zip(counters, before))
         check(calls == want_calls, f"{arch}: a step launched {calls} "
-              f"(fused CowClip, embedding backward, wkv6, the SSD forward "
-              f"and backward), not {want_calls}")
+              f"(fused CowClip, embedding backward, the wkv6 forward and "
+              f"backward, the SSD forward and backward), not {want_calls}")
         check(torch.equal(aux["loss"], loss), f"{arch}: the step's loss is "
               f"not its gradient's")
     cpu_flat = flatten_with_paths(cpu)
@@ -5388,8 +5531,9 @@ def lm_cli_on_card():
     """Phase 47: ``python -m repro_torch.launch.train`` with
     ``LM_CLI_ARGS`` and a checkpoint, on the card (its default device):
     each step launches the fused CowClip kernel once, the embedding
-    backward once and wkv6 once a layer; the loss falls (the CLI's own
-    check) and the checkpoint holds every param leaf at its shape."""
+    backward once and wkv6's forward and backward kernels once a layer;
+    the loss falls (the CLI's own check) and the checkpoint holds every
+    param leaf at its shape."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.core.tree import flatten_with_paths
     from repro_torch.kernels.cowclip import fused_cowclip_adam
@@ -5405,18 +5549,22 @@ def lm_cli_on_card():
         ckpt = os.path.join(tmp, "lm.npz")
         for fn in counters:
             fn.launches = 0
+        wkv6.backward_launches = 0
         cli.main(list(LM_CLI_ARGS) + ["--checkpoint", ckpt])
         calls = {fn.__name__: fn.launches for fn in counters}
+        calls["wkv6_backward"] = wkv6.backward_launches
         with np.load(ckpt) as saved:
             shapes = {k: saved[k].shape for k in saved.files}
     want = {k: tuple(t.shape) for k, t in flatten_with_paths(
         lm.init(cfg, seed=0, device="cpu")).items()}
     print(f"[lm-train-cli] {' '.join(LM_CLI_ARGS)} on the card: wrapper "
-          f"calls {calls} (expected 1, 1 and {cfg.n_layers} a step); the "
-          f"checkpoint holds {len(shapes)} leaves", flush=True)
+          f"calls {calls} (expected 1, 1, {cfg.n_layers} and {cfg.n_layers} "
+          f"a step); the checkpoint holds {len(shapes)} leaves", flush=True)
     check(calls == {"fused_cowclip_adam": steps,
                     "embedding_backward_groups": steps,
-                    "wkv6": cfg.n_layers * steps}, f"the CLI launched {calls}")
+                    "wkv6": cfg.n_layers * steps,
+                    "wkv6_backward": cfg.n_layers * steps},
+          f"the CLI launched {calls}")
     check(shapes == want, "the CLI's checkpoint is not the params' tree")
 
 
@@ -5460,21 +5608,23 @@ def lm_train_phases(smi, kind):
     phase_end()
     phase_start(46)
     torch.cuda.reset_peak_memory_stats()
-    lines["chunked_wkv6"], wkv_bwd_ms = lm_wkv_phase(gen, power, kind)
+    lines["chunked_wkv6"], lines["wkv6_backward"], wkv_bwd_ms = \
+        lm_wkv_phase(gen, power, kind)
     peak_line(46)
     phase_end()
     phase_start(47)
-    with PlainSsdOnCard() as plain_ssd:
+    with PlainSsdOnCard() as plain_ssd, PlainWkvOnCard() as plain_wkv:
         ssd_bwd_calls = {arch: lm_step_agree(arch)[-1]
                          for arch in LM_TRAIN_ARCHS}
+        lm_cli_on_card()
     print(f"[lm-train-agree] the SSD backward kernel launched "
           f"{ssd_bwd_calls} times in the steps; the SSD scan's plain "
-          f"versions ran on a CUDA tensor {plain_ssd.calls} times",
-          flush=True)
+          f"versions ran on a CUDA tensor {plain_ssd.calls} times, wkv6's "
+          f"plain chunked version {plain_wkv.calls} times", flush=True)
     check(ssd_bwd_calls["zamba2-2.7b"] > 0 and not plain_ssd.calls,
           "the zamba2 step did not run the SSD kernels")
+    check(not plain_wkv.calls, "a CUDA tensor reached wkv6's plain version")
     lines["ssd_scan_bwd"] = {"launches": ssd_bwd_calls["zamba2-2.7b"]}
-    lm_cli_on_card()
     phase_end()
     print(f"[phase 44-47] {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -5496,10 +5646,19 @@ def lm_train_phases(smi, kind):
 
     torch.cuda.reset_peak_memory_stats()
     counters = (wkv6, fused_cowclip_adam, embedding_backward_groups)
-    for fn in counters:
-        fn.launches = 0
+
+    def zero_counts():
+        for fn in counters:
+            fn.launches = 0
+        wkv6.backward_launches = 0
+
+    def counts():
+        return {**{fn.__name__: fn.launches for fn in counters},
+                "wkv6_backward": wkv6.backward_launches}
+
+    zero_counts()
     out = run(LM_TRAIN_STEPS)
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = counts()
     params, state, step = out.params, out.state, out.step
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = out.losses.tolist()
@@ -5511,9 +5670,9 @@ def lm_train_phases(smi, kind):
           f"layers ({n_params} parameters, f32 masters), bf16, wkv6 chunked, "
           f"batch {b} x {s}: {LM_TRAIN_STEPS} steps, loss {losses[0]:.4f} "
           f"at step 1 -> {losses[-1]:.4f} at step {LM_TRAIN_STEPS}; "
-          f"launches {launches} (expected wkv6 {LM_TRAIN_LAYERS}, the fused "
-          f"CowClip update 1 and the embedding backward 1 a step)",
-          flush=True)
+          f"launches {launches} (expected wkv6 {LM_TRAIN_LAYERS} forward and "
+          f"{LM_TRAIN_LAYERS} backward, the fused CowClip update 1 and the "
+          f"embedding backward 1 a step)", flush=True)
     print(f"[lm-train] ms a step (CUDA events) {[round(x, 1) for x in step_ms]}"
           f"; median of steps 3-{LM_TRAIN_STEPS} {steady:.1f} ms "
           f"({b * s / steady * 1e3:.0f} tokens/s); peak device memory "
@@ -5521,6 +5680,7 @@ def lm_train_phases(smi, kind):
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"the loss did not fall: {losses}")
     check(launches == {"wkv6": LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
+                       "wkv6_backward": LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
                        "fused_cowclip_adam": LM_TRAIN_STEPS,
                        "embedding_backward_groups": LM_TRAIN_STEPS},
           f"LM training launched {launches}")
@@ -5533,8 +5693,7 @@ def lm_train_phases(smi, kind):
     kinds = sorted(r[1] for r in host_reads(profiled(control,
                                                       with_stack=True)[1]))
     check(kinds == ["device", "host"], f"host reads classified {kinds}")
-    for fn in counters:
-        fn.launches = 0
+    zero_counts()
 
     def traced():
         with torch.profiler.record_function(f"{STEP_LABEL} 0"):
@@ -5542,15 +5701,19 @@ def lm_train_phases(smi, kind):
 
     wall_ms, prof = profiled(traced, with_stack=True)
     kernels = by_kernel(prof)
-    traced_launches = {fn.__name__: fn.launches for fn in counters}
+    traced_launches = counts()
     busy = sum(t for t, _, _ in kernels)
     print_trace("lm-train-trace", f"one step, batch {b} x {s}", wall_ms,
-                kernels, groups=(("the wkv6 scan's kernels", WKV6_KERNELS),
+                kernels, groups=(("the wkv6 scan's forward kernels",
+                                  WKV6_FWD_KERNELS),
+                                 ("the wkv6 backward kernel",
+                                  WKV6_BWD_KERNELS),
                                  ("the fused CowClip update's kernels",
                                   FUSED_KERNELS), EMBED_GROUP) + ATTN_GROUPS)
     n_kernel = {label: sum(n for _, n, name in kernels
                            if any(k in name for k in names))
-                for label, names in (("wkv6", WKV6_KERNELS),
+                for label, names in (("wkv6", WKV6_FWD_KERNELS),
+                                     ("wkv6_backward", WKV6_BWD_KERNELS),
                                      ("fused", FUSED_KERNELS),
                                      ("embed", EMBED_KERNELS))}
     reads = host_reads(prof)
@@ -5563,19 +5726,21 @@ def lm_train_phases(smi, kind):
           f"device idle {100 * (1 - busy / wall_ms) if busy else float('nan'):.1f}"
           f"% of {wall_ms:.1f} ms", flush=True)
     check(traced_launches == {"wkv6": LM_TRAIN_LAYERS,
+                              "wkv6_backward": LM_TRAIN_LAYERS,
                               "fused_cowclip_adam": 1,
                               "embedding_backward_groups": 1},
           f"a traced step launched {traced_launches}")
     check(not busy or (n_kernel["wkv6"] == LM_TRAIN_LAYERS
+                       and n_kernel["wkv6_backward"] == LM_TRAIN_LAYERS
                        and n_kernel["fused"] == 1
                        and n_kernel["embed"] == ref.levels(b * s)),
           f"the traced step's kernels {n_kernel}")
     check(not dev_reads, f"host reads of a device scalar: {dev_reads}")
     check(not theirs, f"PyTorch's embedding backward ran: {theirs}")
-    print(f"[lm-train] the plain wkv6 backward {wkv_bwd_ms:.1f} ms a layer "
+    print(f"[lm-train] the wkv6 backward kernel {wkv_bwd_ms:.4f} ms a layer "
           f"(phase 46) x {LM_TRAIN_LAYERS} = "
-          f"{wkv_bwd_ms * LM_TRAIN_LAYERS:.1f} ms, "
-          f"{100 * wkv_bwd_ms * LM_TRAIN_LAYERS / steady:.1f}% of a "
+          f"{wkv_bwd_ms * LM_TRAIN_LAYERS:.3f} ms, "
+          f"{100 * wkv_bwd_ms * LM_TRAIN_LAYERS / steady:.2f}% of a "
           f"{steady:.1f} ms step", flush=True)
     del params, state, step, out, prof, kernels
     phase_end()
@@ -5596,11 +5761,14 @@ def lm_train_phases(smi, kind):
     del params, snapshot
     print(f"[phase 48] {time.perf_counter() - t_phase:.1f} s", flush=True)
     launches = {"chunked_wkv6": launches["wkv6"],
+                "wkv6_backward": launches["wkv6_backward"],
                 "cowclip_adam_update": launches["fused_cowclip_adam"],
                 "embedding_backward": launches["embedding_backward_groups"]}
     for name, line in lines.items():
         if name in launches:
             line["launches_lm_train"] = launches[name]
+    # this slice's path: the backward kernel's launches in the 10 steps
+    lines["wkv6_backward"]["launches"] = launches["wkv6_backward"]
     return lines
 
 
@@ -5638,6 +5806,15 @@ def remat_phases(smi, kind):
     n_params = lm.param_counts(base_cfg)["total"]
     counters = (wkv6, fused_cowclip_adam, embedding_backward_groups)
 
+    def zero_counts():
+        for fn in counters:
+            fn.launches = 0
+        wkv6.backward_launches = 0
+
+    def counts():
+        return {**{fn.__name__: fn.launches for fn in counters},
+                "wkv6_backward": wkv6.backward_launches}
+
     def nbytes(tree):
         return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
@@ -5655,10 +5832,9 @@ def remat_phases(smi, kind):
                                   remat_policy=policy)
         phase_end()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters:
-            fn.launches = 0
+        zero_counts()
         out = run(cfg, b, REMAT_STEPS)
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = counts()
         peak = torch.cuda.max_memory_allocated()
         held = nbytes(out.params) + nbytes(out.state)   # grads come and go
         ms = [1e3 * x for x in out.step_seconds]
@@ -5676,11 +5852,10 @@ def remat_phases(smi, kind):
         # one more step traced (host reads), and one under FlopCounterMode
         batch = {"tokens": torch.as_tensor(np.zeros((b, s), np.int32) + 7,
                                            device="cuda"), "prefix": None}
-        for fn in counters:
-            fn.launches = 0
+        zero_counts()
         wall_ms, prof = profiled(lambda: out.step(out.params, out.state,
                                                   batch), with_stack=True)
-        traced = {fn.__name__: fn.launches for fn in counters}
+        traced = counts()
         reads = [r[:4] for r in host_reads(prof) if r[1] == "device"]
         del prof
         with FlopCounterMode(display=False) as fc:
@@ -5695,6 +5870,7 @@ def remat_phases(smi, kind):
         fb = torch.cuda.max_memory_allocated() - base
         del grads
         want = {"wkv6": LM_TRAIN_LAYERS * (2 if remat else 1),
+                "wkv6_backward": LM_TRAIN_LAYERS,
                 "fused_cowclip_adam": 1, "embedding_backward_groups": 1}
         per_step = {k: v / REMAT_STEPS for k, v in launches.items()}
         got[name] = {"peak": peak, "held": held, "ms": ms, "fb": fb,
@@ -5811,6 +5987,7 @@ def remat_phases(smi, kind):
               f" against the card's {card}")
     print(f"[phase 50] {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"chunked_wkv6": got["full"]["launches"]["wkv6"],
+            "wkv6_backward": got["full"]["launches"]["wkv6_backward"],
             "cowclip_adam_update": got["full"]["launches"][
                 "fused_cowclip_adam"],
             "embedding_backward": got["full"]["launches"][
@@ -5844,14 +6021,14 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # -- 2. build: the seven kernels, one extension ----------------------
+    # -- 2. build: the eight kernels, one extension ----------------------
     phase_start(2)
     t0 = time.perf_counter()
     build()
     print(f"[build] cowclip_adam.cu + sparse_catchup.cu + sparse_update.cu "
-          f"+ wkv6.cu + embedding_backward.cu + ssd_scan.cu + binding.cpp "
-          f"for sm_90a, one extension, in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"+ wkv6.cu + wkv6_backward.cu + embedding_backward.cu + "
+          f"ssd_scan.cu + binding.cpp for sm_90a, one extension, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     lines = ctr_phases(smi, kind)
     phase_end()
@@ -5891,8 +6068,12 @@ def main() -> int:
     phase_end()
     for name, extra in lm_train_phases(smi, kind).items():
         # the LM training path: its shapes' numbers, and the calls on
-        # phase 48's 10-step run
-        next(line for line in lines if line["name"] == name).update(extra)
+        # phase 48's 10-step run; the wkv6 backward's line is new here
+        line = next((line for line in lines if line["name"] == name), None)
+        if line is None:
+            lines.append(extra)
+        else:
+            line.update(extra)
     phase_end()
     for name, n in remat_phases(smi, kind).items():
         # this slice's path, full remat: the calls on phase 49's 3 steps

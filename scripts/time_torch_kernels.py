@@ -1,7 +1,7 @@
 """Time the port's kernels and its graph train steps on one card.
 
     python scripts/time_torch_kernels.py [--src DIR]
-                                         [--kernels update,sparse,wkv6,embed,steps]
+                                         [--kernels update,sparse,wkv6,wkv6_backward,embed,steps]
                                          [--quick]
 
 Times with ``chip_smoke.py``'s own timer, inputs and bounds (imported from
@@ -27,6 +27,10 @@ covered. It prints each kernel's registers, shared memory and stack
 * ``wkv6``: ``chunked_wkv6`` at [256, 4096, 64] and [64, 32768, 64] (the
   main path's prefill shapes) for several segment lengths, the card's own
   choice first;
+* ``wkv6_backward``: at rwkv6-7b's training call [512, 512, 64] and at
+  [1, 4000, 64] (BH far below the SMs), the forward with and without its
+  kept chunk states and the backward kernel beside its bound (the
+  timed port must have the backward; an earlier one is skipped);
 * ``embed``: a step's embedding backward over one batch's 26
   deepfm-criteo fields (``chip_smoke.py`` phase 4's first batch of
   131072; the fm lookup at D = 10 and the LR one at D = 1), in the timed
@@ -182,6 +186,34 @@ def time_wkv6(gen, scratch, card, quick):
         del r, k, v, w, u
 
 
+def time_wkv6_backward(gen, scratch, card):
+    import importlib
+
+    launcher = importlib.import_module("repro_torch.kernels.wkv6.wkv6")
+    if not hasattr(launcher, "chunked_wkv6_backward"):
+        print("[time] wkv6 backward: the timed port has no backward kernel",
+              flush=True)
+        return
+    for bh, seq, n in (smoke.LM_TRAIN_WKV, (1, 4000, 64)):
+        r, k, v, w, u = smoke.wkv_inputs(gen, bh, seq, n)
+        gy = torch.randn(r.shape, generator=gen, device="cuda")
+        gs = torch.randn((bh, n, n), generator=gen, device="cuda")
+        _, _, kept = launcher.chunked_wkv6(r, k, v, w, u, chunk_states=True)
+        f_ms = smoke.cuda_time_cold_ms(
+            lambda: launcher.chunked_wkv6(r, k, v, w, u), 20, scratch)
+        fk_ms = smoke.cuda_time_cold_ms(lambda: launcher.chunked_wkv6(
+            r, k, v, w, u, chunk_states=True), 20, scratch)
+        b_ms = smoke.cuda_time_cold_ms(lambda: launcher.chunked_wkv6_backward(
+            r, k, v, w, u, kept, gy, gs), 20, scratch)
+        bound, by, nbytes, flops = smoke.wkv_bwd_bound(bh, seq, n)
+        print(f"[time] wkv6 [{bh}, {seq}, {n}]: forward {f_ms:.4f} ms, "
+              f"keeping its chunk states {fk_ms:.4f} ms; backward kernel "
+              f"{b_ms:.4f} ms, bound {bound:.4f} ms by {by} ({nbytes} B, "
+              f"{flops} FLOP: {100 * bound / b_ms:.1f}% of it) (L2 "
+              f"flushed, host covered), {card}", flush=True)
+        del r, k, v, w, u, gy, gs, kept
+
+
 def _grouped_keys(ids, vocabs):
     """Each field's ids at its own start in one row space (starts aligned
     to 64 rows, as the port's layout): ([B * F] int32 keys, rows)."""
@@ -298,6 +330,8 @@ def main() -> int:
         time_sparse(gen, scratch, card)
     if "wkv6" in kernels:
         time_wkv6(gen, scratch, card, args.quick)
+    if "wkv6_backward" in kernels:
+        time_wkv6_backward(gen, scratch, card)
     if "embed" in kernels:
         time_embed(gen, scratch, card)
     if "steps" in kernels:

@@ -1,6 +1,7 @@
 // PyTorch binding of the port's CUDA kernels: the CowClip + coupled-L2 +
 // Adam kernels (the fused dense update and the two sparse unique-id
-// kernels), the chunked WKV6 scan, the deterministic embedding backward
+// kernels), the chunked WKV6 scan and its backward, the deterministic
+// embedding backward
 // and the Mamba-2 scan's forward and backward. The one translation unit
 // that
 // includes torch/extension.h; the host compiler builds it, nvcc builds only
@@ -16,6 +17,7 @@
 #include "sparse_cowclip.h"
 #include "ssd_scan.h"
 #include "wkv6.h"
+#include "wkv6_backward.h"
 
 namespace {
 
@@ -241,15 +243,16 @@ void sparse_update_scatter_(
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// r, k, v, w [bh, seq, n] f32; u [bh, n]; y [bh, seq, n] and s_out
-// [bh, n, n] allocated by the caller, and the segment carry's scratch:
-// s_loc, s_in [bh, G-1, n, n] and p_seg [bh, G-1, n] for G segments of
-// `segment` chunks.
+// r, k, v, w [bh, seq, n] f32; u [bh, n]; y [bh, seq, n], s_out
+// [bh, n, n] and s_chunks, [bh, seq / chunk, n, n] for the state entering
+// each chunk or [bh, 0, n, n] (not kept), allocated by the caller, and the
+// segment carry's scratch: s_loc, s_in [bh, G-1, n, n] and p_seg
+// [bh, G-1, n] for G segments of `segment` chunks.
 void wkv6_chunked(torch::Tensor r, torch::Tensor k, torch::Tensor v,
                   torch::Tensor w, torch::Tensor u, torch::Tensor y,
-                  torch::Tensor s_out, torch::Tensor s_loc,
-                  torch::Tensor p_seg, torch::Tensor s_in, int64_t chunk,
-                  int64_t segment) {
+                  torch::Tensor s_out, torch::Tensor s_chunks,
+                  torch::Tensor s_loc, torch::Tensor p_seg,
+                  torch::Tensor s_in, int64_t chunk, int64_t segment) {
   TORCH_CHECK(r.dim() == 3, "r must be [BH, S, N]");
   check_table(r, "r", r);
   check_table(k, "k", r);
@@ -268,12 +271,16 @@ void wkv6_chunked(torch::Tensor r, torch::Tensor k, torch::Tensor v,
   const int64_t n_chunks = seq / chunk;
   const int64_t segs = n_chunks > 0 ? (n_chunks + segment - 1) / segment : 1;
   TORCH_CHECK(bh * segs <= INT32_MAX, "too many segments");
-  for (const auto& t : {u, s_out, s_loc, p_seg, s_in}) {
+  for (const auto& t : {u, s_out, s_chunks, s_loc, p_seg, s_in}) {
     TORCH_CHECK(t.is_cuda() && t.device() == r.device() &&
                     t.scalar_type() == torch::kFloat32 && t.is_contiguous(),
-                "u, s_out and the scratch must be contiguous float32 on r's "
-                "device");
+                "u, s_out, s_chunks and the scratch must be contiguous "
+                "float32 on r's device");
   }
+  const bool keep = s_chunks.dim() == 4 && s_chunks.size(1) > 0;
+  const std::vector<int64_t> kept_shape{bh, keep ? n_chunks : 0, n, n};
+  TORCH_CHECK(s_chunks.sizes() == c10::IntArrayRef(kept_shape),
+              "s_chunks must be [BH, S / chunk, N, N] or [BH, 0, N, N]");
   const std::vector<int64_t> u_shape{bh, n}, s_shape{bh, n, n},
       loc_shape{bh, segs - 1, n, n}, p_shape{bh, segs - 1, n};
   TORCH_CHECK(u.sizes() == c10::IntArrayRef(u_shape), "u must be [BH, N]");
@@ -288,13 +295,65 @@ void wkv6_chunked(torch::Tensor r, torch::Tensor k, torch::Tensor v,
   wkv6_chunked_launch(r.data_ptr<float>(), k.data_ptr<float>(),
                       v.data_ptr<float>(), w.data_ptr<float>(),
                       u.data_ptr<float>(), y.data_ptr<float>(),
-                      s_out.data_ptr<float>(), s_loc.data_ptr<float>(),
+                      s_out.data_ptr<float>(),
+                      keep ? s_chunks.data_ptr<float>() : nullptr,
+                      s_loc.data_ptr<float>(),
                       p_seg.data_ptr<float>(), s_in.data_ptr<float>(),
                       static_cast<int>(bh), static_cast<int>(seq),
                       static_cast<int>(n), static_cast<int>(chunk),
                       static_cast<int>(segment),
                       at::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// The chunked WKV6 scan's gradients: dr, dk, dv, dw [bh, seq, n] and du
+// [bh, n] written, from the forward's inputs, the state entering each
+// chunk (s_chunks [bh, seq / chunk, n, n]) and the cotangents gy (y's
+// shape) and gs (the final state's, [bh, n, n]).
+void wkv6_backward(torch::Tensor r, torch::Tensor k, torch::Tensor v,
+                   torch::Tensor w, torch::Tensor u, torch::Tensor s_chunks,
+                   torch::Tensor gy, torch::Tensor gs, torch::Tensor dr,
+                   torch::Tensor dk, torch::Tensor dv, torch::Tensor dw,
+                   torch::Tensor du, int64_t chunk) {
+  TORCH_CHECK(r.dim() == 3, "r must be [BH, S, N]");
+  for (const auto& [t, name] :
+       std::vector<std::pair<torch::Tensor, const char*>>{
+           {r, "r"}, {k, "k"}, {v, "v"}, {w, "w"}, {gy, "gy"}, {dr, "dr"},
+           {dk, "dk"}, {dv, "dv"}, {dw, "dw"}}) {
+    check_table(t, name, r);
+  }
+  const int64_t bh = r.size(0), seq = r.size(1), n = r.size(2);
+  TORCH_CHECK(n >= 1 && n <= kWkv6MaxN, "head size ", n, " outside [1, ",
+              kWkv6MaxN, "]");
+  TORCH_CHECK(chunk >= 1 && chunk <= kWkv6MaxChunk, "chunk ", chunk,
+              " outside [1, ", kWkv6MaxChunk, "]");
+  TORCH_CHECK(seq % chunk == 0, "seq len ", seq, " is no multiple of chunk ",
+              chunk);
+  TORCH_CHECK(bh <= INT32_MAX && seq <= INT32_MAX, "r is too large");
+  for (const auto& t : {u, du, s_chunks, gs}) {
+    TORCH_CHECK(t.is_cuda() && t.device() == r.device() &&
+                    t.scalar_type() == torch::kFloat32 && t.is_contiguous(),
+                "u, du, s_chunks and gs must be contiguous float32 on r's "
+                "device");
+  }
+  const std::vector<int64_t> u_shape{bh, n}, s_shape{bh, n, n},
+      kept_shape{bh, seq / chunk, n, n};
+  TORCH_CHECK(u.sizes() == c10::IntArrayRef(u_shape) &&
+                  du.sizes() == c10::IntArrayRef(u_shape),
+              "u and du must be [BH, N]");
+  TORCH_CHECK(gs.sizes() == c10::IntArrayRef(s_shape),
+              "gs must be [BH, N, N]");
+  TORCH_CHECK(s_chunks.sizes() == c10::IntArrayRef(kept_shape),
+              "s_chunks must be [BH, S / chunk, N, N]");
+  const c10::cuda::CUDAGuard guard(r.device());
+  C10_CUDA_CHECK(wkv6_backward_launch(
+      r.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+      w.data_ptr<float>(), u.data_ptr<float>(), s_chunks.data_ptr<float>(),
+      gy.data_ptr<float>(), gs.data_ptr<float>(), dr.data_ptr<float>(),
+      dk.data_ptr<float>(), dv.data_ptr<float>(), dw.data_ptr<float>(),
+      du.data_ptr<float>(), static_cast<int>(bh), static_cast<int>(seq),
+      static_cast<int>(n), static_cast<int>(chunk),
+      at::cuda::getCurrentCUDAStream().stream()));
 }
 
 // For each group i, grads[i] [rows, D_i] f32 (zeroed by the caller) = the
@@ -494,8 +553,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "CowClip + coupled-L2 + Adam on the slot rows of a list of "
           "tables, scattered in place, one launch");
   mod.def("wkv6_chunked", &wkv6_chunked,
-          "chunked RWKV-6 WKV scan: y and the final state, written into "
-          "the given outputs");
+          "chunked RWKV-6 WKV scan: y, the final state and, when its "
+          "tensor is not empty, the state entering each chunk, written "
+          "into the given outputs");
+  mod.def("wkv6_backward", &wkv6_backward,
+          "the chunked RWKV-6 WKV scan's five gradients from the kept "
+          "chunk states, written into the given outputs; deterministic");
   mod.def("embedding_backward", &embedding_backward,
           "the gradients of gathers of one or more groups at the same keys, "
           "as a sorted segmented sum in a fixed order, into the given "

@@ -12,7 +12,10 @@
 //   y        = A v + (r * exp(cum_prev)) S + (r . u . k)[t] v[t]
 //   S       <- exp(cum[L-1]) S + (k * exp(cum[L-1] - cum))^T v
 //
-// y is [BH, S, N]; the final S is [BH, N, N]. All f32.
+// y is [BH, S, N]; the final S is [BH, N, N]. All f32. On request (for
+// the backward, wkv6_backward.cu) pass 2 also writes the state entering
+// every chunk, [BH, S/L, N, N], which it holds in its accumulators anyway;
+// without it, nothing else changes.
 //
 // Numerics: 1e-38 is a subnormal float. This file must be compiled without
 // --use_fast_math and without -ftz=true: flushed to zero, fmaxf(w, 1e-38f)
@@ -71,6 +74,7 @@
 // chain (the accurate logf/expf, the fragment loads and splits) against
 // two blocks of 8 warps an SM (pass 2's shared memory), not the bytes.
 #include "wkv6.h"
+#include "wkv6_device.cuh"
 
 namespace {
 
@@ -82,25 +86,10 @@ constexpr int kPadA = kN + 4;  // stride of tiles read as rows (r_hat, k_hat,
 constexpr int kPadB = kN + 8;  // stride of tiles read down columns by the
                                // mma fragments (k_tail, v, S): no conflict
 constexpr int kPadL = kL + 4;  // stride of A
-constexpr float kClamp = 25.0f;
-constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kThreads == 16 * (kN / 4), "a (step, 4 channels) per thread");
 static_assert(kL == 16, "the cumsum is a 16-lane shuffle scan; y is m16");
 static_assert(kThreads / 32 == kN / 8, "a warp per 8 columns of y");
-
-__device__ __forceinline__ float clip(float x) {
-  return fminf(fmaxf(x, -kClamp), kClamp);
-}
-
-__device__ __forceinline__ float get(const float4& a, int i) {
-  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
-}
-
-__device__ __forceinline__ void set(float4& a, int i, float x) {
-  if (i == 0) a.x = x; else if (i == 1) a.y = x; else if (i == 2) a.z = x;
-  else a.w = x;
-}
 
 // 3xTF32: x = hi + lo exactly, hi = x rounded to TF32's 10 mantissa bits
 // by an integer add and an AND (cvt.rna.tf32 takes five instructions on
@@ -155,20 +144,6 @@ __device__ __forceinline__ void mma3_split_a(float (&d)[4], float (&small)[4],
   mma_tf32(d, ah, bh);
 }
 
-// The 4 channels j0 .. j0+3 of one step at p + off, loaded one by one
-// (u, and the inputs where n % 4 != 0 or a row is not 16-byte aligned):
-// zeros past n or for an invalid step.
-__device__ __forceinline__ float4 load4(const float* __restrict__ p,
-                                        long long off, int j0, int n,
-                                        bool valid) {
-  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (!valid) return x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (j0 + i < n) set(x, i, p[off + j0 + i]);
-  return x;
-}
-
 // Asynchronous 16-byte copies into shared memory (cp.async): a chunk's
 // inputs are copied two chunks ahead, so their DRAM latency hides behind
 // a whole chunk of work and holds no registers. `valid` false fills 16
@@ -221,38 +196,6 @@ struct Staging {
                  j0, n, lt < chunk);
   }
 };
-
-// Per-thread log decays of its (step, 4 channels) and their cumsums along
-// the chunk: a shuffle scan over the 16 lanes that hold the chunk's steps
-// of the same channels. lw = 0 past the chunk and past n, so the padding
-// adds nothing and decays nothing.
-struct Decays {
-  float lw[4], cum[4], last[4];
-};
-
-// x[i] for a runtime i in [0, 4), without an indexed (local) array
-__device__ __forceinline__ float pick(const float (&x)[4], int i) {
-  return i == 0 ? x[0] : i == 1 ? x[1] : i == 2 ? x[2] : x[3];
-}
-
-__device__ __forceinline__ Decays decays(const float4& w, int lt, int j0,
-                                         int n, int chunk) {
-  Decays d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool on = lt < chunk && j0 + i < n;
-    d.lw[i] = on ? logf(fmaxf(get(w, i), 1e-38f)) : 0.0f;
-    float x = d.lw[i];
-#pragma unroll
-    for (int off = 1; off < kL; off <<= 1) {
-      const float y = __shfl_up_sync(kFull, x, off, kL);
-      if (lt >= off) x += y;
-    }
-    d.cum[i] = x;
-    d.last[i] = __shfl_sync(kFull, x, chunk - 1, kL);
-  }
-  return d;
-}
 
 // The state's tiles a warp owns: rows 16 qb .. 16 qb + 15 (qb = warp % 4),
 // columns 32 (warp / 4) .. + 31, as 4 m16n8 accumulator fragments.
@@ -421,8 +364,8 @@ wkv6_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ w,
                     const float* __restrict__ u,
                     const float* __restrict__ s_in, float* __restrict__ y,
-                    float* __restrict__ s_out, int seq, int n, int chunk,
-                    int segment, int segs) {
+                    float* __restrict__ s_out, float* __restrict__ s_chunks,
+                    int seq, int n, int chunk, int segment, int segs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Pass2Smem& sm = *reinterpret_cast<Pass2Smem*>(smem_raw);
 
@@ -578,6 +521,17 @@ wkv6_chunked_kernel(const float* __restrict__ r, const float* __restrict__ k,
   for (int c = c0; c < c1; ++c) {
     const int b = (c - c0) & 1;
     const bool next = c + 1 < c1;
+    if (s_chunks != nullptr) {  // the state entering chunk c, kept
+      float* sc =
+          s_chunks + (static_cast<long long>(bh) * n_chunks + c) * n * n;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int q = tile_row(warp, lane, j), m = tile_col(warp, lane, t, j);
+          if (q < n && m < n) sc[q * n + m] = st.c[t][j];
+        }
+    }
     // chunk c's products (buffer b) and chunk c+1's terms (buffer b ^ 1),
     // while chunk c+2's inputs are copied into the stage chunk c's left
     in.prefetch(c + 2, c1);
@@ -616,9 +570,9 @@ bool aligned16(const void* p) {
 
 template <bool kVec>
 void launch(const float* r, const float* k, const float* v, const float* w,
-            const float* u, float* y, float* s_out, float* s_loc,
-            float* p_seg, float* s_in, int bh, int seq, int n, int chunk,
-            int segment, int segs, cudaStream_t stream) {
+            const float* u, float* y, float* s_out, float* s_chunks,
+            float* s_loc, float* p_seg, float* s_in, int bh, int seq, int n,
+            int chunk, int segment, int segs, cudaStream_t stream) {
   if (segs > 1) {
     wkv6_segment_state_kernel<kVec><<<bh * (segs - 1), kThreads, 0, stream>>>(
         k, v, w, s_loc, p_seg, seq, n, chunk, segment, segs);
@@ -632,26 +586,27 @@ void launch(const float* r, const float* k, const float* v, const float* w,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(sizeof(Pass2Smem)));
   wkv6_chunked_kernel<kVec><<<bh * segs, kThreads, sizeof(Pass2Smem),
-                              stream>>>(r, k, v, w, u, s_in, y, s_out, seq,
-                                        n, chunk, segment, segs);
+                              stream>>>(r, k, v, w, u, s_in, y, s_out,
+                                        s_chunks, seq, n, chunk, segment,
+                                        segs);
 }
 
 }  // namespace
 
 void wkv6_chunked_launch(const float* r, const float* k, const float* v,
                          const float* w, const float* u, float* y,
-                         float* s_out, float* s_loc, float* p_seg,
-                         float* s_in, int bh, int seq, int n, int chunk,
-                         int segment, cudaStream_t stream) {
+                         float* s_out, float* s_chunks, float* s_loc,
+                         float* p_seg, float* s_in, int bh, int seq, int n,
+                         int chunk, int segment, cudaStream_t stream) {
   if (bh == 0) return;
   const int n_chunks = seq / chunk;
   const int segs = n_chunks > 0 ? (n_chunks + segment - 1) / segment : 1;
   const bool vec = n % 4 == 0 && aligned16(r) && aligned16(k) &&
                    aligned16(v) && aligned16(w) && aligned16(y);
   if (vec)
-    launch<true>(r, k, v, w, u, y, s_out, s_loc, p_seg, s_in, bh, seq, n,
-                 chunk, segment, segs, stream);
+    launch<true>(r, k, v, w, u, y, s_out, s_chunks, s_loc, p_seg, s_in, bh,
+                 seq, n, chunk, segment, segs, stream);
   else
-    launch<false>(r, k, v, w, u, y, s_out, s_loc, p_seg, s_in, bh, seq, n,
-                  chunk, segment, segs, stream);
+    launch<false>(r, k, v, w, u, y, s_out, s_chunks, s_loc, p_seg, s_in, bh,
+                  seq, n, chunk, segment, segs, stream);
 }

@@ -14,10 +14,12 @@ constexpr int kWkv6MaxChunk = 16;  // chunk length the kernel takes
 // the caller checks. With G = ceil(seq / chunk / segment) segments of
 // `segment` chunks a bh (G = 1 when seq = 0), s_loc and s_in are scratch
 // of [bh, G-1, n, n] and p_seg of [bh, G-1, n] f32 (unused when G = 1).
-// Writes y and the final state; launches on `stream` (up to three
-// kernels), and the caller checks the launch with cudaGetLastError.
+// s_chunks is null, or [bh, seq / chunk, n, n] f32 for the state entering
+// each chunk (kept for the backward). Writes y, the final state and the
+// kept states; launches on `stream` (up to three kernels), and the caller
+// checks the launch with cudaGetLastError.
 void wkv6_chunked_launch(const float* r, const float* k, const float* v,
                          const float* w, const float* u, float* y,
-                         float* s_out, float* s_loc, float* p_seg,
-                         float* s_in, int bh, int seq, int n, int chunk,
-                         int segment, cudaStream_t stream);
+                         float* s_out, float* s_chunks, float* s_loc,
+                         float* p_seg, float* s_in, int bh, int seq, int n,
+                         int chunk, int segment, cudaStream_t stream);

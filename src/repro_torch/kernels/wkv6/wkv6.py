@@ -1,16 +1,20 @@
-"""Launch the CUDA chunked WKV6 kernels (``csrc/wkv6.cu``).
+"""Launch the CUDA chunked WKV6 kernels (``csrc/wkv6.cu``) and their
+backward (``csrc/wkv6_backward.cu``).
 
-They replace the TPU kernel ``repro/kernels/wkv6/wkv6.py:chunked_wkv6``;
-the source says what bounds them and how. They are compiled, with the
-port's other kernels, into the one extension of ``kernels/extension.py``,
-at first use and never at import.
+The forward replaces the TPU kernel ``repro/kernels/wkv6/wkv6.py:
+chunked_wkv6``; the backward replaces no TPU kernel (the JAX package
+leaves the gradient to XLA). Each source says what bounds it and how. They
+are compiled, with the port's other kernels, into the one extension of
+``kernels/extension.py``, at first use and never at import.
 
 Each bh's chunks are cut into segments of whole chunks
 (``segment_chunks``): pass 1 gives each segment but the last its own
 state contribution and total decay, a short carry gives each segment its
 incoming state, and pass 2 runs the scan of every segment from it
 (``ref.segmented_wkv6_reference`` is the same decomposition in plain
-PyTorch). With one segment a bh, only pass 2 runs.
+PyTorch). With one segment a bh, only pass 2 runs. Pass 2 also writes the
+state entering every chunk when asked (``chunk_states``), for the
+backward: one kernel, a block a bh, walking the chunks in reverse.
 """
 
 from __future__ import annotations
@@ -37,11 +41,14 @@ def segment_chunks(bh: int, n_chunks: int, sm_count: int) -> int:
     return -(-n_chunks // segs)
 
 
-def chunked_wkv6(r, k, v, w, u, *, chunk: int = 16, segment=None):
+def chunked_wkv6(r, k, v, w, u, *, chunk: int = 16, segment=None,
+                 chunk_states: bool = False):
     """Launch the kernels on PyTorch's current stream: returns new f32
-    ``(y [BH, S, N], final_state [BH, N, N])``. ``segment`` (chunks per
-    segment) defaults to ``segment_chunks`` for this card. Inputs are
-    checked by the caller (``ops.wkv6``) and again by the binding."""
+    ``(y [BH, S, N], final_state [BH, N, N])``, and with ``chunk_states``
+    also the state entering each chunk, ``[BH, S / chunk, N, N]``.
+    ``segment`` (chunks per segment) defaults to ``segment_chunks`` for
+    this card. Inputs are checked by the caller (``ops.wkv6``) and again by
+    the binding."""
     bh, seq, n = r.shape
     n_chunks = seq // chunk
     if segment is None:
@@ -50,6 +57,8 @@ def chunked_wkv6(r, k, v, w, u, *, chunk: int = 16, segment=None):
     segs = max(1, -(-n_chunks // segment))
     y = torch.empty_like(r)
     s_fin = torch.empty((bh, n, n), dtype=torch.float32, device=r.device)
+    s_chunks = torch.empty((bh, n_chunks if chunk_states else 0, n, n),
+                           dtype=torch.float32, device=r.device)
     # scratch of the segment carry: each segment's own state and decay
     # (pass 1), then each segment's incoming state (the carry)
     s_loc = torch.empty((bh, segs - 1, n, n), dtype=torch.float32,
@@ -57,6 +66,18 @@ def chunked_wkv6(r, k, v, w, u, *, chunk: int = 16, segment=None):
     p_seg = torch.empty((bh, segs - 1, n), dtype=torch.float32,
                         device=r.device)
     s_in = torch.empty_like(s_loc)
-    build().wkv6_chunked(r, k, v, w, u, y, s_fin, s_loc, p_seg, s_in,
-                         int(chunk), int(segment))
-    return y, s_fin
+    build().wkv6_chunked(r, k, v, w, u, y, s_fin, s_chunks, s_loc, p_seg,
+                         s_in, int(chunk), int(segment))
+    return (y, s_fin, s_chunks) if chunk_states else (y, s_fin)
+
+
+def chunked_wkv6_backward(r, k, v, w, u, s_chunks, gy, gs, *,
+                          chunk: int = 16):
+    """Launch the backward kernel on PyTorch's current stream: returns new
+    f32 ``(dr, dk, dv, dw, du)`` from the forward's inputs, its kept chunk
+    states and the cotangents of y (``gy``) and of the final state
+    (``gs``), all contiguous f32 on one card (the binding checks them)."""
+    grads = [torch.empty_like(t) for t in (r, k, v, w, u)]
+    build().wkv6_backward(r, k, v, w, u, s_chunks, gy, gs, *grads,
+                          int(chunk))
+    return tuple(grads)

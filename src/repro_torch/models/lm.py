@@ -39,8 +39,9 @@ frontends' prefix embeddings.
   the counterpart of ``dots_with_no_batch_dims_saveable``) also keeps
   the outputs of ``aten.mm`` / ``aten.addmm``. The gradients are the
   same bits as without remat. A kernel that no dispatch mode sees (the
-  wkv6 kernel under autograd) is run again in the recompute, and its
-  launch counter counts it again.
+  wkv6 forward kernel under autograd) is run again in the recompute,
+  keeping its chunk states for the backward kernel, which runs once;
+  the forward's launch counter counts it again.
 * **Sharding hints.** ``sharding.act.constrain`` at the reference's
   places (the embedding, the logits) and on the residual stream after
   each layer; no-ops without a mesh (the dry-run's).

@@ -155,7 +155,8 @@ def _wkv_chunked(params, n_heads, r, k, v, w, *, chunk: int = 16):
 
     Differentiable: gradients flow back through the head-major copies and
     the pad (``F.pad``'s backward drops the padded steps) from the wkv6
-    Function, whose backward is the plain chunked version's."""
+    Function, whose backward is the backward kernel on the card and
+    autograd through the plain chunked version on the CPU."""
     b, seq, d = r.shape
     n = d // n_heads
     pad = -seq % chunk
