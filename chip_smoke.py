@@ -267,7 +267,8 @@ Phases, each fatal on failure:
      (from the forward kernel's kept chunk states) against the
      written-out plain backward and the plain version's autograd: dr, dk,
      dv, du and d log w (dw * w) each within 1e-4 of its largest
-     magnitude, dw 0 where w < 1e-38, two runs bitwise; the forward
+     magnitude, dw 0 where w < 1e-38, two runs bitwise, there and at
+     [1, 4000, 64]; the forward
      kernel with and without its kept states, the plain forward, the
      backward kernel beside its bound, the written-out plain backward and
      the plain recompute under autograd timed (L2 flushed), and each
@@ -306,12 +307,14 @@ Phases, each fatal on failure:
      the plain wkv6's products, which the kernel does out of its sight)
  51. the Mamba-2 scan's kernels against their plain versions: the
      forward at zamba2-2.7b's layer (1 x 4096 tokens, 80 heads, P 64, N
-     64) and at 1, 70 and 1000 tokens, y, the final state and the kept
-     chunk states within 1e-5 of their largest value; the backward at
-     phase 47's reduced zamba2 shape (4 x 32, 4 heads) and at 2 x 512 x
-     80 heads against the written-out plain backward, every gradient
-     within 1e-4 of its largest value, two runs bitwise; both timed (L2
-     flushed) beside their bounds and the plain versions
+     64), at 1, 70 and 1000 tokens and at the layer with decays that
+     underflow to 0, y, the final state and the kept chunk states within
+     1e-5 of their largest value against the token loop and the chunk
+     form, two runs bitwise; the backward (from the kernel's kept
+     states) at phase 47's reduced zamba2 shape (4 x 32, 4 heads) and at
+     2 x 512 x 80 heads against the written-out plain backward, every
+     gradient within 1e-4 of its largest value, two runs bitwise; both
+     timed (L2 flushed) beside their bounds and the plain versions
 Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13;
 phases 37-39, then 51, then 40-43, then 44-48, then 49-50, last. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
@@ -342,6 +345,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 on the tensor cores
 RTOL, ATOL = 1e-5, 1e-7        # the JAX kernel's own bar (tests/test_kernels.py)
 TRAIN_STEPS = 4
 BATCH = 131072
@@ -362,7 +366,8 @@ SPARSE_KERNELS = ("sparse_catchup_kernel", "sparse_update_kernel")
 EMBED_KERNELS = ("embedding_backward_level_kernel",)
 EMBED_GROUP = ("the embedding backward's kernels", EMBED_KERNELS)
 # the Mamba-2 scan's: the forward; the backward's reverse scan and its sums
-SSD_KERNELS = ("ssd_scan_forward_kernel", "ssd_scan_backward_kernel",
+SSD_KERNELS = ("ssd_scan_forward_kernel", "ssd_segment_state_kernel",
+               "ssd_segment_carry_kernel", "ssd_scan_backward_kernel",
                "ssd_scan_reduce_kernel")
 PORT_KERNELS = (FUSED_KERNELS + SPARSE_KERNELS + WKV6_KERNELS + EMBED_KERNELS
                 + SSD_KERNELS)
@@ -413,6 +418,8 @@ SSD_LAYER = (1, 4096, 80, 64, 64)
 SSD_SEQS = (1, 70, 1000)
 SSD_TRAIN = ((4, 32, 4, 64, 64), (2, 512, 80, 64, 64))
 SSD_BAR = 1e-5                 # forward: max abs over the largest |value|
+SSD_LARGE_DT = 14.0            # dt = softplus(N(14, 1)): exp(-dt A) is 0 in
+                               # f32 for the heads with A > 7.5
 SSD_GRAD_BAR = 1e-4            # backward: the same, each gradient
 HYBRID_ARCHS = ("zamba2-2.7b", "granite-moe-3b-a800m",
                 "llama4-scout-17b-a16e")
@@ -434,6 +441,7 @@ LM_TRAIN_BASE_LR = 2.5e-5
 LM_TRAIN_REPEAT = 3            # steps of each of the two runs held bitwise
 LM_TRAIN_TABLE = (65536, 4096)  # rwkv6-7b's token table (padded vocab, D)
 LM_TRAIN_WKV = (512, 512, 64)   # the mixer's wkv6 call: batch 8 x 64 heads
+WKV_BWD_LONG = (1, 4000, 64)    # the backward with BH far below the SMs
 LM_TRAIN_ARCHS = ("rwkv6-7b", "gemma3-12b", "zamba2-2.7b",
                   "granite-moe-3b-a800m", "musicgen-large")
 # a gradient leaf's max abs difference over its own largest |g|, card vs
@@ -617,6 +625,17 @@ def step_tables(gen, vocabs, slot_sets, dims, max_depth):
 def _bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def unit_bound(nbytes, tc_flops, f32_flops):
+    """(bound ms, "bytes" or "operations") of a kernel whose products run
+    on the tensor cores in three TF32 passes (``tc_flops`` once) and the
+    rest on the f32 units: the larger of the bytes' time and the
+    operations', the two units working side by side."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(3 * tc_flops / TF32_FLOPS_PER_S,
+                f32_flops / FP32_FLOPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -4739,9 +4758,10 @@ def count_drops(moe_lib, tally):
     return moe_ffn
 
 
-def ssd_inputs(gen, b, s, h, p, n):
+def ssd_inputs(gen, b, s, h, p, n, dt_shift=-2.0):
     """The Mamba-2 scan's f32 inputs on the card as zamba2's layer makes
-    them: x, b and c of silu's range, dt = softplus(N(-2, 1)), A_log its
+    them: x, b and c of silu's range, dt = softplus(N(dt_shift, 1)) (-2:
+    the layer's; ``SSD_LARGE_DT``: decays that underflow to 0), A_log its
     init's spectrum log(linspace(1, 16, H)), D ~ N(0, 1)."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -4749,28 +4769,35 @@ def ssd_inputs(gen, b, s, h, p, n):
     silu = torch.nn.functional.silu
     return (silu(randn(b, s, h, p)), silu(randn(b, s, n)),
             silu(randn(b, s, n)),
-            torch.nn.functional.softplus(randn(b, s, h) - 2.0),
+            torch.nn.functional.softplus(randn(b, s, h) + dt_shift),
             torch.log(torch.linspace(1.0, 16.0, h, device="cuda")),
             randn(h))
 
 
 def ssd_bound(b, s, h, p, n, backward=False):
     """(bound ms, "bytes" or "operations", bytes, FLOPs) of the scan
-    (``csrc/ssd_scan.cu``, "Bound"): forward x, b, c, dt, A_log, D read,
-    y and the final state written, 6 FLOP a state element a token;
-    backward those inputs, the kept chunk states and the two cotangents
-    read, the six gradients written, 11 FLOP an element a token."""
-    from repro_torch.kernels.ssd import n_chunks
+    (``csrc/ssd_scan.cu``, "Bound"). Forward: x, b, c, dt, A_log, D read,
+    y and the final state written, against the chunk form's work a (b, h,
+    chunk of Q): 2 Q^2 N (C B^T, once a block of 64 state rows) + 2 Q^2 P
+    + 4 Q N P on the tensor cores in three TF32 passes, and P N + 4 Q P +
+    2 Q^2 on the f32 units; then the bound of the token loop it replaced
+    (6 f32 FLOP a state element a token) for comparison. Backward: those
+    inputs, the kept chunk states and the two cotangents read, the six
+    gradients written, 11 f32 FLOP an element a token."""
+    from repro_torch.kernels.ssd import CHUNK, n_chunks
 
     x, bc, hd, state = b * s * h * p, 2 * b * s * n, b * s * h, b * h * p * n
     if backward:
         nbytes = 4 * (2 * (x + bc + hd + 2 * h) + x                 # in, gx
                       + b * h * n_chunks(s) * p * n + x + state)    # kept, gy, gs
         flops = 11 * b * s * h * p * n
-    else:
-        nbytes = 4 * (2 * x + bc + hd + 2 * h + state)
-        flops = 6 * b * s * h * p * n
-    return (*_bound(nbytes, flops), nbytes, flops)
+        return (*_bound(nbytes, flops), nbytes, flops)
+    nbytes = 4 * (2 * x + bc + hd + 2 * h + state)
+    q, units = CHUNK, b * h * n_chunks(s)
+    tc = units * (2 * q * q * n * -(-p // 64) + 2 * q * q * p + 4 * q * n * p)
+    f32 = units * (p * n + 4 * q * p + 2 * q * q)
+    return (*unit_bound(nbytes, tc, f32), nbytes, tc + f32,
+            _bound(nbytes, 6 * b * s * h * p * n)[0])
 
 
 def rel_gap(got, want):
@@ -4782,15 +4809,20 @@ def rel_gap(got, want):
 
 def ssd_phase(smi, kind):
     """Phase 51: the Mamba-2 scan's kernels against their plain versions
-    on the card. The forward (through ``ssd_scan``) at zamba2's layer,
-    ``SSD_LAYER``, and at S in ``SSD_SEQS``: y and the final state within
-    ``SSD_BAR`` of their largest value, the kept chunk states too; the
-    backward at ``SSD_TRAIN``'s shapes against the written-out plain
-    backward: every gradient within ``SSD_GRAD_BAR`` of its largest
-    value, two runs bitwise equal; both timed (CUDA events, L2 flushed)
-    beside their bounds and the plain versions. Returns the two kernels'
-    lines for the JSON summary (launches filled in by phases 40 and 47)."""
+    on the card. The forward (through ``ssd_scan``, and through the op
+    keeping its chunk states) at zamba2's layer, ``SSD_LAYER``, at S in
+    ``SSD_SEQS`` and at the layer with decays that underflow to 0
+    (``SSD_LARGE_DT``): y, the final state and the kept chunk states within
+    ``SSD_BAR`` of their largest value against the token loop and against
+    the chunk form, two runs bitwise; the backward at ``SSD_TRAIN``'s
+    shapes from the forward kernel's kept states against the written-out
+    plain backward from the token loop's: every gradient within
+    ``SSD_GRAD_BAR`` of its largest value, two runs bitwise equal; both
+    timed (CUDA events, L2 flushed) beside their bounds and the plain
+    versions. Returns the two kernels' lines for the JSON summary
+    (launches filled in by phases 40 and 47)."""
     from repro_torch.kernels.ssd import (ssd_scan, ssd_scan_backward_reference,
+                                         ssd_scan_chunked_reference,
                                          ssd_scan_reference)
 
     power = smi.strip().split(", ")[-1]
@@ -4798,25 +4830,38 @@ def ssd_phase(smi, kind):
     fwd_op = torch.ops.repro_torch.ssd_scan_fwd
     bwd_op = torch.ops.repro_torch.ssd_scan_bwd
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for b, s, h, p, n in [SSD_LAYER] + [(1, seq) + SSD_LAYER[2:]
-                                        for seq in SSD_SEQS]:
-        ins = ssd_inputs(gen, b, s, h, p, n)
+    cases = ([(SSD_LAYER, -2.0)]
+             + [((1, seq) + SSD_LAYER[2:], -2.0) for seq in SSD_SEQS]
+             + [(SSD_LAYER, SSD_LARGE_DT)])
+    for (b, s, h, p, n), shift in cases:
+        ins = ssd_inputs(gen, b, s, h, p, n, shift)
         with torch.no_grad():
             y, s_fin = ssd_scan(*ins)
-            _, _, kept = fwd_op(*ins, True)
-            want = ssd_scan_reference(*ins, chunk_states=True)
-        gaps = [rel_gap(y, want[0]), rel_gap(s_fin, want[1]),
-                rel_gap(kept, want[2])]
-        same = [torch.equal(a, w) for a, w in zip((y, s_fin, kept), want)]
-        print(f"[ssd] forward kernel {[b, s, h, p, n]} vs the plain loop, "
-              f"max abs over the largest |value|: y {gaps[0]:.3e}, final "
-              f"state {gaps[1]:.3e}, kept chunk states {gaps[2]:.3e} (bar "
-              f"{SSD_BAR}; bitwise y/state/kept {same})", flush=True)
-        check(max(gaps) <= SSD_BAR, f"the SSD forward kernel disagrees at "
-              f"{[b, s, h, p, n]}: {gaps}")
+            got = fwd_op(*ins, True)
+            again = fwd_op(*ins, True)
+            plains = {"the token loop": ssd_scan_reference(*ins,
+                                                           chunk_states=True),
+                      "the chunk form": ssd_scan_chunked_reference(*ins)}
+        same = (torch.equal(y, got[0]) and torch.equal(s_fin, got[1])
+                and all(torch.equal(a, c) for a, c in zip(got, again)))
+        for name, want in plains.items():
+            gaps = [rel_gap(a, w) for a, w in zip(got, want)]
+            print(f"[ssd] forward kernel {[b, s, h, p, n]}, dt shift {shift}, "
+                  f"vs {name}, max abs over the largest |value|: y "
+                  f"{gaps[0]:.3e}, final state {gaps[1]:.3e}, kept chunk "
+                  f"states {gaps[2]:.3e} (bar {SSD_BAR})", flush=True)
+            check(max(gaps) <= SSD_BAR, f"the SSD forward kernel disagrees "
+                  f"with {name} at {[b, s, h, p, n]}, dt shift {shift}: "
+                  f"{gaps}")
+        print(f"[ssd] forward kernel {[b, s, h, p, n]}, dt shift {shift}: "
+              f"two runs, and the calls with and without the kept states, "
+              f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+        check(same, f"the SSD forward kernel's runs differ at "
+              f"{[b, s, h, p, n]}")
+        want = plains["the token loop"]
         worst["fwd"] = max(worst["fwd"], (y - want[0]).abs().max().item(),
                            (s_fin - want[1]).abs().max().item())
-        del ins, y, s_fin, kept, want
+        del ins, y, s_fin, got, again, plains, want
     for b, s, h, p, n in SSD_TRAIN:
         ins = ssd_inputs(gen, b, s, h, p, n)
         gy = torch.randn((b, s, h, p), generator=gen, device="cuda")
@@ -4851,10 +4896,11 @@ def ssd_phase(smi, kind):
                                   scratch)
     f_bound = ssd_bound(*SSD_LAYER)
     print(f"[time] ssd_scan forward {list(SSD_LAYER)} (L2 flushed, host "
-          f"work covered): kernel {f_ms:.4f} ms, plain loop {fp_ms:.4f} ms, "
-          f"bound {f_bound[0]:.4f} ms by {f_bound[1]} ({f_bound[2]} B, "
-          f"{f_bound[3]} FLOP: {100 * f_bound[0] / f_ms:.1f}% of it); "
-          f"{kind} at {power}", flush=True)
+          f"work covered): kernels {f_ms:.4f} ms, plain loop {fp_ms:.4f} "
+          f"ms, bound {f_bound[0]:.4f} ms by {f_bound[1]} ({f_bound[2]} B, "
+          f"{f_bound[3]} FLOP in the chunk form: "
+          f"{100 * f_bound[0] / f_ms:.1f}% of it; the token loop's f32 "
+          f"bound {f_bound[4]:.4f} ms); {kind} at {power}", flush=True)
     del ins
     shape = SSD_TRAIN[-1]
     ins = ssd_inputs(gen, *shape)
@@ -4885,7 +4931,8 @@ def ssd_phase(smi, kind):
         {"name": "ssd_scan_fwd", "route": "cuda", "source": source,
          "replaces": replaces, "launches": None, "max_abs_err": worst["fwd"],
          "ms": f_ms, "plain_ms": fp_ms, "bound_ms": f_bound[0],
-         "bound_by": f_bound[1], "library_ms": None},
+         "bound_by": f_bound[1], "bound_ms_token_loop": f_bound[4],
+         "library_ms": None},
         {"name": "ssd_scan_bwd", "route": "cuda", "source": source,
          "replaces": replaces, "launches": None, "max_abs_err": worst["bwd"],
          "ms": b_ms, "plain_ms": bp_ms, "bound_ms": b_bound[0],
@@ -5258,13 +5305,16 @@ def wkv_bwd_bound(bh, seq, n, chunk=16):
     """Least time for one backward call (``csrc/wkv6_backward.cu``,
     "Bound"): r, k, v, w and y's cotangent read and dr, dk, dv and dw
     written once, u read and du written, the final state's cotangent and
-    the kept chunk states read (f32); 8*L*N*N + 10*L*L*N operations per
-    (bh, chunk): the carry's four products, A, dA, d r_hat, d k_hat and
-    A^T dy."""
+    the kept chunk states read (f32), against, a (bh, chunk), 8 L N^2 +
+    6 L^2 N operations on the tensor cores in three TF32 passes (the
+    carry's four products; A, dA and A^T dy) and 4 L^2 N on the f32 units
+    (d r_hat, d k_hat)."""
     nbytes = 4 * (9 * bh * seq * n + 2 * bh * n + bh * n * n
                   + bh * (seq // chunk) * n * n)
-    flops = bh * (seq // chunk) * (8 * chunk * n * n + 10 * chunk * chunk * n)
-    return (*_bound(nbytes, flops), nbytes, flops)
+    units = bh * (seq // chunk)
+    tc = units * (8 * chunk * n * n + 6 * chunk * chunk * n)
+    f32 = units * 4 * chunk * chunk * n
+    return (*unit_bound(nbytes, tc, f32), nbytes, tc + f32)
 
 
 def wkv_grad_gaps(got, want, w):
@@ -5293,6 +5343,49 @@ def plain_wkv_backward(inp, gy, gs):
     return torch.autograd.grad(outs, ins, (gy, gs))
 
 
+def wkv_bwd_agree(launcher, inp, gy, gs, got, auto):
+    """Hold the backward kernel's gradients ``got`` (from the forward
+    kernel's kept chunk states) to the written-out plain backward (from
+    the plain chunk states) and to ``auto``, autograd through the plain
+    chunked version: dr, dk, dv, du and d log w (dw * w) each within
+    ``WKV_GRAD_BAR`` of its largest magnitude, dw 0 exactly where w <
+    1e-38 in all three, finite, and a second kernel call bitwise equal.
+    Prints the gaps; returns the largest absolute one against the
+    written-out backward."""
+    from repro_torch.kernels.wkv6 import (chunked_wkv6_backward_reference,
+                                          chunked_wkv6_reference)
+
+    shape, w = list(inp[0].shape), inp[3]
+    _, _, kept = launcher.chunked_wkv6(*inp, chunk_states=True)
+    again = launcher.chunked_wkv6_backward(*inp, kept, gy, gs)
+    with torch.no_grad():
+        plain_kept = chunked_wkv6_reference(*inp, chunk_states=True)[2]
+        written = chunked_wkv6_backward_reference(*inp, plain_kept, gy, gs)
+    torch.cuda.synchronize()
+    names = ("dr", "dk", "dv", "d log w", "du")
+    gaps = {"the written-out plain backward": wkv_grad_gaps(got, written, w),
+            "the plain autograd": wkv_grad_gaps(got, auto, w)}
+    dead = w < 1e-38
+    zeros = all(bool((g[3][dead] == 0).all()) for g in (got, written, auto))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    for what, gap in gaps.items():
+        print(f"[wkv6] {shape} backward kernel against {what}, max abs / "
+              f"over the largest |g|: "
+              + ", ".join(f"{nm} {e:.3e} / {r:.3e}"
+                          for nm, (e, r) in zip(names, gap))
+              + f" (bar {WKV_GRAD_BAR})", flush=True)
+    print(f"[wkv6] {shape}: {int(dead.sum())} decays below 1e-38: dw 0 "
+          f"there {'in all three' if zeros else 'NOT everywhere'}; two runs "
+          f"{'bitwise equal' if bitwise else 'DIFFERENT'}; finite {finite}",
+          flush=True)
+    check(all(r <= WKV_GRAD_BAR for gap in gaps.values() for _, r in gap)
+          and zeros and bitwise and finite,
+          f"the wkv6 backward kernel disagrees with its plain versions at "
+          f"{shape}")
+    return max(e for e, _ in gaps["the written-out plain backward"])
+
+
 def lm_wkv_phase(gen, power, kind):
     """Phase 46: wkv6 under autograd at ``LM_TRAIN_WKV``. The forward (the
     kernel) at the wkv6 bar against the chunked plain version; the
@@ -5301,7 +5394,8 @@ def lm_wkv_phase(gen, power, kind):
     against autograd through the plain chunked version: dr, dk, dv, du
     and d log w (dw * w) each within ``WKV_GRAD_BAR`` of its largest
     magnitude, dw 0 exactly where the plain one is; two runs bitwise, and
-    the wrapper's gradients the kernel's bits. Timed (L2 flushed): the
+    the wrapper's gradients the kernel's bits; the same backward checks at
+    ``WKV_BWD_LONG`` (BH far below the SMs). Timed (L2 flushed): the
     forward kernel with and without its kept states, the backward kernel
     beside its bound, the written-out plain backward and the plain
     backward as the port ran it before (the recompute under autograd);
@@ -5315,7 +5409,6 @@ def lm_wkv_phase(gen, power, kind):
     launcher = importlib.import_module("repro_torch.kernels.wkv6.wkv6")
     bh, seq, n = LM_TRAIN_WKV
     inp = wkv_inputs(gen, *LM_TRAIN_WKV, zero_frac=1e-3)
-    w = inp[3]
     gy = torch.randn(inp[0].shape, generator=gen, device="cuda")
     gs = torch.randn((bh, n, n), generator=gen, device="cuda")
     outs, grads = {}, {}
@@ -5332,37 +5425,24 @@ def lm_wkv_phase(gen, power, kind):
     del outs
     _, _, kept = launcher.chunked_wkv6(*inp, chunk_states=True)
     got = launcher.chunked_wkv6_backward(*inp, kept, gy, gs)
-    again = launcher.chunked_wkv6_backward(*inp, kept, gy, gs)
-    with torch.no_grad():
-        plain_kept = chunked_wkv6_reference(*inp, chunk_states=True)[2]
-        written = chunked_wkv6_backward_reference(*inp, plain_kept, gy, gs)
-    torch.cuda.synchronize()
-    names = ("dr", "dk", "dv", "d log w", "du")
-    gaps = {"the written-out plain backward": wkv_grad_gaps(got, written, w),
-            "the plain autograd": wkv_grad_gaps(got, grads["plain"], w)}
-    dead = w < 1e-38
-    zeros = (bool((got[3][dead] == 0).all())
-             and bool((written[3][dead] == 0).all())
-             and bool((grads["plain"][3][dead] == 0).all()))
-    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     wrapper = all(torch.equal(a, b) for a, b in zip(got, grads["kernel"]))
-    finite = all(bool(torch.isfinite(g).all()) for g in got)
-    for what, gap in gaps.items():
-        print(f"[wkv6] {list(LM_TRAIN_WKV)} backward kernel against {what}, "
-              f"max abs / over the largest |g|: "
-              + ", ".join(f"{nm} {e:.3e} / {r:.3e}"
-                          for nm, (e, r) in zip(names, gap))
-              + f" (bar {WKV_GRAD_BAR})", flush=True)
-    print(f"[wkv6] {int(dead.sum())} decays below 1e-38: dw 0 there "
-          f"{'in all three' if zeros else 'NOT everywhere'}; two runs "
-          f"{'bitwise equal' if bitwise else 'DIFFERENT'}; the wrapper's "
-          f"gradients {'the kernel call' if wrapper else 'NOT the kernel call'}"
-          f"'s bits; finite {finite}", flush=True)
-    check(all(r <= WKV_GRAD_BAR for gap in gaps.values() for _, r in gap)
-          and zeros and bitwise and wrapper and finite,
-          "the wkv6 backward kernel disagrees with its plain versions")
-    bwd_err = max(e for e, _ in gaps["the written-out plain backward"])
-    del grads, got, again, written, plain_kept
+    print(f"[wkv6] {list(LM_TRAIN_WKV)}: the wrapper's gradients "
+          f"{'the kernel call' if wrapper else 'NOT the kernel call'}'s bits",
+          flush=True)
+    check(wrapper, "wkv6's autograd gradients are not the backward kernel's")
+    bwd_err = wkv_bwd_agree(launcher, inp, gy, gs, got, grads["plain"])
+    del grads, got
+    # BH far below the SMs: one block walks a bh's 250 chunks
+    long = wkv_inputs(gen, *WKV_BWD_LONG, zero_frac=1e-3)
+    long_gy = torch.randn(long[0].shape, generator=gen, device="cuda")
+    long_gs = torch.randn((WKV_BWD_LONG[0],) + WKV_BWD_LONG[2:] * 2,
+                          generator=gen, device="cuda")
+    _, _, long_kept = launcher.chunked_wkv6(*long, chunk_states=True)
+    bwd_err = max(bwd_err, wkv_bwd_agree(
+        launcher, long, long_gy, long_gs,
+        launcher.chunked_wkv6_backward(*long, long_kept, long_gy, long_gs),
+        plain_wkv_backward(long, long_gy, long_gs)))
+    del long, long_gy, long_gs, long_kept
     torch.cuda.empty_cache()
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     with torch.no_grad():
@@ -5411,7 +5491,7 @@ def lm_wkv_phase(gen, power, kind):
           f"at its peak: the kernel {mem['kernel']:.3f} GiB, the plain "
           f"recompute {mem['plain']:.3f} GiB; {kind} at {power}",
           flush=True)
-    del inp, w, gy, gs, scratch
+    del inp, gy, gs, scratch
     fwd = {"max_abs_err_lm_train": err[0], "ms_lm_train": k_ms,
            "ms_lm_train_chunk_states": kk_ms, "plain_ms_lm_train": p_ms,
            "bound_ms_lm_train": f_bound[0],

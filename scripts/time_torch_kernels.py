@@ -1,7 +1,7 @@
 """Time the port's kernels and its graph train steps on one card.
 
     python scripts/time_torch_kernels.py [--src DIR]
-                                         [--kernels update,sparse,wkv6,wkv6_backward,embed,steps]
+                                         [--kernels update,sparse,wkv6,wkv6_backward,ssd,embed,steps]
                                          [--quick]
 
 Times with ``chip_smoke.py``'s own timer, inputs and bounds (imported from
@@ -31,6 +31,13 @@ covered. It prints each kernel's registers, shared memory and stack
   [1, 4000, 64] (BH far below the SMs), the forward with and without its
   kept chunk states and the backward kernel beside its bound (the
   timed port must have the backward; an earlier one is skipped);
+* ``ssd``: the Mamba-2 scan's forward at zamba2-2.7b's layer
+  (``chip_smoke.SSD_LAYER``, 1 x 4096 x 80 x 64 x 64), without and with
+  its kept chunk states, beside its bound, through the op both ports have
+  (``repro_torch::ssd_scan_fwd``), then, where the timed port cuts the
+  sequence into segments, for several segment lengths, the card's own
+  choice first; and its backward at ``chip_smoke.SSD_TRAIN[-1]`` (2 x 512
+  x 80 x 64 x 64) from the forward's kept states, beside its bound;
 * ``embed``: a step's embedding backward over one batch's 26
   deepfm-criteo fields (``chip_smoke.py`` phase 4's first batch of
   131072; the fm lookup at D = 10 and the LR one at D = 1), in the timed
@@ -214,6 +221,57 @@ def time_wkv6_backward(gen, scratch, card):
         del r, k, v, w, u, gy, gs, kept
 
 
+def time_ssd(gen, scratch, card, quick):
+    import importlib
+
+    ssd = importlib.import_module("repro_torch.kernels.ssd")  # the ops
+    launcher = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    fwd = torch.ops.repro_torch.ssd_scan_fwd
+    bwd = torch.ops.repro_torch.ssd_scan_bwd
+    b, s, h, p, n = smoke.SSD_LAYER
+    ins = smoke.ssd_inputs(gen, b, s, h, p, n)
+    bound, by, nbytes, flops, loop_bound = smoke.ssd_bound(b, s, h, p, n)
+    with torch.no_grad():
+        f_ms = smoke.cuda_time_cold_ms(lambda: fwd(*ins, False), 20, scratch)
+        fk_ms = smoke.cuda_time_cold_ms(lambda: fwd(*ins, True), 20, scratch)
+        print(f"[time] ssd_scan forward {list(smoke.SSD_LAYER)}: {f_ms:.4f} "
+              f"ms, keeping its chunk states {fk_ms:.4f} ms; bound "
+              f"{bound:.4f} ms by {by} ({nbytes} B, {flops} FLOP in the "
+              f"chunk form: {100 * bound / f_ms:.1f}% of it; the token "
+              f"loop's f32 bound {loop_bound:.4f} ms) (L2 flushed, host "
+              f"covered), {card}", flush=True)
+        if not quick and hasattr(launcher, "segment_chunks"):
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            chunks = ssd.n_chunks(s)
+            own = launcher.segment_chunks(
+                b * h * -(-p // launcher.FWD_ROWS), chunks, sms)
+            for seg in [own] + [c for c in (chunks, 128, 32, 16)
+                                if c != own]:
+                ms = smoke.cuda_time_cold_ms(lambda: launcher.forward(
+                    *ins, False, segment=seg), 20, scratch)
+                print(f"[time] ssd_scan forward {list(smoke.SSD_LAYER)} "
+                      f"segment {seg} chunks ({-(-chunks // seg)} a (b, h)"
+                      f"{', the card default' if seg == own else ''}): "
+                      f"{ms:.4f} ms (L2 flushed, host covered), {card}",
+                      flush=True)
+    del ins
+    shape = smoke.SSD_TRAIN[-1]
+    ins = smoke.ssd_inputs(gen, *shape)
+    gy = torch.randn(ins[0].shape, generator=gen, device="cuda")
+    gs = torch.randn(shape[:1] + shape[2:], generator=gen, device="cuda")
+    with torch.no_grad():
+        _, _, kept = fwd(*ins, True)
+        fk_ms = smoke.cuda_time_cold_ms(lambda: fwd(*ins, True), 20, scratch)
+        b_ms = smoke.cuda_time_cold_ms(lambda: bwd(*ins, kept, gy, gs), 20,
+                                       scratch)
+    bound, by, nbytes, flops = smoke.ssd_bound(*shape, backward=True)
+    print(f"[time] ssd_scan {list(shape)}: forward keeping its chunk states "
+          f"{fk_ms:.4f} ms; backward {b_ms:.4f} ms, bound {bound:.4f} ms by "
+          f"{by} ({nbytes} B, {flops} FLOP: {100 * bound / b_ms:.1f}% of it) "
+          f"(L2 flushed, host covered), {card}", flush=True)
+    del ins, gy, gs, kept
+
+
 def _grouped_keys(ids, vocabs):
     """Each field's ids at its own start in one row space (starts aligned
     to 64 rows, as the port's layout): ([B * F] int32 keys, rows)."""
@@ -332,6 +390,8 @@ def main() -> int:
         time_wkv6(gen, scratch, card, args.quick)
     if "wkv6_backward" in kernels:
         time_wkv6_backward(gen, scratch, card)
+    if "ssd" in kernels:
+        time_ssd(gen, scratch, card, args.quick)
     if "embed" in kernels:
         time_embed(gen, scratch, card)
     if "steps" in kernels:

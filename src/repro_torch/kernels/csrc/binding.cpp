@@ -456,15 +456,21 @@ std::vector<int64_t> ssd_shapes(const torch::Tensor& xs,
 
 // The forward: y [B, S, H, P] and s_fin [B, H, P, N] written; s_chunks
 // [B, H, ceil(S / kSsdChunk), P, N] the state at each chunk's start, or
-// [B, H, 0, P, N] (not kept).
+// [B, H, 0, P, N] (not kept). With G segments of `segment` chunks, s_loc
+// and s_in [B, H, G-1, P, N] and log_decay [B, H, G-1] are scratch.
 void ssd_scan_forward(torch::Tensor xs, torch::Tensor bmat,
                       torch::Tensor cmat, torch::Tensor dt,
                       torch::Tensor a_log, torch::Tensor d_skip,
                       torch::Tensor y, torch::Tensor s_fin,
-                      torch::Tensor s_chunks) {
+                      torch::Tensor s_chunks, torch::Tensor s_loc,
+                      torch::Tensor log_decay, torch::Tensor s_in,
+                      int64_t segment) {
   const auto d = ssd_shapes(xs, bmat);
   const int64_t b = d[0], s = d[1], h = d[2], p = d[3], n = d[4];
   const int64_t chunks = (s + kSsdChunk - 1) / kSsdChunk;
+  TORCH_CHECK(segment >= 1 && segment <= INT32_MAX, "segment ", segment,
+              " must be >= 1");
+  const int64_t segs = (chunks + segment - 1) / segment;
   check_shaped(xs, "xs", {b, s, h, p}, xs);
   check_shaped(bmat, "bmat", {b, s, n}, xs);
   check_shaped(cmat, "cmat", {b, s, n}, xs);
@@ -475,14 +481,19 @@ void ssd_scan_forward(torch::Tensor xs, torch::Tensor bmat,
   check_shaped(s_fin, "s_fin", {b, h, p, n}, xs);
   const bool keep = s_chunks.numel() > 0;
   check_shaped(s_chunks, "s_chunks", {b, h, keep ? chunks : 0, p, n}, xs);
+  check_shaped(s_loc, "s_loc", {b, h, segs - 1, p, n}, xs);
+  check_shaped(s_in, "s_in", {b, h, segs - 1, p, n}, xs);
+  check_shaped(log_decay, "log_decay", {b, h, segs - 1}, xs);
   const c10::cuda::CUDAGuard guard(xs.device());
   C10_CUDA_CHECK(ssd_scan_forward_launch(
       xs.data_ptr<float>(), bmat.data_ptr<float>(), cmat.data_ptr<float>(),
       dt.data_ptr<float>(), a_log.data_ptr<float>(),
       d_skip.data_ptr<float>(), y.data_ptr<float>(), s_fin.data_ptr<float>(),
-      keep ? s_chunks.data_ptr<float>() : nullptr, static_cast<int>(b),
-      static_cast<int>(s), static_cast<int>(h), static_cast<int>(p),
-      static_cast<int>(n), at::cuda::getCurrentCUDAStream().stream()));
+      keep ? s_chunks.data_ptr<float>() : nullptr, s_loc.data_ptr<float>(),
+      log_decay.data_ptr<float>(), s_in.data_ptr<float>(),
+      static_cast<int>(b), static_cast<int>(s), static_cast<int>(h),
+      static_cast<int>(p), static_cast<int>(n), static_cast<int>(segment),
+      at::cuda::getCurrentCUDAStream().stream()));
 }
 
 // The backward: the six gradients (each of its input's shape) written,

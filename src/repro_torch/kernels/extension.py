@@ -11,6 +11,9 @@ root of the checkout (listed in ``.gitignore``), at first use and never at
 import. ``csrc/binding.cpp`` is the only file that includes
 ``torch/extension.h``: each kernel has a plain C interface (its header), so
 nvcc compiles the kernels in seconds and the host compiler the binding.
+The scan kernels (wkv6's forward and backward, the Mamba-2 scan's
+forward) share ``csrc/mma_tf32.cuh``: 3xTF32 tensor-core products and
+``cp.async`` copies.
 No fast-math flag: the wkv6 kernels need subnormal floats
 (``wkv6/csrc/wkv6.cu``, "Numerics").
 """
@@ -25,7 +28,8 @@ SOURCES = ("csrc/binding.cpp", "cowclip/csrc/cowclip_adam.cu",
            "cowclip/csrc/sparse_catchup.cu", "cowclip/csrc/sparse_update.cu",
            "wkv6/csrc/wkv6.cu", "wkv6/csrc/wkv6_backward.cu",
            "embedding/csrc/embedding_backward.cu", "ssd/csrc/ssd_scan.cu")
-INCLUDE_DIRS = ("cowclip/csrc", "wkv6/csrc", "embedding/csrc", "ssd/csrc")
+INCLUDE_DIRS = ("csrc", "cowclip/csrc", "wkv6/csrc", "embedding/csrc",
+                "ssd/csrc")
 BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 

@@ -13,15 +13,18 @@ constexpr int kSsdPTile = 16;  // state rows a block holds
 // xs, y: [batch, seq, heads, p]; bmat, cmat: [batch, seq, n]; dt:
 // [batch, seq, heads]; a_log, d_skip: [heads]; s_fin: [batch, heads, p,
 // n]; s_chunks: [batch, heads, ceil(seq / kSsdChunk), p, n], the state at
-// the start of each chunk, or null (not kept). All f32, contiguous, on the
-// current device; seq >= 1, 1 <= n <= kSsdMaxN, which the caller checks.
-// Launches one kernel on `stream`; returns the launch's error.
-cudaError_t ssd_scan_forward_launch(const float* xs, const float* bmat,
-                                    const float* cmat, const float* dt,
-                                    const float* a_log, const float* d_skip,
-                                    float* y, float* s_fin, float* s_chunks,
-                                    int batch, int seq, int heads, int p,
-                                    int n, cudaStream_t stream);
+// the start of each chunk, or null (not kept). With G = ceil(ceil(seq /
+// kSsdChunk) / segment) segments of `segment` chunks a (b, h), s_loc and
+// s_in are scratch of [batch, heads, G-1, p, n] and log_decay of [batch,
+// heads, G-1] (unused when G = 1). All f32, contiguous, on the current
+// device; seq >= 1, 1 <= n <= kSsdMaxN, segment >= 1, which the caller
+// checks. Launches on `stream` (one kernel, or three when G > 1: the
+// segments' own states, their carry, the scan); returns the first error.
+cudaError_t ssd_scan_forward_launch(
+    const float* xs, const float* bmat, const float* cmat, const float* dt,
+    const float* a_log, const float* d_skip, float* y, float* s_fin,
+    float* s_chunks, float* s_loc, float* log_decay, float* s_in, int batch,
+    int seq, int heads, int p, int n, int segment, cudaStream_t stream);
 
 // The gradients of the scan from the forward's inputs, its chunk states
 // and the cotangents gy (y's shape) and gs (s_fin's): gx, gb, gc, gdt,

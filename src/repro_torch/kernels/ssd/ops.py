@@ -4,8 +4,9 @@
 A_log and D ``[H]``, all f32, and returns ``(y [B,S,H,P], final state
 [B,H,P,N])``. It is two operators of the ``repro_torch`` library:
 
-* ``repro_torch::ssd_scan_fwd``: a CUDA tensor launches the forward kernel
-  (``ssd.py``), a CPU tensor runs the plain token loop
+* ``repro_torch::ssd_scan_fwd``: a CUDA tensor launches the forward
+  kernels (``ssd.py``: the chunk form on tensor cores, one kernel, or three
+  with sequence segments), a CPU tensor runs the plain token loop
   (``ref.ssd_scan_reference``); with ``save`` it also returns the state at
   the start of every ``ref.CHUNK``-token chunk, for the backward.
 * ``repro_torch::ssd_scan_bwd``: the backward kernels on the card, the
@@ -19,9 +20,9 @@ for the plain version: its ``states @ c`` product, ``2 B S H P N``
 forward, twice that backward. Under autograd ``ssd_scan`` is a
 ``torch.autograd.Function`` over the two; without a gradient to flow it
 calls the forward alone and keeps no state. ``ssd_scan.launches`` counts
-the forward kernel's launches, ``ssd_scan.backward_launches`` the
-backward's (a launch of its two kernels), so a run can show that its main
-path went through them.
+the forward's launches (one a call, however many kernels it runs),
+``ssd_scan.backward_launches`` the backward's (a launch of its two
+kernels), so a run can show that its main path went through them.
 """
 
 from __future__ import annotations

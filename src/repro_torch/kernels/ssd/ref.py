@@ -23,6 +23,16 @@ and gives, per token, ``g_x = D gy + dt G b``, ``g_b = dt G^T x``,
 ``g_c = s_t^T gy`` (b and c summed over heads: all heads share them),
 ``g_dt = x^T G b + g_a * (-A a_t)`` with ``g_a = <G_t, s_{t-1}>``, and
 ``g_A_log = sum g_a * (-dt A a_t)``, ``g_D = sum gy . x``.
+
+``ssd_scan_chunked_reference`` is the forward kernel's decomposition of
+the same recurrence, ``CHUNK`` tokens at a time (an oracle for it; the
+op's CPU path stays the token loop): with ``s_in`` the state entering a
+chunk, ``l_t = -dt_t A`` and ``cs`` the in-chunk inclusive cumsum of l
+(every exponent <= 0, none rebuilt by a division),
+
+    y_t   = sum_{j<=t} (c_t . b_j) exp(cs_t - cs_j) dt_j x_j
+            + exp(cs_t) (s_in c_t) + D x_t
+    s_out = exp(cs_last) s_in + sum_j exp(cs_last - cs_j) dt_j x_j ⊗ b_j
 """
 
 from __future__ import annotations
@@ -142,3 +152,38 @@ def ssd_scan_backward_reference(xs, bmat, cmat, dt, a_log, d_skip,
             - g_a * big_a * a
         g_a_log -= (g_a * dt_c * big_a * a).sum(dim=(0, 1))
     return g_x, g_b, g_c, g_dt, g_a_log, g_d
+
+
+def ssd_scan_chunked_reference(xs, bmat, cmat, dt, a_log, d_skip):
+    """The scan in the forward kernel's chunk form (module docstring),
+    from a zero state: ``(y [B,S,H,P], final state [B,H,P,N], the state
+    entering each chunk [B,H,n_chunks(S),P,N])``, f32. The masked decays
+    are exp of the cumsums' differences, -inf above the diagonal."""
+    bsz, seq, n_heads, head_dim = xs.shape
+    big_a = torch.exp(a_log)                                        # [H]
+    s = torch.zeros((bsz, n_heads, head_dim, bmat.shape[-1]), dtype=F32,
+                    device=xs.device)
+    causal = torch.ones((CHUNK, CHUNK), dtype=torch.bool,
+                        device=xs.device).tril()
+    kept, ys = [], []
+    for k in range(n_chunks(seq)):
+        span = slice(k * CHUNK, min(seq, (k + 1) * CHUNK))
+        x, b, c, dt_c = xs[:, span], bmat[:, span], cmat[:, span], \
+            dt[:, span]
+        q = x.shape[1]
+        kept.append(s)
+        cs = torch.cumsum(-dt_c * big_a, dim=1).transpose(1, 2)     # [B,H,Q]
+        gap = torch.where(causal[:q, :q], cs[..., :, None] - cs[..., None, :],
+                          -torch.inf)                               # [B,H,t,j]
+        m = (c @ b.transpose(1, 2))[:, None] * torch.exp(gap) \
+            * dt_c.transpose(1, 2)[:, :, None, :]
+        y = torch.einsum("bhtj,bjhp->bthp", m, x) \
+            + torch.exp(cs).transpose(1, 2)[..., None] \
+            * torch.einsum("btn,bhpn->bthp", c, s) \
+            + d_skip[None, None, :, None] * x
+        last = cs[..., -1]                                          # [B,H]
+        w = torch.exp(last[..., None] - cs) * dt_c.transpose(1, 2)  # [B,H,Q]
+        s = torch.exp(last)[..., None, None] * s \
+            + torch.einsum("bhj,bjhp,bjn->bhpn", w, x, b)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s, torch.stack(kept, dim=2)

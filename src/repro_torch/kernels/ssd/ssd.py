@@ -6,10 +6,18 @@ compiles and differentiates. The source says what bounds them and how.
 They are compiled, with the port's other kernels, into the one extension
 of ``kernels/extension.py``, at first use and never at import.
 
-The forward is one kernel; the backward two: the reverse scan writes each
-block's share of the sums across heads and P tiles into scratch, and a
-second kernel adds them in a fixed order (no float atomics, so two runs
-give the same bits).
+The forward is the chunk form of the recurrence on tensor cores
+(``ref.ssd_scan_chunked_reference`` is the same decomposition): a block
+per (b, h, 64 state rows) walks its 16-token chunks with the state in
+registers, so the chunks' chain sets its time. When those blocks are too
+few for the card, each (b, h)'s chunks are cut into segments
+(``segment_chunks``): a pass from a zero state gives each segment but the
+last its own state and log decay, a carry kernel walks the segments in
+order, and the scan runs every segment from its incoming state; one call
+still counts one launch (``ops.ssd_scan.launches``). The backward is two
+kernels: the reverse scan writes each block's share of the sums across
+heads and P tiles into scratch, and a second kernel adds them in a fixed
+order (no float atomics, so two runs give the same bits).
 """
 
 from __future__ import annotations
@@ -20,25 +28,53 @@ from ..extension import build
 from .ref import n_chunks
 
 MAX_N = 64        # state size the kernels take (csrc/ssd_scan.h)
-P_TILE = 16       # rows of the state a block holds
+P_TILE = 16       # rows of the state a backward block holds
+FWD_ROWS = 64     # rows of the state a forward block holds
+BLOCKS_PER_SM = 2     # forward blocks to aim for on each SM when the
+                      # (b, h, rows) blocks alone are too few
 
 
-def forward(xs, bmat, cmat, dt, a_log, d_skip, save: bool):
-    """Launch the forward kernel on PyTorch's current stream: new f32
+def segment_chunks(blocks: int, chunks: int, sm_count: int) -> int:
+    """Chunks per segment of the forward: the whole sequence when its
+    ``blocks`` (b, h, rows) blocks give every SM one, else short enough
+    that blocks x segments fill about ``BLOCKS_PER_SM`` blocks an SM
+    (``scripts/time_torch_kernels.py --kernels ssd`` times the choices)."""
+    if chunks <= 1 or blocks >= sm_count:
+        return max(chunks, 1)
+    segs = min(chunks, -(-BLOCKS_PER_SM * sm_count // blocks))
+    return -(-chunks // segs)
+
+
+def forward(xs, bmat, cmat, dt, a_log, d_skip, save: bool, segment=None):
+    """Launch the forward kernels on PyTorch's current stream: new f32
     ``(y [B,S,H,P], final state [B,H,P,N], chunk states
     [B,H,n_chunks(S),P,N])``, the last of zero chunks unless ``save``.
-    Inputs are checked by the caller (``ops.ssd_scan``) and again by the
-    binding."""
+    ``segment`` (chunks per segment) defaults to ``segment_chunks`` for
+    this card. Inputs are checked by the caller (``ops.ssd_scan``) and
+    again by the binding."""
     bsz, seq, n_heads, head_dim = xs.shape
     n = bmat.shape[-1]
+    chunks = n_chunks(seq)
+    if segment is None:
+        sms = torch.cuda.get_device_properties(
+            xs.device).multi_processor_count
+        segment = segment_chunks(bsz * n_heads * -(-head_dim // FWD_ROWS),
+                                 chunks, sms)
+    segs = -(-chunks // segment)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xs.device)
+
     y = torch.empty_like(xs)
-    s_fin = torch.empty((bsz, n_heads, head_dim, n), dtype=torch.float32,
-                        device=xs.device)
-    s_chunks = torch.empty((bsz, n_heads, n_chunks(seq) if save else 0,
-                            head_dim, n), dtype=torch.float32,
-                           device=xs.device)
+    s_fin = empty(bsz, n_heads, head_dim, n)
+    s_chunks = empty(bsz, n_heads, chunks if save else 0, head_dim, n)
+    # scratch of the segment carry: each segment's own state and log decay
+    # (the first pass), then each segment's incoming state (the carry)
+    s_loc, s_in = (empty(bsz, n_heads, segs - 1, head_dim, n)
+                   for _ in range(2))
+    log_decay = empty(bsz, n_heads, segs - 1)
     build().ssd_scan_forward(xs, bmat, cmat, dt, a_log, d_skip, y, s_fin,
-                             s_chunks)
+                             s_chunks, s_loc, log_decay, s_in, int(segment))
     return y, s_fin, s_chunks
 
 

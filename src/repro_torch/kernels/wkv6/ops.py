@@ -50,8 +50,10 @@ def wkv6(r, k, v, w, u, *, chunk: int = 16):
     """The chunked WKV6 scan: ``(y [BH, S, N], final_state [BH, N, N])``,
     both f32. Raises ``ValueError`` when S is not a multiple of ``chunk``,
     N > 64 or ``chunk`` is outside [1, 16] (the kernel's limits, held on
-    both devices). Differentiable in r, k, v, w and u: the backward is the
-    plain chunked version's, recomputed (module docstring)."""
+    both devices). Differentiable in r, k, v, w and u: on the card the
+    backward kernel runs from the chunk states the forward kernel kept, on
+    the CPU autograd through the plain chunked version, recomputed (module
+    docstring)."""
     if not isinstance(r, torch.Tensor) or r.dim() != 3:
         raise ValueError("r must be a [BH, S, N] torch.Tensor")
     bh, seq, n = r.shape

@@ -684,8 +684,9 @@ def _rel(got, want):
     (1, 40, 3, 64, 64, 14.0)])
 def test_torch_ssd_cuda_kernels_match_plain(b, s, h, p, n, dt_shift):
     """The forward kernel (through ``ssd_scan``, one launch) against the
-    plain loop on the card: y, the final state and the kept chunk states
-    within 1e-5 of their largest value; the backward kernels against the
+    plain token loop and against the chunk form on the card: y, the final
+    state and the kept chunk states within 1e-5 of their largest value;
+    the backward kernels from the kernel's kept states against the
     written-out plain backward on the card, every gradient within 1e-4 of
     its largest value, and two runs bitwise equal. Shapes cover one
     token, P no multiple of the 16-row tile, N < 64 down to 1, a ragged
@@ -693,22 +694,48 @@ def test_torch_ssd_cuda_kernels_match_plain(b, s, h, p, n, dt_shift):
     _need_cuda()
     from repro_torch.kernels.ssd import (ssd_scan,
                                          ssd_scan_backward_reference,
+                                         ssd_scan_chunked_reference,
                                          ssd_scan_reference)
 
-    ins, gy, gs = _ssd_inputs(b, s, h, p, n, seed=s + n)
+    ins, gy, gs = _ssd_inputs(b, s, h, p, n, seed=s + n, dt_shift=dt_shift)
     before = ssd_scan.launches
     y, s_fin = ssd_scan(*ins)
     assert ssd_scan.launches == before + 1
     _, _, kept = torch.ops.repro_torch.ssd_scan_fwd(*ins, True)
     want = ssd_scan_reference(*ins, chunk_states=True)
-    for got, w in zip((y, s_fin, kept), want):
+    chunked = ssd_scan_chunked_reference(*ins)
+    for got, w, c in zip((y, s_fin, kept), want, chunked):
         assert _rel(got, w) <= 1e-5
+        assert _rel(got, c) <= 1e-5
     grads = torch.ops.repro_torch.ssd_scan_bwd(*ins, kept, gy, gs)
     again = torch.ops.repro_torch.ssd_scan_bwd(*ins, kept, gy, gs)
     plain = ssd_scan_backward_reference(*ins, want[2], gy, gs)
     for g, a, w in zip(grads, again, plain):
         assert torch.equal(g, a)
         assert _rel(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,segment", [
+    (2, 70, 5, 20, 16, 1), (2, 70, 5, 20, 16, 2), (1, 333, 4, 64, 64, 5),
+    (3, 48, 2, 8, 1, 1), (1, 1000, 80, 64, 64, 7), (1, 4096, 80, 64, 64, 64)])
+def test_torch_ssd_cuda_segments_match_plain(b, s, h, p, n, segment):
+    """The forward with each (b, h)'s chunks cut into segments of
+    ``segment`` (a pass from a zero state, the carry, the scan from each
+    segment's incoming state; ragged last segments too) against the plain
+    token loop: y, the final state and the kept chunk states within 1e-5
+    of their largest value, and the same bits as a second run."""
+    _need_cuda()
+    from repro_torch.kernels.ssd import ssd as launcher
+    from repro_torch.kernels.ssd import ssd_scan_reference
+
+    ins, _, _ = _ssd_inputs(b, s, h, p, n, seed=s + segment)
+    want = ssd_scan_reference(*ins, chunk_states=True)
+    got = launcher.forward(*ins, True, segment=segment)
+    again = launcher.forward(*ins, True, segment=segment)
+    for a, c, w in zip(got, again, want):
+        assert torch.equal(a, c)
+        assert _rel(a, w) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -1,0 +1,73 @@
+"""The chunk form of the port's Mamba-2 scan
+(``repro_torch.kernels.ssd.ssd_scan_chunked_reference``) on the CPU.
+
+It is the forward kernel's decomposition written in plain PyTorch
+(``csrc/ssd_scan.cu``: log-space in-chunk cumsums, the masked C B^T, its
+product with dt x, C s_in^T, the chunk's own state and the carry, with
+the state entering each chunk kept). It is held to the reference's scan,
+``jax.lax.scan`` over ``repro.models.mamba._ssm_step`` through
+``tests/test_torch_ssd.py``'s harness, at the LM bar (1e-4), and to the
+op's token loop (``ssd_scan_reference``) at 1e-5 of the largest value for
+y, the final state and the kept chunk states. Cases: one token, inside
+one chunk, one whole chunk, a whole chunk and one more, a ragged last
+chunk; decays that underflow to 0 (dt ~ 14: exp(-dt A) is 0 in f32 for
+the heads with the larger A); dt = 0 on some tokens. The kernel is held
+to both plain versions on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phase 51).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ssd import (n_chunks, ssd_scan_chunked_reference,
+                                     ssd_scan_reference)
+from test_torch_ssd import LM_BAR, _inputs, _jax_fwd, _max_abs, _torch
+
+PLAIN_BAR = 1e-5    # over the largest |value|: two f32 orders of one sum
+
+CASES = [
+    pytest.param(1, -2.0, None, id="S1"),
+    pytest.param(5, -2.0, None, id="S5"),
+    pytest.param(16, -2.0, None, id="S16-whole"),
+    pytest.param(17, -2.0, None, id="S17"),
+    pytest.param(70, -2.0, None, id="S70-ragged"),
+    pytest.param(17, 14.0, None, id="S17-large-dt"),
+    pytest.param(70, 14.0, None, id="S70-large-dt"),
+    pytest.param(16, -2.0, 3, id="S16-dt-zero"),
+    pytest.param(70, -2.0, 2, id="S70-dt-zero"),
+]
+
+
+def _rel(got, want):
+    """max |got - want| over max |want| (0 where both are all zero)."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    return err / scale if scale else err
+
+
+@pytest.mark.parametrize("seq,dt_shift,zero_every", CASES)
+def test_torch_ssd_chunked_matches_jax_and_token_loop(seq, dt_shift,
+                                                      zero_every):
+    ins, _, _ = _inputs(seq, seed=100 + seq, dt_shift=dt_shift)
+    if zero_every:
+        ins[3][:, ::zero_every] = 0.0
+    if dt_shift > 0:     # the later heads' decays underflow to 0 in f32
+        decay = np.exp(-ins[3] * np.exp(ins[4]))
+        assert decay.dtype == np.float32 and (decay == 0).any()
+    y, s_fin, kept = ssd_scan_chunked_reference(*_torch(ins))
+    b, _, h, p = ins[0].shape
+    n = ins[1].shape[-1]
+    assert tuple(y.shape) == (b, seq, h, p)
+    assert tuple(s_fin.shape) == (b, h, p, n)
+    assert tuple(kept.shape) == (b, h, n_chunks(seq), p, n)
+    assert all(bool(torch.isfinite(t).all()) for t in (y, s_fin, kept))
+
+    want_y, want_s = _jax_fwd(*ins)
+    assert _max_abs(want_y, y) <= LM_BAR
+    assert _max_abs(want_s, s_fin) <= LM_BAR
+
+    want = ssd_scan_reference(*_torch(ins), chunk_states=True)
+    for got, ref in zip((y, s_fin, kept), want):
+        assert _rel(got, ref) <= PLAIN_BAR
+    assert not kept[:, :, 0].any()      # the zero state entering chunk 0
