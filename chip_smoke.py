@@ -310,13 +310,32 @@ Phases, each fatal on failure:
      64), at 1, 70 and 1000 tokens and at the layer with decays that
      underflow to 0, y, the final state and the kept chunk states within
      1e-5 of their largest value against the token loop and the chunk
-     form, two runs bitwise; the backward (from the kernel's kept
-     states) at phase 47's reduced zamba2 shape (4 x 32, 4 heads) and at
-     2 x 512 x 80 heads against the written-out plain backward, every
-     gradient within 1e-4 of its largest value, two runs bitwise; both
-     timed (L2 flushed) beside their bounds and the plain versions
+     form, two runs bitwise; the backward (the reverse chunk form on
+     tensor cores, from the kernel's kept states) at phase 47's reduced
+     zamba2 shape (4 x 32, 4 heads) and at 2 x 512 x 80 heads (phase
+     52's) against the written-out plain backward and the chunk form's
+     plain backward, every gradient within 1e-4 of its largest value,
+     two runs bitwise; both timed (L2 flushed) beside their bounds and
+     the plain versions (the backward beside both, and the bytes of its
+     partial sums across heads, which its bound does not count)
+ 52. zamba2-2.7b at full width and depth (2,422,670,240 params; 54
+     Mamba-2 layers, the shared attention + MLP block after every 6),
+     bf16, remat off, trained 10 steps of batch 2 x 512 of the CLI's
+     Zipf stream through train.loop.train_lm (the CLI's loop and step) at
+     --base-lr ZAMBA_TRAIN_BASE_LR: the loss at steps 1 and 10 (it must
+     fall), ms a step (CUDA events, the median of steps 3-10), tokens/s,
+     peak memory; 540 SSD forward and 540 backward launches, 10 of the
+     fused CowClip update and of the embedding backward; a traced step:
+     54 SSD forward and 54 backward calls and kernels by name (the
+     forward kernel, the backward's scan and sums), 1 fused update and
+     the embedding backward's level launches, no host read of a device
+     scalar, no PyTorch embedding backward, the idle share, the SSD
+     backward's device time against the step's busy time; no CUDA tensor
+     reaching the SSD scan's plain versions; two runs of 3 steps from the
+     same seed bitwise equal
 Phase 24 runs after 12; phases 19-22 and 25-36 between 24 and 13;
-phases 37-39, then 51, then 40-43, then 44-48, then 49-50, last. Each
+phases 37-39, then 51, then 40-43, then 44-48, then 49-50, then 52,
+last. Each
 phase starts with a flushed "[phase N] start" line, and faulthandler
 prints every thread's Python stack if the process dies of a signal.
 The last two lines are the kernels' JSON summary and the result line.
@@ -439,6 +458,15 @@ LM_TRAIN_STEPS = 10
 # (scripts/lm_train_lr_sweep.py)
 LM_TRAIN_BASE_LR = 2.5e-5
 LM_TRAIN_REPEAT = 3            # steps of each of the two runs held bitwise
+# zamba2-2.7b training (phase 52): full width and depth, batch 2 x 512 (the
+# SSD backward's SSD_TRAIN[-1] shape), 10 steps of the CLI's stream
+ZAMBA_TRAIN_BATCH = (2, 512)
+ZAMBA_TRAIN_STEPS = 10
+ZAMBA_TRAIN_REPEAT = 3
+# --base-lr of phase 52's run: of 1e-3 ... 2.5e-5 the one whose loss falls
+# steadily in 10 steps (10.81 -> 8.49); the larger ones bounce the loss up
+# to 17.6 (scripts/lm_train_lr_sweep.py --arch zamba2-2.7b --batch 2x512)
+ZAMBA_TRAIN_BASE_LR = 2.5e-5
 LM_TRAIN_TABLE = (65536, 4096)  # rwkv6-7b's token table (padded vocab, D)
 LM_TRAIN_WKV = (512, 512, 64)   # the mixer's wkv6 call: batch 8 x 64 heads
 WKV_BWD_LONG = (1, 4000, 64)    # the backward with BH far below the SMs
@@ -760,29 +788,66 @@ def update_bound(cnt, dim):
     return (*_bound(nbytes, flops), touched, nbytes)
 
 
+PROFILE_PREFIX = 1024          # spin kernels a profile launches before fn
+# the runtime calls that launch one kernel each (cuBLAS's and the port's)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
 def profiled(fn, with_stack=False):
-    """Run ``fn`` once under torch.profiler: (wall ms, the profile)."""
+    """Run ``fn`` once under torch.profiler: (wall ms, the profile). A
+    profile drops the device records of its first few kernel launches,
+    more of them the more large profiles the process has taken: 1 after
+    two profiles of 150,000 kernels, 3 after six
+    (scripts/profile_loss_probe.py), ~20 late in this script, where
+    phase 52's traced step once lost layer 0's first kernels. So the
+    profile first launches ``PROFILE_PREFIX`` spin kernels, which
+    ``by_kernel`` leaves out, and it fails if a kernel launch of ``fn``
+    has no device record."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts,
                                 with_stack=with_stack) as prof:
+        for _ in range(PROFILE_PREFIX):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    lost = unrecorded_launches(prof)
+    check(all(i < PROFILE_PREFIX for i in lost),
+          f"the profile dropped the device records of "
+          f"{sum(i >= PROFILE_PREFIX for i in lost)} kernel launches of the "
+          f"traced function (and of {sum(i < PROFILE_PREFIX for i in lost)} "
+          f"of its {PROFILE_PREFIX} spin kernels)")
     return wall_ms, prof
+
+
+def unrecorded_launches(prof):
+    """The positions, in launch order, of a profile's kernel launch calls
+    whose kernel has no device record (matched by correlation id)."""
+    events = list(prof.profiler.kineto_results.events())
+    calls = {e.correlation_id(): e.start_ns() for e in events
+             if e.name() in LAUNCH_CALLS}
+    seen = {e.correlation_id() for e in events
+            if e.device_type() == torch.autograd.DeviceType.CUDA}
+    return [i for i, c in enumerate(sorted(calls, key=calls.get))
+            if c not in seen]
 
 
 def by_kernel(prof):
     """[(device ms, count, name)] of a profile's kernels and copies (not
-    the device-side spans of the steps' labels), sorted by device time.
+    the device-side spans of the steps' labels, nor ``profiled``'s spin
+    kernels), sorted by device time.
     Summed from the profiler's raw device events (what ``key_averages``
     sums, without building the op tree first: that takes minutes for the
     half a million kernels of a zamba2-2.7b prefill)."""
     totals: dict = {}
     for e in prof.profiler.kineto_results.events():
         if (e.device_type() != torch.autograd.DeviceType.CUDA
-                or e.duration_ns() <= 0 or e.name().startswith(STEP_LABEL)):
+                or e.duration_ns() <= 0 or e.name().startswith(STEP_LABEL)
+                or "spin_kernel" in e.name()):    # profiled()'s prefix
             continue
         ms, n = totals.get(e.name(), (0.0, 0))
         totals[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
@@ -4775,7 +4840,7 @@ def ssd_inputs(gen, b, s, h, p, n, dt_shift=-2.0):
 
 
 def ssd_bound(b, s, h, p, n, backward=False):
-    """(bound ms, "bytes" or "operations", bytes, FLOPs) of the scan
+    """(bound ms, "bytes" or "operations", bytes, FLOPs, ...) of the scan
     (``csrc/ssd_scan.cu``, "Bound"). Forward: x, b, c, dt, A_log, D read,
     y and the final state written, against the chunk form's work a (b, h,
     chunk of Q): 2 Q^2 N (C B^T, once a block of 64 state rows) + 2 Q^2 P
@@ -4783,18 +4848,27 @@ def ssd_bound(b, s, h, p, n, backward=False):
     2 Q^2 on the f32 units; then the bound of the token loop it replaced
     (6 f32 FLOP a state element a token) for comparison. Backward: those
     inputs, the kept chunk states and the two cotangents read, the six
-    gradients written, 11 f32 FLOP an element a token."""
+    gradients written, against the reverse chunk form's work a (b, h,
+    chunk), a group of 64 rows: 6 Q^2 N (C B^T and the masked products
+    with c and b) + 4 Q^2 P (gy x^T and the masked product with gy) + 8 Q
+    P N (b G^T, x G^, gy s_in, the carry) on the tensor cores in three
+    TF32 passes and 3 P N + 6 Q P + 6 Q N + 8 Q^2 on the f32 units; then
+    the bytes of its partial sums across heads (part_b and part_c written
+    and read again), which the bound does not count."""
     from repro_torch.kernels.ssd import CHUNK, n_chunks
 
     x, bc, hd, state = b * s * h * p, 2 * b * s * n, b * s * h, b * h * p * n
+    q, units, groups = CHUNK, b * h * n_chunks(s), -(-p // 64)
     if backward:
-        nbytes = 4 * (2 * (x + bc + hd + 2 * h) + x                 # in, gx
+        nbytes = 4 * (2 * (x + bc + hd + 2 * h)     # inputs, their gradients
                       + b * h * n_chunks(s) * p * n + x + state)    # kept, gy, gs
-        flops = 11 * b * s * h * p * n
-        return (*_bound(nbytes, flops), nbytes, flops)
+        tc = units * (6 * q * q * n * groups + 4 * q * q * p
+                      + 8 * q * p * n)
+        f32 = units * (3 * p * n + 6 * q * p + 6 * q * n + 8 * q * q * groups)
+        part_bytes = 4 * 2 * 2 * b * s * h * groups * n
+        return (*unit_bound(nbytes, tc, f32), nbytes, tc + f32, part_bytes)
     nbytes = 4 * (2 * x + bc + hd + 2 * h + state)
-    q, units = CHUNK, b * h * n_chunks(s)
-    tc = units * (2 * q * q * n * -(-p // 64) + 2 * q * q * p + 4 * q * n * p)
+    tc = units * (2 * q * q * n * groups + 2 * q * q * p + 4 * q * n * p)
     f32 = units * (p * n + 4 * q * p + 2 * q * q)
     return (*unit_bound(nbytes, tc, f32), nbytes, tc + f32,
             _bound(nbytes, 6 * b * s * h * p * n)[0])
@@ -4821,7 +4895,9 @@ def ssd_phase(smi, kind):
     timed (CUDA events, L2 flushed) beside their bounds and the plain
     versions. Returns the two kernels' lines for the JSON summary
     (launches filled in by phases 40 and 47)."""
-    from repro_torch.kernels.ssd import (ssd_scan, ssd_scan_backward_reference,
+    from repro_torch.kernels.ssd import (ssd_scan,
+                                         ssd_scan_backward_chunked_reference,
+                                         ssd_scan_backward_reference,
                                          ssd_scan_chunked_reference,
                                          ssd_scan_reference)
 
@@ -4869,23 +4945,31 @@ def ssd_phase(smi, kind):
         _, _, kept = fwd_op(*ins, True)
         got = bwd_op(*ins, kept, gy, gs)
         again = bwd_op(*ins, kept, gy, gs)
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
         with torch.no_grad():
             plain_kept = ssd_scan_reference(*ins, chunk_states=True)[2]
-            want = ssd_scan_backward_reference(*ins, plain_kept, gy, gs)
-        gaps = {name: rel_gap(g, w) for name, g, w in zip(
-            ("x", "b", "c", "dt", "A_log", "D"), got, want)}
-        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
-        print(f"[ssd] backward kernel {[b, s, h, p, n]} vs the written-out "
-              f"plain backward, max abs over the largest |g|: "
-              f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (bar "
-              f"{SSD_GRAD_BAR}); two runs "
+            plains = {"the written-out plain backward":
+                      ssd_scan_backward_reference(*ins, plain_kept, gy, gs),
+                      "the chunk form's plain backward":
+                      ssd_scan_backward_chunked_reference(*ins, plain_kept,
+                                                          gy, gs)}
+        for label, want in plains.items():
+            gaps = {name: rel_gap(g, w) for name, g, w in zip(
+                ("x", "b", "c", "dt", "A_log", "D"), got, want)}
+            print(f"[ssd] backward kernel {[b, s, h, p, n]} vs {label}, "
+                  f"max abs over the largest |g|: "
+                  f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (bar "
+                  f"{SSD_GRAD_BAR})", flush=True)
+            check(max(gaps.values()) <= SSD_GRAD_BAR,
+                  f"the SSD backward kernel at {[b, s, h, p, n]} vs {label}:"
+                  f" {gaps}")
+            worst["bwd"] = max([worst["bwd"]] + [(g - w).abs().max().item()
+                                                 for g, w in zip(got, want)])
+        print(f"[ssd] backward kernel {[b, s, h, p, n]}: two runs "
               f"{'bitwise equal' if bitwise else 'DIFFERENT'}", flush=True)
-        check(max(gaps.values()) <= SSD_GRAD_BAR and bitwise,
-              f"the SSD backward kernel at {[b, s, h, p, n]}: {gaps}, "
-              f"bitwise {bitwise}")
-        worst["bwd"] = max([worst["bwd"]] + [(g - w).abs().max().item()
-                                             for g, w in zip(got, want)])
-        del ins, gy, gs, kept, got, again, plain_kept, want
+        check(bitwise, f"the SSD backward kernel's runs differ at "
+              f"{[b, s, h, p, n]}")
+        del ins, gy, gs, kept, got, again, plain_kept, plains, want
 
     torch.cuda.empty_cache()
     scratch = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -4912,15 +4996,18 @@ def ssd_phase(smi, kind):
                                  scratch)
         bp_ms = cuda_time_cold_ms(lambda: ssd_scan_backward_reference(
             *ins, kept, gy, gs), 2, scratch)
+        bc_ms = cuda_time_cold_ms(lambda: ssd_scan_backward_chunked_reference(
+            *ins, kept, gy, gs), 2, scratch)
         fk_ms = cuda_time_cold_ms(lambda: fwd_op(*ins, True), 20, scratch)
     b_bound = ssd_bound(*shape, backward=True)
     print(f"[time] ssd_scan backward {list(shape)} (L2 flushed, host work "
           f"covered): kernels {b_ms:.4f} ms, written-out plain backward "
-          f"{bp_ms:.4f} ms, bound {b_bound[0]:.4f} ms by {b_bound[1]} "
-          f"({b_bound[2]} B, {b_bound[3]} FLOP: "
-          f"{100 * b_bound[0] / b_ms:.1f}% of it); the forward keeping its "
-          f"chunk states there {fk_ms:.4f} ms; {kind} at {power}",
-          flush=True)
+          f"{bp_ms:.4f} ms, chunk form's plain backward {bc_ms:.4f} ms, "
+          f"bound {b_bound[0]:.4f} ms by {b_bound[1]} ({b_bound[2]} B, "
+          f"{b_bound[3]} FLOP: {100 * b_bound[0] / b_ms:.1f}% of it; the "
+          f"partial sums across heads {b_bound[4]} B more, written and "
+          f"read, not in the bound); the forward keeping its chunk states "
+          f"there {fk_ms:.4f} ms; {kind} at {power}", flush=True)
     del ins, gy, gs, kept, scratch
     torch.cuda.empty_cache()
     source = "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu"
@@ -4935,8 +5022,9 @@ def ssd_phase(smi, kind):
          "library_ms": None},
         {"name": "ssd_scan_bwd", "route": "cuda", "source": source,
          "replaces": replaces, "launches": None, "max_abs_err": worst["bwd"],
-         "ms": b_ms, "plain_ms": bp_ms, "bound_ms": b_bound[0],
-         "bound_by": b_bound[1], "library_ms": None},
+         "ms": b_ms, "plain_ms": bp_ms, "plain_chunked_ms": bc_ms,
+         "bound_ms": b_bound[0], "bound_by": b_bound[1],
+         "library_ms": None},
     ]
 
 
@@ -5653,10 +5741,7 @@ def lm_train_phases(smi, kind):
     width. Returns each kernel's numbers at this path's shapes and its
     launches in phase 48's 10-step run, by kernel name."""
     from repro_torch.configs.rwkv6_7b import CONFIG as RWKV6_7B
-    from repro_torch.core.tree import flatten_with_paths
     from repro_torch.data import make_lm_tokens
-    from repro_torch.kernels.cowclip import fused_cowclip_adam
-    from repro_torch.kernels.embedding import embedding_backward_groups, ref
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch.train import build_parser
     from repro_torch.models import lm
@@ -5724,126 +5809,25 @@ def lm_train_phases(smi, kind):
                         base_lr=LM_TRAIN_BASE_LR, base_l2=1e-5,
                         samples=samples, seed=0, device="cuda")
 
-    torch.cuda.reset_peak_memory_stats()
-    counters = (wkv6, fused_cowclip_adam, embedding_backward_groups)
-
-    def zero_counts():
-        for fn in counters:
-            fn.launches = 0
-        wkv6.backward_launches = 0
-
-    def counts():
-        return {**{fn.__name__: fn.launches for fn in counters},
-                "wkv6_backward": wkv6.backward_launches}
-
-    zero_counts()
-    out = run(LM_TRAIN_STEPS)
-    launches = counts()
-    params, state, step = out.params, out.state, out.step
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    losses = out.losses.tolist()
-    step_ms = [1e3 * x for x in out.step_seconds]
-    steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
-    print(f"[lm-train] {out.hp} (run_lm's scaling from --base-lr "
-          f"{LM_TRAIN_BASE_LR}, --base-l2 1e-5)", flush=True)
-    print(f"[lm-train] rwkv6-7b at full width, {LM_TRAIN_LAYERS} of 32 "
-          f"layers ({n_params} parameters, f32 masters), bf16, wkv6 chunked, "
-          f"batch {b} x {s}: {LM_TRAIN_STEPS} steps, loss {losses[0]:.4f} "
-          f"at step 1 -> {losses[-1]:.4f} at step {LM_TRAIN_STEPS}; "
-          f"launches {launches} (expected wkv6 {LM_TRAIN_LAYERS} forward and "
-          f"{LM_TRAIN_LAYERS} backward, the fused CowClip update 1 and the "
-          f"embedding backward 1 a step)", flush=True)
-    print(f"[lm-train] ms a step (CUDA events) {[round(x, 1) for x in step_ms]}"
-          f"; median of steps 3-{LM_TRAIN_STEPS} {steady:.1f} ms "
-          f"({b * s / steady * 1e3:.0f} tokens/s); peak device memory "
-          f"{peak:.2f} GiB; {kind} at {power}", flush=True)
-    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-          f"the loss did not fall: {losses}")
-    check(launches == {"wkv6": LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
-                       "wkv6_backward": LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
-                       "fused_cowclip_adam": LM_TRAIN_STEPS,
-                       "embedding_backward_groups": LM_TRAIN_STEPS},
-          f"LM training launched {launches}")
-
-    # a traced step: the kernels, host reads, PyTorch's embedding backward
-    def control():    # one read of a device scalar, then of a host one
-        float(torch.ones((), device="cuda"))
-        float(torch.ones(()))
-
-    kinds = sorted(r[1] for r in host_reads(profiled(control,
-                                                      with_stack=True)[1]))
-    check(kinds == ["device", "host"], f"host reads classified {kinds}")
-    zero_counts()
-
-    def traced():
-        with torch.profiler.record_function(f"{STEP_LABEL} 0"):
-            step(params, state, {"tokens": first, "prefix": None})
-
-    wall_ms, prof = profiled(traced, with_stack=True)
-    kernels = by_kernel(prof)
-    traced_launches = counts()
-    busy = sum(t for t, _, _ in kernels)
-    print_trace("lm-train-trace", f"one step, batch {b} x {s}", wall_ms,
-                kernels, groups=(("the wkv6 scan's forward kernels",
-                                  WKV6_FWD_KERNELS),
-                                 ("the wkv6 backward kernel",
-                                  WKV6_BWD_KERNELS),
-                                 ("the fused CowClip update's kernels",
-                                  FUSED_KERNELS), EMBED_GROUP) + ATTN_GROUPS)
-    n_kernel = {label: sum(n for _, n, name in kernels
-                           if any(k in name for k in names))
-                for label, names in (("wkv6", WKV6_FWD_KERNELS),
-                                     ("wkv6_backward", WKV6_BWD_KERNELS),
-                                     ("fused", FUSED_KERNELS),
-                                     ("embed", EMBED_KERNELS))}
-    reads = host_reads(prof)
-    dev_reads = [r[:4] for r in reads if r[1] == "device"]
-    theirs = torch_embedding_backward(kernels)
-    print(f"[lm-train-trace] wrapper calls {traced_launches}; kernels "
-          f"{n_kernel} (the embedding backward's {ref.levels(b * s)} level "
-          f"launches a run); host reads {len(reads)}, {len(dev_reads)} of a "
-          f"device scalar; PyTorch's embedding backward kernels {theirs}; "
-          f"device idle {100 * (1 - busy / wall_ms) if busy else float('nan'):.1f}"
-          f"% of {wall_ms:.1f} ms", flush=True)
-    check(traced_launches == {"wkv6": LM_TRAIN_LAYERS,
-                              "wkv6_backward": LM_TRAIN_LAYERS,
-                              "fused_cowclip_adam": 1,
-                              "embedding_backward_groups": 1},
-          f"a traced step launched {traced_launches}")
-    check(not busy or (n_kernel["wkv6"] == LM_TRAIN_LAYERS
-                       and n_kernel["wkv6_backward"] == LM_TRAIN_LAYERS
-                       and n_kernel["fused"] == 1
-                       and n_kernel["embed"] == ref.levels(b * s)),
-          f"the traced step's kernels {n_kernel}")
-    check(not dev_reads, f"host reads of a device scalar: {dev_reads}")
-    check(not theirs, f"PyTorch's embedding backward ran: {theirs}")
+    per_step = {"chunked_wkv6": LM_TRAIN_LAYERS,
+                "wkv6_backward": LM_TRAIN_LAYERS}
+    launches, steady, _, _ = train_phase(
+        "lm-train", f"rwkv6-7b at full width, {LM_TRAIN_LAYERS} of 32 layers "
+        f"({n_params} parameters, f32 masters), bf16, wkv6 chunked",
+        run, LM_TRAIN_STEPS, LM_TRAIN_REPEAT, first, LM_TRAIN_BASE_LR,
+        {"chunked_wkv6": (wkv6, "launches"),
+         "wkv6_backward": (wkv6, "backward_launches")}, per_step,
+        (("the wkv6 scan's forward kernels", WKV6_FWD_KERNELS,
+          LM_TRAIN_LAYERS),
+         ("the wkv6 backward kernel", WKV6_BWD_KERNELS, LM_TRAIN_LAYERS)),
+        power, kind)
     print(f"[lm-train] the wkv6 backward kernel {wkv_bwd_ms:.4f} ms a layer "
           f"(phase 46) x {LM_TRAIN_LAYERS} = "
           f"{wkv_bwd_ms * LM_TRAIN_LAYERS:.3f} ms, "
           f"{100 * wkv_bwd_ms * LM_TRAIN_LAYERS / steady:.2f}% of a "
           f"{steady:.1f} ms step", flush=True)
-    del params, state, step, out, prof, kernels
     phase_end()
-
-    # two runs of 3 steps from the same seed, bitwise equal
-    snapshot = {k: t.cpu() for k, t in
-                flatten_with_paths(run(LM_TRAIN_REPEAT).params).items()}
-    params = run(LM_TRAIN_REPEAT).params
-    diffs = {k: (t.cpu() - snapshot[k]).abs().max().item()
-             for k, t in flatten_with_paths(params).items()
-             if not torch.equal(t.cpu(), snapshot[k])}
-    print(f"[lm-train] two runs of {LM_TRAIN_REPEAT} steps from seed 0: "
-          + ("bitwise equal in every param leaf" if not diffs else
-             f"DIFFERENT in {len(diffs)} leaves, largest "
-             f"{max(diffs.values()):.3e} in {max(diffs, key=diffs.get)}"),
-          flush=True)
-    check(not diffs, f"two runs of the same steps differ: {diffs}")
-    del params, snapshot
     print(f"[phase 48] {time.perf_counter() - t_phase:.1f} s", flush=True)
-    launches = {"chunked_wkv6": launches["wkv6"],
-                "wkv6_backward": launches["wkv6_backward"],
-                "cowclip_adam_update": launches["fused_cowclip_adam"],
-                "embedding_backward": launches["embedding_backward_groups"]}
     for name, line in lines.items():
         if name in launches:
             line["launches_lm_train"] = launches[name]
@@ -6074,6 +6058,204 @@ def remat_phases(smi, kind):
                 "embedding_backward_groups"]}
 
 
+def train_phase(tag, what, run, steps, repeat, first, base_lr, counters,
+                per_step, kernel_groups, power, kind):
+    """An LM training run of the CLI's loop on the card (phases 48 and
+    52): ``run(n)`` trains ``n`` steps from seed 0. The loss at the first
+    and last of ``steps`` steps (it must fall), ms a step (CUDA events, the
+    median of steps 3 on), tokens/s and the peak memory; the wrappers'
+    launches, ``counters`` ({name: (object, attribute)}) with the fused
+    CowClip update's and the embedding backward's, ``per_step`` of each
+    (one of those two) a step; a traced step on ``first`` (the run's
+    first batch): the same launches once, ``kernel_groups`` ((label,
+    kernel names, count a step), ...) counted by name with the fused
+    update's and the embedding backward's level launches, no host read of
+    a device scalar, no PyTorch embedding backward, the idle share; two
+    runs of ``repeat`` steps bitwise equal. Returns (the launches of the
+    ``steps``-step run by name, the median ms a step, the traced step's
+    [(device ms, count, name)], its busy ms)."""
+    from repro_torch.core.tree import flatten_with_paths
+    from repro_torch.kernels.cowclip import fused_cowclip_adam
+    from repro_torch.kernels.embedding import embedding_backward_groups, ref
+
+    counters = {**counters,
+                "cowclip_adam_update": (fused_cowclip_adam, "launches"),
+                "embedding_backward": (embedding_backward_groups,
+                                       "launches")}
+    per_step = {**per_step, "cowclip_adam_update": 1,
+                "embedding_backward": 1}
+
+    def zero_counts():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def counts():
+        return {name: getattr(obj, attr)
+                for name, (obj, attr) in counters.items()}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = run(steps)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params, state, step = out.params, out.state, out.step
+    losses = out.losses.tolist()
+    step_ms = [1e3 * x for x in out.step_seconds]
+    steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    b, s = first.shape
+    print(f"[{tag}] {out.hp} (run_lm's scaling from --base-lr {base_lr}, "
+          f"--base-l2 1e-5)", flush=True)
+    print(f"[{tag}] {what}, batch {b} x {s}: {steps} steps, loss "
+          f"{losses[0]:.4f} at step 1 -> {losses[-1]:.4f} at step {steps}; "
+          f"launches {launches} (expected a step {per_step})", flush=True)
+    print(f"[{tag}] ms a step (CUDA events) {[round(x, 1) for x in step_ms]}"
+          f"; median of steps 3-{steps} {steady:.1f} ms "
+          f"({b * s / steady * 1e3:.0f} tokens/s); peak device memory "
+          f"{peak:.2f} GiB; {kind} at {power}", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+    check(launches == {name: n * steps for name, n in per_step.items()},
+          f"{tag}: {steps} steps launched {launches}")
+
+    # a traced step: the kernels, host reads, PyTorch's embedding backward
+    def control():    # one read of a device scalar, then of a host one
+        float(torch.ones((), device="cuda"))
+        float(torch.ones(()))
+
+    kinds = sorted(r[1] for r in host_reads(profiled(control,
+                                                      with_stack=True)[1]))
+    check(kinds == ["device", "host"], f"host reads classified {kinds}")
+    zero_counts()
+
+    def traced():
+        with torch.profiler.record_function(f"{STEP_LABEL} 0"):
+            step(params, state, {"tokens": first, "prefix": None})
+
+    wall_ms, prof = profiled(traced, with_stack=True)
+    kernels = by_kernel(prof)
+    traced_launches = counts()
+    busy = sum(t for t, _, _ in kernels)
+    groups = kernel_groups + (
+        ("the fused CowClip update's kernels", FUSED_KERNELS, 1),
+        EMBED_GROUP + (ref.levels(b * s),))
+    print_trace(f"{tag}-trace", f"one step, batch {b} x {s}", wall_ms,
+                kernels, groups=tuple(g[:2] for g in groups) + ATTN_GROUPS)
+    n_kernel = {label: sum(n for _, n, name in kernels
+                           if any(k in name for k in names))
+                for label, names, _ in groups}
+    reads = host_reads(prof)
+    dev_reads = [r[:4] for r in reads if r[1] == "device"]
+    theirs = torch_embedding_backward(kernels)
+    print(f"[{tag}-trace] wrapper calls {traced_launches}; kernels "
+          f"{n_kernel} (the embedding backward's {ref.levels(b * s)} level "
+          f"launches a run); host reads {len(reads)}, {len(dev_reads)} of a "
+          f"device scalar; PyTorch's embedding backward kernels {theirs}; "
+          f"device idle {100 * (1 - busy / wall_ms) if busy else float('nan'):.1f}"
+          f"% of {wall_ms:.1f} ms", flush=True)
+    check(traced_launches == per_step,
+          f"a traced step launched {traced_launches}")
+    check(not busy or n_kernel == {label: n for label, _, n in groups},
+          f"the traced step's kernels {n_kernel}")
+    check(not dev_reads, f"host reads of a device scalar: {dev_reads}")
+    check(not theirs, f"PyTorch's embedding backward ran: {theirs}")
+    del params, state, step, out, prof
+    free()
+
+    # two runs of ``repeat`` steps from the same seed, bitwise equal
+    snapshot = {k: t.cpu() for k, t in
+                flatten_with_paths(run(repeat).params).items()}
+    free()
+    params = run(repeat).params
+    diffs = {k: (t.cpu() - snapshot[k]).abs().max().item()
+             for k, t in flatten_with_paths(params).items()
+             if not torch.equal(t.cpu(), snapshot[k])}
+    print(f"[{tag}] two runs of {repeat} steps from seed 0: "
+          + ("bitwise equal in every param leaf" if not diffs else
+             f"DIFFERENT in {len(diffs)} leaves, largest "
+             f"{max(diffs.values()):.3e} in {max(diffs, key=diffs.get)}"),
+          flush=True)
+    check(not diffs, f"two runs of the same steps differ: {diffs}")
+    del params, snapshot
+    free()
+    return launches, steady, kernels, busy
+
+
+def zamba_train_phase(smi, kind):
+    """Phase 52: zamba2-2.7b at full width and depth trained through
+    ``train.loop.train_lm`` (the CLI's loop and step, bf16 compute),
+    ``ZAMBA_TRAIN_STEPS`` steps of ``ZAMBA_TRAIN_BATCH`` tokens of the CLI's
+    Zipf stream from seed 0, through ``train_phase``: the scan's launches
+    one forward and one backward a Mamba-2 layer a step, its kernels by
+    name in the traced step, the SSD backward's device time against the
+    step's busy time; no CUDA tensor reaching the scan's plain versions.
+    Returns the launches of the 10-step run by kernel name."""
+    from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.launch.train import build_parser
+    from repro_torch.models import lm
+    from repro_torch.train.loop import train_lm
+
+    power = smi.strip().split(", ")[-1]
+    b, s = ZAMBA_TRAIN_BATCH
+    layers = ZAMBA2_MAMBA_LAYERS
+    cfg = ZAMBA2
+    n_params = lm.param_counts(cfg)["total"]
+    check(cfg.n_layers == layers and cfg.d_model == 2560
+          and cfg.vocab_size == 32000 and cfg.ssm_state == 64
+          and cfg.mamba_head_dim == 64 and cfg.compute_dtype == "bfloat16"
+          and not cfg.remat and n_params == ZAMBA2_PARAMS,
+          f"not zamba2-2.7b at full width and depth: {n_params} parameters")
+    samples = build_parser().get_default("samples")
+    # the traced step takes the 10-step run's first batch
+    first = torch.as_tensor(make_lm_tokens(samples, cfg.vocab_size,
+                                           seed=0)[:b * s].reshape(b, s),
+                            device="cuda")
+    t_phase = time.perf_counter()
+
+    def run(n_steps):    # the CLI's loop at ZAMBA_TRAIN_BASE_LR
+        return train_lm(cfg, batch=b, seq=s, steps=n_steps,
+                        base_lr=ZAMBA_TRAIN_BASE_LR, base_l2=1e-5,
+                        samples=samples, seed=0, device="cuda")
+
+    with PlainSsdOnCard() as plain_ssd:
+        launches, _, kernels, busy = train_phase(
+            "zamba-train", f"zamba2-2.7b at full width and depth ({n_params}"
+            f" parameters, f32 masters; {layers} Mamba-2 layers, the shared "
+            f"block after every 6), bf16, remat off", run, ZAMBA_TRAIN_STEPS,
+            ZAMBA_TRAIN_REPEAT, first, ZAMBA_TRAIN_BASE_LR,
+            {"ssd_scan_fwd": (ssd_scan, "launches"),
+             "ssd_scan_bwd": (ssd_scan, "backward_launches")},
+            {"ssd_scan_fwd": layers, "ssd_scan_bwd": layers},
+            (("the SSD scan's forward kernel", ("ssd_scan_forward_kernel",),
+              layers),
+             ("the SSD scan's forward segments", ("ssd_segment_state_kernel",
+                                                  "ssd_segment_carry_kernel"),
+              0),
+             ("the SSD backward's scan", ("ssd_scan_backward_kernel",),
+              layers),
+             ("the SSD backward's sums", ("ssd_scan_reduce_kernel",),
+              layers)), power, kind)
+    bwd_ms = sum(t for t, _, k in kernels
+                 if any(f in k for f in ("ssd_scan_backward_kernel",
+                                         "ssd_scan_reduce_kernel")))
+    print(f"[zamba-train-trace] the SSD backward's kernels {bwd_ms:.3f} ms "
+          f"of {busy:.1f} ms busy "
+          f"({100 * bwd_ms / busy if busy else float('nan'):.2f}%); the SSD "
+          f"scan's plain versions ran on a CUDA tensor {plain_ssd.calls} "
+          f"times", flush=True)
+    check(not plain_ssd.calls, "a CUDA tensor reached the SSD scan's plain "
+          "versions")
+    del kernels
+    print(f"[phase 52] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     # a SIGSEGV (or SIGBUS, SIGFPE, SIGABRT) prints every thread's Python
     # stack to stderr before the process dies of it, with its exit code
@@ -6159,6 +6341,17 @@ def main() -> int:
         # this slice's path, full remat: the calls on phase 49's 3 steps
         next(line for line in lines if line["name"] == name)[
             "launches_remat_full"] = n
+    phase_end()
+    phase_start(52)
+    for name, n in zamba_train_phase(smi, kind).items():
+        # zamba2-2.7b training's 10 steps; for the SSD backward this slice's
+        # path (phase 47's reduced step's calls kept beside)
+        line = next(line for line in lines if line["name"] == name)
+        if name == "ssd_scan_bwd":
+            line["launches_reduced_step"] = line["launches"]
+            line["launches"] = n
+        else:
+            line["launches_zamba2_train"] = n
     phase_end()
     print(f"[exit] threads alive: "
           f"{[(t.name, t.daemon) for t in threading.enumerate()]}",

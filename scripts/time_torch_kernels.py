@@ -37,7 +37,9 @@ covered. It prints each kernel's registers, shared memory and stack
   (``repro_torch::ssd_scan_fwd``), then, where the timed port cuts the
   sequence into segments, for several segment lengths, the card's own
   choice first; and its backward at ``chip_smoke.SSD_TRAIN[-1]`` (2 x 512
-  x 80 x 64 x 64) from the forward's kept states, beside its bound;
+  x 80 x 64 x 64) from the forward's kept states, beside its bound, the
+  written-out plain backward and, where the timed port has it, the chunk
+  form's plain backward;
 * ``embed``: a step's embedding backward over one batch's 26
   deepfm-criteo fields (``chip_smoke.py`` phase 4's first batch of
   131072; the fm lookup at D = 10 and the LR one at D = 1), in the timed
@@ -243,8 +245,8 @@ def time_ssd(gen, scratch, card, quick):
         if not quick and hasattr(launcher, "segment_chunks"):
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             chunks = ssd.n_chunks(s)
-            own = launcher.segment_chunks(
-                b * h * -(-p // launcher.FWD_ROWS), chunks, sms)
+            rows = getattr(launcher, "ROWS", None) or launcher.FWD_ROWS
+            own = launcher.segment_chunks(b * h * -(-p // rows), chunks, sms)
             for seg in [own] + [c for c in (chunks, 128, 32, 16)
                                 if c != own]:
                 ms = smoke.cuda_time_cold_ms(lambda: launcher.forward(
@@ -264,11 +266,23 @@ def time_ssd(gen, scratch, card, quick):
         fk_ms = smoke.cuda_time_cold_ms(lambda: fwd(*ins, True), 20, scratch)
         b_ms = smoke.cuda_time_cold_ms(lambda: bwd(*ins, kept, gy, gs), 20,
                                        scratch)
-    bound, by, nbytes, flops = smoke.ssd_bound(*shape, backward=True)
+        plains = {"written-out plain backward":
+                  ssd.ssd_scan_backward_reference}
+        if hasattr(ssd, "ssd_scan_backward_chunked_reference"):
+            plains["chunked plain backward"] = \
+                ssd.ssd_scan_backward_chunked_reference
+        plain_ms = {name: smoke.cuda_time_cold_ms(
+            lambda fn=fn: fn(*ins, kept, gy, gs), 2, scratch)
+            for name, fn in plains.items()}
+    bound, by, nbytes, flops, part_bytes = smoke.ssd_bound(*shape,
+                                                           backward=True)
     print(f"[time] ssd_scan {list(shape)}: forward keeping its chunk states "
           f"{fk_ms:.4f} ms; backward {b_ms:.4f} ms, bound {bound:.4f} ms by "
-          f"{by} ({nbytes} B, {flops} FLOP: {100 * bound / b_ms:.1f}% of it) "
-          f"(L2 flushed, host covered), {card}", flush=True)
+          f"{by} ({nbytes} B, {flops} FLOP: {100 * bound / b_ms:.1f}% of it; "
+          f"the sums across heads' partial buffers {part_bytes} B more, "
+          f"written and read) (L2 flushed, host covered); "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in plain_ms.items())
+          + f"; {card}", flush=True)
     del ins, gy, gs, kept
 
 

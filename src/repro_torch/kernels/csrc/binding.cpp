@@ -498,8 +498,9 @@ void ssd_scan_forward(torch::Tensor xs, torch::Tensor bmat,
 
 // The backward: the six gradients (each of its input's shape) written,
 // from the forward's inputs, its kept chunk states and the cotangents gy
-// and gs; part_b, part_c [B, S, H, T, N], part_dt [B, S, H, T] and
-// part_h [2, B, H, T] are scratch, T = ceil(P / kSsdPTile).
+// and gs; part_b, part_c [B, S, H, R, N], part_dt [B, S, H, R] ([B, S,
+// H, 0] when R = 1: the scan writes gdt) and part_h [2, B, H, R] are
+// scratch, R = ceil(P / kSsdRows) groups of rows.
 void ssd_scan_backward(torch::Tensor xs, torch::Tensor bmat,
                        torch::Tensor cmat, torch::Tensor dt,
                        torch::Tensor a_log, torch::Tensor d_skip,
@@ -512,7 +513,7 @@ void ssd_scan_backward(torch::Tensor xs, torch::Tensor bmat,
   const auto d = ssd_shapes(xs, bmat);
   const int64_t b = d[0], s = d[1], h = d[2], p = d[3], n = d[4];
   const int64_t chunks = (s + kSsdChunk - 1) / kSsdChunk;
-  const int64_t tiles = (p + kSsdPTile - 1) / kSsdPTile;
+  const int64_t groups = (p + kSsdRows - 1) / kSsdRows;
   for (const auto& [t, name] :
        std::vector<std::pair<torch::Tensor, const char*>>{
            {xs, "xs"}, {gy, "gy"}, {gx, "gx"}}) {
@@ -533,10 +534,10 @@ void ssd_scan_backward(torch::Tensor xs, torch::Tensor bmat,
   }
   check_shaped(s_chunks, "s_chunks", {b, h, chunks, p, n}, xs);
   check_shaped(gs, "gs", {b, h, p, n}, xs);
-  check_shaped(part_b, "part_b", {b, s, h, tiles, n}, xs);
-  check_shaped(part_c, "part_c", {b, s, h, tiles, n}, xs);
-  check_shaped(part_dt, "part_dt", {b, s, h, tiles}, xs);
-  check_shaped(part_h, "part_h", {2, b, h, tiles}, xs);
+  check_shaped(part_b, "part_b", {b, s, h, groups, n}, xs);
+  check_shaped(part_c, "part_c", {b, s, h, groups, n}, xs);
+  check_shaped(part_dt, "part_dt", {b, s, h, groups > 1 ? groups : 0}, xs);
+  check_shaped(part_h, "part_h", {2, b, h, groups}, xs);
   const c10::cuda::CUDAGuard guard(xs.device());
   C10_CUDA_CHECK(ssd_scan_backward_launch(
       xs.data_ptr<float>(), bmat.data_ptr<float>(), cmat.data_ptr<float>(),

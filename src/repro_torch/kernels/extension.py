@@ -12,7 +12,7 @@ import. ``csrc/binding.cpp`` is the only file that includes
 ``torch/extension.h``: each kernel has a plain C interface (its header), so
 nvcc compiles the kernels in seconds and the host compiler the binding.
 The scan kernels (wkv6's forward and backward, the Mamba-2 scan's
-forward) share ``csrc/mma_tf32.cuh``: 3xTF32 tensor-core products and
+forward and backward) share ``csrc/mma_tf32.cuh``: 3xTF32 tensor-core products and
 ``cp.async`` copies.
 No fast-math flag: the wkv6 kernels need subnormal floats
 (``wkv6/csrc/wkv6.cu``, "Numerics").

@@ -24,12 +24,35 @@
 // s_chunks. No factor is rebuilt by a division (a_t underflows to 0 for
 // large dt A).
 //
-// Backward (kernels/ssd/ref.py: ssd_scan_backward_reference is the same
-// math in plain PyTorch): with G_t the cotangent of s_t,
-//   G_t = gy_t c_t^T + a_{t+1} G_{t+1}     (G_{S-1} adds the final state's)
-//   g_x = D gy + dt G b,  g_b = dt G^T x,  g_c = s_t^T gy,
-//   g_a = <G_t, s_{t-1}>, g_dt = x^T G b - g_a A a_t,
-//   g_A_log = -sum g_a dt A a_t,  g_D = sum gy . x.
+// Backward: the reverse of the same chunk form (kernels/ssd/ref.py:
+// ssd_scan_backward_chunked_reference is the same decomposition in plain
+// PyTorch, ssd_scan_backward_reference the token recurrence it replaced).
+// Over the chunks in reverse, with G^ the cotangent arriving from the
+// later chunks (the final state's for the last chunk), E(i, t) = exp(cs_i
+// - cs_t) and t, i, j tokens of the chunk:
+//
+//   G_t       = sum_{i>=t} E(i, t) gy_i c_i^T + exp(cs_{Q-1} - cs_t) G^
+//   G^       <- exp(cs_{Q-1}) G^ + sum_i exp(cs_i) gy_i c_i^T   (the carry)
+//   g_x_t     = D gy_t + dt_t G_t b_t
+//   G_t b_t   = sum_{i>=t} E(i, t) (c_i . b_t) gy_i
+//               + exp(cs_{Q-1} - cs_t) G^ b_t
+//   g_b_t     = dt_t G_t^T x_t   (summed over heads), where
+//   G_t^T x_t = sum_{i>=t} E(i, t) (gy_i . x_t) c_i
+//               + exp(cs_{Q-1} - cs_t) G^T x_t
+//   g_c_t     = s_t^T gy_t       (summed over heads)
+//             = exp(cs_t) s_in^T gy_t + sum_{j<=t} E(t, j) dt_j (x_j . gy_t) b_j
+//   g_l_t     = <G_t, a_t s_{t-1}>, a_t s_{t-1} = s_t - dt_t x_t b_t^T:
+//             = sum_{i>=t>j} exp(cs_i - cs_j) dt_j (c_i . b_j)(gy_i . x_j)
+//               + sum_{i>=t} exp(cs_i) gy_i^T s_in c_i
+//               + sum_{j<t} exp(cs_{Q-1} - cs_j) dt_j x_j^T G^ b_j
+//               + exp(cs_{Q-1}) <G^, s_in>
+//   g_dt_t    = x_t^T G_t b_t - A g_l_t,  g_A_log = -sum g_l dt A,
+//   g_D       = sum gy . x.
+//
+// g_l's sums have j < t, not j <= t, so none is a difference of two large
+// terms (a_t underflows to 0 at large dt A). The cumsums are taken in
+// f64, so that a gap cs_i - cs_j is rounded as the sum of its own l's, not
+// as the chunk's (in f32, ~1e-5 of a decay at dt A ~ 200 a token).
 //
 // Bound. Forward: 4 (2 BSHP + 2 BSN + BSH + 2H + BHPN) bytes (x and y, b
 // and c, dt, A_log and D, the final state; the kept chunk states, when
@@ -43,12 +66,17 @@
 // TF32 passes (and 0.003 ms of f32): the bytes bound it. The token loop
 // this replaced did 6 f32 FLOP a state element a token, 8.05 GFLOP,
 // 0.120 ms at 67 TFLOP/s.
-// Backward: 11 FLOP an element a token for the gradient (G's update,
-// G^T x, s^T gy, <G, s_{t-1}>, G b; the states' recompute, 4 more, is not
-// counted) against x, b, c, dt, gy, the kept states and the final
-// state's cotangent read and the six gradients written. A token's G
-// depends on the next one's: the chain of dependent instructions a
-// token, not the bytes or the FLOPs, sets its time.
+// Backward: x, b, c, dt, A_log, D, the kept chunk states and both
+// cotangents read, the six gradients written, against, per (b, h, chunk)
+// and group of 64 state rows, 3 x 2 Q^2 N (C B^T; M c and M b for G^T x
+// and s^T gy) + 2 x 2 Q^2 P (gy x^T; M gy for G b) + 4 x 2 Q P N (b G^T,
+// x G^, gy s_in, the carry) on the tensor cores in three TF32 passes and
+// 3 P N + 6 Q P + 6 Q N + 8 Q^2 on the f32 units. At zamba2's training
+// call, B 2, S 512, H 80, P 64, N 64: 151 MB, 0.045 ms, against 3.52
+// GFLOP, 0.021 ms in three passes: the bytes bound it. The sums across
+// heads (g_b, g_c) go through part_b and part_c, 2 BSHN floats written
+// and read again by the reduce kernel (84 MB more at that call), which
+// the bound does not count.
 //
 // Forward design:
 // - A block of 4 warps per (b, h, 64 state rows); warp w holds the 16
@@ -88,22 +116,36 @@
 //   a few blocks an SM, more than the bytes or the tensor cores.
 //
 // Backward design:
-// - A block of 4 warps per (b, h, tile of 16 state rows); each warp holds
-//   4 rows, each lane the columns n = lane and lane + 32, so the state
-//   lives in registers (8 floats a thread) and g_x's sum over N is a warp
-//   reduction: the 4 rows in 6 shuffles (reduce4).
-// - Reverse over chunks. A chunk's states are recomputed from its kept
-//   state (never rebuilt by dividing by a_t, which underflows to 0 for
-//   large dt A) into shared memory, then the G recurrence runs backward
-//   over the chunk. Sums across the warps of a block go through shared
-//   memory in a fixed order; sums across blocks (g_b, g_c over heads and
-//   tiles, g_dt over tiles, g_A_log and g_D over everything) go to
-//   per-block partial buffers that a second kernel adds in a fixed
-//   order. No float atomics: two runs give the same bits.
-// - Numerics: the recomputed states are rounded as the token loop
-//   (ref.py: ssd_scan_reference) rounds them (x b, then dt (x b), then
-//   a s, then the sum; __fmul_rn / __fadd_rn keep nvcc from contracting
-//   them into an FMA). expf is the accurate one; no fast-math flag.
+// - A block of 4 warps per (b, h, 64 state rows), as the forward: warp w
+//   holds rows 16 w .. 16 w + 15 of G^ in its mma accumulators, so the
+//   carry is the chunk's serial chain (the forward's state step with gy
+//   for dt x and c for b), and the sums over the rows (gy x^T, G^T x,
+//   <G, s>) stay in the block. With P > 64 each group of 64 rows is a
+//   block of its own, its shares of those sums summed by the second
+//   kernel: every term above is a sum over rows.
+// - A chunk's products in 3xTF32 on the tensor cores: C B^T and gy x^T as
+//   quarters (one a warp, as the forward's C B^T); g_x's M gy and b G^T
+//   over the warp's 16 rows (b G^T's B operand is G^'s registers, as the
+//   forward's C s_in^T); G^T x's M c and x G^, s^T gy's M b and gy s_in
+//   over the warp's 16 columns of N, G^ read from a transposed copy in
+//   shared memory written once a chunk; the carry. Each thread forms its
+//   own fragments of the masked matrices from C B^T and gy x^T.
+// - g_l's four sums: the rows' shares of x^T G b, u = gy^T s_in c, v =
+//   x^T G^ b and <G^, s_in> through shared memory; the double sum as
+//   T(t) = sum_{tau<t} (colsuf(tau) - rowpre(tau)) of K's strictly lower
+//   part, 8 lanes a token; then warp 0, a lane a token, the prefix and
+//   suffix sums by shuffles, g_dt written directly (one group) and
+//   A_log's and D's sums.
+// - Staging: x, gy, b, c, dt and the kept state of chunk k - 1 are copied
+//   with cp.async into the second of two stages while chunk k runs; three
+//   barriers a chunk (the stage and G^'s copy in place; the warps' sums in
+//   place; the next stage in place, before its C B^T and gy x^T). 94 KB of
+//   shared memory a block, two blocks an SM.
+// - The sums across blocks (g_b, g_c over heads and groups; g_dt over
+//   groups; g_A_log, g_D over batch rows and groups) go to partial
+//   buffers that ssd_scan_reduce_kernel adds in a fixed order. No float
+//   atomics: two runs give the same bits.
+// - expf is the accurate one; no fast-math flag.
 #include "mma_tf32.cuh"
 #include "ssd_scan.h"
 
@@ -111,21 +153,14 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kSsdPTile / kWarps;  // state rows a warp holds, bwd
-constexpr int kElems = 2 * kRows;          // state elements a thread holds
+constexpr int kWarpRows = 16;  // state rows a warp holds (an m16 tile)
 constexpr int kC = kSsdChunk;
 constexpr int kN = kSsdMaxN;
 constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(kRows == 4, "reduce4 sums 4 rows a warp");
-static_assert(kN == 64, "a lane holds the columns lane and lane + 32");
+static_assert(kSsdRows == kWarps * kWarpRows, "a block's rows, 16 a warp");
+static_assert(kSsdRows == kN, "a stage's x rows are as wide as b's");
 static_assert(kC == 16, "a chunk is one m16 tile of tokens");
-
-// The state's update, rounded as the token loop rounds it.
-__device__ __forceinline__ float step(float a, float s, float dt, float x,
-                                      float b) {
-  return __fadd_rn(__fmul_rn(a, s), __fmul_rn(dt, __fmul_rn(x, b)));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -133,55 +168,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// v[r] summed over the warp's 32 lanes for r = 0..3; lane L gets the sum
-// of row (L >> 3) & 3. The first two steps halve the values each lane
-// carries (it keeps half and sends the partner the other half).
-__device__ __forceinline__ float reduce4(const float (&v)[4], int lane) {
-  const bool hi16 = lane & 16;
-  float keep0 = hi16 ? v[2] : v[0];
-  float keep1 = hi16 ? v[3] : v[1];
-  keep0 += __shfl_xor_sync(kFull, hi16 ? v[0] : v[2], 16);
-  keep1 += __shfl_xor_sync(kFull, hi16 ? v[1] : v[3], 16);
-  const bool hi8 = lane & 8;
-  float u = hi8 ? keep1 : keep0;
-  u += __shfl_xor_sync(kFull, hi8 ? keep0 : keep1, 8);
-  u += __shfl_xor_sync(kFull, u, 4);
-  u += __shfl_xor_sync(kFull, u, 2);
-  u += __shfl_xor_sync(kFull, u, 1);
-  return u;
-}
-
-// The thread's state elements from a [p, n] state at `base`: rows p0 +
-// warp * kRows + r, columns lane and lane + 32; outside [p, n] they read
-// as 0.
-__device__ __forceinline__ void load_state(float (&s)[kRows][2],
-                                           const float* base, int p0,
-                                           int warp, int lane, int p, int n) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = p0 + warp * kRows + r;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = lane + 32 * j;
-      s[r][j] = row < p && col < n ? base[(long long)row * n + col] : 0.f;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // forward: the chunk form on tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kFwdRows = kWarps * kSsdPTile;  // state rows a block holds
 constexpr int kRing = 4;                      // stages of the copy ring
 constexpr int kStride = kN + 8;  // staged rows: = 8 (mod 32) floats, so the
                                  // fragment loads hit no bank twice
 constexpr int kCbStride = kC + 4;
 
-static_assert(kFwdRows == kN, "a stage's x rows are as wide as b's");
+// The warp's quarter of a [kC x kC] Gram product in 3xTF32 (C B^T, gy
+// x^T): out[half][i][j] = rows[i] . cols[j] over half = warp >> 1 of the
+// depth, for the columns j = 8 (warp & 1) .. + 7; the two halves' shares
+// stay apart, for the reader to add.
+__device__ __forceinline__ void gram_quarter(const float (*rows)[kStride],
+                                             const float (*cols)[kStride],
+                                             float (*out)[kC][kCbStride],
+                                             int warp, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const int jt = warp & 1, half = warp >> 1;
+  float acc[2][4] = {}, small[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < kN / 16; ++i) {
+    const int col = 8 * (i + half * kN / 16) + 2 * q;
+    const float2 r0 = ld2(&rows[g][col]), r1 = ld2(&rows[g + 8][col]);
+    const float2 cj = ld2(&cols[8 * jt + g][col]);
+    const float a[4] = {r0.x, r1.x, r0.y, r1.y};
+    const float bb[2] = {cj.x, cj.y};
+    mma3(acc[i & 1], small[i & 1], a, bb);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    out[half][g + (e >= 2 ? 8 : 0)][8 * jt + 2 * q + (e & 1)] =
+        (acc[0][e] + acc[1][e]) + (small[0][e] + small[1][e]);
+}
 
 struct FwdStage {
-  float x[kC][kStride];  // x_t of the block's kFwdRows state rows
+  float x[kC][kStride];  // x_t of the block's kSsdRows state rows
   float b[kC][kStride];
   float c[kC][kStride];
   float dt[kC];
@@ -192,13 +215,14 @@ struct FwdSmem {
   float cb[2][2][kC][kCbStride];  // C B^T: [chunk parity][half of N][t][j]
 };
 
-// A warp's 16 rows of the state: rows r0 + g (+ 8), columns 8 i + 2 q
-// (+ 1) of n-tile i (g = lane / 4, q = lane % 4), as m16n8 accumulators.
-struct FwdState {
+// A warp's 16 rows of a [P, N] state (or of its cotangent): rows r0 + g
+// (+ 8), columns 8 i + 2 q (+ 1) of n-tile i (g = lane / 4, q = lane %
+// 4), as m16n8 accumulators.
+struct WarpRows {
   float s[kN / 8][4];
 };
 
-__device__ __forceinline__ void store_rows(const FwdState& st, float* base,
+__device__ __forceinline__ void store_rows(const WarpRows& st, float* base,
                                            int r0, int lane, int p, int n) {
   const int g = lane >> 2, q = lane & 3;
   const bool pairs = (n & 1) == 0;  // (col, col + 1) 8-byte aligned
@@ -219,7 +243,7 @@ __device__ __forceinline__ void store_rows(const FwdState& st, float* base,
     }
 }
 
-__device__ __forceinline__ void load_rows(FwdState& st, const float* base,
+__device__ __forceinline__ void load_rows(WarpRows& st, const float* base,
                                           int r0, int lane, int p, int n) {
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
@@ -254,8 +278,8 @@ __device__ __forceinline__ void forward_segment(
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
-  const int row0 = group * kFwdRows;  // the block's first state row
-  const int wr = warp * kSsdPTile;    // the warp's first row in a stage
+  const int row0 = group * kSsdRows;  // the block's first state row
+  const int wr = warp * kWarpRows;   // the warp's first row in a stage
   const long long bh = (long long)b * heads + h;
   const long long state = (long long)p * n;
   const int n_chunks = (seq + kC - 1) / kC;
@@ -306,29 +330,13 @@ __device__ __forceinline__ void forward_segment(
     cp_async_commit();
   };
 
-  // the warp's quarter of chunk k's C B^T: columns j = 8 (warp & 1) .. +7
-  // summed over half (warp >> 1) of N, into cb[(k - c0) & 1][warp >> 1]
+  // the warp's quarter of chunk k's C B^T, into cb[(k - c0) & 1]
   auto cb_quarter = [&](int k) {
     const FwdStage& sg = sm.stage[(k - c0) % kRing];
-    const int jt = warp & 1, half = warp >> 1;
-    float acc[2][4] = {}, small[2][4] = {};
-#pragma unroll
-    for (int i = 0; i < kN / 16; ++i) {
-      const int col = 8 * (i + half * kN / 16) + 2 * q;
-      const float2 c0v = ld2(&sg.c[g][col]), c1v = ld2(&sg.c[g + 8][col]);
-      const float2 bj = ld2(&sg.b[8 * jt + g][col]);
-      const float a[4] = {c0v.x, c1v.x, c0v.y, c1v.y};
-      const float bb[2] = {bj.x, bj.y};
-      mma3(acc[i & 1], small[i & 1], a, bb);
-    }
-    float(*out)[kCbStride] = sm.cb[(k - c0) & 1][half];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      out[g + (e >= 2 ? 8 : 0)][8 * jt + 2 * q + (e & 1)] =
-          (acc[0][e] + acc[1][e]) + (small[0][e] + small[1][e]);
+    gram_quarter(sg.c, sg.b, sm.cb[(k - c0) & 1], warp, lane);
   };
 
-  FwdState st = {};
+  WarpRows st = {};
   if (!kStateOnly && seg > 0)  // the state entering the segment, carried
     load_rows(st, s_in + (bh * (segs - 1) + seg - 1) * state, row0 + wr,
               lane, p, n);
@@ -539,22 +547,45 @@ ssd_segment_carry_kernel(const float* __restrict__ s_loc,
 }
 
 // ---------------------------------------------------------------------------
-// backward: the token recurrence in reverse, a chunk at a time
+// backward: the chunk form on tensor cores, in reverse
 // ---------------------------------------------------------------------------
 
-struct BwdSmem {
-  float b[kC][kN], c[kC][kN];
-  float x[kC][kSsdPTile], gy[kC][kSsdPTile], gx[kC][kSsdPTile];
-  float dt[kC], a[kC];
-  float ga[kWarps][kC];               // <G, s_{t-1}> over a warp's rows
-  float col_g[kWarps][kC][kN];        // G^T x over a warp's rows
-  float col_s[kWarps][kC][kN];        // s^T gy over a warp's rows
-  float red[2][kThreads];             // the block's last sums
-};
-// + the recomputed states, [kC][kElems][kThreads] floats, after it
-constexpr int kHistFloats = kC * kElems * kThreads;
-constexpr size_t kBwdSmemBytes = sizeof(BwdSmem) + kHistFloats * sizeof(float);
+constexpr int kSinStride = kN + 4;  // s_in rows: = 4 (mod 32) floats, so the
+                                    // B-operand loads down a column hit no
+                                    // bank twice
 
+struct BwdStage {
+  float x[kC][kStride];   // x_t and gy_t of the block's kSsdRows rows
+  float gy[kC][kStride];
+  float b[kC][kStride];
+  float c[kC][kStride];
+  float s_in[kSsdRows][kSinStride];  // the kept state entering the chunk
+  float dt[kC];
+};
+
+struct BwdSmem {
+  BwdStage stage[2];
+  float g_hat_t[kN][kStride];  // G^ (the cotangent from the later chunks),
+                               // transposed: [n][row]
+  float cb[2][kC][kCbStride];  // C B^T: [half of N][i][j]
+  float w[2][kC][kCbStride];   // gy x^T: [half of the rows][i][j]
+  float red[4][kWarps][kC];    // each warp's share of x^T G b, u, v, and
+                               // <G^, s_in> (at [3][warp][0])
+  float k_gap[kC];             // colsuf(t) - rowpre(t) of g_l's first sum
+};
+
+// v summed over the 4 lanes of a quad (q = 0..3), in a fixed order.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// Block (group of 64 state rows, h, b): the chunks in reverse, G^ (the
+// group's rows) in the warps' accumulators. Writes g_x, each (b, h, group)'s
+// share of g_b and g_c (part_b, part_c: [B, S, H, groups, N]) and of g_dt
+// (part_dt: [B, S, H, groups]; g_dt itself with one group), and of A_log's
+// and D's sums (part_h: [2, B, H, groups]).
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads) ssd_scan_backward_kernel(
     const float* __restrict__ xs, const float* __restrict__ bmat,
     const float* __restrict__ cmat, const float* __restrict__ dt,
@@ -566,174 +597,456 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_backward_kernel(
     int seq, int heads, int p, int n) {
   extern __shared__ float4 smem_raw[];
   BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
-  float* hist = reinterpret_cast<float*>(&sm + 1);
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tiles = gridDim.x;
+  const int group = blockIdx.x, groups = gridDim.x;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int p0 = tile * kSsdPTile;
+  const int g = lane >> 2, q = lane & 3;
+  const int row0 = group * kSsdRows;  // the block's first state row
+  const int wr = warp * kWarpRows;    // the warp's first row in a stage
   const long long bh = (long long)b * heads + h;
   const long long state = (long long)p * n;
   const int n_chunks = (seq + kC - 1) / kC;
   const float big_a = expf(a_log[h]);
   const float dskip = d_skip[h];
-  float g[kRows][2];
-  load_state(g, gs + bh * state, p0, warp, lane, p, n);
-  float a_next = 1.f;
-  float acc_alog = 0.f, acc_d = 0.f;
+
+  // chunk k's x, gy, b, c, dt and kept state into its stage (zeros past
+  // the sequence, P and N); one commit group either way
+  auto stage_chunk = [&](int k) {
+    if (k >= 0) {
+      BwdStage& stg = sm.stage[k & 1];
+      const int t0 = k * kC, len = min(kC, seq - t0);
+      const float* s_k = s_chunks + (bh * n_chunks + k) * state;
+      if (kVec) {
+        for (int i = tid; i < kC * kN / 4; i += kThreads) {
+          const int t = i / (kN / 4), col = 4 * (i % (kN / 4));
+          const long long tok = (long long)b * seq + t0 + t;
+          const bool okx = t < len && row0 + col < p;
+          const bool okn = t < len && col < n;
+          const long long at = (tok * heads + h) * p + row0 + col;
+          cp_async16(&stg.x[t][col], okx ? xs + at : xs, okx);
+          cp_async16(&stg.gy[t][col], okx ? gy + at : gy, okx);
+          cp_async16(&stg.b[t][col], okn ? bmat + tok * n + col : bmat, okn);
+          cp_async16(&stg.c[t][col], okn ? cmat + tok * n + col : cmat, okn);
+        }
+        for (int i = tid; i < kSsdRows * kN / 4; i += kThreads) {
+          const int r = i / (kN / 4), col = 4 * (i % (kN / 4));
+          const bool ok = row0 + r < p && col < n;
+          cp_async16(&stg.s_in[r][col],
+                     ok ? s_k + (long long)(row0 + r) * n + col : s_k, ok);
+        }
+      } else {
+        for (int i = tid; i < kC * kN; i += kThreads) {
+          const int t = i / kN, col = i % kN;
+          const long long tok = (long long)b * seq + t0 + t;
+          const bool okx = t < len && row0 + col < p;
+          const bool okn = t < len && col < n;
+          const long long at = (tok * heads + h) * p + row0 + col;
+          cp_async4(&stg.x[t][col], okx ? xs + at : xs, okx);
+          cp_async4(&stg.gy[t][col], okx ? gy + at : gy, okx);
+          cp_async4(&stg.b[t][col], okn ? bmat + tok * n + col : bmat, okn);
+          cp_async4(&stg.c[t][col], okn ? cmat + tok * n + col : cmat, okn);
+        }
+        for (int i = tid; i < kSsdRows * kN; i += kThreads) {
+          const int r = i / kN, col = i % kN;
+          const bool ok = row0 + r < p && col < n;
+          cp_async4(&stg.s_in[r][col],
+                    ok ? s_k + (long long)(row0 + r) * n + col : s_k, ok);
+        }
+      }
+      if (tid < kC) {
+        const bool ok = tid < len;
+        cp_async4(&stg.dt[tid],
+                  ok ? dt + ((long long)b * seq + t0 + tid) * heads + h : dt,
+                  ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // G^ into the transposed shared copy the products over the rows read
+  auto store_g_hat = [&](const WarpRows& gh) {
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sm.g_hat_t[8 * i + 2 * q + (e & 1)][wr + g + (e >= 2 ? 8 : 0)] =
+            gh.s[i][e];
+  };
+
+  WarpRows gh;  // G^ entering the chunk: the final state's cotangent first
+  load_rows(gh, gs + bh * state, row0 + wr, lane, p, n);
+  store_g_hat(gh);
+  stage_chunk(n_chunks - 1);
+  cp_async_wait<0>();
+  __syncthreads();
+  gram_quarter(sm.stage[(n_chunks - 1) & 1].c, sm.stage[(n_chunks - 1) & 1].b,
+               sm.cb, warp, lane);
+  gram_quarter(sm.stage[(n_chunks - 1) & 1].gy,
+               sm.stage[(n_chunks - 1) & 1].x, sm.w, warp, lane);
+  float acc_l = 0.f, acc_d = 0.f;  // warp 0: sum g_l dt, sum gy . x
+
   for (int k = n_chunks - 1; k >= 0; --k) {
-    const int t0 = k * kC;
-    const int len = min(kC, seq - t0);
-    for (int i = tid; i < kC * kN; i += kThreads) {
-      const int t = i / kN, j = i % kN;
-      const bool ok = t < len && j < n;
-      const long long at = ((long long)b * seq + t0 + t) * n + j;
-      sm.b[t][j] = ok ? bmat[at] : 0.f;
-      sm.c[t][j] = ok ? cmat[at] : 0.f;
-    }
-    for (int i = tid; i < kC * kSsdPTile; i += kThreads) {
-      const int t = i / kSsdPTile, r = i % kSsdPTile;
-      const bool ok = t < len && p0 + r < p;
-      const long long at = (((long long)b * seq + t0 + t) * heads + h) * p +
-                           p0 + r;
-      sm.x[t][r] = ok ? xs[at] : 0.f;
-      sm.gy[t][r] = ok ? gy[at] : 0.f;
-    }
-    if (tid < kC) {
-      const float d =
-          tid < len ? dt[((long long)b * seq + t0 + tid) * heads + h] : 0.f;
-      sm.dt[tid] = d;
-      sm.a[tid] = expf(-d * big_a);
-    }
-    __syncthreads();
+    __syncthreads();  // chunk k's stage, C B^T, gy x^T and G^ are in place
+    stage_chunk(k - 1);  // into the stage chunk k + 1 left
+    const BwdStage& sg = sm.stage[k & 1];
+    const int t0 = k * kC, len = min(kC, seq - t0);
+    auto cb_at = [&](int i, int j) { return sm.cb[0][i][j] + sm.cb[1][i][j]; };
+    auto w_at = [&](int i, int j) { return sm.w[0][i][j] + sm.w[1][i][j]; };
 
-    // the chunk's states, from the one kept at its start
-    float s_in[kRows][2], s[kRows][2];
-    load_state(s_in, s_chunks + (bh * n_chunks + k) * state, p0, warp, lane,
-               p, n);
+    // in-chunk cumsum of l_t = -dt_t A in f64 (lane L: token L % 16's), so
+    // that a gap cs_i - cs_j is rounded as the sum of its own l's
+    const int tl = lane & (kC - 1);
+    double cs = static_cast<double>(-sg.dt[tl] * big_a);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      s[r][0] = s_in[r][0];
-      s[r][1] = s_in[r][1];
+    for (int off = 1; off < kC; off <<= 1) {
+      const double up = __shfl_up_sync(kFull, cs, off, kC);
+      if (tl >= off) cs += up;
     }
-    for (int t = 0; t < len; ++t) {
-      const float a = sm.a[t], d = sm.dt[t];
-      const float b0 = sm.b[t][lane], b1 = sm.b[t][lane + 32];
+    const double cs_last = __shfl_sync(kFull, cs, kC - 1);
+    const double cs_t[2] = {__shfl_sync(kFull, cs, g),
+                            __shfl_sync(kFull, cs, g + 8)};
+    // the fragments' depth tokens j = 8 kk + q + 4 u: cumsums and dt
+    double cs_j[2][2];
+    float dt_j[2][2];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float x = sm.x[t][warp * kRows + r];
-        s[r][0] = step(a, s[r][0], d, x, b0);
-        s[r][1] = step(a, s[r][1], d, x, b1);
-        hist[((t * kElems) + 2 * r) * kThreads + tid] = s[r][0];
-        hist[((t * kElems) + 2 * r + 1) * kThreads + tid] = s[r][1];
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = 8 * kk + q + 4 * u;
+        cs_j[kk][u] = __shfl_sync(kFull, cs, j);
+        dt_j[kk][u] = sg.dt[j];
       }
-    }
+    // the masked decays at an A fragment's (t, j) = (g + 8 (e & 1), 8 kk +
+    // q + 4 (e >> 1)): up = exp(cs_j - cs_t) for j >= t, lo = exp(cs_t -
+    // cs_j) for j <= t
+    float up[2][4], lo[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ti = e & 1, u = e >> 1;
+        const int t = g + 8 * ti, j = 8 * kk + q + 4 * u;
+        const float gap = static_cast<float>(cs_j[kk][u] - cs_t[ti]);
+        up[kk][e] = j >= t ? expf(gap) : 0.f;
+        lo[kk][e] = j <= t ? expf(-gap) : 0.f;
+      }
+    const float tail[2] = {expf(static_cast<float>(cs_last - cs_t[0])),
+                           expf(static_cast<float>(cs_last - cs_t[1]))};
+    const float dt_t[2] = {sg.dt[g], sg.dt[g + 8]};
 
-    // G backward over the chunk
-    for (int t = len - 1; t >= 0; --t) {
-      const float d = sm.dt[t];
-      const float b0 = sm.b[t][lane], b1 = sm.b[t][lane + 32];
-      const float c0 = sm.c[t][lane], c1 = sm.c[t][lane + 32];
-      float gxb0 = 0.f, gxb1 = 0.f, gsy0 = 0.f, gsy1 = 0.f, ga = 0.f;
-      float rows[kRows];
+    // g_x = D gy + dt (Mb gy + exp(cs_last - cs_t) b G^T) over the warp's
+    // 16 rows, Mb[t][i] = exp(cs_i - cs_t) (c_i . b_t), i >= t; and each
+    // token's x^T G b over them
+    {
+      float mi[2][4] = {}, mis[2][4] = {};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float x = sm.x[t][warp * kRows + r];
-        const float gyv = sm.gy[t][warp * kRows + r];
-        g[r][0] = a_next * g[r][0] + gyv * c0;
-        g[r][1] = a_next * g[r][1] + gyv * c1;
-        const float st0 = hist[((t * kElems) + 2 * r) * kThreads + tid];
-        const float st1 = hist[((t * kElems) + 2 * r + 1) * kThreads + tid];
-        const float sp0 =
-            t ? hist[(((t - 1) * kElems) + 2 * r) * kThreads + tid]
-              : s_in[r][0];
-        const float sp1 =
-            t ? hist[(((t - 1) * kElems) + 2 * r + 1) * kThreads + tid]
-              : s_in[r][1];
-        gxb0 += g[r][0] * x;
-        gxb1 += g[r][1] * x;
-        gsy0 += st0 * gyv;
-        gsy1 += st1 * gyv;
-        ga += g[r][0] * sp0 + g[r][1] * sp1;
-        rows[r] = g[r][0] * b0 + g[r][1] * b1;
-      }
-      sm.col_g[warp][t][lane] = gxb0;
-      sm.col_g[warp][t][lane + 32] = gxb1;
-      sm.col_s[warp][t][lane] = gsy0;
-      sm.col_s[warp][t][lane + 32] = gsy1;
-      const float sum = reduce4(rows, lane);
-      if ((lane & 7) == 0) {
-        const int r = warp * kRows + (lane >> 3);
-        sm.gx[t][r] = dskip * sm.gy[t][r] + d * sum;
-      }
-      ga = warp_sum(ga);
-      if (lane == 0) sm.ga[warp][t] = ga;
-      a_next = sm.a[t];
-    }
-    __syncthreads();
-
-    // the chunk's sums across the block's warps, in a fixed order
-    for (int t = warp; t < len; t += kWarps) {
-      const long long bst = ((long long)b * seq + t0 + t) * heads + h;
-      const float d = sm.dt[t];
-      float dotb = 0.f;
+      for (int kk = 0; kk < 2; ++kk) {
+        unsigned mh[4], ml[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = lane + 32 * j;
-        float cg = 0.f, cs = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          cg += sm.col_g[w][t][col];
-          cs += sm.col_s[w][t][col];
+        for (int e = 0; e < 4; ++e) {
+          const int t = g + 8 * (e & 1), j = 8 * kk + q + 4 * (e >> 1);
+          split(up[kk][e] * cb_at(j, t), mh[e], ml[e]);
         }
-        dotb += sm.b[t][col] * cg;
-        if (col < n) {
-          part_b[(bst * tiles + tile) * n + col] = d * cg;
-          part_c[(bst * tiles + tile) * n + col] = cs;
+#pragma unroll
+        for (int pt = 0; pt < 2; ++pt) {
+          const float bb[2] = {sg.gy[8 * kk + q][wr + 8 * pt + g],
+                               sg.gy[8 * kk + q + 4][wr + 8 * pt + g]};
+          mma3_split_a(mi[pt], mis[pt], mh, ml, bb);
         }
       }
-      dotb = warp_sum(dotb);
-      if (lane == 0) {
-        float ga = 0.f;
+      float me[2][2][4] = {}, mes[2][2][4] = {};
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) ga += sm.ga[w][t];
-        const float ga_a = ga * big_a * sm.a[t];
-        part_dt[bst * tiles + tile] = dotb - ga_a;
-        acc_alog += ga_a * d;
+      for (int i = 0; i < kN / 8; ++i) {
+        const int col = 8 * i + 2 * q;
+        const float2 b0 = ld2(&sg.b[g][col]), b1 = ld2(&sg.b[g + 8][col]);
+        const float a[4] = {b0.x, b1.x, b0.y, b1.y};
+        unsigned ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(a[e], ah[e], al[e]);
+#pragma unroll
+        for (int pt = 0; pt < 2; ++pt) {
+          const float bb[2] = {gh.s[i][2 * pt], gh.s[i][2 * pt + 1]};
+          mma3_split_a(me[pt][i & 1], mes[pt][i & 1], ah, al, bb);
+        }
+      }
+      const bool pairs = (p & 1) == 0;  // (col, col + 1) 8-byte aligned
+      float xgb[2] = {0.f, 0.f};
+#pragma unroll
+      for (int pt = 0; pt < 2; ++pt)
+#pragma unroll
+        for (int ti = 0; ti < 2; ++ti) {
+          const int t = g + 8 * ti, col = wr + 8 * pt + 2 * q;
+          float val[2];
+#pragma unroll
+          for (int o = 0; o < 2; ++o) {
+            const int e = 2 * ti + o;
+            const float gb = (mi[pt][e] + mis[pt][e]) +
+                             tail[ti] * ((me[pt][0][e] + me[pt][1][e]) +
+                                         (mes[pt][0][e] + mes[pt][1][e]));
+            xgb[ti] += sg.x[t][col + o] * gb;
+            val[o] = dskip * sg.gy[t][col + o] + dt_t[ti] * gb;
+          }
+          if (t >= len || row0 + col >= p) continue;
+          float* at = gx + (((long long)b * seq + t0 + t) * heads + h) * p +
+                      row0 + col;
+          if (pairs) {
+            *reinterpret_cast<float2*>(at) = make_float2(val[0], val[1]);
+          } else {
+            at[0] = val[0];
+            if (row0 + col + 1 < p) at[1] = val[1];
+          }
+        }
+#pragma unroll
+      for (int ti = 0; ti < 2; ++ti) {
+        const float v = quad_sum(xgb[ti]);
+        if (q == 0) sm.red[0][warp][g + 8 * ti] = v;
       }
     }
-    for (int i = tid; i < len * kSsdPTile; i += kThreads) {
-      const int t = i / kSsdPTile, r = i % kSsdPTile;
-      if (p0 + r < p) {
-        gx[(((long long)b * seq + t0 + t) * heads + h) * p + p0 + r] =
-            sm.gx[t][r];
-        acc_d += sm.gy[t][r] * sm.x[t][r];
+
+    // the warp's 16 columns of N (n-tiles 2 warp, 2 warp + 1):
+    //   G^T x = Mx c + exp(cs_last - cs_t) x G^, Mx[t][i] = exp(cs_i - cs_t)
+    //           (gy_i . x_t), i >= t; g_b's share dt G^T x
+    //   s^T gy = Mc b + exp(cs_t) gy s_in, Mc[t][j] = exp(cs_t - cs_j) dt_j
+    //           (gy_t . x_j), j <= t: g_c's share
+    // and each token's v_t = x_t^T G^ b_t and u_t = gy_t^T s_in c_t over
+    // them
+    {
+      const bool pairs = (n & 1) == 0;
+      const long long out0 = ((long long)b * seq + t0) * heads + h;
+      float vs[2] = {0.f, 0.f}, us[2] = {0.f, 0.f};
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {  // 0: g_b's, 1: g_c's
+        float mm[2][4] = {}, mms[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          unsigned mh[4], ml[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ti = e & 1, u = e >> 1;
+            const int t = g + 8 * ti, j = 8 * kk + q + 4 * u;
+            const float m = which == 0 ? up[kk][e] * w_at(j, t)
+                                       : lo[kk][e] * w_at(t, j) * dt_j[kk][u];
+            split(m, mh[e], ml[e]);
+          }
+          const float(*rhs)[kStride] = which == 0 ? sg.c : sg.b;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int nc = 8 * (2 * warp + nt) + g;
+            const float bb[2] = {rhs[8 * kk + q][nc], rhs[8 * kk + q + 4][nc]};
+            mma3_split_a(mm[nt], mms[nt], mh, ml, bb);
+          }
+        }
+        // x G^ (G^ from its transposed copy) or gy s_in, over the rows
+        float mr[2][2][4] = {}, mrs[2][2][4] = {};
+        const float(*lhs)[kStride] = which == 0 ? sg.x : sg.gy;
+#pragma unroll
+        for (int kp = 0; kp < kSsdRows / 8; ++kp) {
+          const int col = 8 * kp + 2 * q;
+          const float2 l0 = ld2(&lhs[g][col]), l1 = ld2(&lhs[g + 8][col]);
+          const float a[4] = {l0.x, l1.x, l0.y, l1.y};
+          unsigned ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split(a[e], ah[e], al[e]);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int nc = 8 * (2 * warp + nt) + g;
+            float bb[2];
+            if (which == 0) {
+              const float2 r = ld2(&sm.g_hat_t[nc][col]);
+              bb[0] = r.x;
+              bb[1] = r.y;
+            } else {
+              bb[0] = sg.s_in[col][nc];
+              bb[1] = sg.s_in[col + 1][nc];
+            }
+            mma3_split_a(mr[nt][kp & 1], mrs[nt][kp & 1], ah, al, bb);
+          }
+        }
+        float* part = which == 0 ? part_b : part_c;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int ti = 0; ti < 2; ++ti) {
+            const int t = g + 8 * ti, col = 8 * (2 * warp + nt) + 2 * q;
+            float val[2];
+#pragma unroll
+            for (int o = 0; o < 2; ++o) {
+              const int e = 2 * ti + o;
+              const float r = (mr[nt][0][e] + mr[nt][1][e]) +
+                              (mrs[nt][0][e] + mrs[nt][1][e]);
+              const float mv = mm[nt][e] + mms[nt][e];
+              if (which == 0) {
+                vs[ti] += r * sg.b[t][col + o];
+                val[o] = dt_t[ti] * (mv + tail[ti] * r);
+              } else {
+                us[ti] += r * sg.c[t][col + o];
+                val[o] = mv + expf(static_cast<float>(cs_t[ti])) * r;
+              }
+            }
+            if (t >= len || col >= n) continue;
+            float* at = part + ((out0 + (long long)t * heads) * groups +
+                                group) * n + col;
+            if (pairs) {
+              *reinterpret_cast<float2*>(at) = make_float2(val[0], val[1]);
+            } else {
+              at[0] = val[0];
+              if (col + 1 < n) at[1] = val[1];
+            }
+          }
+      }
+#pragma unroll
+      for (int ti = 0; ti < 2; ++ti) {
+        const float v = quad_sum(vs[ti]), u = quad_sum(us[ti]);
+        if (q == 0) {
+          sm.red[2][warp][g + 8 * ti] = v;
+          sm.red[1][warp][g + 8 * ti] = u;
+        }
       }
     }
-    __syncthreads();
+
+    // <G^, s_in> over the warp's rows
+    {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kN / 8; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 s2 = ld2(&sg.s_in[wr + g + 8 * hh][8 * i + 2 * q]);
+          dot += gh.s[i][2 * hh] * s2.x + gh.s[i][2 * hh + 1] * s2.y;
+        }
+      dot = warp_sum(dot);
+      if (lane == 0) sm.red[3][warp][0] = dot;
+    }
+
+    // g_l's first sum, sum_{i >= t > j} K[i][j] with K[i][j] = exp(cs_i -
+    // cs_j) dt_j (c_i . b_j)(gy_i . x_j), i > j, is T(t) = sum_{tau < t}
+    // colsuf(tau) - rowpre(tau): rowpre(tau) = sum_{j < tau} K[tau][j],
+    // colsuf(tau) = sum_{i > tau} K[i][tau]. Warp w takes tau = 4 w ..
+    // 4 w + 3, 8 lanes a tau, each 2 of the 16 j (and i).
+    {
+      const int tau = 4 * warp + (lane >> 3), sub = lane & 7;
+      const double cs_tau = __shfl_sync(kFull, cs, tau);
+      float rowpre = 0.f, colsuf = 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = sub + 8 * r;
+        const double cs_o = __shfl_sync(kFull, cs, j);
+        const float e = expf(static_cast<float>(j < tau ? cs_tau - cs_o
+                                                        : cs_o - cs_tau));
+        if (j < tau) rowpre += e * sg.dt[j] * cb_at(tau, j) * w_at(tau, j);
+        if (j > tau) colsuf += e * sg.dt[tau] * cb_at(j, tau) * w_at(j, tau);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) {
+        rowpre += __shfl_xor_sync(kFull, rowpre, off);
+        colsuf += __shfl_xor_sync(kFull, colsuf, off);
+      }
+      if (sub == 0) sm.k_gap[tau] = colsuf - rowpre;
+    }
+    __syncthreads();  // the warps' sums are in place; G^'s copy is read
+
+    // warp 0, lane t (t < len): g_l, g_dt, and the A_log and D sums
+    if (warp == 0) {
+      float xgb = 0.f, u = 0.f, v = 0.f, dot = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        xgb += sm.red[0][w][tl];
+        u += sm.red[1][w][tl];
+        v += sm.red[2][w][tl];
+        dot += sm.red[3][w][0];
+      }
+      const float d_tl = sg.dt[tl];
+      // exclusive prefix sums (T(t), and sum_{j < t} exp(cs_last - cs_j)
+      // dt_j v_j) and an inclusive suffix sum (sum_{i >= t} exp(cs_i) u_i)
+      float t1 = sm.k_gap[tl];
+      float t3 = expf(static_cast<float>(cs_last - cs)) * d_tl * v;
+      float t2 = expf(static_cast<float>(cs)) * u;
+#pragma unroll
+      for (int off = 1; off < kC; off <<= 1) {
+        const float a1 = __shfl_up_sync(kFull, t1, off, kC);
+        const float a3 = __shfl_up_sync(kFull, t3, off, kC);
+        const float a2 = __shfl_down_sync(kFull, t2, off, kC);
+        if (tl >= off) {
+          t1 += a1;
+          t3 += a3;
+        }
+        if (tl + off < kC) t2 += a2;
+      }
+      t1 = __shfl_up_sync(kFull, t1, 1, kC);
+      t3 = __shfl_up_sync(kFull, t3, 1, kC);
+      if (tl == 0) t1 = t3 = 0.f;
+      const float g_l =
+          t1 + t2 + t3 + expf(static_cast<float>(cs_last)) * dot;
+      if (lane < len) {
+        part_dt[(((long long)b * seq + t0 + lane) * heads + h) * groups +
+                group] = xgb - big_a * g_l;
+        acc_l += g_l * d_tl;
+        acc_d += w_at(lane, lane);
+      }
+    }
+
+    if (k > 0) {
+      // the carry: G^ <- exp(cs_last) G^ + (exp(cs) gy)^T C, the A
+      // fragment split once a depth step
+      unsigned wh[2][4], wl[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = 8 * kk + q + 4 * u;
+          const float wi = expf(static_cast<float>(cs_j[kk][u]));
+          split(wi * sg.gy[i][wr + g], wh[kk][2 * u], wl[kk][2 * u]);
+          split(wi * sg.gy[i][wr + g + 8], wh[kk][2 * u + 1],
+                wl[kk][2 * u + 1]);
+        }
+      const float decay = expf(static_cast<float>(cs_last));
+#pragma unroll
+      for (int i = 0; i < kN / 8; ++i) {
+        float small[4] = {};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gh.s[i][e] *= decay;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const float bb[2] = {sg.c[8 * kk + q][8 * i + g],
+                               sg.c[8 * kk + q + 4][8 * i + g]};
+          mma3_split_a(gh.s[i], small, wh[kk], wl[kk], bb);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gh.s[i][e] += small[e];
+      }
+      store_g_hat(gh);
+      cp_async_wait<0>();  // chunk k - 1's copies
+      __syncthreads();     // ... seen by every warp; warp 0's reads done
+      gram_quarter(sm.stage[(k - 1) & 1].c, sm.stage[(k - 1) & 1].b, sm.cb,
+                   warp, lane);
+      gram_quarter(sm.stage[(k - 1) & 1].gy, sm.stage[(k - 1) & 1].x, sm.w,
+                   warp, lane);
+    }
   }
 
-  // the block's A_log and D sums, in a fixed order
-  sm.red[0][tid] = acc_alog;
-  sm.red[1][tid] = acc_d;
-  __syncthreads();
-  if (tid < 2) {
-    float total = 0.f;
-    for (int i = 0; i < kThreads; ++i) total += sm.red[tid][i];
-    part_h[(((long long)tid * batch + b) * heads + h) * tiles + tile] =
-        tid == 0 ? -total : total;
+  // the block's A_log and D sums, in a fixed order (warp 0's lanes)
+  if (warp == 0) {
+    acc_l = warp_sum(acc_l);
+    acc_d = warp_sum(acc_d);
+    if (lane == 0) {
+      const long long slot = bh * groups + group;
+      part_h[slot] = -big_a * acc_l;
+      part_h[(long long)batch * heads * groups + slot] = acc_d;
+    }
   }
 }
 
-// The sums across blocks: g_b and g_c over heads and tiles, g_dt over
-// tiles, g_A_log and g_D over batch rows and tiles, each in a fixed order.
+// The sums across blocks, each in a fixed order: g_b and g_c over heads
+// and groups; g_dt over groups (with one group the scan wrote it); g_A_log
+// and g_D over batch rows and groups.
 __global__ void ssd_scan_reduce_kernel(
     const float* __restrict__ part_b, const float* __restrict__ part_c,
     const float* __restrict__ part_dt, const float* __restrict__ part_h,
     float* __restrict__ gb, float* __restrict__ gc, float* __restrict__ gdt,
     float* __restrict__ ga_log, float* __restrict__ gd, int batch, int seq,
-    int heads, int tiles, int n) {
+    int heads, int groups, int n) {
   const long long bsn = (long long)batch * seq * n;
-  const long long bsh = (long long)batch * seq * heads;
+  const long long bsh = groups > 1 ? (long long)batch * seq * heads : 0;
   const long long total = bsn + bsh + heads;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
@@ -742,8 +1055,8 @@ __global__ void ssd_scan_reduce_kernel(
       const int j = static_cast<int>(i % n);
       float sb = 0.f, sc = 0.f;
       for (int h = 0; h < heads; ++h) {
-        for (int tl = 0; tl < tiles; ++tl) {
-          const long long at = ((bs * heads + h) * tiles + tl) * n + j;
+        for (int gr = 0; gr < groups; ++gr) {
+          const long long at = ((bs * heads + h) * groups + gr) * n + j;
           sb += part_b[at];
           sc += part_c[at];
         }
@@ -753,16 +1066,16 @@ __global__ void ssd_scan_reduce_kernel(
     } else if (i < bsn + bsh) {
       const long long bsh_i = i - bsn;
       float sum = 0.f;
-      for (int tl = 0; tl < tiles; ++tl) sum += part_dt[bsh_i * tiles + tl];
+      for (int gr = 0; gr < groups; ++gr) sum += part_dt[bsh_i * groups + gr];
       gdt[bsh_i] = sum;
     } else {
       const int h = static_cast<int>(i - bsn - bsh);
       for (int which = 0; which < 2; ++which) {
         float sum = 0.f;
         for (int b = 0; b < batch; ++b) {
-          for (int tl = 0; tl < tiles; ++tl) {
+          for (int gr = 0; gr < groups; ++gr) {
             sum += part_h[(((long long)which * batch + b) * heads + h) *
-                              tiles + tl];
+                              groups + gr];
           }
         }
         (which == 0 ? ga_log : gd)[h] = sum;
@@ -784,7 +1097,7 @@ cudaError_t ssd_scan_forward_launch(
     int seq, int heads, int p, int n, int segment, cudaStream_t stream) {
   const int n_chunks = (seq + kC - 1) / kC;
   const int segs = (n_chunks + segment - 1) / segment;
-  const int groups = (p + kFwdRows - 1) / kFwdRows;
+  const int groups = (p + kSsdRows - 1) / kSsdRows;
   const bool vec = p % 4 == 0 && n % 4 == 0 && aligned16(xs) &&
                    aligned16(bmat) && aligned16(cmat);
   cudaError_t err;
@@ -830,23 +1143,29 @@ cudaError_t ssd_scan_backward_launch(
     float* gdt, float* ga_log, float* gd, float* part_b, float* part_c,
     float* part_dt, float* part_h, int batch, int seq, int heads, int p,
     int n, cudaStream_t stream) {
+  const int groups = (p + kSsdRows - 1) / kSsdRows;
+  const bool vec = p % 4 == 0 && n % 4 == 0 && aligned16(xs) &&
+                   aligned16(gy) && aligned16(bmat) && aligned16(cmat) &&
+                   aligned16(s_chunks);
+  const auto scan =
+      vec ? ssd_scan_backward_kernel<true> : ssd_scan_backward_kernel<false>;
+  // more than the 48 KB of static shared memory, on the current device
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kBwdSmemBytes));
+      scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(BwdSmem)));
   if (err != cudaSuccess) return err;
-  const int tiles = (p + kSsdPTile - 1) / kSsdPTile;
-  const dim3 grid(tiles, heads, batch);
-  ssd_scan_backward_kernel<<<grid, kThreads, kBwdSmemBytes, stream>>>(
+  scan<<<dim3(groups, heads, batch), kThreads, sizeof(BwdSmem), stream>>>(
       xs, bmat, cmat, dt, a_log, d_skip, s_chunks, gy, gs, gx, part_b,
-      part_c, part_dt, part_h, batch, seq, heads, p, n);
+      part_c, groups > 1 ? part_dt : gdt, part_h, batch, seq, heads, p, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long total = (long long)batch * seq * (n + heads) + heads;
+  const long long total =
+      (long long)batch * seq * (n + (groups > 1 ? heads : 0)) + heads;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   ssd_scan_reduce_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096),
                            threads, 0, stream>>>(
       part_b, part_c, part_dt, part_h, gb, gc, gdt, ga_log, gd, batch, seq,
-      heads, tiles, n);
+      heads, groups, n);
   return cudaGetLastError();
 }

@@ -8,7 +8,8 @@
 constexpr int kSsdMaxN = 64;   // state size N the kernels take
 constexpr int kSsdChunk = 16;  // tokens between the states kept for the
                                // backward (kernels/ssd/ref.py: CHUNK)
-constexpr int kSsdPTile = 16;  // state rows a block holds
+constexpr int kSsdRows = 64;   // state rows a block holds (P is cut into
+                               // groups of it)
 
 // xs, y: [batch, seq, heads, p]; bmat, cmat: [batch, seq, n]; dt:
 // [batch, seq, heads]; a_log, d_skip: [heads]; s_fin: [batch, heads, p,
@@ -28,11 +29,11 @@ cudaError_t ssd_scan_forward_launch(
 
 // The gradients of the scan from the forward's inputs, its chunk states
 // and the cotangents gy (y's shape) and gs (s_fin's): gx, gb, gc, gdt,
-// ga_log and gd, each of its input's shape. With T = ceil(p / kSsdPTile)
-// row tiles, the scratch of the sums across blocks: part_b and part_c
-// [batch, seq, heads, T, n], part_dt [batch, seq, heads, T], part_h [2,
-// batch, heads, T]. Launches two kernels on `stream`; returns the first
-// error.
+// ga_log and gd, each of its input's shape. With R = ceil(p / kSsdRows)
+// groups of rows, the scratch of the sums across blocks: part_b and part_c
+// [batch, seq, heads, R, n], part_dt [batch, seq, heads, R] (unused when R
+// = 1: the scan writes gdt), part_h [2, batch, heads, R]. Launches two
+// kernels on `stream`; returns the first error.
 cudaError_t ssd_scan_backward_launch(
     const float* xs, const float* bmat, const float* cmat, const float* dt,
     const float* a_log, const float* d_skip, const float* s_chunks,

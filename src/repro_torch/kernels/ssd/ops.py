@@ -9,9 +9,11 @@ A_log and D ``[H]``, all f32, and returns ``(y [B,S,H,P], final state
   with sequence segments), a CPU tensor runs the plain token loop
   (``ref.ssd_scan_reference``); with ``save`` it also returns the state at
   the start of every ``ref.CHUNK``-token chunk, for the backward.
-* ``repro_torch::ssd_scan_bwd``: the backward kernels on the card, the
-  written-out reverse recurrence (``ref.ssd_scan_backward_reference``) on
-  the CPU.
+* ``repro_torch::ssd_scan_bwd``: the backward kernels on the card (the
+  reverse chunk form on tensor cores, ``ref.
+  ssd_scan_backward_chunked_reference`` in plain PyTorch, and the sums
+  across heads), the written-out reverse recurrence
+  (``ref.ssd_scan_backward_reference``) on the CPU.
 
 Each has a shape function (``register_fake``), so a trace on fake tensors
 (the dry-run) runs the scan as one op whatever S is, and a FLOP formula

@@ -33,6 +33,34 @@ chunk, ``l_t = -dt_t A`` and ``cs`` the in-chunk inclusive cumsum of l
     y_t   = sum_{j<=t} (c_t . b_j) exp(cs_t - cs_j) dt_j x_j
             + exp(cs_t) (s_in c_t) + D x_t
     s_out = exp(cs_last) s_in + sum_j exp(cs_last - cs_j) dt_j x_j ⊗ b_j
+
+``ssd_scan_backward_chunked_reference`` is the backward kernel's chunk
+form of the gradient (an oracle for it; the op's CPU path stays the
+written-out recurrence). Over the chunks in reverse, with G^ the
+cotangent arriving from the later chunks (the final state's for the
+last), E(i, t) = exp(cs_i - cs_t) and every exponent <= 0:
+
+    G_t     = sum_{i>=t} E(i, t) gy_i c_i^T + exp(cs_last - cs_t) G^
+    G^     <- exp(cs_last) G^ + sum_i exp(cs_i) gy_i c_i^T     (the carry)
+    G_t b_t = sum_{i>=t} E(i, t) (c_i . b_t) gy_i + exp(cs_last - cs_t) G^ b_t
+    G_t^T x_t = sum_{i>=t} E(i, t) (gy_i . x_t) c_i
+                + exp(cs_last - cs_t) G^T x_t
+    s_t^T gy_t = exp(cs_t) s_in^T gy_t
+                 + sum_{j<=t} E(t, j) dt_j (x_j . gy_t) b_j
+
+and the log decay's gradient g_l_t = <G_t, a_t s_{t-1}>, where a_t
+s_{t-1} = s_t - dt_t x_t b_t^T is s_t's sums with j < t, so no term is
+a difference of two large ones:
+
+    g_l_t = sum_{i>=t>j} exp(cs_i - cs_j) dt_j (c_i . b_j)(gy_i . x_j)
+            + sum_{i>=t} exp(cs_i) gy_i^T s_in c_i
+            + sum_{j<t} exp(cs_last - cs_j) dt_j x_j^T G^ b_j
+            + exp(cs_last) <G^, s_in>
+
+g_x = D gy + dt G b, g_b = dt G^T x and g_c = s^T gy (summed over
+heads), g_dt = x^T G b - A g_l, g_A_log = -sum g_l dt A, g_D = sum gy . x.
+Its cumsums are taken in f64, as the kernel takes them, so that a gap
+cs_i - cs_j is rounded as the sum of its own l's and not as the chunk's.
 """
 
 from __future__ import annotations
@@ -187,3 +215,75 @@ def ssd_scan_chunked_reference(xs, bmat, cmat, dt, a_log, d_skip):
             + torch.einsum("bhj,bjhp,bjn->bhpn", w, x, b)
         ys.append(y)
     return torch.cat(ys, dim=1), s, torch.stack(kept, dim=2)
+
+
+def ssd_scan_backward_chunked_reference(xs, bmat, cmat, dt, a_log, d_skip,
+                                        s_chunks, gy, gs):
+    """The gradients of the scan in the backward kernel's chunk form
+    (module docstring), from the same arguments as
+    ``ssd_scan_backward_reference``: ``(g_x, g_b, g_c, g_dt, g_A_log,
+    g_D)``, f32. The masked decays are exp of the cumsums' differences,
+    -inf outside their triangle."""
+    bsz, seq, n_heads, head_dim = xs.shape
+    big_a = torch.exp(a_log)                                        # [H]
+    g_hat = gs.clone()                                              # [B,H,P,N]
+    causal = torch.ones((CHUNK, CHUNK), dtype=torch.bool,
+                        device=xs.device).tril()                    # [t, j]: j <= t
+    g_x, g_dt = torch.empty_like(xs), torch.empty_like(dt)
+    g_b, g_c = torch.empty_like(bmat), torch.empty_like(cmat)
+    g_a_log = torch.zeros_like(a_log)
+    for k in reversed(range(n_chunks(seq))):
+        span = slice(k * CHUNK, min(seq, (k + 1) * CHUNK))
+        x, gyc, b, c, dt_c = xs[:, span], gy[:, span], bmat[:, span], \
+            cmat[:, span], dt[:, span]
+        q = x.shape[1]
+        s_in = s_chunks[:, :, k]                                    # [B,H,P,N]
+        low, strict = causal[:q, :q], causal[:q, :q].tril(-1)
+        # the cumsums in f64, so that a gap cs_t - cs_j is as exact as the
+        # sum of its own l's (in f32 it would carry the rounding of the
+        # whole chunk's sum: ~1e-5 of a decay at dt A ~ 200 a token)
+        cs64 = torch.cumsum((-dt_c * big_a).double(), dim=1).transpose(1, 2)
+        cs, last64 = cs64.float(), cs64[..., -1:]                   # [B,H,Q]
+        last = last64.float()                                       # [B,H,1]
+        dt_h = dt_c.transpose(1, 2)                                 # [B,H,Q]
+        diff = (cs64[..., :, None] - cs64[..., None, :]).float()    # [t][j]: cs_t - cs_j
+
+        def decay(mask):
+            return torch.exp(torch.where(mask, diff, -torch.inf))
+
+        e_lo = decay(low)                                           # E(t, j), j <= t
+        e_up = e_lo.transpose(-1, -2)                               # [t][i]: E(i, t), i >= t
+        cb = cmat[:, span] @ b.transpose(1, 2)                      # [B,i,j]: c_i . b_j
+        w = torch.einsum("bihp,bjhp->bhij", gyc, x)                 # gy_i . x_j
+        tail = torch.exp((last64 - cs64).float())                   # [B,H,Q]
+        g_hat_b = torch.einsum("btn,bhpn->bthp", b, g_hat)          # G^ b_t
+        g_hat_x = torch.einsum("bthp,bhpn->bthn", x, g_hat)         # G^T x_t
+        gy_s = torch.einsum("bthp,bhpn->bthn", gyc, s_in)           # s_in^T gy_t
+        gb = torch.einsum("bhti,bit,bihp->bthp", e_up, cb, gyc) \
+            + tail.transpose(1, 2)[..., None] * g_hat_b              # G_t b_t
+        gtx = torch.einsum("bhti,bhit,bin->bthn", e_up, w, c) \
+            + tail.transpose(1, 2)[..., None] * g_hat_x              # G_t^T x_t
+        stg = torch.einsum("bhtj,bhtj,bhj,bjn->bthn", e_lo, w, dt_h, b) \
+            + torch.exp(cs).transpose(1, 2)[..., None] * gy_s        # s_t^T gy_t
+        # g_l's four sums
+        kk = decay(strict) * dt_h[:, :, None, :] * cb[:, None] * w  # [B,H,i,j], j < i
+        at_or_after = low.transpose(0, 1).to(F32)                   # [t][i]: i >= t
+        before = strict.to(F32)                                     # [t][j]: j < t
+        g_l = torch.einsum("ti,bhij,tj->bht", at_or_after, kk, before)
+        u = torch.einsum("bthn,btn->bht", gy_s, c)                  # gy_i^T s_in c_i
+        v = torch.einsum("bthn,btn->bht", g_hat_x, b)               # x_j^T G^ b_j
+        g_l = g_l + torch.einsum("ti,bhi->bht", at_or_after,
+                                 torch.exp(cs) * u) \
+            + torch.einsum("tj,bhj->bht", before,
+                           tail * dt_h * v) \
+            + torch.exp(last) * (g_hat * s_in).sum(dim=(-2, -1))[..., None]
+        g_l = g_l.transpose(1, 2)                                   # [B,Q,H]
+        g_x[:, span] = d_skip[None, None, :, None] * gyc \
+            + dt_c[..., None] * gb
+        g_b[:, span] = torch.einsum("bthn,bth->btn", gtx, dt_c)
+        g_c[:, span] = stg.sum(dim=2)
+        g_dt[:, span] = torch.einsum("bthp,bthp->bth", x, gb) - big_a * g_l
+        g_a_log -= (g_l * dt_c * big_a).sum(dim=(0, 1))
+        g_hat = torch.exp(last)[..., None] * g_hat \
+            + torch.einsum("bhi,bihp,bin->bhpn", torch.exp(cs), gyc, c)
+    return g_x, g_b, g_c, g_dt, g_a_log, torch.einsum("bshp,bshp->h", gy, xs)

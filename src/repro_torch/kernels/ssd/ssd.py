@@ -14,10 +14,14 @@ few for the card, each (b, h)'s chunks are cut into segments
 (``segment_chunks``): a pass from a zero state gives each segment but the
 last its own state and log decay, a carry kernel walks the segments in
 order, and the scan runs every segment from its incoming state; one call
-still counts one launch (``ops.ssd_scan.launches``). The backward is two
-kernels: the reverse scan writes each block's share of the sums across
-heads and P tiles into scratch, and a second kernel adds them in a fixed
-order (no float atomics, so two runs give the same bits).
+still counts one launch (``ops.ssd_scan.launches``). The backward is the
+reverse of the same chunk form on tensor cores
+(``ref.ssd_scan_backward_chunked_reference`` is the same decomposition):
+a block per (b, h, 64 state rows) walks the chunks backward with the
+state's cotangent in registers and writes g_x, g_dt and each head's
+share of g_b and g_c (the heads share b and c); a second kernel adds
+those shares in a fixed order (no float atomics, so two runs give the
+same bits).
 """
 
 from __future__ import annotations
@@ -28,8 +32,7 @@ from ..extension import build
 from .ref import n_chunks
 
 MAX_N = 64        # state size the kernels take (csrc/ssd_scan.h)
-P_TILE = 16       # rows of the state a backward block holds
-FWD_ROWS = 64     # rows of the state a forward block holds
+ROWS = 64         # rows of the state a block holds, forward and backward
 BLOCKS_PER_SM = 2     # forward blocks to aim for on each SM when the
                       # (b, h, rows) blocks alone are too few
 
@@ -58,7 +61,7 @@ def forward(xs, bmat, cmat, dt, a_log, d_skip, save: bool, segment=None):
     if segment is None:
         sms = torch.cuda.get_device_properties(
             xs.device).multi_processor_count
-        segment = segment_chunks(bsz * n_heads * -(-head_dim // FWD_ROWS),
+        segment = segment_chunks(bsz * n_heads * -(-head_dim // ROWS),
                                  chunks, sms)
     segs = -(-chunks // segment)
 
@@ -83,20 +86,20 @@ def backward(xs, bmat, cmat, dt, a_log, d_skip, s_chunks, gy, gs):
     ``(g_x, g_b, g_c, g_dt, g_A_log, g_D)``."""
     bsz, seq, n_heads, head_dim = xs.shape
     n = bmat.shape[-1]
-    tiles = -(-head_dim // P_TILE)
-    dev = xs.device
+    groups = -(-head_dim // ROWS)
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        return torch.empty(shape, dtype=torch.float32, device=xs.device)
 
     grads = (torch.empty_like(xs), torch.empty_like(bmat),
              torch.empty_like(cmat), torch.empty_like(dt),
              torch.empty_like(a_log), torch.empty_like(d_skip))
-    # each block's share of the sums across blocks
-    part_b, part_c = empty(bsz, seq, n_heads, tiles, n), \
-        empty(bsz, seq, n_heads, tiles, n)
-    part_dt = empty(bsz, seq, n_heads, tiles)
-    part_h = empty(2, bsz, n_heads, tiles)          # A_log's, D's
+    # each (b, h, group of rows)'s share of the sums across blocks: g_b's
+    # and g_c's over heads, g_dt's over groups (none with one group: the
+    # scan writes g_dt), A_log's and D's
+    part_b, part_c = (empty(bsz, seq, n_heads, groups, n) for _ in range(2))
+    part_dt = empty(bsz, seq, n_heads, groups if groups > 1 else 0)
+    part_h = empty(2, bsz, n_heads, groups)
     build().ssd_scan_backward(xs, bmat, cmat, dt, a_log, d_skip, s_chunks,
                               gy, gs, *grads, part_b, part_c, part_dt,
                               part_h)

@@ -681,18 +681,22 @@ def _rel(got, want):
 @pytest.mark.parametrize("b,s,h,p,n,dt_shift", [
     (1, 1, 3, 16, 64, -2.0), (2, 70, 5, 20, 16, -2.0),
     (1, 333, 4, 64, 64, -2.0), (3, 48, 2, 8, 1, -2.0),
-    (1, 40, 3, 64, 64, 14.0)])
+    (1, 40, 3, 64, 64, 14.0), (2, 33, 2, 80, 32, -2.0),
+    (2, 512, 80, 64, 64, -2.0)])
 def test_torch_ssd_cuda_kernels_match_plain(b, s, h, p, n, dt_shift):
     """The forward kernel (through ``ssd_scan``, one launch) against the
     plain token loop and against the chunk form on the card: y, the final
     state and the kept chunk states within 1e-5 of their largest value;
     the backward kernels from the kernel's kept states against the
-    written-out plain backward on the card, every gradient within 1e-4 of
-    its largest value, and two runs bitwise equal. Shapes cover one
-    token, P no multiple of the 16-row tile, N < 64 down to 1, a ragged
-    last chunk and decays that underflow to 0 (dt_shift 14)."""
+    written-out plain backward and the chunk form's plain backward on the
+    card, every gradient within 1e-4 of its largest value, and two runs
+    bitwise equal. Shapes cover one token, P no multiple of 16 and P over
+    the 64 rows a block holds (two groups of rows), N < 64 down to 1, a
+    ragged last chunk, decays that underflow to 0 (dt_shift 14) and
+    zamba2-2.7b's training call (2 x 512 tokens, 80 heads)."""
     _need_cuda()
     from repro_torch.kernels.ssd import (ssd_scan,
+                                         ssd_scan_backward_chunked_reference,
                                          ssd_scan_backward_reference,
                                          ssd_scan_chunked_reference,
                                          ssd_scan_reference)
@@ -710,9 +714,11 @@ def test_torch_ssd_cuda_kernels_match_plain(b, s, h, p, n, dt_shift):
     grads = torch.ops.repro_torch.ssd_scan_bwd(*ins, kept, gy, gs)
     again = torch.ops.repro_torch.ssd_scan_bwd(*ins, kept, gy, gs)
     plain = ssd_scan_backward_reference(*ins, want[2], gy, gs)
-    for g, a, w in zip(grads, again, plain):
+    chunk_form = ssd_scan_backward_chunked_reference(*ins, want[2], gy, gs)
+    for g, a, w, c in zip(grads, again, plain, chunk_form):
         assert torch.equal(g, a)
         assert _rel(g, w) <= 1e-4
+        assert _rel(g, c) <= 1e-4
 
 
 @pytest.mark.cuda
