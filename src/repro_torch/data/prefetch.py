@@ -25,6 +25,13 @@ field, and one CUDA graph replay covers K optimizer steps:
 
 Closing the generator early (``max_steps``, errors) stops the worker;
 worker exceptions re-raise in the consumer.
+
+While a ``core.spans`` recording is on, the worker records
+``prefetch.shuffle``, ``prefetch.gather`` and ``prefetch.put_blocked``
+(the queue full: the consumer sets the pace); the consumer records
+``prefetch.wait_worker`` (counting in ``prefetch.queue_empty`` the gets
+that found the queue empty), ``prefetch.pin`` and ``prefetch.copy`` (the
+bytes in ``prefetch.bytes_pinned``) and ``prefetch.close``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..core import spans
 from .synthetic import CTRDataset, note_dropped_remainder
 
 _DONE = object()
@@ -62,9 +70,10 @@ def chunk_epoch(
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     n = len(ds)
-    order = np.arange(n)
-    if shuffle:
-        np.random.default_rng(seed).shuffle(order)
+    with spans.span("prefetch.shuffle"):
+        order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
     if drop_remainder:
         note_dropped_remainder(n, batch_size)
     n_batches = n // batch_size if drop_remainder else -(-n // batch_size)
@@ -76,11 +85,13 @@ def chunk_epoch(
     for start in range(0, n_batches, scan_steps):
         k = min(scan_steps, n_batches - start)
         idx = order[start * batch_size:(start + k) * batch_size]
-        yield {
-            "ids": ds.ids[idx].reshape(k, batch_size, -1),
-            "dense": ds.dense[idx].reshape(k, batch_size, -1),
-            "labels": ds.labels[idx].reshape(k, batch_size),
-        }
+        with spans.span("prefetch.gather"):
+            chunk = {
+                "ids": ds.ids[idx].reshape(k, batch_size, -1),
+                "dense": ds.dense[idx].reshape(k, batch_size, -1),
+                "labels": ds.labels[idx].reshape(k, batch_size),
+            }
+        yield chunk
 
 
 class _Worker:
@@ -108,31 +119,45 @@ class _Worker:
         self.thread.start()
 
     def put(self, item) -> bool:
-        while not self.stop.is_set():
-            try:
-                self.queue.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
+        if self.stop.is_set():
+            return False
+        try:
+            self.queue.put_nowait(item)
+            return True
+        except queue.Full:
+            pass
+        with spans.span("prefetch.put_blocked"):
+            while not self.stop.is_set():
+                try:
+                    self.queue.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
         return False
 
     def items(self):
         try:
             while True:
-                item = self.queue.get()
+                with spans.span("prefetch.wait_worker"):
+                    try:
+                        item = self.queue.get_nowait()
+                    except queue.Empty:
+                        spans.add("prefetch.queue_empty")
+                        item = self.queue.get()
                 if item is _DONE:
                     break
                 yield item
             if self.failure:
                 raise self.failure[0]
         finally:
-            self.stop.set()
-            # unblock a worker stuck on a full queue, then wait for it: no
-            # thread of a closed prefetch runs on (it stops within its
-            # 0.1 s put timeout once its current item is made)
-            self._drain()
-            self.thread.join(timeout=10.0)
-            self._drain()
+            with spans.span("prefetch.close"):
+                self.stop.set()
+                # unblock a worker stuck on a full queue, then wait for it:
+                # no thread of a closed prefetch runs on (it stops within
+                # its 0.1 s put timeout once its current item is made)
+                self._drain()
+                self.thread.join(timeout=10.0)
+                self._drain()
 
     def _drain(self):
         while True:
@@ -150,9 +175,12 @@ class _Staged:
     __slots__ = ("tensors", "event", "pinned")
 
     def __init__(self, item: dict, device, copy_stream):
-        self.pinned = [torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                       for v in item.values()]
-        with torch.cuda.stream(copy_stream):
+        with spans.span("prefetch.pin"):
+            self.pinned = [
+                torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                for v in item.values()]
+        spans.add("prefetch.bytes_pinned", sum(p.nbytes for p in self.pinned))
+        with spans.span("prefetch.copy"), torch.cuda.stream(copy_stream):
             self.tensors = {k: p.to(device, non_blocking=True)
                             for k, p in zip(item, self.pinned)}
             self.event = torch.cuda.Event()

@@ -87,6 +87,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.device import resolve_device
 from ..core.scaling import RULES, scale_hyperparams
 from ..core.tree import tree_leaves
@@ -364,14 +365,17 @@ def _run_ctr(args, placement, device) -> None:
     if args.mode == "stream" and not segments:
         stream = _make_stream(args, bundle, tr, start_step)
 
-    trace_ctx = contextlib.nullcontext()
+    trace_ctx = record_ctx = contextlib.nullcontext()
     if args.profile_trace:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         trace_ctx = torch.profiler.profile(activities=activities)
+        record_ctx = spans.recording()
         say(f"[train] profiling to {args.profile_trace} (chrome trace)")
-    with trace_ctx as prof:
+    with trace_ctx as prof, record_ctx as rec:
+        if rec is not None:
+            rec.anchor()
         if segments:
             res = _run_async_segments(args, cfg, bundle, tr, te,
                                       *init_state, start_step, snap_mgr,
@@ -386,8 +390,9 @@ def _run_ctr(args, placement, device) -> None:
                             snapshot_cb=snapshot_cb)
     if args.profile_trace and first:
         os.makedirs(args.profile_trace, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_trace,
-                                              "trace.json"))
+        path = os.path.join(args.profile_trace, "trace.json")
+        prof.export_chrome_trace(path)
+        spans.add_to_chrome_trace(rec, path)
     say(f"[train] done: {res.steps} steps in {res.seconds:.1f}s "
         f"-> AUC {100*res.final_eval['auc']:.2f} "
         f"logloss {res.final_eval['logloss']:.4f}")
@@ -554,7 +559,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--profile-trace", default=None, metavar="DIR",
                     help="write a torch.profiler chrome trace of the "
-                         "training run to DIR/trace.json")
+                         "training run to DIR/trace.json, with the "
+                         "program's spans (core.spans) on the trace's "
+                         "clock, a lane a thread")
     return ap
 
 

@@ -29,6 +29,11 @@ on the same tensors, so the scan engine equals the eager one bit for bit
 
 ``drive_planned_stream`` is the consume loop of a stream whose items may
 carry migration plans (the async hot/cold placement, ``embed.migrate``).
+
+While a ``core.spans`` recording is on, a chunk is the span
+``engine.chunk`` (its self time: the copy into the static buffers and the
+aux clones), around ``engine.capture`` (counted by ``engine.captures``)
+and ``engine.replay``, the graph's launch on the host.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core import spans
 from ..core.tree import tree_leaves, tree_map
 from ..data import prefetch as prefetch_lib
 
@@ -134,24 +140,29 @@ class ChunkRunner:
         return len(self._captures)
 
     def __call__(self, params, opt_state, chunk: dict):
-        leaves = tree_leaves((params, opt_state))
-        device = leaves[0].device
-        if device.type != "cuda":
-            return self._run_bodies(params, opt_state, chunk)
-        chunk = {name: torch.as_tensor(v, device=device)
-                 for name, v in chunk.items()}
-        k = chunk["labels"].shape[0]
-        key = (tuple((name, tuple(v.shape), v.dtype)
-                     for name, v in chunk.items()),
-               tuple(t.data_ptr() for t in leaves))
-        cap = self._captures.get(key)
-        if cap is None:
-            cap = self._capture(params, opt_state, chunk, k)
-            self._captures[key] = cap
-        for name, buf in cap.inputs.items():
-            buf.copy_(chunk[name], non_blocking=True)
-        cap.graph.replay()
-        return params, opt_state, {n: v.clone() for n, v in cap.aux.items()}
+        with spans.span("engine.chunk"):
+            leaves = tree_leaves((params, opt_state))
+            device = leaves[0].device
+            if device.type != "cuda":
+                return self._run_bodies(params, opt_state, chunk)
+            chunk = {name: torch.as_tensor(v, device=device)
+                     for name, v in chunk.items()}
+            k = chunk["labels"].shape[0]
+            key = (tuple((name, tuple(v.shape), v.dtype)
+                         for name, v in chunk.items()),
+                   tuple(t.data_ptr() for t in leaves))
+            cap = self._captures.get(key)
+            if cap is None:
+                with spans.span("engine.capture"):
+                    cap = self._capture(params, opt_state, chunk, k)
+                spans.add("engine.captures")
+                self._captures[key] = cap
+            for name, buf in cap.inputs.items():
+                buf.copy_(chunk[name], non_blocking=True)
+            with spans.span("engine.replay"):
+                cap.graph.replay()
+            return params, opt_state, {n: v.clone()
+                                       for n, v in cap.aux.items()}
 
     def _run_bodies(self, params, opt_state, chunk):
         """The CPU path: the k bodies in turn."""

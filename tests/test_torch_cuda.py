@@ -1143,6 +1143,57 @@ def test_torch_prefetch_cuda_stages_items_in_order():
     np.testing.assert_array_equal(first["a"].cpu().numpy(), items[0]["a"])
 
 
+@pytest.mark.cuda
+def test_torch_spans_on_the_card_time_staging_and_replay():
+    """One epoch of the scan engine on the card under a span recording and
+    a profile: each chunk is pinned and copied on the consumer's thread
+    (``prefetch.pin``, ``prefetch.copy``, its bytes counted), each graph
+    captured once inside its chunk's span, and every ``cudaGraphLaunch``
+    of the profile lies inside an ``engine.replay`` span once the
+    recording is mapped onto the profile's clock."""
+    _need_cuda()
+    from repro_torch.core import spans
+
+    cfg, hp, ds = _small_ctr("fused")
+    bundle = store_for(cfg).make_bundle(cfg, hp)
+    params = ctr.init(cfg, seed=5, device="cuda")
+    state = bundle.init(params)
+    runner = engine_lib.make_chunk_runner(engine_lib.resolve_scan_step(bundle))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with spans.recording() as rec:
+            rec.anchor()
+            _, _, steps, _ = engine_lib.run_epoch(runner, params, state, ds,
+                                                  512, 4, seed=2)
+        torch.cuda.synchronize()
+    assert steps == 11
+    by_id = {s.id: s for s in rec.spans}
+    counts = {k: n for k, (n, _, _) in rec.totals().items()}
+    assert counts["engine.chunk"] == counts["engine.replay"] == 3
+    assert counts["prefetch.pin"] == counts["prefetch.copy"] == 3
+    assert counts["engine.capture"] == rec.counters["engine.captures"] == 2
+    for s in rec.spans:
+        if s.name in ("engine.replay", "engine.capture"):
+            assert by_id[s.parent].name == "engine.chunk"
+    row = sum(v.itemsize * v[0].size for v in (ds.ids, ds.dense, ds.labels))
+    assert rec.counters["prefetch.bytes_pinned"] == row * 11 * 512
+
+    events = list(prof.profiler.kineto_results.events())
+    regions = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in events if e.name() == spans.ANCHOR]
+    offset, error = rec.offset(regions)
+    assert error < 50_000
+    replays = [(s.start_ns + offset, s.end_ns + offset)
+               for s in rec.spans if s.name == "engine.replay"]
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in events
+                if e.name() in ("cudaGraphLaunch", "cuGraphLaunch")]
+    assert len(launches) == 3
+    for a, b in launches:
+        assert any(lo <= a and b <= hi for lo, hi in replays), (a, b)
+
+
 def _embed_case(n, vocab, dim, seed, kind):
     rng = np.random.default_rng(seed)
     if kind == "zipf":

@@ -254,21 +254,59 @@ def test_torch_cli_refuses_bad_stream_flags(flags, message):
         launch.main(["--device", "cpu"] + flags)
 
 
-def test_torch_cli_checkpoint_and_profile_trace(tmp_path):
+@pytest.fixture(scope="module")
+def checkpointed_and_profiled(tmp_path_factory):
+    """One CPU run of the CLI on the scan engine with --checkpoint and
+    --profile-trace: ``(checkpoint, trace dir)``."""
+    from repro_torch.launch import train as launch
+
+    tmp = tmp_path_factory.mktemp("cli")
+    ckpt, trace = tmp / "c.npz", tmp / "trace"
+    launch.main(["--device", "cpu", "--samples", "2048", "--batch", "256",
+                 "--steps", "2", "--engine", "scan",
+                 "--checkpoint", str(ckpt), "--profile-trace", str(trace)])
+    return ckpt, trace
+
+
+def test_torch_cli_checkpoint_and_profile_trace(checkpointed_and_profiled):
     """--checkpoint writes run_ctr's npz layout (params + final_eval +
     id_freq) that loads back through params_from_numpy; --profile-trace
     writes a chrome trace."""
-    from repro_torch.launch import train as launch
     from repro_torch.train.checkpoint import params_from_numpy
 
-    ckpt, trace = tmp_path / "c.npz", tmp_path / "trace"
-    launch.main(["--device", "cpu", "--samples", "2048", "--batch", "256",
-                 "--steps", "2", "--checkpoint", str(ckpt),
-                 "--profile-trace", str(trace)])
+    ckpt, trace = checkpointed_and_profiled
     params = params_from_numpy(str(ckpt), device="cpu")
     assert set(params) == {"embed", "dense"}
     assert params["embed"]["fm"]["field_0"].shape == (30000, 10)
     assert (trace / "trace.json").stat().st_size > 0
+
+
+def test_torch_cli_profile_trace_holds_the_program_spans(
+        checkpointed_and_profiled):
+    """--profile-trace writes the program's spans into the trace, on its
+    clock: the prefetch worker's gather on a lane of its own, the
+    consumer's wait for it on another, both inside the profile's time
+    range."""
+    import json
+
+    from repro_torch.core import spans
+
+    _, trace = checkpointed_and_profiled
+    data = json.loads((trace / "trace.json").read_text())
+    events = [e for e in data["traceEvents"] if e.get("ph") == "X"]
+    ours = [e for e in events if e.get("cat") == "repro_torch"]
+    profiled = [e for e in events if e.get("cat") != "repro_torch"]
+    lo = min(e["ts"] for e in profiled)
+    hi = max(e["ts"] + e["dur"] for e in profiled)
+    lanes = {}
+    for e in ours:
+        assert lo <= e["ts"] and e["ts"] + e["dur"] <= hi, e
+        lanes.setdefault(e["name"], set()).add(e["tid"])
+    gather, wait = lanes["prefetch.gather"], lanes["prefetch.wait_worker"]
+    assert len(gather) == len(wait) == 1 and gather != wait
+    assert lanes["engine.chunk"] == wait
+    assert all(tid >= spans.LANE_BASE for tid in gather | wait)
+    assert 0 <= data["repro_torch"]["anchor_error_ns"] < 1_000_000
 
 
 def test_torch_serve_decode_cli_on_cpu_without_jax():
